@@ -1,0 +1,15 @@
+"""Tensor math for the render path (plain PyTorch) and its CUDA kernels
+(``ops/cuda/``)."""
+
+from raytracing_engine_tpu_torch.ops.quaternion import (  # noqa: F401
+    quat_identity,
+    quat_from_rotation_x,
+    quat_from_rotation_z,
+    quat_mul,
+    quat_rotate,
+)
+from raytracing_engine_tpu_torch.ops.sdf import sphere_sdf, scene_sdf_all  # noqa: F401
+from raytracing_engine_tpu_torch.ops.raygen import (  # noqa: F401
+    pixel_norm_coords,
+    ray_directions,
+)
