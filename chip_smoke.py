@@ -11,7 +11,22 @@ Phases, each printing its own lines:
   5. the main path at 1920x1088 through its user entry points (FrameLoop,
      render_sequence) under the kernels' launch counters;
   6. CUDA-event timings of each kernel and of the whole frame, beside the
-     plain versions.
+     plain versions and each kernel's least time (utils/timing.bound_ms);
+  7. the path tracer's kernel K4 against its plain version on the card at
+     BASELINE config 2 (material_spheres, 800x608, 4 bounces, 4 spp) and one
+     config-4 chunk (cornell_box, 256x256, 4 bounces, 128 spp), held to the
+     repo's megakernel-vs-wavefront bounds (tests/test_megakernel.py:37-40:
+     < 1% of pixels off by more than 1e-3, mean difference < 1e-4, ray
+     counts within max(8, 1e-3 n)), and whether the match is bitwise;
+  8. physics and invariants through K4: furnace corners at 1.0 (atol 1e-4),
+     bands equal to the rows of the full render bit for bit, the first two
+     128-spp chunks of progressive_render equal to one 256-spp render within
+     the float-summation bound, glass Cornell finite and lit;
+  9. the path tracer's main path under the launch counter, timed by CUDA
+     events: config 2 frames with distinct camera z (and their device time
+     by torch.profiler), config 4's 1024 spp through progressive_render,
+     material_spheres at 1920x1088 and 4 spp; then the plain version's
+     config-2 frame and K4's least time.
 Then one JSON line of per-kernel results, the card line, and as the last
 line {"ok": true, "device": {...}}. Any failure exits non-zero before the
 last line; so does a machine without CUDA or a directory without the repo.
@@ -51,6 +66,26 @@ TIMED = 24  # distinct poses for the timings
 PLAIN_REPS = 5  # per-kernel plain-version timings (each is a slow loop)
 PLAIN_FRAMES = 20  # plain-renderer frames timed (of the TIMED poses)
 
+# the path tracer: BASELINE config 2 (benchmarks/run_all.py:89-117) and
+# config 4 (:228-266), seed = key_to_seed(PRNGKey(1))
+C2 = dict(width=800, height=608, max_bounces=4)
+C2_SPP = 4
+C4 = dict(width=256, height=256, max_bounces=4)
+C4_POS = (0.0, 0.2, 0.0)
+C4_CHUNK = 128
+C4_SPP = 1024
+C2_FRAMES = 8      # chained config-2 frames per timing round
+C2_ROUNDS = 3      # timing rounds; the best is kept, as run_all does
+PLAIN_PT_FRAMES = 2
+HD = dict(width=1920, height=1088, max_bounces=4)  # BASELINE.json's 1080p axis
+BANDS = 4          # config 2 split into this many row bands
+# megakernel vs wavefront: tests/test_megakernel.py:37-40
+PT_FRAC, PT_MEAN = 0.01, 1e-4
+# two sequential float32 sums of the same n non-negative terms differ by at
+# most 2 * n * 2^-24 of the total (each add rounds within 2^-24 of a running
+# sum that never exceeds it): n = 256 passes
+CHUNK_RTOL = 2 * 256 * 2.0 ** -24
+
 
 def log(msg: str):
     print(msg, flush=True)
@@ -89,9 +124,11 @@ def phase_build():
     for line in info["log"].splitlines():
         if "ptxas info" in line and ("registers" in line or "entry function" in line):
             log(f"  {line.strip()}")
-    common.library()
-    log(f"build: {'built' if info['built'] else 'up to date'} in {info['seconds']:.2f} s "
-        f"(nvcc, sm_90a, --fmad=false)")
+    for name in common.LIBRARIES:
+        common.library(name)
+    built = ", ".join(f"lib{n}.so" for n in info["built"]) or "up to date"
+    log(f"build: {built} in {info['seconds']:.2f} s (one nvcc per source, in parallel; "
+        f"sm_90a, --fmad=false)")
 
 
 def phase_kernels(cfg, scene, pos, quat):
@@ -230,10 +267,18 @@ def cuda_ms(fn, reps: int) -> tuple[float, float]:
 def phase_timing(cfg, scene, card):
     from raytracing_engine_tpu_torch.camera import Camera, orbit_path
     from raytracing_engine_tpu_torch.models import conemarch, cuda_renderer
+    from raytracing_engine_tpu_torch.ops import march
     from raytracing_engine_tpu_torch.ops.cuda import depth, fused, shade
-    from raytracing_engine_tpu_torch.utils.timing import conemarch_ray_count
+    from raytracing_engine_tpu_torch.utils.timing import (
+        RAY_DIR_OPS,
+        bound_ms,
+        conemarch_ray_count,
+        march_ops,
+        shade_ops,
+    )
 
     device = scene.device
+    n_obj, n_light = int(scene.obj_count), int(scene.light_count)
     positions, rotations = orbit_path(TIMED, radius=16.0)
     quats = Camera(positions, rotations).quat().to(device)
     positions = positions.to(device)
@@ -250,31 +295,66 @@ def phase_timing(cfg, scene, card):
     finest = [depth.depth_level(cfg, last, scene, *poses[k], prevs[k]) for k in range(TIMED)]
     torch.cuda.synchronize(device)
 
-    def timed(label, kernel_fn, plain_fn, plain_reps):
+    dims = cfg.level_dims  # (w, h) per level
+    pixels = cfg.width * cfg.height
+
+    def coarse_work(st):
+        """K1 over the coarse levels: read the previous level, write one."""
+        n_bytes = sum(4 * w * h + (4 * dims[i - 1][0] * dims[i - 1][1] if i else 0)
+                      for i, (w, h) in enumerate(dims[:last]))
+        n_ops = RAY_DIR_OPS * sum(w * h for w, h in dims[:last])
+        return n_bytes, n_ops + march_ops(st["march"], n_obj)
+
+    def fused_work(st):
+        n_bytes = 4 * dims[last - 1][0] * dims[last - 1][1] + 12 * pixels
+        n_ops = (RAY_DIR_OPS * pixels + march_ops(st["march"] + st["shadow"], n_obj)
+                 + shade_ops(pixels, n_obj, n_light))
+        return n_bytes, n_ops
+
+    def shade_work(st):
+        n_ops = (RAY_DIR_OPS * pixels + march_ops(st["shadow"], n_obj)
+                 + shade_ops(pixels, n_obj, n_light))
+        return 16 * pixels, n_ops
+
+    def timed(label, kernel_fn, plain_fn, plain_reps, work=None):
+        """Kernel and plain ms; with `work`, the least time of the kernel's
+        work, its operations counted from the march steps the plain version
+        took on the same poses (the first plain_reps of them)."""
         kernel_fn(0)  # warm-up
         plain_fn(0)
         ms, host_ms = cuda_ms(kernel_fn, TIMED)
+        march.steps.update(march=0, shadow=0)
         plain_ms, _ = cuda_ms(plain_fn, plain_reps)
+        out = {"ms": ms, "plain_ms": plain_ms}
+        bound = ""
+        if work is not None:
+            st = {k: int(v) // plain_reps for k, v in march.steps.items()}
+            n_bytes, n_ops = work(st)
+            out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, n_ops)
+            bound = (f"; bound {out['bound_ms']:.5f} ms by {out['bound_by']} ({n_bytes} B, "
+                     f"{n_ops} ops; march steps {st})")
         log(f"  {label}: kernel {ms:.4f} ms (host enqueue {host_ms:.4f} ms), "
-            f"plain {plain_ms:.4f} ms (x{plain_ms / ms:.1f}) [{card}]")
-        return ms, plain_ms
+            f"plain {plain_ms:.4f} ms (x{plain_ms / ms:.1f}){bound} [{card}]")
+        return out
 
     t = {}
     t["depth"] = timed(f"K1 x{last} levels per frame",
                        lambda k: coarse(depth.depth_level, k),
-                       lambda k: coarse(depth.depth_level_reference, k), PLAIN_REPS)
+                       lambda k: coarse(depth.depth_level_reference, k), PLAIN_REPS,
+                       coarse_work)
     t["fused"] = timed("K2 fused finest level",
                        lambda k: fused.depth_shade_fused(cfg, scene, *poses[k], prevs[k]),
                        lambda k: fused.fused_reference(cfg, scene, *poses[k], prevs[k]),
-                       PLAIN_REPS)
+                       PLAIN_REPS, fused_work)
     t["shade"] = timed("K3 shade",
                        lambda k: shade.shade(cfg, scene, *poses[k], finest[k]),
                        lambda k: shade.shade_reference(cfg, scene, *poses[k], finest[k]),
-                       PLAIN_REPS)
-    frame_ms, plain_frame_ms = timed(
+                       PLAIN_REPS, shade_work)
+    frame = timed(
         f"frame {cfg.width}x{cfg.height}",
         lambda k: cuda_renderer.render(cfg, scene, *poses[k]),
         lambda k: conemarch.render(cfg, scene, *poses[k]), PLAIN_FRAMES)
+    frame_ms, plain_frame_ms = frame["ms"], frame["plain_ms"]
     primary, secondary = conemarch_ray_count(cfg, int(scene.light_count))
     rays = primary + secondary
     log(f"  renderer {cfg.width}x{cfg.height}, {TIMED} chained frames with distinct poses: "
@@ -282,7 +362,6 @@ def phase_timing(cfg, scene, card):
         f"plain ({PLAIN_FRAMES} frames) {plain_frame_ms:.4f} ms/frame = "
         f"{rays / plain_frame_ms / 1e3:.2f} Mrays/s "
         f"({primary} primary + {secondary} shadow rays per frame) [{card}]")
-    t["frame"] = (frame_ms, plain_frame_ms)
     profile_frames(cfg, scene, poses, frame_ms, card)
     return t
 
@@ -312,6 +391,228 @@ def profile_frames(cfg, scene, poses, frame_ms, card):
         f"{busy_us:.1f} us/frame = {busy_us / 1e3 / frame_ms:.1%} of the unprofiled "
         f"{frame_ms:.4f} ms frame; K2 {sum(fused_us) / TIMED:.1f} us; K1 by level "
         f"{[round(x, 1) for x in levels]} us [{card}]")
+
+
+def pt_setup(device):
+    """(quat, seed, config 2 (cfg, scene, pos), config 4 (cfg, scene, pos))."""
+    from raytracing_engine_tpu_torch.ops.rng_pcg import seed_from_int
+    from raytracing_engine_tpu_torch.pathtracer import PTConfig, scenes
+
+    quat = torch.tensor([0.0, 0.0, 0.0, 1.0], device=device)
+    c2 = (PTConfig(**C2, rng="pcg"), scenes.material_spheres(device),
+          torch.zeros(3, device=device))
+    c4 = (PTConfig(**C4, rng="pcg"), scenes.cornell_box(device=device),
+          torch.tensor(C4_POS, device=device))
+    return quat, seed_from_int(1), c2, c4
+
+
+def cfg_size(c) -> str:
+    return f"{c[0].width}x{c[0].height}"
+
+
+def hold_pt(label, got, n_got, want, n_want) -> float:
+    """Hold a K4 render to its plain version within the megakernel bounds."""
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: shape {tuple(got.shape)} or non-finite pixels")
+    d = (got - want).abs().amax(-1).double()
+    err, frac, mean = d.max().item(), (d > 1e-3).double().mean().item(), d.mean().item()
+    n_got, n_want = int(n_got), int(n_want)
+    bitwise = torch.equal(got, want) and n_got == n_want
+    log(f"  {label}: max_abs_err={err:.6g} diverging(>1e-3)={frac:.6g} (limit {PT_FRAC}) "
+        f"mean_abs={mean:.6g} (limit {PT_MEAN}) rays kernel={n_got} plain={n_want} "
+        f"bitwise={bitwise}")
+    if frac >= PT_FRAC or mean >= PT_MEAN or abs(n_got - n_want) > max(8, 1e-3 * n_want):
+        raise AssertionError(f"{label}: K4 disagrees with its plain version")
+    return err
+
+
+def phase_pt_kernel(quat, seed, c2, c4):
+    """K4 vs render_pt_mega_reference on the same inputs, on the card."""
+    from raytracing_engine_tpu_torch.ops.cuda import pt
+
+    errs = []
+    for label, (cfg, scene, pos), spp in (
+            (f"config 2 {cfg_size(c2)} {C2_SPP} spp", c2, C2_SPP),
+            (f"config 4 chunk {cfg_size(c4)} {C4_CHUNK} spp", c4, C4_CHUNK)):
+        got, n_got = pt.render_pt_mega(cfg, scene, pos, quat, spp, seed=seed)
+        want, n_want = pt.render_pt_mega_reference(cfg, scene, pos, quat, spp, seed=seed)
+        errs.append(hold_pt(f"K4 {label}", got, n_got, want, n_want))
+    return max(errs)
+
+
+def phase_pt_invariants(quat, seed, c2, c4, device):
+    """Furnace, bands, chunking and glass, all through the kernel."""
+    from raytracing_engine_tpu_torch.ops.cuda import pt
+    from raytracing_engine_tpu_torch.ops.rng_pcg import seed_from_int
+    from raytracing_engine_tpu_torch.pathtracer import PTConfig, scenes
+    from raytracing_engine_tpu_torch.runtime import ProgressiveState, progressive_render
+
+    pt.launches = 0
+    # furnace (tests/test_megakernel.py:43-49): the corners see the enclosure
+    cfg = PTConfig(width=32, height=16, max_bounces=3, rng="pcg")
+    img, _ = pt.render_pt_mega(cfg, scenes.furnace_scene(0.5, 1.0, device=device),
+                               torch.zeros(3, device=device), quat, 32, seed=seed_from_int(13))
+    corners = torch.stack([img[0, 0], img[0, -1], img[-1, 0], img[-1, -1]])
+    log(f"  furnace 32x16 32 spp: corners {corners.tolist()} (want 1.0, atol 1e-4)")
+    if not torch.allclose(corners, torch.ones_like(corners), rtol=0.0, atol=1e-4):
+        raise AssertionError("furnace corners are not 1.0")
+
+    # bands: rows row0 .. row0 + band_h of the full render, bit for bit
+    cfg, scene, pos = c2
+    full, n_full = pt.render_pt_mega(cfg, scene, pos, quat, C2_SPP, seed=seed)
+    band_h = cfg.height // BANDS
+    bands = [pt.render_pt_mega(cfg, scene, pos, quat, C2_SPP, seed=seed,
+                               row0=i * band_h, band_h=band_h) for i in range(BANDS)]
+    joined = torch.cat([b[0] for b in bands])
+    n_bands = sum(int(b[1]) for b in bands)
+    log(f"  bands: {BANDS} x {band_h} rows == full render bit for bit: "
+        f"{torch.equal(joined, full)}; rays {n_bands} == {int(n_full)}")
+    if not torch.equal(joined, full) or n_bands != int(n_full):
+        raise AssertionError("a band render differs from the rows of the full render")
+
+    # chunking: two 128-spp chunks of progressive_render vs one 256-spp call
+    cfg, scene, pos = c4
+    state = ProgressiveState.start(cfg, pos, quat, key=1, device=device)
+    chunks = progressive_render(cfg, scene, state, C4_SPP, passes_per_chunk=C4_CHUNK)
+    state = next(chunks)
+    state = next(chunks)
+    chunks.close()
+    one, _ = pt.render_pt_mega(cfg, scene, pos, quat, 2 * C4_CHUNK, seed=seed)
+    want = one * float(2 * C4_CHUNK)
+    err = (state.accum - want).abs().max().item()
+    ok = torch.allclose(state.accum, want, rtol=CHUNK_RTOL, atol=0.0)
+    log(f"  chunking: progressive_render 2 x {C4_CHUNK} spp vs one {2 * C4_CHUNK}-spp "
+        f"render (sums): max_abs_err={err:.6g} within rtol {CHUNK_RTOL:.3g}: {ok}; "
+        f"bitwise {torch.equal(state.accum, want)}")
+    if state.spp_done != 2 * C4_CHUNK or not ok:
+        raise AssertionError("progressive_render depends on the chunking")
+
+    # glass Cornell: finite and lit
+    glass = scenes.cornell_box(glass=True, device=device)
+    img, n = pt.render_pt_mega(cfg, glass, pos, quat, 16, seed=seed)
+    mean = img.mean().item()
+    log(f"  glass cornell {cfg_size(c4)} 16 spp: finite {bool(torch.isfinite(img).all())}, "
+        f"mean {mean:.4f}, rays {int(n)}")
+    if not torch.isfinite(img).all() or not mean > 0.0:
+        raise AssertionError("glass Cornell render is non-finite or black")
+
+    want_launches = 1 + 1 + BANDS + 2 + 1 + 1
+    log(f"  K4 launches {pt.launches} (expected {want_launches}: furnace, full, {BANDS} "
+        f"bands, 2 chunks, 256 spp, glass)")
+    if pt.launches != want_launches:
+        raise AssertionError(f"K4 launches {pt.launches} != {want_launches}")
+
+
+def profile_pt_frames(c, quat, seed, device, frame_ms, card):
+    """Device time of K4 and of everything on the card over C2_FRAMES frames
+    (torch.profiler); the busy share is that time over the unprofiled
+    event-timed frame."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracing_engine_tpu_torch.ops.cuda import pt
+
+    cfg, scene, _ = c
+    zs = [torch.tensor([0.0, 0.0, 2e-3 + 1e-4 * k], device=device) for k in range(C2_FRAMES)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_ms, _ = cuda_ms(lambda k: pt.render_pt_mega(cfg, scene, zs[k], quat, C2_SPP,
+                                                         seed=seed), C2_FRAMES)
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        log("  profiler: no device events; K4 device time not measured")
+        return
+    busy_us = sum(e.time_range.elapsed_us() for e in events) / C2_FRAMES
+    k4_us = sum(e.time_range.elapsed_us() for e in events if "pt_kernel" in e.name) / C2_FRAMES
+    log(f"  profile config 2 ({C2_FRAMES} frames, profiler on: {prof_ms:.4f} ms/frame): K4 "
+        f"{k4_us:.1f} us/frame, device busy {busy_us:.1f} us/frame = "
+        f"{busy_us / 1e3 / frame_ms:.1%} of the unprofiled {frame_ms:.4f} ms frame [{card}]")
+
+
+def phase_pt_main(quat, seed, c2, c4, card, device):
+    """The path tracer's main path through its entry points (render_pt_mega,
+    progressive_render) under the launch counter, timed by CUDA events."""
+    from raytracing_engine_tpu_torch.ops.cuda import pt
+    from raytracing_engine_tpu_torch.pathtracer import PTConfig, scenes
+    from raytracing_engine_tpu_torch.runtime import ProgressiveState, progressive_render
+    from raytracing_engine_tpu_torch.utils.timing import bound_ms, pt_ops
+
+    def frames(c, spp, label):
+        """Best ms/frame over C2_ROUNDS rounds of C2_FRAMES frames with
+        distinct camera z, and the Mrays/s of that round."""
+        cfg, scene, _ = c
+        zs = [torch.tensor([0.0, 0.0, 1e-3 + 1e-4 * k], device=device) for k in range(C2_FRAMES)]
+        pt.render_pt_mega(cfg, scene, zs[0], quat, spp, seed=seed)  # warm-up
+        best = None
+        for r in range(C2_ROUNDS):
+            rays = []
+            ms, host_ms = cuda_ms(lambda k: rays.append(
+                pt.render_pt_mega(cfg, scene, zs[k], quat, spp, seed=seed)[1]), C2_FRAMES)
+            n = int(torch.stack(rays).sum()) // C2_FRAMES
+            log(f"  {label} round {r}: {ms:.4f} ms/frame (host enqueue {host_ms:.4f} ms) "
+                f"= {n / ms / 1e3:.2f} Mrays/s, {n} rays/frame [{card}]")
+            if best is None or ms < best[0]:
+                best = (ms, n)
+        return best
+
+    pt.launches = 0
+    c2_ms, c2_rays = frames(c2, C2_SPP, f"config 2 {cfg_size(c2)} {C2_SPP} spp")
+    profile_pt_frames(c2, quat, seed, device, c2_ms, card)
+
+    cfg, scene, pos = c4
+    rays = []
+
+    def counted(*args, **kwargs):
+        img, n = pt.render_pt_mega(*args, **kwargs)
+        rays.append(n)
+        return img, n
+
+    state = ProgressiveState.start(cfg, pos, quat, key=1, device=device)
+    torch.cuda.synchronize(device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for state in progressive_render(cfg, scene, state, C4_SPP, passes_per_chunk=C4_CHUNK,
+                                    render_fn=counted):
+        pass
+    end.record()
+    end.synchronize()
+    c4_s = start.elapsed_time(end) / 1e3
+    host_s = time.perf_counter() - t0
+    c4_rays = int(torch.stack(rays).sum())
+    if state.spp_done != C4_SPP or not torch.isfinite(state.accum).all():
+        raise AssertionError("config 4 progressive render incomplete or non-finite")
+    c4_bytes = (C4_SPP // C4_CHUNK) * 12 * cfg.width * cfg.height
+    c4_bound = bound_ms(c4_bytes, pt_ops(c4_rays, int(scene.sph_count), int(scene.tri_count)))
+    log(f"  config 4 {cfg_size(c4)} {C4_SPP} spp via progressive_render ({C4_SPP // C4_CHUNK} "
+        f"chunks of {C4_CHUNK}): {c4_s:.4f} s by CUDA events ({host_s:.4f} s host) = "
+        f"{C4_SPP / c4_s:.1f} spp/s = {c4_rays / c4_s / 1e6:.2f} Mrays/s, {c4_rays} rays; "
+        f"bound {c4_bound[0]:.4f} ms by {c4_bound[1]}; image mean "
+        f"{state.accum.mean().item() / C4_SPP:.4f} [{card}]")
+
+    hd = (PTConfig(**HD, rng="pcg"), scenes.material_spheres(device), None)
+    hd_ms, hd_rays = frames(hd, C2_SPP, f"material_spheres {cfg_size(hd)} {C2_SPP} spp")
+    launches = pt.launches
+
+    cfg, scene, pos = c2
+    pt.render_pt_mega_reference(cfg, scene, pos, quat, C2_SPP, seed=seed)  # warm-up
+    plain_ms, _ = cuda_ms(lambda k: pt.render_pt_mega_reference(
+        cfg, scene, pos, quat, C2_SPP, seed=seed), PLAIN_PT_FRAMES)
+    table_bytes = 4 * sum(t.numel() for t in pt.pack_pt_scene(scene))
+    c2_bytes = 12 * cfg.width * cfg.height + table_bytes
+    c2_bound = bound_ms(c2_bytes, pt_ops(c2_rays, int(scene.sph_count), int(scene.tri_count)))
+    log(f"  plain version config 2: {plain_ms:.4f} ms/frame (x{plain_ms / c2_ms:.1f} the "
+        f"kernel) [{card}]")
+    log(f"  K4 config 2 bound {c2_bound[0]:.5f} ms by {c2_bound[1]} ({c2_bytes} B, "
+        f"{pt_ops(c2_rays, int(scene.sph_count), int(scene.tri_count))} ops for {c2_rays} "
+        f"rays); kernel at {c2_bound[0] / c2_ms:.2%} of it [{card}]")
+
+    n_c2 = 1 + (C2_ROUNDS + 1) * C2_FRAMES  # warm-up, timed rounds, profiled frames
+    want = n_c2 + C4_SPP // C4_CHUNK + 1 + C2_ROUNDS * C2_FRAMES
+    log(f"  K4 launches on the main path {launches} (expected {want}: {n_c2} config-2 frames, "
+        f"{C4_SPP // C4_CHUNK} config-4 chunks, {1 + C2_ROUNDS * C2_FRAMES} 1080p frames)")
+    if launches != want:
+        raise AssertionError(f"K4 launches {launches} != {want}")
+    return {"launches": launches, "ms": c2_ms, "plain_ms": plain_ms,
+            "bound_ms": c2_bound[0], "bound_by": c2_bound[1]}
 
 
 def main() -> int:
@@ -347,20 +648,33 @@ def main() -> int:
     log("phase 6: timing (CUDA events)")
     times = phase_timing(cfg, scene, card)
 
+    pt_quat, pt_seed, c2, c4 = pt_setup(device)
+    log("phase 7: K4 vs its plain version (BASELINE configs 2 and 4)")
+    pt_err = phase_pt_kernel(pt_quat, pt_seed, c2, c4)
+    log("phase 8: path-tracer physics and invariants through K4")
+    phase_pt_invariants(pt_quat, pt_seed, c2, c4, device)
+    log("phase 9: path-tracer main path and timing (CUDA events)")
+    pt_main = phase_pt_main(pt_quat, pt_seed, c2, c4, card, device)
+
+    # no single PyTorch call computes any of these kernels: library_ms null
     src = "raytracing_engine_tpu_torch/csrc/conemarch.cu"
     kernels = [
         {"name": "depth_kernel (K1)", "route": "cuda", "source": src,
          "replaces": "raytracing_engine_tpu/ops/pallas/depth.py:98",
-         "launches": counts["depth"], "max_abs_err": errs["depth"],
-         "ms": times["depth"][0], "plain_ms": times["depth"][1]},
+         "launches": counts["depth"], "max_abs_err": errs["depth"], **times["depth"],
+         "library_ms": None},
         {"name": "fused_kernel (K2)", "route": "cuda", "source": src,
          "replaces": "raytracing_engine_tpu/ops/pallas/fused.py:30",
-         "launches": counts["fused"], "max_abs_err": errs["fused"],
-         "ms": times["fused"][0], "plain_ms": times["fused"][1]},
+         "launches": counts["fused"], "max_abs_err": errs["fused"], **times["fused"],
+         "library_ms": None},
         {"name": "shade_kernel (K3)", "route": "cuda", "source": src,
          "replaces": "raytracing_engine_tpu/ops/pallas/shade.py:194",
-         "launches": counts["shade"], "max_abs_err": errs["shade"],
-         "ms": times["shade"][0], "plain_ms": times["shade"][1]},
+         "launches": counts["shade"], "max_abs_err": errs["shade"], **times["shade"],
+         "library_ms": None},
+        {"name": "pt_kernel (K4)", "route": "cuda",
+         "source": "raytracing_engine_tpu_torch/csrc/pt.cu",
+         "replaces": "raytracing_engine_tpu/ops/pallas/pt_kernel.py:194",
+         "max_abs_err": pt_err, **pt_main, "library_ms": None},
     ]
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,17 +1,25 @@
-"""raytracing_engine_tpu_torch — the cone-march renderer in PyTorch and CUDA.
+"""raytracing_engine_tpu_torch — the renderers in PyTorch and CUDA.
 
 A port of ``raytracing_engine_tpu`` (JAX/Pallas) that imports torch and
 numpy and never JAX. The JAX package stays the reference; this package
 mirrors its module names:
 
     config.py      RenderConfig (pyramid geometry), capacities, constants
+    device.py      the constructors' device: the CUDA card unless asked
     scene/         Scene tensors + the reference default scene
     camera.py      yaw/pitch camera, input integration, orbit path
-    ops/           plain tensor math: quaternion, sdf, raygen, march, shade
+    ops/           plain tensor math: quaternion, sdf, raygen, march, shade,
+                   vec3 planes, the PCG4D stream (rng_pcg)
     ops/cuda/      wrappers of the hand-written CUDA kernels in csrc/
-    models/        renderers: conemarch (plain), cuda_renderer (kernels)
-    runtime/       frame loop, sequence serving
+                   (K1-K3 cone march, K4 path tracer)
+    models/        cone-march renderers: conemarch (plain), cuda_renderer
+    pathtracer/    the sphere path tracer: PTConfig, scenes, the plain
+                   wavefront (K4's oracle)
+    runtime/       frame loop, sequence serving, progressive checkpoints
     utils/         timing metrics
+
+Constructors put their tensors on the CUDA card unless the caller passes
+``device="cpu"``; without CUDA they raise instead of falling back.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,349 @@
+// Device functions of the sphere path tracer (kernel K4, pt.cu).
+//
+// Replaces the per-tile body of raytracing_engine_tpu/ops/pallas/pt_kernel.py
+// (_pt_kernel -> pathtracer/wavefront.py _trace_core with bvh=None): camera
+// rays, the unrolled sphere and triangle intersection, NEE toward the light
+// table with power-heuristic MIS, DIFFUSE / MIRROR / smooth DIELECTRIC
+// scattering, Russian roulette, and the PCG4D stream keyed on global pixel
+// coordinates (ops/rng_pcg.py).
+//
+// One thread follows one pixel's path. Every expression keeps the operation
+// order of the plain PyTorch version (pathtracer/wavefront.py), and the
+// library builds with --fmad=false and IEEE division and square root, so the
+// two agree bit for bit where the math library does: a branch decision
+// (u < refl_p, t < best_t, the CDF walk) flips when one rounding changes, and
+// then the whole path differs.
+//
+// Where the plain version computes a value on every lane and selects, this
+// code computes it only on the lanes that keep it; where a dead lane's work
+// adds exactly 0, this code stops: a ray that misses or dies leaves the
+// bounce loop. The BIG = 3.4e38 and 1e18 sentinels rely on IEEE semantics
+// (no fast math).
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace pt {
+
+constexpr float kBig = 3.4e38f;
+// f32 roundings of the double constants the plain version multiplies by
+constexpr float kPi = 3.1415927410125732f;
+constexpr float kTwoPi = 6.2831854820251465f;
+constexpr float kFourPi = 12.566370964050293f;
+constexpr int kDiffuse = 0;
+constexpr int kMirror = 1;
+constexpr int kDielectric = 3;
+constexpr int kLightTri = 1;
+constexpr uint32_t kPassPrime = 0x9E3779B9u;  // int32 -1640531527
+
+// Packed scene table widths (ops/cuda/pt.py pack_pt_scene):
+//   sphere   [pos(3), radius, mat, 0, 0, 0]
+//   triangle [v0(3), e1(3), e2(3), mat, 0, 0]
+//   material [albedo(3), emission(3), kind, ior]
+//   light    [kind, prim, area, le(3), pick, cdf, total_power, 0, 0, 0]
+constexpr int kSphW = 8;
+constexpr int kTriW = 12;
+constexpr int kMatW = 8;
+constexpr int kLightW = 12;
+constexpr int kTriUnrollMax = 32;
+
+// Launch arguments, passed by value. Mirrored field for field by PTArgs in
+// ops/cuda/pt.py.
+struct Args {
+  const float* cam_pos;    // (3,)
+  const float* cam_quat;   // (4,) [x, y, z, w]
+  const float* sph;        // (S, 8)
+  const float* tri;        // (T, 12)
+  const float* mat;        // (M, 8)
+  const float* light;      // (L, 12)
+  const int* counts;       // (4,): live spheres, triangles, materials, lights
+  float* out;              // (h, w, 3): mean radiance of the band
+  unsigned long long* nrays;  // (1,): rays traced, added to
+  int S, T, M, L;          // table rows (padded)
+  int width, height;       // the full image (the camera's projection)
+  int w, h, row0;          // the band rendered: rows row0 .. row0 + h - 1
+  int spp, seed, spp_offset;  // pass s uses seed + (spp_offset + s) * prime
+  int max_bounces, rr_start, use_nee, uniform_lights;
+  float ratio_x, ratio_y, t_min, eps;
+  int device;              // CUDA ordinal the pointers and the stream belong to
+};
+
+// The scene tables, in shared memory, and the live counts.
+struct Scene {
+  const float* sph;
+  const float* tri;
+  const float* mat;
+  const float* light;
+  int S, T, M, L;
+  int n_sph, n_tri, n_light;
+  float total_power;
+};
+
+// max/min that propagate NaN as torch.maximum / torch.clamp do
+__device__ __forceinline__ float vmax(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+__device__ __forceinline__ float vmin(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+
+__device__ __forceinline__ float dot3(float3 a, float3 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z;
+}
+__device__ __forceinline__ float3 cross3(float3 a, float3 b) {
+  return make_float3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
+                     a.x * b.y - a.y * b.x);
+}
+__device__ __forceinline__ float3 add3(float3 a, float3 b) {
+  return make_float3(a.x + b.x, a.y + b.y, a.z + b.z);
+}
+__device__ __forceinline__ float3 sub3(float3 a, float3 b) {
+  return make_float3(a.x - b.x, a.y - b.y, a.z - b.z);
+}
+__device__ __forceinline__ float3 scale3(float3 a, float s) {
+  return make_float3(a.x * s, a.y * s, a.z * s);
+}
+__device__ __forceinline__ float3 row3(const float* p) {
+  return make_float3(p[0], p[1], p[2]);
+}
+
+// --- PCG4D (ops/rng_pcg.py) ------------------------------------------------
+__device__ __forceinline__ void pcg4d(uint32_t& x, uint32_t& y, uint32_t& z,
+                                      uint32_t& w) {
+  x = x * 1664525u + 1013904223u;
+  y = y * 1664525u + 1013904223u;
+  z = z * 1664525u + 1013904223u;
+  w = w * 1664525u + 1013904223u;
+  x += y * w;
+  y += z * x;
+  z += x * y;
+  w += y * z;
+  x ^= x >> 16;
+  y ^= y >> 16;
+  z ^= z >> 16;
+  w ^= w >> 16;
+  x += y * w;
+  y += z * x;
+  z += x * y;
+  w += y * z;
+}
+
+__device__ __forceinline__ float to_unit(uint32_t u) {
+  return static_cast<float>(u >> 8) * (1.0f / 16777216.0f);
+}
+
+// uniform_pcg_coords(seed, ctr, n, px, py): block b of ctr draws dims
+// 4b .. 4b+3 from pcg4d(px, py, ctr * blocks + b, seed).
+__device__ __forceinline__ void draw4(uint32_t px, uint32_t py, uint32_t zz,
+                                      uint32_t seed, float* u) {
+  uint32_t x = px, y = py, z = zz, w = seed;
+  pcg4d(x, y, z, w);
+  u[0] = to_unit(x);
+  u[1] = to_unit(y);
+  u[2] = to_unit(z);
+  u[3] = to_unit(w);
+}
+
+// --- camera (wavefront._camera_rays, pinhole) -----------------------------
+__device__ __forceinline__ float3 camera_dir(const Args& a, float qx, float qy,
+                                             float qz, float qw, float ix,
+                                             float iy, float u1, float u2) {
+  const float ncx = ((ix + u1) * 2.0f / static_cast<float>(a.width) - 1.0f) * a.ratio_x;
+  const float ncy = ((iy + u2) * 2.0f / static_cast<float>(a.height) - 1.0f) * a.ratio_y;
+  const float vx = ncx, vy = 1.0f, vz = ncy;
+  const float tx = qy * vz - qz * vy + qw * vx;
+  const float ty = qz * vx - qx * vz + qw * vy;
+  const float tz = qx * vy - qy * vx + qw * vz;
+  const float dx = vx + 2.0f * (qy * tz - qz * ty);
+  const float dy = vy + 2.0f * (qz * tx - qx * tz);
+  const float dz = vz + 2.0f * (qx * ty - qy * tx);
+  const float n = sqrtf(dx * dx + dy * dy + dz * dz);
+  return make_float3(dx / n, dy / n, dz / n);
+}
+
+// --- intersection (wavefront._sphere_hits / _tri_hits_unrolled) -----------
+// Nearest root > t_min of the sphere row s: returns t, sets disc.
+__device__ __forceinline__ float sphere_t(const float* s, float3 o, float3 d,
+                                          float t_min, float& disc) {
+  const float ocx = o.x - s[0], ocy = o.y - s[1], ocz = o.z - s[2];
+  const float r = s[3];
+  const float b = ocx * d.x + ocy * d.y + ocz * d.z;
+  const float c0 = ocx * ocx + ocy * ocy + ocz * ocz - r * r;
+  disc = b * b - c0;
+  const float sq = sqrtf(vmax(disc, 0.0f));
+  const float t0 = -b - sq;
+  const float t1 = -b + sq;
+  return t0 > t_min ? t0 : t1;
+}
+
+// Möller-Trumbore against triangle row tr; true when it hits in
+// (t_min, best_t), with the distance in t.
+__device__ __forceinline__ bool tri_hit(const float* tr, float3 o, float3 d,
+                                        float t_min, float best_t, float& t) {
+  const float e1x = tr[3], e1y = tr[4], e1z = tr[5];
+  const float e2x = tr[6], e2y = tr[7], e2z = tr[8];
+  const float px = d.y * e2z - d.z * e2y;
+  const float py = d.z * e2x - d.x * e2z;
+  const float pz = d.x * e2y - d.y * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const float inv = 1.0f / (fabsf(det) < 1e-9f ? 1.0f : det);
+  const float tvx = o.x - tr[0], tvy = o.y - tr[1], tvz = o.z - tr[2];
+  const float u = (tvx * px + tvy * py + tvz * pz) * inv;
+  const float qx = tvy * e1z - tvz * e1y;
+  const float qy = tvz * e1x - tvx * e1z;
+  const float qz = tvx * e1y - tvy * e1x;
+  const float vv = (d.x * qx + d.y * qy + d.z * qz) * inv;
+  t = (e2x * qx + e2y * qy + e2z * qz) * inv;
+  return fabsf(det) >= 1e-9f && u >= 0.0f && vv >= 0.0f && u + vv <= 1.0f &&
+         t > t_min && t < best_t;
+}
+
+struct Hit {
+  float t;
+  float3 p, n;  // n: unit, facing the ray
+  int mat;
+  float light_area;
+  bool front;
+};
+
+// wavefront._intersect; returns false on a miss (t = BIG).
+__device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
+                                          float t_min, Hit& h) {
+  float t_s = kBig;
+  int i_s = -1;
+  for (int k = 0; k < sc.n_sph; ++k) {
+    float disc;
+    const float t = sphere_t(sc.sph + k * kSphW, o, d, t_min, disc);
+    if (disc > 0.0f && t > t_min && t < t_s) {
+      t_s = t;
+      i_s = k;
+    }
+  }
+  float t_t = kBig;
+  int i_t = -1;
+  for (int k = 0; k < sc.n_tri; ++k) {
+    float t;
+    if (tri_hit(sc.tri + k * kTriW, o, d, t_min, t_t, t)) {
+      t_t = t;
+      i_t = k;
+    }
+  }
+  const bool use_tri = t_t < t_s;
+  const float t = fminf(t_s, t_t);
+  if (!(t < kBig)) return false;
+  h.t = t;
+  h.p = make_float3(o.x + d.x * t, o.y + d.y * t, o.z + d.z * t);
+  float3 n;
+  float light_area;
+  if (use_tri) {
+    const float* tr = sc.tri + i_t * kTriW;
+    n = cross3(row3(tr + 3), row3(tr + 6));
+    light_area = 0.5f * sqrtf(dot3(n, n));
+    h.mat = static_cast<int>(tr[9]);
+  } else {
+    const float* s = sc.sph + i_s * kSphW;
+    n = sub3(h.p, row3(s));
+    light_area = kFourPi * s[3] * s[3];
+    h.mat = static_cast<int>(s[4]);
+  }
+  const float nlen = vmax(sqrtf(dot3(n, n)), 1e-20f);
+  n = scale3(n, 1.0f / nlen);
+  const bool flip = dot3(n, d) > 0.0f;
+  h.n = flip ? make_float3(-n.x, -n.y, -n.z) : n;
+  h.front = !flip;
+  h.light_area = light_area;
+  return true;
+}
+
+// wavefront._occluded: any live sphere or triangle hit in (t_min, max_t).
+__device__ __forceinline__ bool occluded(const Scene& sc, float3 o, float3 d,
+                                         float max_t, float t_min) {
+  for (int k = 0; k < sc.n_sph; ++k) {
+    float disc;
+    const float t = sphere_t(sc.sph + k * kSphW, o, d, t_min, disc);
+    if (disc > 0.0f && t > t_min && t < max_t) return true;
+  }
+  for (int k = 0; k < sc.n_tri; ++k) {
+    float t;
+    if (tri_hit(sc.tri + k * kTriW, o, d, t_min, max_t, t)) return true;
+  }
+  return false;
+}
+
+// --- NEE light sample (wavefront._sample_light, power or uniform) ---------
+struct LightSample {
+  float3 p, n, le;
+  float pdf_area;
+};
+
+__device__ __forceinline__ LightSample sample_light(const Scene& sc, float u_sel,
+                                                    float u1, float u2,
+                                                    bool uniform) {
+  const int count = max(sc.n_light, 1);
+  int idx = 0;
+  if (uniform) {
+    idx = min(static_cast<int>(u_sel * static_cast<float>(count)), count - 1);
+  } else {
+    for (int k = 0; k < sc.L - 1; ++k) idx += u_sel >= sc.light[k * kLightW + 7] ? 1 : 0;
+  }
+  LightSample ls;
+  const float* row = sc.light + idx * kLightW;
+  const int kind = static_cast<int>(row[0]);
+  const int prim = static_cast<int>(row[1]);
+  const float area = row[2];
+  ls.le = row3(row + 3);
+  if (kind == kLightTri) {
+    const bool ok = prim >= 0 && prim < min(sc.T, kTriUnrollMax);
+    const float* tr = sc.tri + prim * kTriW;
+    const float3 v0 = ok ? row3(tr) : make_float3(0.0f, 0.0f, 0.0f);
+    const float3 e1 = ok ? row3(tr + 3) : make_float3(0.0f, 0.0f, 0.0f);
+    const float3 e2 = ok ? row3(tr + 6) : make_float3(0.0f, 0.0f, 0.0f);
+    const float su = sqrtf(u1);
+    const float b1 = su * (1.0f - u2);
+    const float b2 = su * u2;
+    ls.p = add3(v0, add3(scale3(e1, b1), scale3(e2, b2)));
+    const float3 nt = cross3(e1, e2);
+    ls.n = scale3(nt, 1.0f / vmax(sqrtf(dot3(nt, nt)), 1e-20f));
+  } else {
+    const bool ok = prim >= 0 && prim < sc.S;
+    const float* s = sc.sph + prim * kSphW;
+    const float3 c = ok ? row3(s) : make_float3(0.0f, 0.0f, 0.0f);
+    const float r = ok ? s[3] : 0.0f;
+    const float z = 1.0f - 2.0f * u1;
+    const float rr = sqrtf(vmax(1.0f - z * z, 0.0f));
+    const float phi = kTwoPi * u2;
+    ls.n = make_float3(rr * cosf(phi), rr * sinf(phi), z);
+    ls.p = add3(c, scale3(ls.n, r));
+  }
+  ls.pdf_area = uniform ? 1.0f / (area * static_cast<float>(count))
+                        : row[6] / vmax(area, 1e-20f);
+  return ls;
+}
+
+// sampler.power_heuristic
+__device__ __forceinline__ float power_heuristic(float a, float b) {
+  const float a2 = a * a;
+  return a2 / vmax(a2 + b * b, 1e-24f);
+}
+
+// sampler.cosine_hemisphere about unit n; pdf = z / π.
+__device__ __forceinline__ float3 cosine_hemisphere(float u1, float u2, float3 n,
+                                                    float& pdf) {
+  const float r = sqrtf(u1);
+  const float phi = kTwoPi * u2;
+  const float x = r * cosf(phi);
+  const float y = r * sinf(phi);
+  const float z = sqrtf(vmax(1.0f - u1, 0.0f));
+  // sampler.build_onb (Duff et al. 2017)
+  const float sign = n.z >= 0.0f ? 1.0f : -1.0f;
+  const float a = -1.0f / (sign + n.z);
+  const float b = n.x * n.y * a;
+  const float3 t = make_float3(1.0f + sign * n.x * n.x * a, sign * b, -sign * n.x);
+  const float3 s = make_float3(b, sign + n.y * n.y * a, -n.y);
+  pdf = z / kPi;
+  return add3(add3(scale3(t, x), scale3(s, y)), scale3(n, z));
+}
+
+}  // namespace pt

@@ -1,5 +1,7 @@
-"""Tensor math for the render path (plain PyTorch) and its CUDA kernels
-(``ops/cuda/``)."""
+"""Tensor math for the render paths (plain PyTorch) and their CUDA kernels
+(``ops/cuda/``): quaternion, sdf, raygen, march and shade for the cone
+march; vec3 (component planes) and rng_pcg (the PCG4D stream) for the path
+tracer."""
 
 from raytracing_engine_tpu_torch.ops.quaternion import (  # noqa: F401
     quat_identity,

@@ -1,10 +1,13 @@
 """Build, load and call the hand-written CUDA kernels of ``csrc/``.
 
-The kernels are compiled with ``nvcc`` into ``build/libconemarch.so`` inside
-this package at first use, keyed on a hash of the ``csrc/`` sources and the
-flags, and loaded with ``ctypes`` through a plain C interface. Nothing is
-built or imported for CUDA while a module is imported, so the CPU tests import
-every module of the port.
+Each ``.cu`` source of ``csrc/`` is compiled with ``nvcc`` into its own
+library, ``build/lib<name>.so`` inside this package (``libconemarch.so``:
+K1-K3; ``libpt.so``: K4), at first use and all at once (one nvcc process per
+source, started together). Each library is keyed on a hash of every
+``csrc/`` file and the flags, and loaded with ``ctypes`` through a plain C
+interface: an entry takes a pointer to its argument struct and a stream.
+Nothing is built or imported for CUDA while a module is imported, so the CPU
+tests import every module of the port.
 """
 
 from __future__ import annotations
@@ -24,10 +27,16 @@ from raytracing_engine_tpu_torch.models.conemarch import check_seed_source
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-LIBRARY = BUILD_DIR / "libconemarch.so"
+
+# library name -> (its source in csrc/, its C entries)
+LIBRARIES = {
+    "conemarch": ("conemarch.cu", ("conemarch_depth", "conemarch_shade", "conemarch_fused")),
+    "pt": ("pt.cu", ("pt_render",)),
+}
 
 # --fmad=false and no fast math: the marches' hit tests flip pixels when one
-# rounding changes (see csrc/conemarch.cuh).
+# rounding changes (see csrc/conemarch.cuh), and the path tracer's branch
+# decisions likewise (csrc/pt.cuh).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -67,7 +76,8 @@ class Args(ctypes.Structure):
     ]
 
 
-_ENTRIES = ("conemarch_depth", "conemarch_shade", "conemarch_fused")
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
 
 
 def _sources():
@@ -91,41 +101,55 @@ def _nvcc() -> str:
 
 
 def build() -> dict:
-    """Compile csrc/ into build/libconemarch.so unless the stamp matches.
-    Returns {"built": bool, "seconds": float, "log": nvcc's output}."""
+    """Compile every library of LIBRARIES whose stamp does not match, one
+    nvcc process per source, all started together. Returns {"built": names
+    built, "seconds": wall time of the build, "log": nvcc's output of every
+    library}."""
     digest = source_hash()
-    stamp = BUILD_DIR / "libconemarch.sha256"
-    log_path = BUILD_DIR / "libconemarch.log"
-    if LIBRARY.exists() and stamp.exists() and stamp.read_text() == digest:
-        log = log_path.read_text() if log_path.exists() else ""
-        return {"built": False, "seconds": 0.0, "log": log}
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = BUILD_DIR / f"libconemarch.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / "conemarch.cu")]
+    todo = [name for name in LIBRARIES
+            if not (library_path(name).exists()
+                    and (BUILD_DIR / f"lib{name}.sha256").exists()
+                    and (BUILD_DIR / f"lib{name}.sha256").read_text() == digest)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, LIBRARY)  # atomic: a concurrent loader sees old or new
-    log_path.write_text(log)
-    stamp.write_text(digest)
-    return {"built": True, "seconds": seconds, "log": log}
+    if todo:
+        BUILD_DIR.mkdir(exist_ok=True)
+        procs = {}
+        for name in todo:
+            tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.so"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / LIBRARIES[name][0])]
+            procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            log = proc.communicate()[0]
+            (BUILD_DIR / f"lib{name}.log").write_text(log)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failed.append(f"nvcc {LIBRARIES[name][0]} failed ({proc.returncode}):\n{log}")
+                continue
+            os.replace(tmp, library_path(name))  # atomic: a loader sees old or new
+            (BUILD_DIR / f"lib{name}.sha256").write_text(digest)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    logs = []
+    for name in LIBRARIES:
+        path = BUILD_DIR / f"lib{name}.log"
+        logs.append(f"[lib{name}.so]\n" + (path.read_text() if path.exists() else ""))
+    return {"built": todo, "seconds": time.perf_counter() - t0, "log": "\n".join(logs)}
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built first if needed)."""
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library `name` of LIBRARIES (built first if needed)."""
     build()
-    lib = ctypes.CDLL(str(LIBRARY))
-    for name in _ENTRIES:
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(Args), ctypes.c_void_p]
+    lib = ctypes.CDLL(str(library_path(name)))
+    for entry in LIBRARIES[name][1]:
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]  # &args, stream
         fn.restype = ctypes.c_int
-    lib.conemarch_error_string.argtypes = [ctypes.c_int]
-    lib.conemarch_error_string.restype = ctypes.c_char_p
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
     return lib
 
 
@@ -183,12 +207,12 @@ def set_seed_source(args: Args, prev, h: int, w: int, device):
     args.src, args.src_w, args.src_h = prev.data_ptr(), prev.shape[1], prev.shape[0]
 
 
-def launch(entry: str, args: Args):
-    """Launch `entry` on the current stream of device `args.device`; raise if
-    the launch was refused."""
-    lib = library()
+def launch(entry: str, args, name: str = "conemarch"):
+    """Launch `entry` of library `name` on the current stream of device
+    `args.device`; raise if the launch was refused."""
+    lib = library(name)
     stream = torch.cuda.current_stream(args.device).cuda_stream
-    code = getattr(lib, entry)(ctypes.byref(args), stream)
+    code = getattr(lib, entry)(ctypes.addressof(args), stream)
     if code != 0:
-        msg = lib.conemarch_error_string(code).decode()
+        msg = getattr(lib, f"{name}_error_string")(code).decode()
         raise RuntimeError(f"{entry}: CUDA error {code}: {msg}")

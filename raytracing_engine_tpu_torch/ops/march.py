@@ -11,6 +11,10 @@ step for step.
 
 These are the plain versions the CUDA kernels are held to; the loop reads
 `.any()` back to the host once per step.
+
+``steps`` sums, per loop, the steps every ray took since it was last set to
+0 (a device tensor once counted): the march work that chip_smoke.py's
+operation bound for the kernels K1-K3 counts.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ import torch
 
 from raytracing_engine_tpu_torch.config import RAY_RADIUS
 from raytracing_engine_tpu_torch.ops.sdf import scene_sdf_all
+
+steps = {"march": 0, "shadow": 0}
 
 
 def cone_march(origin, direction, threshold, obj_pos, obj_radius, obj_mask,
@@ -45,6 +51,7 @@ def cone_march(origin, direction, threshold, obj_pos, obj_radius, obj_mask,
         active = ~done & (length < big)
         if not bool(active.any()):
             break
+        steps["march"] = steps["march"] + active.sum()
         position = origin + direction * length[..., None]
         radius = (length + 1.0) * threshold
         bound = cache - last[..., None]
@@ -84,6 +91,7 @@ def shadow_march(origin, direction, end, obj_pos, obj_radius, obj_mask,
         active = ~occluded & (length < end)
         if not bool(active.any()):
             break
+        steps["shadow"] = steps["shadow"] + active.sum()
         position = origin + direction * length[..., None]
         bound = cache - last[..., None]
         fresh = scene_sdf_all(position, obj_pos, obj_radius)

@@ -1,0 +1,30 @@
+"""The sphere path tracer (raytracing_engine_tpu/pathtracer, this slice's part).
+
+    integrator.py  PTConfig (every field of the JAX config)
+    sampler.py     ONB, cosine hemisphere, sphere/triangle area samples, MIS
+    scene.py       PTScene, build_pt_scene, pt_scene_from_numpy
+    scenes.py      furnace_scene, cornell_box, material_spheres
+    wavefront.py   the plain PyTorch path tracer (render_pt_fast), K4's oracle
+
+``render_pt_mega`` (kernel K4) lives in ops/cuda/pt.py; it is re-exported
+here lazily, as the JAX package does.
+"""
+
+from raytracing_engine_tpu_torch.pathtracer.scene import (  # noqa: F401
+    DIELECTRIC,
+    DIFFUSE,
+    EMISSIVE,
+    MIRROR,
+    PTScene,
+    build_pt_scene,
+    pt_scene_from_numpy,
+)
+from raytracing_engine_tpu_torch.pathtracer.integrator import PTConfig  # noqa: F401
+from raytracing_engine_tpu_torch.pathtracer.wavefront import render_pt_fast  # noqa: F401
+
+
+def render_pt_mega(*args, **kwargs):
+    """Megakernel path tracer (lazy import — see ops/cuda/pt.py)."""
+    from raytracing_engine_tpu_torch.ops.cuda.pt import render_pt_mega as f
+
+    return f(*args, **kwargs)

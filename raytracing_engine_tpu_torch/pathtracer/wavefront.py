@@ -1,0 +1,404 @@
+"""The plain PyTorch path tracer: kernel K4's oracle and the CPU renderer
+(raytracing_engine_tpu/pathtracer/wavefront.py).
+
+Same estimator and the same pcg sample stream as the JAX wavefront: NEE
+toward power- or uniform-selected sphere and triangle lights with
+power-heuristic MIS, DIFFUSE / MIRROR / smooth DIELECTRIC / emissive
+materials, optional Russian roulette. Per-ray state is (H, W) component
+planes, every <= TRI_UNROLL_MAX-slot table is walked slot by slot, and every
+expression keeps the JAX operation order, because csrc/pt.cuh is held to
+this code on the card.
+
+Not in this slice (each raises NotImplementedError; ROADMAP queue 1 item 2
+lists them in order): thin-lens DOF, fog and media, the R_d sampler, the
+light tree, textures other than nearest, any BVH or ClusterSet, the sorted
+wavefront, the staged per-bounce state, and rng other than "pcg".
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from raytracing_engine_tpu_torch.ops import vec3 as v3
+from raytracing_engine_tpu_torch.ops.rng_pcg import pass_seed, uniform_pcg, uniform_pcg_coords
+from raytracing_engine_tpu_torch.pathtracer import sampler
+from raytracing_engine_tpu_torch.pathtracer.integrator import PTConfig
+from raytracing_engine_tpu_torch.pathtracer.scene import (
+    DIELECTRIC,
+    DIFFUSE,
+    MIRROR,
+    TRI_UNROLL_MAX,
+    PTScene,
+)
+
+PI = sampler.PI
+BIG = float(np.float32(3.4e38))
+DEAD_O = 1e18                       # parked-dead-ray origin
+INV_SQRT3 = float(np.float32(0.5773502691896258))
+
+_LATER = "ROADMAP.md queue 1 item 2, K4 features still to port"
+
+
+def _not_yet(what: str):
+    raise NotImplementedError(f"{what} is not ported yet ({_LATER})")
+
+
+def check_supported(cfg: PTConfig, bvh=None, sort=False, state_in=None,
+                    emit_state=False):
+    """Raise NotImplementedError for every static gate this slice lacks."""
+    if cfg.rng != "pcg":
+        _not_yet(f"rng={cfg.rng!r} (the port renders rng='pcg')")
+    if cfg.aperture > 0.0:
+        _not_yet("aperture > 0 (thin-lens DOF)")
+    if cfg.fog_density > 0.0 or cfg.fog_scatter > 0.0:
+        _not_yet("fog_density / fog_scatter (fog and media)")
+    if cfg.sampler != "random":
+        _not_yet(f"sampler={cfg.sampler!r} (the R_d sampler)")
+    if cfg.light_sampling == "tree":
+        _not_yet("light_sampling='tree' (the light tree)")
+    if cfg.tex_filter != "nearest":
+        _not_yet(f"tex_filter={cfg.tex_filter!r}")
+    if bvh is not None:
+        _not_yet("bvh (BVH / ClusterSet intersection, slice 3)")
+    if sort:
+        _not_yet("sort (the regrouped wavefront, slice 3)")
+    if state_in is not None or emit_state:
+        _not_yet("state_in / emit_state (the staged rebin launches, slice 3)")
+
+
+def _counts(scene: PTScene):
+    """Live (spheres, triangles, lights) as ints (one host read each)."""
+    return int(scene.sph_count), int(scene.tri_count), int(scene.light_count)
+
+
+def _sel(idx, col, n: int):
+    """out[lane] = col[idx[lane]] for 0 <= idx < n, else 0 (the JAX
+    select chain's value)."""
+    ok = (idx >= 0) & (idx < n)
+    return torch.where(ok, col[:n][idx.clamp(0, n - 1)], torch.zeros((), dtype=col.dtype,
+                                                                        device=col.device))
+
+
+def _camera_rays(cfg: PTConfig, cam_pos, cam_quat, u1, u2, row0=0, col0=0,
+                 coords=None, lens=None):
+    """Pinhole primary rays through pixel + (u1, u2) jitter: (o V3, d V3)."""
+    if lens is not None and cfg.aperture > 0.0:
+        _not_yet("aperture > 0 (thin-lens DOF)")
+    bh, bw = u1.shape
+    if coords is not None:  # explicit global pixel-coordinate planes (py, px)
+        iy, ix = coords[0].to(torch.float32), coords[1].to(torch.float32)
+    else:
+        ix = torch.arange(bw, dtype=torch.float32, device=u1.device).expand(bh, bw) + col0
+        iy = torch.arange(bh, dtype=torch.float32, device=u1.device)[:, None].expand(bh, bw) + row0
+    ncx = (v3.div((ix + u1) * 2.0, cfg.width) - 1.0) * cfg.ratio[0]
+    ncy = (v3.div((iy + u2) * 2.0, cfg.height) - 1.0) * cfg.ratio[1]
+    qx, qy, qz, qw = cam_quat[0], cam_quat[1], cam_quat[2], cam_quat[3]
+    vx, vy, vz = ncx, torch.ones_like(ncx), ncy
+    tx = qy * vz - qz * vy + qw * vx
+    ty = qz * vx - qx * vz + qw * vy
+    tz = qx * vy - qy * vx + qw * vz
+    dx = vx + 2.0 * (qy * tz - qz * ty)
+    dy = vy + 2.0 * (qz * tx - qx * tz)
+    dz = vz + 2.0 * (qx * ty - qy * tx)
+    n = torch.sqrt(dx * dx + dy * dy + dz * dz)
+    d = (dx / n, dy / n, dz / n)
+    o = (cam_pos[0] + dx * 0.0, cam_pos[1] + dy * 0.0, cam_pos[2] + dz * 0.0)
+    return o, d
+
+
+def _sphere_quadratic(scene, k, o, d, t_min):
+    """Nearest root > t_min of sphere k along (o, d): (disc, t) planes."""
+    cx, cy, cz = scene.sph_pos[k, 0], scene.sph_pos[k, 1], scene.sph_pos[k, 2]
+    r = scene.sph_radius[k]
+    ocx, ocy, ocz = o[0] - cx, o[1] - cy, o[2] - cz
+    b = ocx * d[0] + ocy * d[1] + ocz * d[2]
+    c0 = ocx * ocx + ocy * ocy + ocz * ocz - r * r
+    disc = b * b - c0
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    t0 = -b - sq
+    t1 = -b + sq
+    return disc, torch.where(t0 > t_min, t0, t1)
+
+
+def _sphere_hits(scene: PTScene, o, d, t_min, n_sph: int):
+    """Nearest live sphere: (t, idx) planes; t = BIG and idx = -1 on a miss."""
+    best_t = torch.full_like(o[0], BIG)
+    best_i = torch.full(o[0].shape, -1, dtype=torch.int64, device=o[0].device)
+    for k in range(min(n_sph, scene.sph_pos.shape[0])):
+        disc, t = _sphere_quadratic(scene, k, o, d, t_min)
+        ok = (disc > 0.0) & (t > t_min) & (t < best_t)
+        best_t = torch.where(ok, t, best_t)
+        best_i = torch.where(ok, k, best_i)
+    return best_t, best_i
+
+
+def _tri_hits_unrolled(scene: PTScene, o, d, t_min, n_tri: int):
+    """Nearest live triangle (Möller-Trumbore) over the unrolled slots."""
+    best_t = torch.full_like(o[0], BIG)
+    best_i = torch.full(o[0].shape, -1, dtype=torch.int64, device=o[0].device)
+    for k in range(min(n_tri, scene.tri_v0.shape[0])):
+        v0x, v0y, v0z = scene.tri_v0[k, 0], scene.tri_v0[k, 1], scene.tri_v0[k, 2]
+        e1x, e1y, e1z = scene.tri_e1[k, 0], scene.tri_e1[k, 1], scene.tri_e1[k, 2]
+        e2x, e2y, e2z = scene.tri_e2[k, 0], scene.tri_e2[k, 1], scene.tri_e2[k, 2]
+        # pvec = d x e2
+        px = d[1] * e2z - d[2] * e2y
+        py = d[2] * e2x - d[0] * e2z
+        pz = d[0] * e2y - d[1] * e2x
+        det = e1x * px + e1y * py + e1z * pz
+        inv = 1.0 / torch.where(torch.abs(det) < 1e-9, 1.0, det)
+        tvx, tvy, tvz = o[0] - v0x, o[1] - v0y, o[2] - v0z
+        u = (tvx * px + tvy * py + tvz * pz) * inv
+        # qvec = tvec x e1
+        qx = tvy * e1z - tvz * e1y
+        qy = tvz * e1x - tvx * e1z
+        qz = tvx * e1y - tvy * e1x
+        vv = (d[0] * qx + d[1] * qy + d[2] * qz) * inv
+        t = (e2x * qx + e2y * qy + e2z * qz) * inv
+        ok = ((torch.abs(det) >= 1e-9) & (u >= 0.0) & (vv >= 0.0)
+              & (u + vv <= 1.0) & (t > t_min) & (t < best_t))
+        best_t = torch.where(ok, t, best_t)
+        best_i = torch.where(ok, k, best_i)
+    return best_t, best_i
+
+
+def _intersect(scene: PTScene, o, d, t_min, counts):
+    """Closest hit among spheres and unrolled triangles: dict of planes
+    t, hit, p, n (unit, facing the ray), mat_id, light_area, is_tri, front."""
+    T = scene.tri_v0.shape[0]
+    if T > TRI_UNROLL_MAX:
+        _not_yet(f"{T} triangle slots > TRI_UNROLL_MAX without a BVH (slice 3)")
+    n_sph, n_tri, _ = counts
+    t_s, i_s = _sphere_hits(scene, o, d, t_min, n_sph)
+    t_t, i_t = _tri_hits_unrolled(scene, o, d, t_min, n_tri)
+    safe = torch.clamp_min(i_t, 0)
+    e1c = tuple(_sel(safe, scene.tri_e1[:, c], T) for c in range(3))
+    e2c = tuple(_sel(safe, scene.tri_e2[:, c], T) for c in range(3))
+    n_tri_v = v3.cross(e1c, e2c)
+    nlen2 = v3.length(n_tri_v)
+
+    use_tri = t_t < t_s
+    t = torch.minimum(t_s, t_t)
+    hit = t < BIG
+    p = v3.add(o, v3.scale(d, t))
+
+    S = scene.sph_pos.shape[0]
+    si = torch.clamp_min(i_s, 0)
+    sc = tuple(_sel(si, scene.sph_pos[:, c], S) for c in range(3))
+    n_sph_v = v3.sub(p, sc)
+    n = v3.where(use_tri, n_tri_v, n_sph_v)
+    nlen = torch.clamp_min(v3.length(n), 1e-20)
+    n = v3.scale(n, 1.0 / nlen)
+    flip = v3.dot(n, d) > 0.0
+    n = v3.where(flip, v3.neg(n), n)  # two-sided; `front` = geometric side
+
+    mat_id = torch.where(use_tri, _sel(safe, scene.tri_mat, T), _sel(si, scene.sph_mat, S))
+    sr = _sel(si, scene.sph_radius, S)
+    sph_area = 4.0 * PI * sr * sr
+    light_area = torch.where(use_tri, 0.5 * nlen2, sph_area)
+    return dict(t=t, hit=hit, p=p, n=n, mat_id=mat_id, light_area=light_area,
+                is_tri=use_tri, front=~flip)
+
+
+def _occluded(scene: PTScene, o, d, max_t, t_min, counts):
+    """Any live sphere or triangle hit in (t_min, max_t): bool plane."""
+    n_sph, n_tri, _ = counts
+    blocked = torch.zeros_like(o[0], dtype=torch.bool)
+    for k in range(min(n_sph, scene.sph_pos.shape[0])):
+        disc, t = _sphere_quadratic(scene, k, o, d, t_min)
+        blocked = blocked | ((disc > 0.0) & (t > t_min) & (t < max_t))
+    t_t, _ = _tri_hits_unrolled(scene, o, d, t_min, n_tri)
+    return blocked | (t_t < max_t)
+
+
+def _sample_light(scene: PTScene, u_sel, u1, u2, count: int, uniform=False):
+    """NEE light sample: (point V3, normal V3, Le V3, pdf_area plane); the
+    slot by inclusive power CDF (or uniformly), then a uniform point on it."""
+    L = scene.light_kind.shape[0]
+    count = max(count, 1)
+    if uniform:
+        idx = torch.clamp_max((u_sel * count).to(torch.int64), count - 1)
+    else:
+        idx = torch.zeros(u_sel.shape, dtype=torch.int64, device=u_sel.device)
+        for k in range(L - 1):
+            idx = idx + (u_sel >= scene.light_cdf[k]).to(torch.int64)
+
+    kind = _sel(idx, scene.light_kind, L)
+    prim = _sel(idx, scene.light_prim, L).to(torch.int64)
+    area = _sel(idx, scene.light_area, L)
+    le = tuple(_sel(idx, scene.light_le[:, c], L) for c in range(3))
+
+    S = scene.sph_pos.shape[0]
+    c = tuple(_sel(prim, scene.sph_pos[:, a], S) for a in range(3))
+    r = _sel(prim, scene.sph_radius, S)
+    p_s, n_s = sampler.sample_sphere_area(u1, u2, c, r)
+
+    Tn = min(scene.tri_v0.shape[0], TRI_UNROLL_MAX)
+    v0 = tuple(_sel(prim, scene.tri_v0[:, a], Tn) for a in range(3))
+    e1 = tuple(_sel(prim, scene.tri_e1[:, a], Tn) for a in range(3))
+    e2 = tuple(_sel(prim, scene.tri_e2[:, a], Tn) for a in range(3))
+    su = torch.sqrt(u1)
+    b1 = su * (1.0 - u2)
+    b2 = su * u2
+    p_t = v3.add(v0, v3.add(v3.scale(e1, b1), v3.scale(e2, b2)))
+    n_t = v3.cross(e1, e2)
+    n_t = v3.scale(n_t, 1.0 / torch.clamp_min(v3.length(n_t), 1e-20))
+
+    is_tri = kind == 1
+    point = v3.where(is_tri, p_t, p_s)
+    normal = v3.where(is_tri, n_t, n_s)
+    if uniform:
+        pdf_area = 1.0 / (area * count)
+    else:
+        pdf_area = _sel(idx, scene.light_pick, L) / torch.clamp_min(area, 1e-20)
+    return point, normal, le, pdf_area
+
+
+def _mat_lookup(scene: PTScene, mat_id):
+    M = scene.mat_albedo.shape[0]
+    albedo = tuple(_sel(mat_id, scene.mat_albedo[:, c], M) for c in range(3))
+    emission = tuple(_sel(mat_id, scene.mat_emission[:, c], M) for c in range(3))
+    return albedo, emission, _sel(mat_id, scene.mat_kind, M), _sel(mat_id, scene.mat_ior, M)
+
+
+def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed0: int,
+                row0=0, band_h=None, col0=0, band_w=None, pix=None, bvh=None,
+                sort=False, state_in=None, emit_state=False):
+    """One sample per pixel of the window at (row0, col0), pass seed seed0
+    (int32): (rad V3 planes, nrays int64 tensor). pix: optional (py, px)
+    GLOBAL pixel-coordinate planes that replace the window's. bvh, sort,
+    state_in and emit_state are the JAX core's gates of later slices: any
+    value but the default raises."""
+    check_supported(cfg, bvh=bvh, sort=sort, state_in=state_in, emit_state=emit_state)
+    h, w = (band_h or cfg.height), (band_w or cfg.width)
+    device = scene.device
+    counts = _counts(scene)
+    n_light = counts[2]
+
+    def draw_b(b, n):
+        if pix is not None:
+            return uniform_pcg_coords(seed0, b, n, pix[1], pix[0])
+        return uniform_pcg(seed0, b, n, h, w, row0=row0, col0=col0, device=device)
+
+    u = draw_b(0, 2)
+    o, d = _camera_rays(cfg, cam_pos, cam_quat, u[0], u[1], row0=row0, col0=col0,
+                        coords=pix)
+    zero = d[0] * 0.0
+    o = v3.add(o, v3.scale(d, 0.0))
+    thr = (zero + 1.0, zero + 1.0, zero + 1.0)
+    rad = (zero, zero, zero)
+    alive = torch.ones_like(zero, dtype=torch.bool)
+    prev_did_nee = torch.zeros_like(alive)
+    prev_pdf = zero
+    nrays = torch.zeros((), dtype=torch.int64, device=device)
+    dead_o = (zero + DEAD_O,) * 3
+    dead_d = (zero + INV_SQRT3,) * 3
+
+    for b in range(cfg.max_bounces + 1):
+        nu = 6 if cfg.rr_start > 0 else 5  # [5] = roulette coin
+        u = draw_b(b + 1, nu)
+        nrays = nrays + alive.sum()
+
+        isect = _intersect(scene, o, d, cfg.t_min, counts)
+        hit = isect["hit"] & alive
+        albedo, emission, kind, ior = _mat_lookup(scene, isect["mat_id"])
+        n, p = isect["n"], isect["p"]
+
+        # --- emission (MIS vs NEE of the previous vertex) ------------------
+        emissive = (emission[0] > 0.0) | (emission[1] > 0.0) | (emission[2] > 0.0)
+        cos_l = torch.abs(v3.dot(n, d))
+        if cfg.light_sampling == "uniform":
+            sel_density = 1.0 / torch.clamp_min(isect["light_area"] * max(n_light, 1), 1e-20)
+        else:
+            lum_e = 0.2126 * emission[0] + 0.7152 * emission[1] + 0.0722 * emission[2]
+            sel_density = lum_e / torch.clamp_min(scene.light_total_power, 1e-20)
+        pdf_light_w = sel_density * (isect["t"] * isect["t"]) / torch.clamp_min(cos_l, 1e-6)
+        w_b = torch.where(prev_did_nee, sampler.power_heuristic(prev_pdf, pdf_light_w), 1.0)
+        gate = torch.where(hit & emissive, w_b, 0.0)
+        rad = v3.add(rad, v3.mul(thr, v3.scale(emission, gate)))
+
+        # --- NEE ------------------------------------------------------------
+        if cfg.use_nee:
+            lp, ln, le, pdf_area = _sample_light(scene, u[2], u[3], u[4], n_light,
+                                                 uniform=cfg.light_sampling == "uniform")
+            to_l = v3.sub(lp, p)
+            dist = v3.length(to_l)
+            wi = v3.scale(to_l, 1.0 / torch.clamp_min(dist, 1e-20))
+            cos_ll = torch.abs(v3.dot(ln, wi))
+            light_ok = (cos_ll > 1e-6) & (dist > cfg.eps) & (n_light > 0)
+            cos_s = v3.dot(n, wi)
+            cand = hit & (kind == DIFFUSE) & light_ok & (cos_s > 0.0)
+            nrays = nrays + cand.sum()
+            # park non-candidate shadow rays far away; `vis` is cand-gated
+            sh_o = v3.where(cand, v3.add(p, v3.scale(n, cfg.eps)), dead_o)
+            sh_d = v3.where(cand, wi, dead_d)
+            max_t = dist * (1.0 - 1e-3)
+            vis = cand & ~_occluded(scene, sh_o, sh_d, max_t, cfg.t_min, counts)
+            pdf_w = pdf_area * (dist * dist) / torch.clamp_min(cos_ll, 1e-6)
+            w_nee = sampler.power_heuristic(pdf_w, v3.div(cos_s, PI))
+            scale = torch.where(
+                vis, v3.div(cos_s / torch.clamp_min(pdf_w, 1e-20) * w_nee, PI), 0.0)
+            rad = v3.add(rad, v3.mul(v3.mul(thr, albedo), v3.scale(le, scale)))
+
+        # --- scatter --------------------------------------------------------
+        diff_d, pdf_cos = sampler.cosine_hemisphere(u[0], u[1], n)
+        mirr_d = v3.sub(d, v3.scale(n, 2.0 * v3.dot(d, n)))
+        new_d = v3.where(kind == MIRROR, mirr_d, diff_d)
+        new_o = v3.add(p, v3.scale(n, cfg.eps))
+        if scene.has_dielectric:
+            # exact unpolarized Fresnel split between reflection and Snell
+            # refraction; u[0] is the R/T coin (glass lanes draw no
+            # hemisphere sample)
+            eta = torch.where(isect["front"], 1.0 / ior, ior)
+            cosi = -v3.dot(d, n)  # n faces the ray: >= 0
+            kk = 1.0 - eta * eta * (1.0 - cosi * cosi)
+            cost = torch.sqrt(torch.clamp_min(kk, 0.0))
+            rs = (eta * cosi - cost) / torch.clamp_min(eta * cosi + cost, 1e-20)
+            rp = (eta * cost - cosi) / torch.clamp_min(eta * cost + cosi, 1e-20)
+            refl_p = torch.where(kk <= 0.0, 1.0, 0.5 * (rs * rs + rp * rp))
+            refr_d = v3.add(v3.scale(d, eta), v3.scale(n, eta * cosi - cost))
+            reflect = u[0] < refl_p
+            is_diel = kind == DIELECTRIC
+            new_d = v3.where(is_diel, v3.where(reflect, mirr_d, refr_d), new_d)
+            # refracted rays continue THROUGH the surface: offset inward
+            off = torch.where(is_diel & ~reflect, -cfg.eps, cfg.eps)
+            new_o = v3.add(p, v3.scale(n, off))
+        new_thr = v3.mul(thr, albedo)
+        thr_max = torch.maximum(new_thr[0], torch.maximum(new_thr[1], new_thr[2]))
+        cont = hit & (thr_max > 0.0)
+        if cfg.rr_start > 0 and b >= cfg.rr_start:
+            # Russian roulette: survive w.p. p_c, divide throughput by p_c
+            p_c = torch.clamp(thr_max, 0.05, 1.0)
+            cont = cont & (u[5] < p_c)
+            new_thr = v3.scale(new_thr, 1.0 / p_c)
+        thr = v3.where(cont, new_thr, (zero, zero, zero))
+        o = v3.where(cont, new_o, dead_o)
+        d = v3.where(cont, new_d, dead_d)
+        alive = cont
+        prev_did_nee = hit & (kind == DIFFUSE) & (n_light > 0) & cfg.use_nee
+        prev_pdf = pdf_cos
+    return rad, nrays
+
+
+def trace_pass_soa(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed0: int,
+                   row0=0, band_h=None, col0=0, band_w=None):
+    """One sample per pixel: ((h, w, 3) image, nrays)."""
+    rad, nrays = _trace_core(cfg, scene, cam_pos, cam_quat, seed0, row0, band_h,
+                             col0, band_w)
+    return v3.stack(rad), nrays
+
+
+def render_pt_fast(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
+                   seed: int = 0, spp_offset: int = 0, bvh=None, sort=False):
+    """Average of spp passes: ((H, W, 3) image, nrays). seed is the int32
+    base seed (ops.rng_pcg.seed_from_int(s) for jax.random.PRNGKey(s); 0
+    for the JAX default key); pass i uses pass_seed(seed, spp_offset + i)."""
+    check_supported(cfg, bvh=bvh, sort=sort)
+    acc = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32, device=scene.device)
+    nrays = torch.zeros((), dtype=torch.int64, device=scene.device)
+    for i in range(spp):
+        img, nr = trace_pass_soa(cfg, scene, cam_pos, cam_quat,
+                                 pass_seed(seed, spp_offset + i))
+        acc = acc + img
+        nrays = nrays + nr
+    return v3.div(acc, spp), nrays

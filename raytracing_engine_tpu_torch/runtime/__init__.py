@@ -1,4 +1,10 @@
-"""Host runtime: frame loop and sequence serving."""
+"""Host runtime: frame loop, sequence serving, progressive checkpoints."""
 
 from raytracing_engine_tpu_torch.runtime.frame import FrameLoop, InputEvent  # noqa: F401
 from raytracing_engine_tpu_torch.runtime.serve import render_sequence  # noqa: F401
+from raytracing_engine_tpu_torch.runtime.checkpoint import (  # noqa: F401
+    ProgressiveState,
+    load_checkpoint,
+    progressive_render,
+    save_checkpoint,
+)

@@ -31,5 +31,7 @@ DEFAULT_LIGHTS = (
 )
 
 
-def default_scene(device="cpu") -> Scene:
+def default_scene(device=None) -> Scene:
+    """The default scene on `device` (None: the CUDA card; raises without
+    one)."""
     return make_scene(DEFAULT_OBJECTS, DEFAULT_MATERIALS, DEFAULT_LIGHTS, device)

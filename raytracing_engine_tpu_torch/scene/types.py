@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from raytracing_engine_tpu_torch.config import MAX_LIGHTS, MAX_MATERIALS, MAX_OBJECTS
+from raytracing_engine_tpu_torch.device import resolve
 
 
 @dataclasses.dataclass
@@ -44,9 +45,11 @@ class Scene:
                         for f in dataclasses.fields(self)})
 
 
-def scene_from_numpy(fields, device="cpu") -> Scene:
+def scene_from_numpy(fields, device=None) -> Scene:
     """Scene from arrays by field name — e.g. the JAX Scene's fields through
-    ``np.asarray`` — so both packages render the same data."""
+    ``np.asarray`` — so both packages render the same data. device=None is
+    the CUDA card (see device.resolve)."""
+    device = resolve(device)
     names = [f.name for f in dataclasses.fields(Scene)]
     missing = set(names) - set(fields)
     if missing:
@@ -59,10 +62,12 @@ def scene_from_numpy(fields, device="cpu") -> Scene:
     return Scene(**out)
 
 
-def make_scene(objects, materials, lights, device="cpu") -> Scene:
+def make_scene(objects, materials, lights, device=None) -> Scene:
     """Build a padded Scene from Python-level lists:
     objects: (pos(3,), radius); materials: dicts of color(3,), diffuse,
-    specular, shine, ambient; lights: (pos(3,), color(3,))."""
+    specular, shine, ambient; lights: (pos(3,), color(3,)). device=None is
+    the CUDA card."""
+    device = resolve(device)
     n_obj, n_mat, n_light = len(objects), len(materials), len(lights)
     if n_obj > MAX_OBJECTS or n_mat > MAX_MATERIALS or n_light > MAX_LIGHTS:
         raise ValueError(

@@ -1,12 +1,61 @@
-"""Frame throughput metrics.
+"""Frame throughput metrics and the kernels' least times.
 
 Rays traced per frame (primary = every pyramid-level pixel; secondary = one
 shadow ray per live light per output pixel) and the derived Mrays/s.
+
+``bound_ms`` is the least time an H100 SXM could take for a kernel's work:
+the larger of its bytes (each input read once, each output written once)
+over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (NVIDIA's data
+sheet; 67 TFLOP/s counts an FMA as two operations, and the kernels build
+with --fmad=false, so the rate they could reach is half of it). The
+operation counts below are read off the CUDA sources and count only the
+work every step or segment must do, so the bound stays a lower one.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+H100_FP32_OPS_PER_S = 67e12
+H100_BYTES_PER_S = 3.35e12
+
+# csrc/conemarch.cuh: one march step (march_ray or shadow_ray) does 12
+# operations (position 6, radius 2, max, add, 2 compares) plus 3 per live
+# object (the cache bound, its gate, the running min); the SDF it evaluates
+# only where the gate opens is not counted
+MARCH_STEP_OPS = 12
+MARCH_STEP_OPS_PER_OBJECT = 3
+RAY_DIR_OPS = 40            # ray_dir: normalized coords, rotation, normalize
+SHADE_OPS = 30              # shade_pixel outside its loops
+SHADE_OPS_PER_OBJECT = 11   # nearest-object SDF + compare
+SHADE_OPS_PER_LIGHT = 45    # one light's Phong terms, without its march
+# csrc/pt.cuh: one ray segment tests every live sphere (sphere_t + the
+# caller's compares: 26) and every live triangle (tri_hit: 57)
+PT_SPHERE_TEST_OPS = 26
+PT_TRIANGLE_TEST_OPS = 57
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(least ms on an H100 SXM, "bytes" or "operations": which bounds)."""
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = n_ops / H100_FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def march_ops(steps: int, n_obj: int) -> int:
+    """Operations of `steps` march steps over n_obj live objects."""
+    return steps * (MARCH_STEP_OPS + MARCH_STEP_OPS_PER_OBJECT * n_obj)
+
+
+def shade_ops(pixels: int, n_obj: int, n_light: int) -> int:
+    """Per-pixel shading operations of K2/K3, without the shadow marches."""
+    return pixels * (SHADE_OPS + SHADE_OPS_PER_OBJECT * n_obj + SHADE_OPS_PER_LIGHT * n_light)
+
+
+def pt_ops(nrays: int, n_sph: int, n_tri: int) -> int:
+    """Intersection operations of K4 for nrays segments (closest-hit and
+    NEE shadow rays alike) against n_sph spheres and n_tri triangles."""
+    return nrays * (PT_SPHERE_TEST_OPS * n_sph + PT_TRIANGLE_TEST_OPS * n_tri)
 
 
 @dataclasses.dataclass

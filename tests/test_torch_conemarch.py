@@ -43,7 +43,7 @@ EVENTS = [
 @pytest.fixture(scope="module")
 def port_scene(scene):
     return scene_from_numpy({f.name: np.asarray(getattr(scene, f.name))
-                             for f in dataclasses.fields(scene)})
+                             for f in dataclasses.fields(scene)}, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -53,7 +53,7 @@ def pose(camera_pose):
 
 
 def test_default_scene_matches_jax(scene, port_scene):
-    mine = rtt.default_scene()
+    mine = rtt.default_scene("cpu")
     for f in dataclasses.fields(mine):
         np.testing.assert_array_equal(getattr(mine, f.name).numpy(),
                                       np.asarray(getattr(scene, f.name)), err_msg=f.name)
@@ -99,7 +99,7 @@ def _jax_poses(events):
 def walk():
     """The JAX poses of EVENTS and the port's plain frames at those poses."""
     cfg = rtt.RenderConfig(width=64, height=64)
-    scene = rtt.default_scene()
+    scene = rtt.default_scene("cpu")
     poses = _jax_poses(EVENTS)
     frames = [conemarch.render(cfg, scene, torch.from_numpy(p), torch.from_numpy(q)).numpy()
               for p, q in poses]
@@ -108,7 +108,7 @@ def walk():
 
 @pytest.mark.parametrize("chunk", [None, 2])
 def test_frame_loop_matches_plain_renderer(chunk, walk):
-    loop = FrameLoop(rtt.RenderConfig(width=64, height=64), rtt.default_scene())
+    loop = FrameLoop(rtt.RenderConfig(width=64, height=64), rtt.default_scene("cpu"))
     frames = {}
     loop.run(EVENTS, sink=frames.__setitem__, chunk=chunk)
     assert sorted(frames) == [0, 1, 2]
@@ -124,7 +124,7 @@ def test_frame_loop_walks_forward():
     """10 x W at dt=0.05 moves the camera 12.5 along +y; with stats it
     reports the cone-march ray count."""
     cfg = rtt.RenderConfig(width=16, height=16)
-    loop = FrameLoop(cfg, rtt.default_scene())
+    loop = FrameLoop(cfg, rtt.default_scene("cpu"))
     stats = loop.run([InputEvent(move=(0, 1, 0), dt=0.05)] * 10, stats=True)
     np.testing.assert_allclose(loop.camera.position.numpy(), [0.0, 12.5, 0.0], atol=1e-5)
     assert len(stats) == 10
@@ -136,7 +136,7 @@ def test_frame_loop_walks_forward():
 def orbit():
     """Two orbit poses and the port's plain frames there, channel-major."""
     cfg = rtt.RenderConfig(width=64, height=64)
-    scene = rtt.default_scene()
+    scene = rtt.default_scene("cpu")
     positions, rotations = orbit_path(2)
     quats = Camera(positions, rotations).quat()
     frames = torch.stack([conemarch.render(cfg, scene, positions[k], quats[k]).permute(2, 0, 1)
@@ -147,7 +147,7 @@ def orbit():
 @pytest.mark.parametrize("independent", [True, False])
 def test_render_sequence_matches_plain_renderer(independent, orbit):
     positions, quats, want = orbit
-    frames = render_sequence(rtt.RenderConfig(width=64, height=64), rtt.default_scene(),
+    frames = render_sequence(rtt.RenderConfig(width=64, height=64), rtt.default_scene("cpu"),
                              positions, quats, independent=independent)
     assert frames.shape == (2, 3, 64, 64)
     assert torch.equal(frames, want)

@@ -40,7 +40,7 @@ def port(scene, camera_pose):
     """(cfg, scene, pos, quat) of the port for the conftest scene and pose."""
     fields = {f.name: np.asarray(getattr(scene, f.name)) for f in dataclasses.fields(scene)}
     pos, quat = camera_pose
-    return (RenderConfig(width=64, height=64), scene_from_numpy(fields),
+    return (RenderConfig(width=64, height=64), scene_from_numpy(fields, device="cpu"),
             torch.from_numpy(np.array(pos)), torch.from_numpy(np.array(quat)))
 
 
