@@ -26,7 +26,28 @@ Phases, each printing its own lines:
      events: config 2 frames with distinct camera z (and their device time
      by torch.profiler), config 4's 1024 spp through progressive_render,
      material_spheres at 1920x1088 and 4 spp; then the plain version's
-     config-2 frame and K4's least time.
+     config-2 frame and K4's least time;
+ 10. BASELINE config 3's ClusterSet (the 70,400-triangle torus knot of
+     benchmarks/run_all.py:120-148, built on the host, BVH builder named)
+     and kernel K6 against its plain version on the card, bit for bit: the
+     512x512 camera rays and the bounce-1 rays of one pass (closest hit with
+     attributes), NEE-style shadow rays (any hit, t_max = 0.999 of the
+     light distance), and axis-parallel and parked rays against a padded
+     set; K6 timed by CUDA events;
+ 11. the config-3 path and its invariants at 512x512, 2 bounces, 1 spp,
+     seed_from_int(1): render_pt_rebin (K5) == render_pt_mega(bvh=cs) (K4)
+     bit for bit in every regroup mode; K5 against its plain version on the
+     whole frame and K4 against its plain version on a 64-row band (bands of
+     both are bit for bit the rows of the full render), within the
+     megakernel bounds; render_pt_fast(bvh=cs) through K6 within the
+     megakernel bounds of K4; progressive_render(bvh=cs) in two chunks
+     against one render;
+ 12. the config-3 main path under the launch counters, timed by CUDA events:
+     render_pt_rebin at 512x512 and 1920x1088 (chained frames with distinct
+     camera z, best of 3 rounds, host enqueue beside), its torch.profiler
+     split (K5 per bounce, sort, permute, un-permute), render_pt_mega(bvh=cs)
+     at 512x512, render_pt_fast(bvh=cs), progressive_render(bvh=cs); then K5
+     per bounce alone, and the K4 / K5 / K6 least times.
 Then one JSON line of per-kernel results, the card line, and as the last
 line {"ok": true, "device": {...}}. Any failure exits non-zero before the
 last line; so does a machine without CUDA or a directory without the repo.
@@ -85,6 +106,19 @@ PT_FRAC, PT_MEAN = 0.01, 1e-4
 # most 2 * n * 2^-24 of the total (each add rounds within 2^-24 of a running
 # sum that never exceeds it): n = 256 passes
 CHUNK_RTOL = 2 * 256 * 2.0 ** -24
+
+# BASELINE config 3 (benchmarks/run_all.py:120-225): the torus knot through
+# render_pt_rebin, 2 bounces, 1 spp, NEE, pcg, PRNGKey(1), at 512x512 and
+# 1920x1088; camera at the origin (frame z offsets only separate frames)
+C3 = dict(width=512, height=512, max_bounces=2)
+C3_HD = dict(width=1920, height=1088, max_bounces=2)
+C3_LIGHT = (6.0, 4.0, 6.0)  # the light sphere's centre (NEE-style shadow rays)
+C3_FRAMES = 8      # chained 512x512 frames per timing round
+C3_HD_FRAMES = 4   # chained 1920x1088 frames per timing round
+C3_ROUNDS = 3
+C3_BAND = (224, 64)  # rows of the band check
+C3_CHUNK_RTOL = 2 * 4 * 2.0 ** -24  # the summation bound for n = 4 passes
+K6_REPS = 20
 
 
 def log(msg: str):
@@ -615,6 +649,352 @@ def phase_pt_main(quat, seed, c2, c4, card, device):
             "bound_ms": c2_bound[0], "bound_by": c2_bound[1]}
 
 
+def c3_setup(device):
+    """Config 3: (mesh, ClusterSet, scene, cfg, cluster build seconds), as
+    benchmarks/run_all.py:120-148 builds it (tri_mats 0, SAH, subtree)."""
+    from raytracing_engine_tpu_torch.accel import build_clusters, torus_knot
+    from raytracing_engine_tpu_torch.pathtracer import DIFFUSE, PTConfig, build_pt_scene
+
+    mesh = torus_knot(segments=1100, sides=32, center=(0.0, 8.0, 0.0))
+    mats_t = np.zeros(mesh.shape[0], np.int32)
+    t0 = time.perf_counter()
+    cs = build_clusters(mesh, tri_mats=mats_t, device=device)
+    torch.cuda.synchronize(device)
+    build_s = time.perf_counter() - t0
+    mats = [
+        {"albedo": (0.7, 0.6, 0.4), "kind": DIFFUSE},
+        {"albedo": (0, 0, 0), "emission": (10.0,) * 3, "kind": DIFFUSE},
+        {"albedo": (0.5, 0.5, 0.6), "kind": DIFFUSE},
+    ]
+    scene = build_pt_scene(spheres=[((6.0, 4.0, 6.0), 1.5, 1), ((0.0, 8.0, -103.0), 100.0, 2)],
+                           triangles=mesh, tri_mats=mats_t, materials=mats, device=device)
+    return mesh, cs, scene, PTConfig(**C3, rng="pcg"), build_s
+
+
+def hold_sweep(label, got, want):
+    """K6 against its plain version: -> (max abs error of t and attributes
+    where both hit, fraction of rays whose slot differs); raises unless
+    every output is equal bit for bit."""
+    slot_diff = (got[1] != want[1]).double().mean().item()
+    both = (got[1] >= 0) & (want[1] >= 0)
+    err = 0.0
+    for k, (g, w) in enumerate(zip(got, want)):
+        if k != 1 and both.any():
+            err = max(err, (g[both] - w[both]).abs().max().item())
+    bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+    log(f"  {label}: hits {(got[1] >= 0).double().mean().item():.4f}, max_abs_err={err:.6g} "
+        f"slots differ on {slot_diff:.6g} of rays, bitwise={bitwise}")
+    if not bitwise:
+        raise AssertionError(f"{label}: K6 differs from its plain version")
+    return err
+
+
+def axis_parallel_rays(device, n=64):
+    """An n x n grid against icosphere(2) at (0, 5, 0): axis-parallel rays
+    (exact +-0 direction components, some running in a box face's plane)
+    and, in the last quarter of the rows, rays parked at 1e18."""
+    rng = np.random.default_rng(0)
+    center = np.array([0.0, 5.0, 0.0], np.float32)
+    o = np.zeros((3, n * n), np.float32)
+    d = np.zeros((3, n * n), np.float32)
+    for k in range(n * n):
+        axis, sign = k % 3, (1.0 if (k // 3) % 2 == 0 else -1.0)
+        off = rng.uniform(-1.4, 1.4, 3).astype(np.float32)
+        off[axis] = -3.0 * sign
+        if k % 5 == 0:
+            off[(axis + 1) % 3] = 0.0
+        o[:, k] = center + off
+        d[:, k] = np.where(np.arange(3) == axis, sign, -0.0 if k % 2 else 0.0)
+    park = slice(3 * n * n // 4, None)
+    o[:, park] = 1e18
+    d[:, park] = np.float32(0.5773502691896258)
+    to = lambda a: tuple(torch.from_numpy(x.reshape(n, n)).to(device) for x in a)  # noqa: E731
+    return to(o), to(d)
+
+
+def phase_cluster_kernel(c3, quat, seed, device, card):
+    """K6 against its plain version on the card, and K6 timed."""
+    from raytracing_engine_tpu_torch.accel import build_clusters, icosphere
+    from raytracing_engine_tpu_torch.ops.cuda import cluster, pt
+    from raytracing_engine_tpu_torch.ops.rng_pcg import pass_seed, uniform_pcg
+    from raytracing_engine_tpu_torch.pathtracer.wavefront import _camera_rays
+    from raytracing_engine_tpu_torch.utils.timing import (
+        bound_ms,
+        cluster_table_bytes,
+        k6_bytes,
+        sweep_ops,
+    )
+
+    mesh, cs, scene, cfg, build_s = c3
+    log(f"  config-3 ClusterSet: {mesh.shape[0]} triangles -> {cs.num_clusters} clusters, "
+        f"{cs.num_super} super clusters, {cs.padded_tris} slots; BVH builder {cs.builder}; "
+        f"host build {build_s:.3f} s")
+    pos = torch.zeros(3, device=device)
+    fc = cluster.FrameClusters.at(cs, pos)
+    orders = dict(order=fc.orders[0], orders=fc.orders, refs=fc.refs)
+    u = uniform_pcg(pass_seed(seed, 0), 0, 2, cfg.height, cfg.width, device=device)
+    o0, d0 = _camera_rays(cfg, pos, quat, u[0], u[1])
+    o0, d0 = tuple(x.contiguous() for x in o0), tuple(x.contiguous() for x in d0)
+    _, _, run = pt.rebin_bounce_launcher(cfg, scene, pos, quat, seed, cs)
+    state, _ = run(0, None, 0)
+    o1 = tuple(state[a].clone() for a in range(3))
+    d1 = tuple(state[3 + a].clone() for a in range(3))
+    light = torch.tensor(C3_LIGHT, device=device)
+    to_l = tuple(light[a] - o1[a] for a in range(3))
+    dist = torch.sqrt(to_l[0] * to_l[0] + to_l[1] * to_l[1] + to_l[2] * to_l[2])
+    wi = tuple(c / dist for c in to_l)
+    small = build_clusters(icosphere(subdivisions=2, radius=1.2, center=(0.0, 5.0, 0.0)),
+                           device=device)
+    oa, da = axis_parallel_rays(device)
+    inf = float("inf")
+    cases = [
+        ("camera rays 512x512, closest + attrs", cs, o0, d0, inf, dict(attrs=True, **orders)),
+        ("bounce-1 rays, closest + attrs", cs, o1, d1, inf, dict(attrs=True, **orders)),
+        ("bounce-1 NEE shadow rays, any hit", cs, o1, wi, dist * 0.999,
+         dict(any_hit=True, order=fc.orders[0])),
+        (f"axis-parallel + parked rays vs a padded set ({small.num_clusters} clusters, "
+         f"{int(torch.isnan(small.boxes[:, 0]).sum())} all-NaN), closest + attrs", small, oa, da,
+         inf, dict(attrs=True)),
+        ("axis-parallel + parked rays vs the padded set, any hit t_max=2", small, oa, da, 2.0,
+         dict(any_hit=True)),
+    ]
+    err = 0.0
+    plain = {}
+    for k, (label, cset, o, d, t_max, kw) in enumerate(cases):
+        got = cluster.cluster_intersect(cset, o, d, t_max, **kw)
+        torch.cuda.synchronize(device)
+        cluster.work.update(slabs=0, tests=0)
+        t0 = time.perf_counter()
+        want = cluster.cluster_intersect_reference(cset, o, d, t_max, **kw)
+        torch.cuda.synchronize(device)
+        if k == 0:
+            plain = dict(plain_ms=(time.perf_counter() - t0) * 1e3, **cluster.work)
+        err = max(err, hold_sweep(label, got, want))
+
+    # K6 alone: the camera sweep of render_pt_fast(bvh=cs) (closest, no attrs)
+    kw = dict(cases[0][5], attrs=False)
+    cluster.cluster_intersect(cs, o0, d0, inf, **kw)  # warm-up
+    ms, host_ms = cuda_ms(lambda k: cluster.cluster_intersect(cs, o0, d0, inf, **kw), K6_REPS)
+    tb = cluster.sweep_tables(cs)
+    n = cfg.width * cfg.height
+    n_bytes = k6_bytes(n, False, cluster_table_bytes(
+        [tb.sbox, tb.crec, tb.trec, tb.tsmooth, fc.orders, fc.refs]))
+    n_ops = sweep_ops(plain["slabs"], plain["tests"])
+    bound = bound_ms(n_bytes, n_ops)
+    log(f"  K6 camera sweep 512x512 (closest): kernel {ms:.4f} ms (host enqueue {host_ms:.4f} "
+        f"ms), plain {plain['plain_ms']:.1f} ms; {plain['slabs']} box + {plain['tests']} "
+        f"triangle tests -> bound {bound[0]:.5f} ms by {bound[1]} ({n_bytes} B, {n_ops} ops), "
+        f"kernel at {bound[0] / ms:.2%} of it [{card}]")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain["plain_ms"],
+            "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def phase_c3_invariants(c3, quat, seed, device):
+    """The config-3 path through K4, K5 and K6 against the plain versions
+    and each other; -> the plain times, K5's error and the sweep work of
+    the frame (for the bounds)."""
+    from raytracing_engine_tpu_torch.ops.cuda import cluster, pt
+    from raytracing_engine_tpu_torch.pathtracer.wavefront import render_pt_fast
+    from raytracing_engine_tpu_torch.runtime import ProgressiveState, progressive_render
+
+    _, cs, scene, cfg, _ = c3
+    pos = torch.zeros(3, device=device)
+    k5, n5 = pt.render_pt_rebin(cfg, scene, pos, quat, 1, seed=seed, bvh=cs)
+    k4, n4 = pt.render_pt_mega(cfg, scene, pos, quat, 1, seed=seed, bvh=cs)
+    same = torch.equal(k5, k4) and int(n5) == int(n4)
+    log(f"  render_pt_rebin (none,morton) == render_pt_mega(bvh=cs) bit for bit: {same}; "
+        f"rays {int(n5)} == {int(n4)}; lit pixels {(k4.amax(-1) > 0).double().mean().item():.4f}")
+    if not same:
+        raise AssertionError("K5 differs from K4 with clusters")
+    for mode in ("none", "oct", "morton", "oct_morton", "tile_oct"):
+        img, n = pt.render_pt_rebin(cfg, scene, pos, quat, 1, seed=seed, bvh=cs, rebin=mode)
+        if not (torch.equal(img, k4) and int(n) == int(n4)):
+            raise AssertionError(f"rebin={mode!r} differs from K4")
+    log("  every regroup mode (none, oct, morton, oct_morton, tile_oct) == K4 bit for bit")
+
+    cluster.work.update(slabs=0, tests=0)
+    t0 = time.perf_counter()
+    pr, prn = pt.render_pt_rebin_reference(cfg, scene, pos, quat, 1, seed=seed, bvh=cs)
+    torch.cuda.synchronize(device)
+    plain_rebin_ms = (time.perf_counter() - t0) * 1e3
+    work = dict(cluster.work)
+    err = hold_pt("K5 (render_pt_rebin) vs its plain version 512x512", k5, n5, pr, prn)
+    log(f"  plain version 512x512: render_pt_rebin_reference {plain_rebin_ms:.1f} ms; sweep "
+        f"work of the frame {work['slabs']} box + {work['tests']} triangle tests")
+
+    # bands: the plain megakernel version on a band only (its cost is its
+    # Python loop over boxes); bands of both kernels bit for bit
+    row0, band_h = C3_BAND
+    band = dict(seed=seed, bvh=cs, row0=row0, band_h=band_h)
+    b5, _ = pt.render_pt_rebin(cfg, scene, pos, quat, 1, **band)
+    b4, nb4 = pt.render_pt_mega(cfg, scene, pos, quat, 1, **band)
+    rows = k4[row0:row0 + band_h]
+    log(f"  band rows {row0}..{row0 + band_h}: K5 == full render rows {torch.equal(b5, rows)}, "
+        f"K4 == full render rows {torch.equal(b4, rows)}")
+    if not (torch.equal(b5, rows) and torch.equal(b4, rows)):
+        raise AssertionError("a config-3 band differs from the rows of the full render")
+    pm, pmn = pt.render_pt_mega_reference(cfg, scene, pos, quat, 1, **band)
+    hold_pt(f"K4 with clusters vs its plain version, rows {row0}..{row0 + band_h}", b4, nb4, pm,
+            pmn)
+
+    f, nf = render_pt_fast(cfg, scene, pos, quat, 1, seed=seed, bvh=cs)
+    hold_pt("render_pt_fast(bvh=cs) through K6 vs K4", f, nf, k4, n4)
+
+    state = ProgressiveState.start(cfg, pos, quat, key=1, device=device)
+    for state in progressive_render(cfg, scene, state, 4, passes_per_chunk=2, bvh=cs):
+        pass
+    one, _ = pt.render_pt_mega(cfg, scene, pos, quat, 4, seed=seed, bvh=cs)
+    want = one * 4.0
+    ok = torch.allclose(state.accum, want, rtol=C3_CHUNK_RTOL, atol=1e-6)
+    log(f"  progressive_render(bvh=cs) 2 x 2 spp vs one 4-spp render (sums): max_abs_err="
+        f"{(state.accum - want).abs().max().item():.6g} within rtol {C3_CHUNK_RTOL:.3g}: {ok}")
+    if state.spp_done != 4 or not ok:
+        raise AssertionError("progressive_render(bvh=cs) depends on the chunking")
+    return {"max_abs_err": err, "plain_rebin_ms": plain_rebin_ms, "work": work,
+            "nrays": int(n4)}
+
+
+def profile_rebin(cfg, scene, cs, quat, seed, zs, frame_ms, card):
+    """torch.profiler over C3_FRAMES render_pt_rebin frames: device time of
+    K5 per bounce, of the sort, the permute and the un-permute, and of the
+    rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracing_engine_tpu_torch.ops.cuda import pt
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_ms, _ = cuda_ms(lambda k: pt.render_pt_rebin(cfg, scene, zs[k], quat, 1, seed=seed,
+                                                          bvh=cs), C3_FRAMES)
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    if not events:
+        log("  profiler: no device events; the split is not measured")
+        return
+    nb = cfg.max_bounces + 1
+    k5 = [e.time_range.elapsed_us() for e in events if "pt_rebin_kernel" in e.name]
+    per_bounce = [sum(k5[b::nb]) / C3_FRAMES for b in range(nb)]
+    ops = {e.key: e for e in prof.key_averages()}
+
+    def op_us(key):
+        """Device time of the kernels that aten op `key` launched, per frame."""
+        e = ops.get(key)
+        if e is None:
+            return 0.0
+        return getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) / C3_FRAMES
+
+    split = {"sort": op_us("aten::sort"), "permute (index_select)": op_us("aten::index_select"),
+             "un-permute (index_copy_)": op_us("aten::index_copy_")}
+    busy = sum(e.time_range.elapsed_us() for e in events) / C3_FRAMES
+    rest = busy - sum(per_bounce) - sum(split.values())
+    log(f"  profile render_pt_rebin {cfg.width}x{cfg.height} ({C3_FRAMES} frames, profiler on: "
+        f"{prof_ms:.4f} ms/frame): device busy {busy:.1f} us/frame = "
+        f"{busy / 1e3 / frame_ms:.1%} of the unprofiled {frame_ms:.4f} ms frame; K5 by bounce "
+        f"{[round(x, 1) for x in per_bounce]} us; "
+        + ", ".join(f"{k} {v:.1f} us" for k, v in split.items())
+        + f"; everything else (keys, bounding box, counters) {rest:.1f} us [{card}]")
+
+
+def phase_c3_main(c3, quat, seed, device, card, inv):
+    """Config 3's entry points under the launch counters, timed."""
+    import dataclasses
+
+    from raytracing_engine_tpu_torch.ops.cuda import cluster, pt
+    from raytracing_engine_tpu_torch.pathtracer.wavefront import render_pt_fast
+    from raytracing_engine_tpu_torch.runtime import ProgressiveState, progressive_render
+    from raytracing_engine_tpu_torch.utils.timing import (
+        bound_ms,
+        cluster_table_bytes,
+        k5_bytes,
+        pt_ops,
+        sweep_ops,
+    )
+
+    _, cs, scene, cfg, _ = c3
+    hd = dataclasses.replace(cfg, **C3_HD)
+
+    def frames(c, fn, n_frames, label):
+        zs = [torch.tensor([0.0, 0.0, 1e-4 * k], device=device) for k in range(n_frames)]
+        fn(c, scene, zs[0], quat, 1, seed=seed, bvh=cs)  # warm-up
+        best = None
+        for r in range(C3_ROUNDS):
+            rays = []
+            ms, host_ms = cuda_ms(lambda k: rays.append(
+                fn(c, scene, zs[k], quat, 1, seed=seed, bvh=cs)[1]), n_frames)
+            n = int(torch.stack(rays).sum()) // n_frames
+            log(f"  {label} round {r}: {ms:.4f} ms/frame (host enqueue {host_ms:.4f} ms) "
+                f"= {n / ms / 1e3:.2f} Mrays/s, {n} rays/frame [{card}]")
+            if best is None or ms < best[0]:
+                best = (ms, n)
+        return best, zs
+
+    pt.launches = pt.rebin_launches = cluster.launches = 0
+    (c3_ms, c3_rays), zs = frames(cfg, pt.render_pt_rebin, C3_FRAMES,
+                                  f"config 3 render_pt_rebin {cfg.width}x{cfg.height}")
+    profile_rebin(cfg, scene, cs, quat, seed, zs, c3_ms, card)
+    (hd_ms, hd_rays), _ = frames(hd, pt.render_pt_rebin, C3_HD_FRAMES,
+                                 f"config 3 render_pt_rebin {hd.width}x{hd.height}")
+    (mega_ms, _), _ = frames(cfg, pt.render_pt_mega, C3_FRAMES,
+                             f"config 3 render_pt_mega(bvh=cs) {cfg.width}x{cfg.height}")
+    pos = torch.zeros(3, device=device)
+    fast_ms, _ = cuda_ms(lambda k: render_pt_fast(cfg, scene, pos, quat, 1, seed=seed, bvh=cs), 1)
+    state = ProgressiveState.start(cfg, pos, quat, key=1, device=device)
+    for state in progressive_render(cfg, scene, state, 2, passes_per_chunk=1, bvh=cs):
+        pass
+    torch.cuda.synchronize(device)
+    counts = {"K4": pt.launches, "K5": pt.rebin_launches, "K6": cluster.launches}
+    nb = cfg.max_bounces + 1
+    rebin_frames = (1 + C3_ROUNDS * C3_FRAMES + C3_FRAMES) + (1 + C3_ROUNDS * C3_HD_FRAMES)
+    want = {"K4": 1 + C3_ROUNDS * C3_FRAMES + 2, "K5": nb * rebin_frames, "K6": 2 * nb}
+    log(f"  render_pt_fast(bvh=cs) {cfg.width}x{cfg.height}: {fast_ms:.2f} ms (K6 sweeps + the "
+        f"plain wavefront around them) [{card}]")
+    log(f"  launches on the config-3 main path {counts} (expected {want}: {nb} K5 per rebin frame "
+        f"x {rebin_frames}, K4 per mega frame and progressive chunk, 2 K6 per bounce of the "
+        f"render_pt_fast frame)")
+    if counts != want:
+        raise AssertionError(f"config-3 launch counts {counts} != {want}")
+
+    # K5 alone, bounce by bounce, on the states of the phase-11 frame
+    _, _, run = pt.rebin_bounce_launcher(cfg, scene, pos, quat, seed, cs)
+    modes = pt._gap_modes("none,morton")
+    inputs = [None]
+    st, _ = run(0, None, 0)
+    for b in range(1, nb):
+        st = pt.regroup(st, modes[min(b - 1, len(modes) - 1)])
+        inputs.append(st.clone())
+        st, _ = run(b, st, 0)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    k5_ms = []
+    for b, x in enumerate(inputs):
+        total = 0.0
+        for _ in range(5):
+            y = None if x is None else x.clone()
+            start.record()
+            run(b, y, 0)
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+        k5_ms.append(total / 5)
+    fc = cluster.FrameClusters.at(cs, pos)
+    tb = cluster.sweep_tables(cs)
+    tables = cluster_table_bytes([tb.sbox, tb.crec, tb.trec, tb.tsmooth, fc.orders, fc.refs])
+    tables += 4 * sum(t.numel() for t in pt.pack_pt_scene(pt.kernel_scene(scene, cs)))
+    n = cfg.width * cfg.height
+    ops = sweep_ops(inv["work"]["slabs"], inv["work"]["tests"]) + pt_ops(
+        inv["nrays"], int(scene.sph_count), 0)
+    k5_bound = bound_ms(k5_bytes(n, cfg.max_bounces, tables), ops)
+    k4_bound = bound_ms(12 * n + tables, ops)
+    log(f"  K5 alone per bounce {[round(x, 4) for x in k5_ms]} ms = {sum(k5_ms):.4f} ms/frame; "
+        f"bound {k5_bound[0]:.5f} ms by {k5_bound[1]} ({ops} ops: sweeps + "
+        f"{int(scene.sph_count)} spheres x {inv['nrays']} rays); K5 at "
+        f"{k5_bound[0] / sum(k5_ms):.2%} of it [{card}]")
+    log(f"  config 3 512x512: rebin {c3_ms:.4f} ms/frame = {c3_rays / c3_ms / 1e3:.2f} Mrays/s; "
+        f"mega {mega_ms:.4f} ms/frame; 1920x1088 rebin {hd_ms:.4f} ms/frame = "
+        f"{hd_rays / hd_ms / 1e3:.2f} Mrays/s; K4 config-3 frame bound {k4_bound[0]:.5f} ms "
+        f"by {k4_bound[1]} [{card}]")
+    return {"launches": counts, "k5": {"ms": sum(k5_ms), "plain_ms": inv["plain_rebin_ms"],
+                                       "bound_ms": k5_bound[0], "bound_by": k5_bound[1]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -656,6 +1036,14 @@ def main() -> int:
     log("phase 9: path-tracer main path and timing (CUDA events)")
     pt_main = phase_pt_main(pt_quat, pt_seed, c2, c4, card, device)
 
+    c3 = c3_setup(device)
+    log("phase 10: BASELINE config 3's ClusterSet and K6 vs its plain version")
+    k6 = phase_cluster_kernel(c3, pt_quat, pt_seed, device, card)
+    log("phase 11: config 3 through K4, K5 and K6, and its invariants")
+    inv = phase_c3_invariants(c3, pt_quat, pt_seed, device)
+    log("phase 12: config-3 main path and timing (CUDA events)")
+    c3_main = phase_c3_main(c3, pt_quat, pt_seed, device, card, inv)
+
     # no single PyTorch call computes any of these kernels: library_ms null
     src = "raytracing_engine_tpu_torch/csrc/conemarch.cu"
     kernels = [
@@ -675,6 +1063,15 @@ def main() -> int:
          "source": "raytracing_engine_tpu_torch/csrc/pt.cu",
          "replaces": "raytracing_engine_tpu/ops/pallas/pt_kernel.py:194",
          "max_abs_err": pt_err, **pt_main, "library_ms": None},
+        {"name": "pt_rebin_kernel (K5)", "route": "cuda",
+         "source": "raytracing_engine_tpu_torch/csrc/pt.cu",
+         "replaces": "raytracing_engine_tpu/ops/pallas/pt_kernel.py:699",
+         "launches": c3_main["launches"]["K5"], "max_abs_err": inv["max_abs_err"],
+         **c3_main["k5"], "library_ms": None},
+        {"name": "cluster_kernel (K6)", "route": "cuda",
+         "source": "raytracing_engine_tpu_torch/csrc/cluster.cu",
+         "replaces": "raytracing_engine_tpu/ops/pallas/cluster_intersect.py:439",
+         "launches": c3_main["launches"]["K6"], **k6, "library_ms": None},
     ]
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -11,10 +11,12 @@ mirrors its module names:
     ops/           plain tensor math: quaternion, sdf, raygen, march, shade,
                    vec3 planes, the PCG4D stream (rng_pcg)
     ops/cuda/      wrappers of the hand-written CUDA kernels in csrc/
-                   (K1-K3 cone march, K4 path tracer)
+                   (K1-K3 cone march, K4/K5 path tracer, K6 cluster sweep)
+    accel/         meshes, the host-built BVH, ClusterSets (config 3)
+    native/        the C++ BVH builder (g++ at first use, numpy fallback)
     models/        cone-march renderers: conemarch (plain), cuda_renderer
-    pathtracer/    the sphere path tracer: PTConfig, scenes, the plain
-                   wavefront (K4's oracle)
+    pathtracer/    the path tracer: PTConfig, scenes, the plain wavefront
+                   (the oracle of K4 and K5)
     runtime/       frame loop, sequence serving, progressive checkpoints
     utils/         timing metrics
 

@@ -1,0 +1,85 @@
+// Kernel K6, the cluster intersector, for Hopper (sm_90a), and its C entry
+// point (bound with ctypes by ops/cuda/cluster.py and ops/cuda/common.py).
+//
+// Replaces raytracing_engine_tpu/ops/pallas/cluster_intersect.py:
+// _cluster_kernel (K6, launched by cluster_intersect): closest or any hit of
+// a grid of rays against a ClusterSet, with the closest hit's attributes
+// (normal, material, area) on request. The sweep itself is cluster.cuh.
+//
+// What bounds it on this card: FP32 ALU work and divergence, not bytes. A
+// ray reads 3 + 6 + 3 + 1 floats and writes 2 (7 with attributes), while it
+// runs tens of box tests (28 operations each) and hundreds of triangle tests
+// (30 each) against tables that stay in the L2. So: one thread per ray, the
+// hierarchy's gates decide per ray (a ray skips every box it misses, and a
+// warp runs the union of its rays' work), the tables are read through the
+// read-only path, nothing is staged in shared memory (the set is 9.7 MB at
+// BASELINE config 3).
+//
+// Block: 128 threads over consecutive rays; the ragged end is masked.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+//        --fmad=false -shared -Xcompiler -fPIC
+#include "cluster.cuh"
+
+namespace cl {
+
+constexpr int kBlock = 128;
+
+// Launch arguments, passed by value. Mirrored field for field by ClusterArgs
+// in ops/cuda/cluster.py.
+struct Args {
+  Tables tables;
+  const float* ox;   // (n,) ray origins and directions, one plane each
+  const float* oy;
+  const float* oz;
+  const float* dx;
+  const float* dy;
+  const float* dz;
+  const float* tmax;  // (n,) initial t (the any-hit cutoff)
+  float* out_t;       // (n,) t of the hit, +inf on a miss
+  int* out_idx;       // (n,) padded slot, -1 on a miss
+  float* out_attr;    // (5, n) nx, ny, nz, mat, area, or null
+  int n;
+  float t_min;
+  int any_hit;
+  int device;        // CUDA ordinal the pointers and the stream belong to
+};
+
+__global__ void __launch_bounds__(kBlock) cluster_kernel(const Args a) {
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i >= a.n) return;
+  const float3 o = make_float3(__ldg(a.ox + i), __ldg(a.oy + i), __ldg(a.oz + i));
+  const float3 d = make_float3(__ldg(a.dx + i), __ldg(a.dy + i), __ldg(a.dz + i));
+  SweepHit h;
+  sweep(a.tables, o, d, __ldg(a.tmax + i), a.t_min, a.any_hit != 0, h);
+  a.out_t[i] = h.idx >= 0 ? h.t : __int_as_float(0x7f800000);
+  a.out_idx[i] = h.idx;
+  if (a.out_attr != nullptr) {
+    float3 nrm = make_float3(0.0f, 0.0f, 0.0f);
+    float mat = 0.0f, area2 = 0.0f;
+    if (h.idx >= 0) hit_attrs(a.tables, h, nrm, mat, area2);
+    a.out_attr[i] = nrm.x;
+    a.out_attr[a.n + i] = nrm.y;
+    a.out_attr[2 * a.n + i] = nrm.z;
+    a.out_attr[3 * a.n + i] = mat;
+    a.out_attr[4 * a.n + i] = area2 * 0.5f;  // |cross| / 2 = triangle area
+  }
+}
+
+}  // namespace cl
+
+// Launches on `stream` (a cudaStream_t), does not synchronise, and returns
+// cudaGetLastError() as an int (0 = launched).
+extern "C" int cluster_intersect(const cl::Args* a, void* stream) {
+  cudaError_t err = cudaSetDevice(a->device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (a->n > 0) {
+    const dim3 grid((a->n + cl::kBlock - 1) / cl::kBlock);
+    cl::cluster_kernel<<<grid, cl::kBlock, 0, static_cast<cudaStream_t>(stream)>>>(*a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* cluster_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

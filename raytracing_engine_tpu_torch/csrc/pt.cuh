@@ -1,29 +1,36 @@
-// Device functions of the sphere path tracer (kernel K4, pt.cu).
+// Device functions of the path tracer (kernels K4 and K5, pt.cu).
 //
 // Replaces the per-tile body of raytracing_engine_tpu/ops/pallas/pt_kernel.py
-// (_pt_kernel -> pathtracer/wavefront.py _trace_core with bvh=None): camera
-// rays, the unrolled sphere and triangle intersection, NEE toward the light
-// table with power-heuristic MIS, DIFFUSE / MIRROR / smooth DIELECTRIC
-// scattering, Russian roulette, and the PCG4D stream keyed on global pixel
-// coordinates (ops/rng_pcg.py).
+// (_pt_kernel and _pt_rebin_kernel -> pathtracer/wavefront.py _trace_core):
+// camera rays, the unrolled sphere and triangle intersection or the cluster
+// sweep of a mesh (cluster.cuh), NEE toward the light table with
+// power-heuristic MIS, DIFFUSE / MIRROR / smooth DIELECTRIC scattering,
+// Russian roulette, and the PCG4D stream keyed on global pixel coordinates
+// (ops/rng_pcg.py).
 //
-// One thread follows one pixel's path. Every expression keeps the operation
-// order of the plain PyTorch version (pathtracer/wavefront.py), and the
-// library builds with --fmad=false and IEEE division and square root, so the
-// two agree bit for bit where the math library does: a branch decision
+// One thread follows one ray. The body of one bounce is one function,
+// `bounce`, over a per-ray state (`Ray`, the 17 planes of
+// wavefront.pack_state): K4 loops it over the bounces of every pass in
+// registers, K5 runs one bounce per launch on the state it reads back, so
+// K5 equals K4 by construction. Every expression keeps the operation order
+// of the plain PyTorch version (pathtracer/wavefront.py), and the library
+// builds with --fmad=false and IEEE division and square root, so the two
+// agree bit for bit where the math library does: a branch decision
 // (u < refl_p, t < best_t, the CDF walk) flips when one rounding changes, and
 // then the whole path differs.
 //
 // Where the plain version computes a value on every lane and selects, this
 // code computes it only on the lanes that keep it; where a dead lane's work
-// adds exactly 0, this code stops: a ray that misses or dies leaves the
-// bounce loop. The BIG = 3.4e38 and 1e18 sentinels rely on IEEE semantics
-// (no fast math).
+// adds exactly 0, this code stops: a ray that misses or dies is parked
+// (origin 1e18, as the plain version parks it) and does no more work. The
+// BIG = 3.4e38 and 1e18 sentinels rely on IEEE semantics (no fast math).
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "cluster.cuh"
 
 namespace pt {
 
@@ -48,6 +55,9 @@ constexpr int kTriW = 12;
 constexpr int kMatW = 8;
 constexpr int kLightW = 12;
 constexpr int kTriUnrollMax = 32;
+constexpr float kDeadO = 1e18f;                    // parked-ray origin
+constexpr float kInvSqrt3 = 0.57735025882720947f;  // its direction components
+constexpr int kStatePlanes = 17;
 
 // Launch arguments, passed by value. Mirrored field for field by PTArgs in
 // ops/cuda/pt.py.
@@ -59,7 +69,7 @@ struct Args {
   const float* mat;        // (M, 8)
   const float* light;      // (L, 12)
   const int* counts;       // (4,): live spheres, triangles, materials, lights
-  float* out;              // (h, w, 3): mean radiance of the band
+  float* out;              // K4: (h, w, 3), the mean radiance of the band
   unsigned long long* nrays;  // (1,): rays traced, added to
   int S, T, M, L;          // table rows (padded)
   int width, height;       // the full image (the camera's projection)
@@ -67,10 +77,13 @@ struct Args {
   int spp, seed, spp_offset;  // pass s uses seed + (spp_offset + s) * prime
   int max_bounces, rr_start, use_nee, uniform_lights;
   float ratio_x, ratio_y, t_min, eps;
+  cl::Tables cl;           // a mesh as a ClusterSet (cl.trec null: none)
+  float* state;            // K5: (17, n_state) ray state, updated in place
+  int n_state, bounce;     // K5: rays in the state, the bounce this launch runs
   int device;              // CUDA ordinal the pointers and the stream belong to
 };
 
-// The scene tables, in shared memory, and the live counts.
+// The scene tables, in shared memory, the live counts and the mesh.
 struct Scene {
   const float* sph;
   const float* tri;
@@ -79,6 +92,8 @@ struct Scene {
   int S, T, M, L;
   int n_sph, n_tri, n_light;
   float total_power;
+  cl::Tables cl;
+  bool mesh;  // intersect cl instead of the unrolled triangle slots
 };
 
 // max/min that propagate NaN as torch.maximum / torch.clamp do
@@ -208,7 +223,8 @@ struct Hit {
   bool front;
 };
 
-// wavefront._intersect; returns false on a miss (t = BIG).
+// wavefront._intersect (unrolled slots) or wavefront._intersect_clusters (a
+// mesh, the attributes path); returns false on a miss (t = BIG).
 __device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
                                           float t_min, Hit& h) {
   float t_s = kBig;
@@ -223,11 +239,17 @@ __device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
   }
   float t_t = kBig;
   int i_t = -1;
-  for (int k = 0; k < sc.n_tri; ++k) {
-    float t;
-    if (tri_hit(sc.tri + k * kTriW, o, d, t_min, t_t, t)) {
-      t_t = t;
-      i_t = k;
+  cl::SweepHit ch;
+  if (sc.mesh) {
+    cl::sweep(sc.cl, o, d, kBig, t_min, false, ch);
+    if (ch.idx >= 0) t_t = ch.t;
+  } else {
+    for (int k = 0; k < sc.n_tri; ++k) {
+      float t;
+      if (tri_hit(sc.tri + k * kTriW, o, d, t_min, t_t, t)) {
+        t_t = t;
+        i_t = k;
+      }
     }
   }
   const bool use_tri = t_t < t_s;
@@ -237,7 +259,12 @@ __device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
   h.p = make_float3(o.x + d.x * t, o.y + d.y * t, o.z + d.z * t);
   float3 n;
   float light_area;
-  if (use_tri) {
+  if (use_tri && sc.mesh) {
+    float mat, area2;
+    cl::hit_attrs(sc.cl, ch, n, mat, area2);
+    light_area = area2 * 0.5f;
+    h.mat = static_cast<int>(mat);
+  } else if (use_tri) {
     const float* tr = sc.tri + i_t * kTriW;
     n = cross3(row3(tr + 3), row3(tr + 6));
     light_area = 0.5f * sqrtf(dot3(n, n));
@@ -257,13 +284,19 @@ __device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
   return true;
 }
 
-// wavefront._occluded: any live sphere or triangle hit in (t_min, max_t).
+// wavefront._occluded: any live sphere or triangle (or mesh) hit in
+// (t_min, max_t).
 __device__ __forceinline__ bool occluded(const Scene& sc, float3 o, float3 d,
                                          float max_t, float t_min) {
   for (int k = 0; k < sc.n_sph; ++k) {
     float disc;
     const float t = sphere_t(sc.sph + k * kSphW, o, d, t_min, disc);
     if (disc > 0.0f && t > t_min && t < max_t) return true;
+  }
+  if (sc.mesh) {
+    cl::SweepHit h;
+    cl::sweep(sc.cl, o, d, max_t, t_min, true, h);
+    return h.idx >= 0;
   }
   for (int k = 0; k < sc.n_tri; ++k) {
     float t;
@@ -344,6 +377,161 @@ __device__ __forceinline__ float3 cosine_hemisphere(float u1, float u2, float3 n
   const float3 s = make_float3(b, sign + n.y * n.y * a, -n.y);
   pdf = z / kPi;
   return add3(add3(scale3(t, x), scale3(s, y)), scale3(n, z));
+}
+
+// --- one ray's state and one bounce (wavefront._bounce) -------------------
+// The 17 planes of wavefront.pack_state, in registers.
+struct Ray {
+  float3 o, d, thr, rad;
+  bool alive, prev_did_nee;
+  float prev_pdf;
+  uint32_t px, py;  // global pixel coordinates: every draw is keyed on them
+};
+
+// The camera ray of pixel (px, py) for the pass of `seed` (ctr 0).
+__device__ __forceinline__ Ray camera_ray(const Args& a, uint32_t px, uint32_t py,
+                                          uint32_t seed, float3 cam, float4 q) {
+  float u[4];
+  draw4(px, py, 0u, seed, u);
+  Ray r;
+  r.d = camera_dir(a, q.x, q.y, q.z, q.w, static_cast<float>(px), static_cast<float>(py),
+                   u[0], u[1]);
+  r.o = make_float3(cam.x + r.d.x * 0.0f, cam.y + r.d.y * 0.0f, cam.z + r.d.z * 0.0f);
+  r.o = add3(r.o, scale3(r.d, 0.0f));
+  r.thr = make_float3(1.0f, 1.0f, 1.0f);
+  r.rad = make_float3(0.0f, 0.0f, 0.0f);
+  r.alive = true;
+  r.prev_did_nee = false;
+  r.prev_pdf = 0.0f;
+  r.px = px;
+  r.py = py;
+  return r;
+}
+
+// A ray that missed or died: parked as the plain version parks it (origin
+// 1e18, direction (1, 1, 1)/sqrt(3), throughput 0), so every later sweep
+// and the regroup keys treat it as dead. Its radiance stays.
+__device__ __forceinline__ void park(Ray& r) {
+  r.o = make_float3(kDeadO, kDeadO, kDeadO);
+  r.d = make_float3(kInvSqrt3, kInvSqrt3, kInvSqrt3);
+  r.thr = make_float3(0.0f, 0.0f, 0.0f);
+  r.alive = false;
+  r.prev_did_nee = false;
+  r.prev_pdf = 0.0f;
+}
+
+// Bounce b of a live ray for the pass of `seed`: adds its emission and NEE
+// to r.rad, scatters or parks it, and counts its rays (one segment, one
+// shadow-ray candidate) into nrays.
+__device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, int b,
+                                       uint32_t seed, unsigned& nrays) {
+  const bool uniform = a.uniform_lights != 0;
+  float u[8];
+  // bounce draws: ctr b + 1, two blocks of 4 (nu = 5, or 6 with RR)
+  draw4(r.px, r.py, static_cast<uint32_t>(b + 1) * 2u, seed, u);
+  draw4(r.px, r.py, static_cast<uint32_t>(b + 1) * 2u + 1u, seed, u + 4);
+  nrays += 1;
+  const float3 d = r.d;
+
+  Hit h;
+  if (!intersect(sc, r.o, d, a.t_min, h)) {
+    park(r);
+    return;
+  }
+  const float3 n = h.n, p = h.p;
+  const float3 thr = r.thr;
+  const bool mat_ok = h.mat >= 0 && h.mat < sc.M;
+  const float* mrow = sc.mat + h.mat * kMatW;
+  const float3 albedo = mat_ok ? row3(mrow) : make_float3(0.0f, 0.0f, 0.0f);
+  const float3 emission = mat_ok ? row3(mrow + 3) : make_float3(0.0f, 0.0f, 0.0f);
+  const int kind = mat_ok ? static_cast<int>(mrow[6]) : 0;
+  const float ior = mat_ok ? mrow[7] : 0.0f;
+
+  // --- emission (MIS vs NEE of the previous vertex) -----------------------
+  if (emission.x > 0.0f || emission.y > 0.0f || emission.z > 0.0f) {
+    const float cos_l = fabsf(dot3(n, d));
+    float sel_density;
+    if (uniform) {
+      sel_density = 1.0f / vmax(h.light_area * static_cast<float>(max(sc.n_light, 1)), 1e-20f);
+    } else {
+      const float lum_e = 0.2126f * emission.x + 0.7152f * emission.y + 0.0722f * emission.z;
+      sel_density = lum_e / vmax(sc.total_power, 1e-20f);
+    }
+    const float pdf_light_w = sel_density * (h.t * h.t) / vmax(cos_l, 1e-6f);
+    const float gate = r.prev_did_nee ? power_heuristic(r.prev_pdf, pdf_light_w) : 1.0f;
+    r.rad.x = r.rad.x + thr.x * (emission.x * gate);
+    r.rad.y = r.rad.y + thr.y * (emission.y * gate);
+    r.rad.z = r.rad.z + thr.z * (emission.z * gate);
+  }
+
+  // --- NEE ------------------------------------------------------------------
+  if (a.use_nee && kind == kDiffuse && sc.n_light > 0) {
+    const LightSample ls = sample_light(sc, u[2], u[3], u[4], uniform);
+    const float3 to_l = sub3(ls.p, p);
+    const float dist = sqrtf(dot3(to_l, to_l));
+    const float3 wi = scale3(to_l, 1.0f / vmax(dist, 1e-20f));
+    const float cos_ll = fabsf(dot3(ls.n, wi));
+    const float cos_s = dot3(n, wi);
+    if (cos_ll > 1e-6f && dist > a.eps && cos_s > 0.0f) {
+      nrays += 1;
+      const float3 sh_o = add3(p, scale3(n, a.eps));
+      if (!occluded(sc, sh_o, wi, dist * 0.999f, a.t_min)) {
+        const float pdf_w = ls.pdf_area * (dist * dist) / vmax(cos_ll, 1e-6f);
+        const float w_nee = power_heuristic(pdf_w, cos_s / kPi);
+        const float s = cos_s / vmax(pdf_w, 1e-20f) * w_nee / kPi;
+        r.rad.x = r.rad.x + thr.x * albedo.x * (ls.le.x * s);
+        r.rad.y = r.rad.y + thr.y * albedo.y * (ls.le.y * s);
+        r.rad.z = r.rad.z + thr.z * albedo.z * (ls.le.z * s);
+      }
+    }
+  }
+
+  // --- scatter --------------------------------------------------------------
+  float3 new_d, new_o;
+  float pdf_cos = 0.0f;
+  if (kind == kMirror) {
+    new_d = sub3(d, scale3(n, 2.0f * dot3(d, n)));
+    new_o = add3(p, scale3(n, a.eps));
+  } else if (kind == kDielectric) {
+    // exact unpolarized Fresnel split; u[0] is the R/T coin
+    const float eta = h.front ? 1.0f / ior : ior;
+    const float cosi = -dot3(d, n);
+    const float kk = 1.0f - eta * eta * (1.0f - cosi * cosi);
+    const float cost = sqrtf(vmax(kk, 0.0f));
+    const float rs = (eta * cosi - cost) / vmax(eta * cosi + cost, 1e-20f);
+    const float rp = (eta * cost - cosi) / vmax(eta * cost + cosi, 1e-20f);
+    const float refl_p = kk <= 0.0f ? 1.0f : 0.5f * (rs * rs + rp * rp);
+    if (u[0] < refl_p) {
+      new_d = sub3(d, scale3(n, 2.0f * dot3(d, n)));
+      new_o = add3(p, scale3(n, a.eps));
+    } else {  // refracted rays continue THROUGH the surface
+      new_d = add3(scale3(d, eta), scale3(n, eta * cosi - cost));
+      new_o = add3(p, scale3(n, -a.eps));
+    }
+  } else {
+    new_d = cosine_hemisphere(u[0], u[1], n, pdf_cos);
+    new_o = add3(p, scale3(n, a.eps));
+  }
+  float3 new_thr = make_float3(thr.x * albedo.x, thr.y * albedo.y, thr.z * albedo.z);
+  const float thr_max = vmax(new_thr.x, vmax(new_thr.y, new_thr.z));
+  if (!(thr_max > 0.0f)) {
+    park(r);
+    return;
+  }
+  if (a.rr_start > 0 && b >= a.rr_start) {
+    // Russian roulette: survive w.p. p_c, divide throughput by p_c
+    const float p_c = vmin(vmax(thr_max, 0.05f), 1.0f);
+    if (!(u[5] < p_c)) {
+      park(r);
+      return;
+    }
+    new_thr = scale3(new_thr, 1.0f / p_c);
+  }
+  r.thr = new_thr;
+  r.o = new_o;
+  r.d = new_d;
+  r.prev_did_nee = kind == kDiffuse && sc.n_light > 0 && a.use_nee;
+  r.prev_pdf = pdf_cos;
 }
 
 }  // namespace pt

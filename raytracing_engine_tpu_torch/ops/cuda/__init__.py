@@ -6,7 +6,10 @@ a plain-integer ``launches`` count:
 - ``depth``  — K1, one depth-pyramid level
 - ``fused``  — K2, the finest level's march + shading
 - ``shade``  — K3, shading from a finished depth image
-- ``pt``     — K4, the sphere path tracer (megakernel), with pack_pt_scene
+- ``pt``     — K4, the path-tracing megakernel (spheres, unrolled
+  triangles or a ClusterSet), and K5, one bounce per launch with the
+  regroup between launches (render_pt_rebin)
+- ``cluster`` — K6, the cluster sweep of a ClusterSet (closest / any hit)
 
 ``common`` builds one library per csrc/*.cu source and launches entries.
 """

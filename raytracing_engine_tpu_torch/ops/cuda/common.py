@@ -2,7 +2,8 @@
 
 Each ``.cu`` source of ``csrc/`` is compiled with ``nvcc`` into its own
 library, ``build/lib<name>.so`` inside this package (``libconemarch.so``:
-K1-K3; ``libpt.so``: K4), at first use and all at once (one nvcc process per
+K1-K3; ``libpt.so``: K4 and K5; ``libcluster.so``: K6), at first use and
+all at once (one nvcc process per
 source, started together). Each library is keyed on a hash of every
 ``csrc/`` file and the flags, and loaded with ``ctypes`` through a plain C
 interface: an entry takes a pointer to its argument struct and a stream.
@@ -31,7 +32,8 @@ BUILD_DIR = PACKAGE_DIR / "build"
 # library name -> (its source in csrc/, its C entries)
 LIBRARIES = {
     "conemarch": ("conemarch.cu", ("conemarch_depth", "conemarch_shade", "conemarch_fused")),
-    "pt": ("pt.cu", ("pt_render",)),
+    "pt": ("pt.cu", ("pt_render", "pt_rebin")),
+    "cluster": ("cluster.cu", ("cluster_intersect",)),
 }
 
 # --fmad=false and no fast math: the marches' hit tests flip pixels when one

@@ -1,10 +1,21 @@
-"""K4: the sphere path tracer through the CUDA kernel ``pt_kernel``
-(csrc/pt.cu), which replaces raytracing_engine_tpu/ops/pallas/pt_kernel.py
-``_pt_kernel`` for scenes of spheres and up to TRI_UNROLL_MAX unrolled
-triangles (BASELINE configs 2 and 4).
+"""K4 and K5: the path tracer through the CUDA kernels of csrc/pt.cu.
 
-A scene on the CPU takes the plain version, ``render_pt_mega_reference``; a
-scene on a CUDA device launches the kernel or raises.
+- ``render_pt_mega`` launches ``pt_kernel`` (K4), which replaces
+  raytracing_engine_tpu/ops/pallas/pt_kernel.py ``_pt_kernel``: the whole
+  path per pixel, for scenes of spheres and up to TRI_UNROLL_MAX unrolled
+  triangles (BASELINE configs 2 and 4), or spheres and a mesh given as a
+  ClusterSet (config 3, ``bvh=``).
+- ``render_pt_rebin`` launches ``pt_rebin_kernel`` (K5), which replaces
+  ``_pt_rebin_kernel``: one launch per bounce over a packed 17-plane ray
+  state, with an image-wide regroup between launches (``rebin_keys``, a
+  stable ``torch.sort``, then ``index_select`` of every plane) and a final
+  scatter of the radiance to pixel order. The regroup only changes which
+  thread runs a ray: every draw is keyed on the pixel coordinates the state
+  carries, so the image equals K4's bit for bit.
+
+A scene on the CPU takes the plain versions, ``render_pt_mega_reference``
+and ``render_pt_rebin_reference``; a scene on a CUDA device launches the
+kernels or raises. Nothing in a frame reads back to the host.
 """
 
 from __future__ import annotations
@@ -15,18 +26,30 @@ import dataclasses
 import numpy as np
 import torch
 
+from raytracing_engine_tpu_torch.accel.clusters import ClusterSet
+from raytracing_engine_tpu_torch.ops.cuda import cluster as kcluster
 from raytracing_engine_tpu_torch.ops.cuda import common
+from raytracing_engine_tpu_torch.ops.cuda.cluster import ClusterTables, FrameClusters
 from raytracing_engine_tpu_torch.ops.rng_pcg import pass_seed, to_int32
 from raytracing_engine_tpu_torch.pathtracer.integrator import PTConfig
 from raytracing_engine_tpu_torch.pathtracer.scene import TRI_UNROLL_MAX, PTScene
-from raytracing_engine_tpu_torch.pathtracer.wavefront import _trace_core, check_supported
+from raytracing_engine_tpu_torch.pathtracer.wavefront import (
+    STATE_PLANES,
+    _trace_core,
+    check_supported,
+    pack_state,
+    unpack_state,
+)
 
-# kernel launches since the count was last set to 0 (plain-version calls
-# do not count)
+# kernel launches since the counts were last set to 0 (plain-version calls
+# do not count): K4 and K5
 launches = 0
+rebin_launches = 0
 
-# the kernel stages the scene tables in (static) shared memory
+# the kernels stage the scene tables in shared memory
 _MAX_TABLE_BYTES = 48 * 1024
+# K5's block (csrc/pt.cu kThreads): the "tile" of the tile_oct regroup key
+REBIN_TILE = 128
 
 
 class PTArgs(ctypes.Structure):
@@ -62,6 +85,10 @@ class PTArgs(ctypes.Structure):
         ("ratio_y", ctypes.c_float),
         ("t_min", ctypes.c_float),
         ("eps", ctypes.c_float),
+        ("cl", ClusterTables),
+        ("state", ctypes.c_void_p),
+        ("n_state", ctypes.c_int),
+        ("bounce", ctypes.c_int),
         ("device", ctypes.c_int),
     ]
 
@@ -93,12 +120,30 @@ def pack_pt_scene(scene: PTScene):
     return sph.contiguous(), tri.contiguous(), mat.contiguous(), light.contiguous(), counts
 
 
-def _prepare(cfg: PTConfig, scene: PTScene, row0: int, band_h):
-    """The config the kernel renders (rng forced to pcg, as the JAX
-    render_pt_mega does) and the band height, after the slice's checks."""
-    if scene.tri_v0.shape[0] > TRI_UNROLL_MAX:
+def kernel_scene(scene: PTScene, bvh) -> PTScene:
+    """With a ClusterSet the mesh lives in its tables: keep only the first
+    TRI_UNROLL_MAX triangle slots (the NEE light geometry) of the scene, as
+    the JAX megakernel does (pt_kernel.py:488-500)."""
+    if bvh is None:
+        return scene
+    n = min(scene.tri_v0.shape[0], TRI_UNROLL_MAX)
+    return dataclasses.replace(
+        scene, tri_v0=scene.tri_v0[:n].contiguous(), tri_e1=scene.tri_e1[:n].contiguous(),
+        tri_e2=scene.tri_e2[:n].contiguous(), tri_mat=scene.tri_mat[:n].contiguous(),
+        tri_count=torch.clamp_max(scene.tri_count, n))
+
+
+def _prepare(cfg: PTConfig, scene: PTScene, row0: int, band_h, bvh, need_bvh=False):
+    """The config the kernels render (rng forced to pcg, as the JAX
+    wrappers do) and the band height, after the slice's checks."""
+    if bvh is not None and not isinstance(bvh, ClusterSet):
+        raise TypeError("the megakernels take a ClusterSet (accel.clusters.build_clusters), "
+                        f"got {type(bvh).__name__}")
+    if need_bvh and bvh is None:
+        raise TypeError("render_pt_rebin needs a ClusterSet (accel.clusters.build_clusters)")
+    if bvh is None and scene.tri_v0.shape[0] > TRI_UNROLL_MAX:
         raise ValueError(f"megakernel unrolls triangles; {scene.tri_v0.shape[0]} slots > "
-                         f"{TRI_UNROLL_MAX}")
+                         f"{TRI_UNROLL_MAX}: pass bvh=build_clusters(mesh) instead")
     if cfg.rng != "pcg":
         cfg = dataclasses.replace(cfg, rng="pcg")
     check_supported(cfg)
@@ -109,24 +154,69 @@ def _prepare(cfg: PTConfig, scene: PTScene, row0: int, band_h):
 
 
 def render_pt_mega_reference(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
-                             seed: int = 0, spp_offset: int = 0, row0: int = 0, band_h=None):
-    """Plain PyTorch version: the wavefront core per pass, passes summed in
+                             seed: int = 0, spp_offset: int = 0, row0: int = 0, band_h=None,
+                             bvh=None):
+    """Plain PyTorch version: the wavefront core per pass (the attributes
+    path with the camera's visit orders for a ClusterSet), passes summed in
     pass order and then scaled by 1/spp (ops/pallas/pt_kernel.py:360-363).
     → ((band_h or H, W, 3) image, nrays int64)."""
-    cfg, h = _prepare(cfg, scene, row0, band_h)
+    cfg, h = _prepare(cfg, scene, row0, band_h, bvh)
+    scene_k = kernel_scene(scene, bvh)
+    frame = None if bvh is None else FrameClusters.at(bvh, cam_pos)
     acc = torch.zeros((h, cfg.width, 3), dtype=torch.float32, device=scene.device)
     nrays = torch.zeros((), dtype=torch.int64, device=scene.device)
     for s in range(spp):
-        rad, n = _trace_core(cfg, scene, cam_pos, cam_quat, pass_seed(seed, spp_offset + s),
-                             row0=row0, band_h=h)
+        rad, n = _trace_core(cfg, scene_k, cam_pos, cam_quat, pass_seed(seed, spp_offset + s),
+                             row0=row0, band_h=h, bvh=frame)
         acc = acc + torch.stack(rad, dim=-1)
         nrays = nrays + n
     inv = float(np.float32(1.0) / np.float32(spp))
     return acc * inv, nrays
 
 
+def _kernel_args(cfg: PTConfig, scene_k: PTScene, cam_pos, cam_quat, h: int, row0: int,
+                 seed: int, spp_offset: int, frame):
+    """(PTArgs without out / nrays / state, the tensors it points into)."""
+    f32 = torch.float32
+    device = scene_k.device
+    if device.type != "cuda":
+        raise ValueError(f"scene on {device}: the CUDA kernels need a CUDA device")
+    common.check(cam_pos, "cam_pos", (3,), f32, device)
+    common.check(cam_quat, "cam_quat", (4,), f32, device)
+    tables = pack_pt_scene(scene_k)
+    sph, tri, mat, light, counts = tables
+    table_bytes = 4 * (sph.numel() + tri.numel() + mat.numel() + light.numel())
+    if table_bytes > _MAX_TABLE_BYTES:
+        raise ValueError(f"scene tables of {table_bytes} B exceed the kernel's "
+                         f"{_MAX_TABLE_BYTES} B of shared memory")
+    keep = list(tables)
+    cl = ClusterTables()
+    if frame is not None:
+        if frame.cs.device != device:
+            raise ValueError(f"ClusterSet on {frame.cs.device}, scene on {device}")
+        tb = kcluster.sweep_tables(frame.cs)
+        order, orders, refs = kcluster.check_orders(frame.cs, frame.orders[0], frame.orders,
+                                                    frame.refs)
+        cl = kcluster.tables_struct(tb, order, orders, refs)
+        keep += [tb, order, orders, refs]
+    args = PTArgs(
+        cam_pos=cam_pos.data_ptr(), cam_quat=cam_quat.data_ptr(),
+        sph=sph.data_ptr(), tri=tri.data_ptr(), mat=mat.data_ptr(), light=light.data_ptr(),
+        counts=counts.data_ptr(),
+        S=sph.shape[0], T=tri.shape[0], M=mat.shape[0], L=light.shape[0],
+        width=cfg.width, height=cfg.height, w=cfg.width, h=h, row0=row0,
+        seed=to_int32(seed), spp_offset=to_int32(spp_offset),
+        max_bounces=cfg.max_bounces, rr_start=cfg.rr_start, use_nee=int(cfg.use_nee),
+        uniform_lights=int(cfg.light_sampling == "uniform"),
+        ratio_x=cfg.ratio[0], ratio_y=cfg.ratio[1], t_min=cfg.t_min, eps=cfg.eps, cl=cl,
+        device=device.index if device.index is not None else torch.cuda.current_device(),
+    )
+    return args, keep
+
+
 def render_pt_mega(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
-                   seed: int = 0, spp_offset: int = 0, row0: int = 0, band_h=None):
+                   seed: int = 0, spp_offset: int = 0, row0: int = 0, band_h=None,
+                   bvh=None):
     """Megakernel render: ((band_h or H, W, 3) image, nrays int64 0-dim).
 
     seed: the int32 base seed (ops.rng_pcg.seed_from_int(1) matches
@@ -134,39 +224,211 @@ def render_pt_mega(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
     spp_offset + s. row0/band_h: render only rows row0 .. row0 + band_h - 1
     of the cfg.height image; a band equals the same rows of the full render,
     since the camera and the stream are keyed on global pixel coordinates.
+    bvh: a ClusterSet for a mesh of any size (its closest and shadow sweeps
+    run in the kernel, K6's sweep); without one, at most TRI_UNROLL_MAX
+    triangle slots.
     """
     global launches
     if scene.device.type == "cpu":
         return render_pt_mega_reference(cfg, scene, cam_pos, cam_quat, spp, seed,
-                                         spp_offset, row0, band_h)
-    cfg, h = _prepare(cfg, scene, row0, band_h)
-    device = scene.device
-    if device.type != "cuda":
-        raise ValueError(f"scene on {device}: the CUDA kernels need a CUDA device")
+                                         spp_offset, row0, band_h, bvh)
+    cfg, h = _prepare(cfg, scene, row0, band_h, bvh)
     if spp < 1:
         raise ValueError(f"spp must be >= 1, got {spp}")
-    f32 = torch.float32
-    common.check(cam_pos, "cam_pos", (3,), f32, device)
-    common.check(cam_quat, "cam_quat", (4,), f32, device)
-    sph, tri, mat, light, counts = pack_pt_scene(scene)
-    table_bytes = 4 * (sph.numel() + tri.numel() + mat.numel() + light.numel())
-    if table_bytes > _MAX_TABLE_BYTES:
-        raise ValueError(f"scene tables of {table_bytes} B exceed the kernel's "
-                         f"{_MAX_TABLE_BYTES} B of shared memory")
-    out = torch.empty((h, cfg.width, 3), dtype=f32, device=device)
-    nrays = torch.zeros((1,), dtype=torch.int64, device=device)
-    args = PTArgs(
-        cam_pos=cam_pos.data_ptr(), cam_quat=cam_quat.data_ptr(),
-        sph=sph.data_ptr(), tri=tri.data_ptr(), mat=mat.data_ptr(), light=light.data_ptr(),
-        counts=counts.data_ptr(), out=out.data_ptr(), nrays=nrays.data_ptr(),
-        S=sph.shape[0], T=tri.shape[0], M=mat.shape[0], L=light.shape[0],
-        width=cfg.width, height=cfg.height, w=cfg.width, h=h, row0=row0,
-        spp=spp, seed=to_int32(seed), spp_offset=to_int32(spp_offset),
-        max_bounces=cfg.max_bounces, rr_start=cfg.rr_start, use_nee=int(cfg.use_nee),
-        uniform_lights=int(cfg.light_sampling == "uniform"),
-        ratio_x=cfg.ratio[0], ratio_y=cfg.ratio[1], t_min=cfg.t_min, eps=cfg.eps,
-        device=device.index if device.index is not None else torch.cuda.current_device(),
-    )
+    frame = None if bvh is None else FrameClusters.at(bvh, cam_pos)
+    args, keep = _kernel_args(cfg, kernel_scene(scene, bvh), cam_pos, cam_quat, h, row0,
+                              seed, spp_offset, frame)
+    out = torch.empty((h, cfg.width, 3), dtype=torch.float32, device=scene.device)
+    nrays = torch.zeros((1,), dtype=torch.int64, device=scene.device)
+    args.out, args.nrays, args.spp = out.data_ptr(), nrays.data_ptr(), spp
     common.launch("pt_render", args, name="pt")
     launches += 1
+    del keep
     return out, nrays[0]
+
+
+# --- the rebin renderer (K5) --------------------------------------------------
+
+def rebin_keys(state, mode: str, lo=None, hi=None, tile_ids=None):
+    """int32 regroup sort key per ray of a (17, n) packed state
+    (pt_kernel.py:847-892). Every mode puts parked/dead rays (|o.x| >= 1e17)
+    last; the live sub-order:
+
+      oct         direction octant, then the incoming order (stable sort)
+      morton      24-bit origin Morton code in the box (lo, hi), then octant
+      oct_morton  octant major, origin Morton minor
+      tile_oct    current tile id major (tile_ids), octant minor; parked
+                  rays carry octant 7 and sink to each tile's tail
+    """
+    ox, oy, oz = state[0], state[1], state[2]
+    dx, dy, dz = state[3], state[4], state[5]
+    i32 = torch.int32
+    dead = (torch.abs(ox) >= kcluster.PARKED).to(i32)
+    octant = (dx > 0.0).to(i32) * 4 + (dy > 0.0).to(i32) * 2 + (dz > 0.0).to(i32)
+    if mode == "oct":
+        return dead * 8 + octant
+    if mode == "tile_oct":
+        return tile_ids.to(i32) * 8 + octant
+
+    def q(x, a, b):
+        c = (x - a) / torch.clamp_min(b - a, 1e-6) * 256.0
+        return torch.nan_to_num(c, nan=0.0).clamp(0.0, 255.0).to(i32)
+
+    qx, qy, qz = q(ox, lo[0], hi[0]), q(oy, lo[1], hi[1]), q(oz, lo[2], hi[2])
+    m = torch.zeros_like(qx)
+    for bit in range(8):
+        m = (m | (((qx >> bit) & 1) << (3 * bit + 2))
+             | (((qy >> bit) & 1) << (3 * bit + 1))
+             | (((qz >> bit) & 1) << (3 * bit)))
+    if mode == "morton":
+        return dead * (1 << 27) + m * 8 + octant
+    if mode == "oct_morton":
+        return dead * (1 << 27) + octant * (1 << 24) + m
+    raise ValueError(f"rebin mode {mode!r}")
+
+
+def live_bbox(state):
+    """AABB of the live ray origins of a packed state, the Morton domain:
+    (lo, hi), each a 3-tuple of 0-dim tensors on the state's device (no host
+    read). Perf hint only: any box yields the same image."""
+    live = torch.abs(state[0]) < kcluster.PARKED
+    lo = tuple(torch.where(live, state[a], float("inf")).amin() for a in range(3))
+    hi = tuple(torch.where(live, state[a], float("-inf")).amax() for a in range(3))
+    return lo, hi
+
+
+_MODES = ("none", "oct", "morton", "oct_morton", "tile_oct")
+
+
+def _gap_modes(rebin: str):
+    modes = rebin.split(",")
+    for m in modes:
+        if m not in _MODES:
+            raise ValueError(f"rebin mode {m!r}: one of {_MODES}")
+    return modes
+
+
+def regroup(state, mode: str):
+    """The image-wide regroup before a bounce launch: a stable sort of the
+    keys, then every plane permuted (a new tensor). mode 'none' keeps the
+    order."""
+    if mode == "none":
+        return state
+    lo = hi = tids = None
+    if mode in ("morton", "oct_morton"):
+        lo, hi = live_bbox(state)
+    if mode == "tile_oct":
+        tids = torch.arange(state.shape[1], device=state.device) // REBIN_TILE
+    keys = rebin_keys(state, mode, lo, hi, tids)
+    perm = torch.sort(keys, stable=True).indices
+    return state.index_select(1, perm)
+
+
+def unpermute(state, row0: int, h: int, w: int):
+    """The radiance planes of a state back in pixel order: (h, w, 3), one
+    scatter on the carried pixel ids ((py - row0) * w + px)."""
+    pixid = (state[16].to(torch.int64) - row0) * w + state[15].to(torch.int64)
+    img = torch.empty((h * w, 3), dtype=torch.float32, device=state.device)
+    img.index_copy_(0, pixid, state[9:12].T)
+    return img.reshape(h, w, 3)
+
+
+def _rebin(cfg: PTConfig, scene: PTScene, spp: int, spp_offset: int, row0: int, h: int,
+           rebin: str, run_bounce):
+    """The rebin loop shared by the kernel and its plain version:
+    run_bounce(b, state, gpass) -> (state, nrays) runs bounce b."""
+    modes = _gap_modes(rebin)
+    dev = scene.device
+    acc = torch.zeros((h, cfg.width, 3), dtype=torch.float32, device=dev)
+    nrays = torch.zeros((), dtype=torch.int64, device=dev)
+    for s in range(spp):
+        gpass = spp_offset + s
+        state, nr = run_bounce(0, None, gpass)
+        nrays = nrays + nr
+        for b in range(1, cfg.max_bounces + 1):
+            state = regroup(state, modes[min(b - 1, len(modes) - 1)])
+            state, nr = run_bounce(b, state, gpass)
+            nrays = nrays + nr
+        acc = acc + unpermute(state, row0, h, cfg.width)
+    # true division by a device scalar, as JAX's acc / spp (ops/vec3.div)
+    return acc / torch.full((), float(spp), dtype=torch.float32, device=dev), nrays
+
+
+def render_pt_rebin_reference(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
+                              seed: int = 0, bvh=None, spp_offset: int = 0, row0: int = 0,
+                              band_h=None, rebin: str = "none,morton"):
+    """Plain PyTorch version of render_pt_rebin: the staged wavefront core
+    (attributes path, the camera's visit orders) per bounce, the same
+    regroup and scatter."""
+    cfg, h = _prepare(cfg, scene, row0, band_h, bvh, need_bvh=True)
+    scene_k = kernel_scene(scene, bvh)
+    frame = FrameClusters.at(bvh, cam_pos)
+    n = h * cfg.width
+
+    def run_bounce(b, state, gpass):
+        kw = dict(bvh=frame, bounce_lo=b, bounce_hi=b, emit_state=True)
+        seed0 = pass_seed(seed, gpass)
+        if b == 0:
+            st = _trace_core(cfg, scene_k, cam_pos, cam_quat, seed0, row0=row0, band_h=h, **kw)
+        else:
+            st = _trace_core(cfg, scene_k, cam_pos, cam_quat, seed0,
+                             state_in=unpack_state(state), **kw)
+        return pack_state(st).reshape(STATE_PLANES, n), st["nrays"]
+
+    return _rebin(cfg, scene, spp, spp_offset, row0, h, rebin, run_bounce)
+
+
+def rebin_bounce_launcher(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed: int,
+                          bvh: ClusterSet, row0: int = 0, band_h=None):
+    """(cfg, band height, run_bounce): run_bounce(b, state, gpass) launches
+    K5 for bounce b of global pass gpass on the (17, n) state (None for
+    b = 0: a new one), updates it in place and returns (state, nrays).
+    Arguments after the checks of render_pt_rebin; the tables are packed
+    once here."""
+    cfg, h = _prepare(cfg, scene, row0, band_h, bvh, need_bvh=True)
+    dev = scene.device
+    frame = FrameClusters.at(bvh, cam_pos)
+    args, keep = _kernel_args(cfg, kernel_scene(scene, bvh), cam_pos, cam_quat, h, row0,
+                              seed, 0, frame)
+    n = h * cfg.width
+    args.n_state, args.spp = n, 1
+
+    def run_bounce(b, state, gpass):
+        global rebin_launches
+        if state is None:
+            state = torch.empty((STATE_PLANES, n), dtype=torch.float32, device=dev)
+        common.check(state, "state", (STATE_PLANES, n), torch.float32, dev)
+        nr = torch.zeros((1,), dtype=torch.int64, device=dev)
+        args.state, args.nrays, args.bounce = state.data_ptr(), nr.data_ptr(), b
+        args.spp_offset = to_int32(gpass)
+        common.launch("pt_rebin", args, name="pt")
+        rebin_launches += 1
+        return state, nr[0]
+
+    run_bounce.keep = keep  # the packed tables live as long as the launcher
+    return cfg, h, run_bounce
+
+
+def render_pt_rebin(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
+                    seed: int = 0, bvh=None, spp_offset: int = 0, tile=None, tile_b=None,
+                    row0: int = 0, band_h=None, stripes=None, rebin: str = "none,morton"):
+    """Rebin render: ((band_h or H, W, 3) image, nrays int64 0-dim), the
+    estimator of render_pt_mega executed as one K5 launch per bounce with an
+    image-wide regroup between launches. bvh: a ClusterSet (required).
+
+    rebin: the regroup key per gap, comma-joined; the last entry repeats for
+    deeper bounces (modes: "none" keeps the order, else rebin_keys). The
+    default "none,morton" keeps pixel order into bounce 1 and regroups by
+    origin Morton cell before bounce 2+, so dead rays gather at the end.
+    Each launch updates the state in place; each regroup makes a new one.
+    tile, tile_b and stripes are TPU knobs, accepted and ignored.
+    """
+    del tile, tile_b, stripes
+    if scene.device.type == "cpu":
+        return render_pt_rebin_reference(cfg, scene, cam_pos, cam_quat, spp, seed, bvh,
+                                         spp_offset, row0, band_h, rebin)
+    if spp < 1:
+        raise ValueError(f"spp must be >= 1, got {spp}")
+    cfg, h, run_bounce = rebin_bounce_launcher(cfg, scene, cam_pos, cam_quat, seed, bvh,
+                                               row0, band_h)
+    return _rebin(cfg, scene, spp, spp_offset, row0, h, rebin, run_bounce)

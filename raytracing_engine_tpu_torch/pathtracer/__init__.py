@@ -1,13 +1,16 @@
-"""The sphere path tracer (raytracing_engine_tpu/pathtracer, this slice's part).
+"""The path tracer (raytracing_engine_tpu/pathtracer, the ported part):
+spheres, unrolled triangles and meshes as ClusterSets.
 
     integrator.py  PTConfig (every field of the JAX config)
     sampler.py     ONB, cosine hemisphere, sphere/triangle area samples, MIS
     scene.py       PTScene, build_pt_scene, pt_scene_from_numpy
     scenes.py      furnace_scene, cornell_box, material_spheres
-    wavefront.py   the plain PyTorch path tracer (render_pt_fast), K4's oracle
+    wavefront.py   the plain PyTorch path tracer (render_pt_fast, the staged
+                   per-bounce state), the oracle of K4 and K5
 
-``render_pt_mega`` (kernel K4) lives in ops/cuda/pt.py; it is re-exported
-here lazily, as the JAX package does.
+``render_pt_mega`` (kernel K4) and ``render_pt_rebin`` (K5) live in
+ops/cuda/pt.py; ``render_pt_mega`` is re-exported here lazily, as the JAX
+package does.
 """
 
 from raytracing_engine_tpu_torch.pathtracer.scene import (  # noqa: F401

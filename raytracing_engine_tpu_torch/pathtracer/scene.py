@@ -2,12 +2,13 @@
 (raytracing_engine_tpu/pathtracer/scene.py).
 
 ``build_pt_scene`` is the JAX package's host assembly (numpy, copied) for
-what this slice renders: spheres, up to ``TRI_UNROLL_MAX`` unrolled
-triangle slots (more only for callers that bring an acceleration
-structure, which the port does not have yet), DIFFUSE / MIRROR / smooth
-DIELECTRIC / emissive materials, and the sphere and triangle light slots
-with their power CDF. Every other input raises NotImplementedError naming
-the ROADMAP item that brings it. ``pt_scene_from_numpy`` carries a JAX
+what the port renders: spheres, triangle slots (all of them stay in the
+scene; a mesh of more than ``TRI_UNROLL_MAX`` slots is intersected through
+a ClusterSet, and only the first ``TRI_UNROLL_MAX`` slots are unrolled, for
+NEE, so an emissive slot at or past it is refused as the JAX package
+refuses it), DIFFUSE / MIRROR / smooth DIELECTRIC / emissive materials, and
+the sphere and triangle light slots with their power CDF. Every other input
+raises NotImplementedError naming the ROADMAP item that brings it. ``pt_scene_from_numpy`` carries a JAX
 ``PTScene``'s arrays across, so both packages render the same data.
 
 Material kinds: 0 DIFFUSE, 1 MIRROR, 3 DIELECTRIC, 4 METAL (not yet).

@@ -1,18 +1,36 @@
-"""The plain PyTorch path tracer: kernel K4's oracle and the CPU renderer
-(raytracing_engine_tpu/pathtracer/wavefront.py).
+"""The plain PyTorch path tracer: the oracle of kernels K4 and K5 and the
+CPU renderer (raytracing_engine_tpu/pathtracer/wavefront.py).
 
 Same estimator and the same pcg sample stream as the JAX wavefront: NEE
 toward power- or uniform-selected sphere and triangle lights with
 power-heuristic MIS, DIFFUSE / MIRROR / smooth DIELECTRIC / emissive
-materials, optional Russian roulette. Per-ray state is (H, W) component
-planes, every <= TRI_UNROLL_MAX-slot table is walked slot by slot, and every
-expression keeps the JAX operation order, because csrc/pt.cuh is held to
-this code on the card.
+materials, optional Russian roulette. Per-ray state is component planes of
+any shape, and every expression keeps the JAX operation order, because
+csrc/pt.cuh is held to this code on the card.
 
-Not in this slice (each raises NotImplementedError; ROADMAP queue 1 item 2
-lists them in order): thin-lens DOF, fog and media, the R_d sampler, the
-light tree, textures other than nearest, any BVH or ClusterSet, the sorted
-wavefront, the staged per-bounce state, and rng other than "pcg".
+Triangles: up to TRI_UNROLL_MAX slots are walked slot by slot; a mesh of any
+size comes as a ClusterSet (accel/clusters.py), intersected in one of two
+ways, as in the JAX package:
+
+- ``bvh=ClusterSet``: the gather path (JAX ``_tri_hits``): the cluster
+  intersector (kernel K6 on a CUDA scene, its plain version on the CPU) with
+  visit orders from the mean live origin, then the normal, area and
+  material gathered by the hit slot (material from ``scene.tri_mat``);
+- ``bvh=FrameClusters`` (ops/cuda/cluster.py): the attributes path of the
+  JAX megakernel (``_intersect_clusters``): the plain sweep returns the
+  normal, material (tri row 12) and area itself, with the frame's visit
+  orders (row 0 from the camera). This is K4's and K5's oracle.
+
+Staged launches (``state_in`` / ``bounce_lo`` / ``bounce_hi`` /
+``emit_state``, kernel K5's oracle): a call runs bounces [bounce_lo,
+bounce_hi] and returns the 17-plane ray state (``pack_state``), which
+carries each ray's pixel coordinates so that any regrouping of rays between
+calls draws the same numbers.
+
+Not in this slice (each raises NotImplementedError; ROADMAP queue 1 lists
+them in order): thin-lens DOF, fog and media, the R_d sampler, the light
+tree, textures other than nearest, a raw BVH and the sorted wavefront (the
+next slice), and rng other than "pcg".
 """
 
 from __future__ import annotations
@@ -20,7 +38,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from raytracing_engine_tpu_torch.accel.bvh import BVH
+from raytracing_engine_tpu_torch.accel.clusters import CLUSTER, ClusterSet, visit_orders
 from raytracing_engine_tpu_torch.ops import vec3 as v3
+from raytracing_engine_tpu_torch.ops.cuda import cluster as kcluster
+from raytracing_engine_tpu_torch.ops.cuda.cluster import FrameClusters
 from raytracing_engine_tpu_torch.ops.rng_pcg import pass_seed, uniform_pcg, uniform_pcg_coords
 from raytracing_engine_tpu_torch.pathtracer import sampler
 from raytracing_engine_tpu_torch.pathtracer.integrator import PTConfig
@@ -38,14 +60,14 @@ DEAD_O = 1e18                       # parked-dead-ray origin
 INV_SQRT3 = float(np.float32(0.5773502691896258))
 
 _LATER = "ROADMAP.md queue 1 item 2, K4 features still to port"
+_NEXT = "ROADMAP.md queue 1 item 3, the next slice: kernel K8 and pathtracer/compaction.py"
 
 
-def _not_yet(what: str):
-    raise NotImplementedError(f"{what} is not ported yet ({_LATER})")
+def _not_yet(what: str, where: str = _LATER):
+    raise NotImplementedError(f"{what} is not ported yet ({where})")
 
 
-def check_supported(cfg: PTConfig, bvh=None, sort=False, state_in=None,
-                    emit_state=False):
+def check_supported(cfg: PTConfig, bvh=None, sort=False):
     """Raise NotImplementedError for every static gate this slice lacks."""
     if cfg.rng != "pcg":
         _not_yet(f"rng={cfg.rng!r} (the port renders rng='pcg')")
@@ -59,12 +81,13 @@ def check_supported(cfg: PTConfig, bvh=None, sort=False, state_in=None,
         _not_yet("light_sampling='tree' (the light tree)")
     if cfg.tex_filter != "nearest":
         _not_yet(f"tex_filter={cfg.tex_filter!r}")
-    if bvh is not None:
-        _not_yet("bvh (BVH / ClusterSet intersection, slice 3)")
+    if isinstance(bvh, BVH):
+        _not_yet("a raw BVH (accel.bvh.bvh_intersect and its kernel K8)", _NEXT)
+    if bvh is not None and not isinstance(bvh, (ClusterSet, FrameClusters)):
+        raise TypeError(f"bvh must be a ClusterSet (accel.clusters.build_clusters), "
+                        f"got {type(bvh).__name__}")
     if sort:
-        _not_yet("sort (the regrouped wavefront, slice 3)")
-    if state_in is not None or emit_state:
-        _not_yet("state_in / emit_state (the staged rebin launches, slice 3)")
+        _not_yet("sort (the regrouped single-call wavefront)", _NEXT)
 
 
 def _counts(scene: PTScene):
@@ -85,10 +108,10 @@ def _camera_rays(cfg: PTConfig, cam_pos, cam_quat, u1, u2, row0=0, col0=0,
     """Pinhole primary rays through pixel + (u1, u2) jitter: (o V3, d V3)."""
     if lens is not None and cfg.aperture > 0.0:
         _not_yet("aperture > 0 (thin-lens DOF)")
-    bh, bw = u1.shape
     if coords is not None:  # explicit global pixel-coordinate planes (py, px)
         iy, ix = coords[0].to(torch.float32), coords[1].to(torch.float32)
     else:
+        bh, bw = u1.shape
         ix = torch.arange(bw, dtype=torch.float32, device=u1.device).expand(bh, bw) + col0
         iy = torch.arange(bh, dtype=torch.float32, device=u1.device)[:, None].expand(bh, bw) + row0
     ncx = (v3.div((ix + u1) * 2.0, cfg.width) - 1.0) * cfg.ratio[0]
@@ -162,21 +185,44 @@ def _tri_hits_unrolled(scene: PTScene, o, d, t_min, n_tri: int):
     return best_t, best_i
 
 
-def _intersect(scene: PTScene, o, d, t_min, counts):
-    """Closest hit among spheres and unrolled triangles: dict of planes
-    t, hit, p, n (unit, facing the ray), mat_id, light_area, is_tri, front."""
-    T = scene.tri_v0.shape[0]
-    if T > TRI_UNROLL_MAX:
-        _not_yet(f"{T} triangle slots > TRI_UNROLL_MAX without a BVH (slice 3)")
-    n_sph, n_tri, _ = counts
-    t_s, i_s = _sphere_hits(scene, o, d, t_min, n_sph)
-    t_t, i_t = _tri_hits_unrolled(scene, o, d, t_min, n_tri)
-    safe = torch.clamp_min(i_t, 0)
-    e1c = tuple(_sel(safe, scene.tri_e1[:, c], T) for c in range(3))
-    e2c = tuple(_sel(safe, scene.tri_e2[:, c], T) for c in range(3))
-    n_tri_v = v3.cross(e1c, e2c)
-    nlen2 = v3.length(n_tri_v)
+def _mean_live_origin(o):
+    """Mean ray origin over non-parked lanes (visit-order perf hint), (3,)."""
+    live = torch.abs(o[0]) < 1e17
+    n = torch.clamp_min(live.to(torch.float32).sum(), 1.0)
+    return torch.stack([torch.where(live, c, 0.0).sum() / n for c in o])
 
+
+def _tri_hits_clusters(o, d, t_min, cs: ClusterSet):
+    """(t, original tri index, n V3 unnormalized, 2*area) of the nearest
+    ClusterSet hit, the normal and area gathered by the hit slot; t = BIG
+    on a miss. Smooth tables recompute the hit barycentrics from the affine
+    rows at the hit point and interpolate the shading normals (JAX
+    wavefront.py:311-334). Visit orders (JAX wavefront.py:294-310): row 0
+    from the mean live origin, rows 1+ from the set's order_refs."""
+    fc = FrameClusters.at(cs, _mean_live_origin(o))
+    t, sidx = kcluster.cluster_intersect(cs, o, d, BIG, t_min=t_min, order=fc.orders[0],
+                                         orders=fc.orders, refs=fc.refs)
+    safe = torch.clamp_min(sidx, 0).to(torch.int64)
+    idx = torch.clamp_min(cs.perm[safe], 0).to(torch.int64)
+    n = (cs.tri[0, safe], cs.tri[1, safe], cs.tri[2, safe])
+    nlen2 = cs.tri[13, safe]
+    if cs.smooth:
+        base = (safe // CLUSTER) * CLUSTER
+        px = o[0] + t * d[0] - cs.tri[20, base]
+        py = o[1] + t * d[1] - cs.tri[20, base + 1]
+        pz = o[2] + t * d[2] - cs.tri[20, base + 2]
+        u = (cs.tri[4, safe] * px + cs.tri[5, safe] * py
+             + cs.tri[6, safe] * pz + cs.tri[7, safe])
+        v = (cs.tri[8, safe] * px + cs.tri[9, safe] * py
+             + cs.tri[10, safe] * pz + cs.tri[11, safe])
+        n = tuple(cs.tri[21 + a, safe] + u * cs.tri[24 + a, safe]
+                  + v * cs.tri[27 + a, safe] for a in range(3))
+    return torch.where(sidx >= 0, t, BIG), idx, n, nlen2
+
+
+def _surface(scene: PTScene, o, d, t_s, i_s, t_t, n_tri, use_tri_mat, tri_area):
+    """The closest-hit dict from the sphere and triangle candidates
+    (the shared tail of JAX _intersect / _intersect_clusters)."""
     use_tri = t_t < t_s
     t = torch.minimum(t_s, t_t)
     hit = t < BIG
@@ -186,27 +232,74 @@ def _intersect(scene: PTScene, o, d, t_min, counts):
     si = torch.clamp_min(i_s, 0)
     sc = tuple(_sel(si, scene.sph_pos[:, c], S) for c in range(3))
     n_sph_v = v3.sub(p, sc)
-    n = v3.where(use_tri, n_tri_v, n_sph_v)
+    n = v3.where(use_tri, n_tri, n_sph_v)
     nlen = torch.clamp_min(v3.length(n), 1e-20)
     n = v3.scale(n, 1.0 / nlen)
     flip = v3.dot(n, d) > 0.0
     n = v3.where(flip, v3.neg(n), n)  # two-sided; `front` = geometric side
 
-    mat_id = torch.where(use_tri, _sel(safe, scene.tri_mat, T), _sel(si, scene.sph_mat, S))
+    mat_id = torch.where(use_tri, use_tri_mat, _sel(si, scene.sph_mat, S))
     sr = _sel(si, scene.sph_radius, S)
     sph_area = 4.0 * PI * sr * sr
-    light_area = torch.where(use_tri, 0.5 * nlen2, sph_area)
+    light_area = torch.where(use_tri, tri_area, sph_area)
     return dict(t=t, hit=hit, p=p, n=n, mat_id=mat_id, light_area=light_area,
                 is_tri=use_tri, front=~flip)
 
 
-def _occluded(scene: PTScene, o, d, max_t, t_min, counts):
-    """Any live sphere or triangle hit in (t_min, max_t): bool plane."""
+def _intersect(scene: PTScene, o, d, t_min, counts, bvh=None):
+    """Closest hit among spheres and triangles (unrolled slots, a ClusterSet
+    by the gather path, or FrameClusters by the attributes path): dict of
+    planes t, hit, p, n (unit, facing the ray), mat_id, light_area, is_tri,
+    front."""
+    n_sph, n_tri, _ = counts
+    t_s, i_s = _sphere_hits(scene, o, d, t_min, n_sph)
+    if isinstance(bvh, FrameClusters):
+        return _intersect_clusters(scene, o, d, t_min, t_s, i_s, bvh)
+    T = scene.tri_v0.shape[0]
+    if isinstance(bvh, ClusterSet):
+        t_t, i_t, n_tri_v, nlen2 = _tri_hits_clusters(o, d, t_min, bvh)
+        tri_mat = scene.tri_mat[i_t]  # gather — T too large to unroll
+    else:
+        if T > TRI_UNROLL_MAX:
+            raise ValueError(f"{T} triangle slots > TRI_UNROLL_MAX={TRI_UNROLL_MAX} without "
+                             "a ClusterSet: pass bvh=build_clusters(mesh)")
+        t_t, i_t = _tri_hits_unrolled(scene, o, d, t_min, n_tri)
+        safe = torch.clamp_min(i_t, 0)
+        e1c = tuple(_sel(safe, scene.tri_e1[:, c], T) for c in range(3))
+        e2c = tuple(_sel(safe, scene.tri_e2[:, c], T) for c in range(3))
+        n_tri_v = v3.cross(e1c, e2c)
+        nlen2 = v3.length(n_tri_v)
+        tri_mat = _sel(safe, scene.tri_mat, T)
+    return _surface(scene, o, d, t_s, i_s, t_t, n_tri_v, tri_mat, 0.5 * nlen2)
+
+
+def _intersect_clusters(scene: PTScene, o, d, t_min, t_s, i_s, fc: FrameClusters):
+    """The attributes path (JAX wavefront.py:177-244): the plain sweep with
+    the frame's orders returns normal, material (tri row 12) and area."""
+    t_t, sidx, cnx, cny, cnz, cmat, carea = kcluster.cluster_intersect_reference(
+        fc.cs, o, d, BIG, t_min=t_min, attrs=True, order=fc.orders[0],
+        orders=fc.orders, refs=fc.refs)
+    t_t = torch.where(sidx >= 0, t_t, BIG)
+    return _surface(scene, o, d, t_s, i_s, t_t, (cnx, cny, cnz), cmat.to(torch.int32), carea)
+
+
+def _occluded(scene: PTScene, o, d, max_t, t_min, counts, bvh=None):
+    """Any live sphere or triangle hit in (t_min, max_t): bool plane. With a
+    ClusterSet or FrameClusters the mesh replaces the unrolled slots."""
     n_sph, n_tri, _ = counts
     blocked = torch.zeros_like(o[0], dtype=torch.bool)
     for k in range(min(n_sph, scene.sph_pos.shape[0])):
         disc, t = _sphere_quadratic(scene, k, o, d, t_min)
         blocked = blocked | ((disc > 0.0) & (t > t_min) & (t < max_t))
+    if isinstance(bvh, FrameClusters):
+        _, idx = kcluster.cluster_intersect_reference(bvh.cs, o, d, max_t, t_min=t_min,
+                                                      any_hit=True, order=bvh.orders[0])
+        return blocked | (idx >= 0)
+    if isinstance(bvh, ClusterSet):
+        order = visit_orders(bvh, _mean_live_origin(o)[None])[0]
+        _, idx = kcluster.cluster_intersect(bvh, o, d, max_t, t_min=t_min, any_hit=True,
+                                            order=order)
+        return blocked | (idx >= 0)
     t_t, _ = _tri_hits_unrolled(scene, o, d, t_min, n_tri)
     return blocked | (t_t < max_t)
 
@@ -261,130 +354,213 @@ def _mat_lookup(scene: PTScene, mat_id):
     return albedo, emission, _sel(mat_id, scene.mat_kind, M), _sel(mat_id, scene.mat_ior, M)
 
 
+# --- the staged ray state (JAX wavefront.py:1321-1370) ----------------------
+_STATE_V3 = ("o", "d", "thr", "rad")
+_STATE_SCALAR = ("alive", "prev_did_nee", "prev_pdf")
+STATE_PLANES = 17  # o, d, thr, rad (3 each), alive, prev_did_nee, prev_pdf, px, py
+
+
+def state_plane_count(scene: PTScene | None = None, cfg: PTConfig | None = None) -> int:
+    """Number of f32 planes in a packed inter-launch ray state (the JAX
+    count without the dispersion and mip planes, which this slice lacks)."""
+    return STATE_PLANES
+
+
+def pack_state(st) -> torch.Tensor:
+    """A state dict as one (17, ...) f32 tensor: the transport format between
+    per-bounce launches. Masks ride as 0/1, px/py as f32 (exact below 2^24)."""
+    planes = []
+    for k in _STATE_V3:
+        planes.extend(st[k])
+    for k in _STATE_SCALAR:
+        planes.append(st[k].to(torch.float32))
+    planes.append(st["px"].to(torch.float32))
+    planes.append(st["py"].to(torch.float32))
+    return torch.stack(planes)
+
+
+def unpack_state(arr):
+    """Inverse of pack_state."""
+    st = {}
+    i = 0
+    for k in _STATE_V3:
+        st[k] = (arr[i], arr[i + 1], arr[i + 2])
+        i += 3
+    st["alive"] = arr[i] != 0.0
+    st["prev_did_nee"] = arr[i + 1] != 0.0
+    st["prev_pdf"] = arr[i + 2]
+    st["px"] = arr[i + 3].to(torch.int64)
+    st["py"] = arr[i + 4].to(torch.int64)
+    return st
+
+
+def _bounce(cfg: PTConfig, scene: PTScene, st, b: int, draw, counts, bvh):
+    """Bounce b of every ray of the state dict: returns the next state."""
+    n_light = counts[2]
+    st = dict(st)
+    thr, rad = st["thr"], st["rad"]
+    alive, o, d = st["alive"], st["o"], st["d"]
+    nu = 6 if cfg.rr_start > 0 else 5  # [5] = roulette coin
+    u = draw(b + 1, nu)
+    zero = torch.zeros_like(st["prev_pdf"])
+    nrays = st["nrays"] + alive.sum()
+
+    isect = _intersect(scene, o, d, cfg.t_min, counts, bvh)
+    hit = isect["hit"] & alive
+    albedo, emission, kind, ior = _mat_lookup(scene, isect["mat_id"])
+    n, p = isect["n"], isect["p"]
+
+    # --- emission (MIS vs NEE of the previous vertex) ------------------
+    emissive = (emission[0] > 0.0) | (emission[1] > 0.0) | (emission[2] > 0.0)
+    cos_l = torch.abs(v3.dot(n, d))
+    if cfg.light_sampling == "uniform":
+        sel_density = 1.0 / torch.clamp_min(isect["light_area"] * max(n_light, 1), 1e-20)
+    else:
+        lum_e = 0.2126 * emission[0] + 0.7152 * emission[1] + 0.0722 * emission[2]
+        sel_density = lum_e / torch.clamp_min(scene.light_total_power, 1e-20)
+    pdf_light_w = sel_density * (isect["t"] * isect["t"]) / torch.clamp_min(cos_l, 1e-6)
+    w_b = torch.where(st["prev_did_nee"], sampler.power_heuristic(st["prev_pdf"], pdf_light_w),
+                      1.0)
+    gate = torch.where(hit & emissive, w_b, 0.0)
+    rad = v3.add(rad, v3.mul(thr, v3.scale(emission, gate)))
+
+    # --- NEE ------------------------------------------------------------
+    if cfg.use_nee:
+        lp, ln, le, pdf_area = _sample_light(scene, u[2], u[3], u[4], n_light,
+                                             uniform=cfg.light_sampling == "uniform")
+        to_l = v3.sub(lp, p)
+        dist = v3.length(to_l)
+        wi = v3.scale(to_l, 1.0 / torch.clamp_min(dist, 1e-20))
+        cos_ll = torch.abs(v3.dot(ln, wi))
+        light_ok = (cos_ll > 1e-6) & (dist > cfg.eps) & (n_light > 0)
+        cos_s = v3.dot(n, wi)
+        cand = hit & (kind == DIFFUSE) & light_ok & (cos_s > 0.0)
+        nrays = nrays + cand.sum()
+        # park non-candidate shadow rays far away; `vis` is cand-gated
+        dead_o = (zero + DEAD_O,) * 3
+        dead_d = (zero + INV_SQRT3,) * 3
+        sh_o = v3.where(cand, v3.add(p, v3.scale(n, cfg.eps)), dead_o)
+        sh_d = v3.where(cand, wi, dead_d)
+        max_t = dist * (1.0 - 1e-3)
+        vis = cand & ~_occluded(scene, sh_o, sh_d, max_t, cfg.t_min, counts, bvh)
+        pdf_w = pdf_area * (dist * dist) / torch.clamp_min(cos_ll, 1e-6)
+        w_nee = sampler.power_heuristic(pdf_w, v3.div(cos_s, PI))
+        scale = torch.where(
+            vis, v3.div(cos_s / torch.clamp_min(pdf_w, 1e-20) * w_nee, PI), 0.0)
+        rad = v3.add(rad, v3.mul(v3.mul(thr, albedo), v3.scale(le, scale)))
+
+    # --- scatter --------------------------------------------------------
+    diff_d, pdf_cos = sampler.cosine_hemisphere(u[0], u[1], n)
+    mirr_d = v3.sub(d, v3.scale(n, 2.0 * v3.dot(d, n)))
+    new_d = v3.where(kind == MIRROR, mirr_d, diff_d)
+    new_o = v3.add(p, v3.scale(n, cfg.eps))
+    if scene.has_dielectric:
+        # exact unpolarized Fresnel split between reflection and Snell
+        # refraction; u[0] is the R/T coin (glass lanes draw no
+        # hemisphere sample)
+        eta = torch.where(isect["front"], 1.0 / ior, ior)
+        cosi = -v3.dot(d, n)  # n faces the ray: >= 0
+        kk = 1.0 - eta * eta * (1.0 - cosi * cosi)
+        cost = torch.sqrt(torch.clamp_min(kk, 0.0))
+        rs = (eta * cosi - cost) / torch.clamp_min(eta * cosi + cost, 1e-20)
+        rp = (eta * cost - cosi) / torch.clamp_min(eta * cost + cosi, 1e-20)
+        refl_p = torch.where(kk <= 0.0, 1.0, 0.5 * (rs * rs + rp * rp))
+        refr_d = v3.add(v3.scale(d, eta), v3.scale(n, eta * cosi - cost))
+        reflect = u[0] < refl_p
+        is_diel = kind == DIELECTRIC
+        new_d = v3.where(is_diel, v3.where(reflect, mirr_d, refr_d), new_d)
+        # refracted rays continue THROUGH the surface: offset inward
+        off = torch.where(is_diel & ~reflect, -cfg.eps, cfg.eps)
+        new_o = v3.add(p, v3.scale(n, off))
+    new_thr = v3.mul(thr, albedo)
+    thr_max = torch.maximum(new_thr[0], torch.maximum(new_thr[1], new_thr[2]))
+    cont = hit & (thr_max > 0.0)
+    if cfg.rr_start > 0 and b >= cfg.rr_start:
+        # Russian roulette: survive w.p. p_c, divide throughput by p_c
+        p_c = torch.clamp(thr_max, 0.05, 1.0)
+        cont = cont & (u[5] < p_c)
+        new_thr = v3.scale(new_thr, 1.0 / p_c)
+    # park dead rays far away with an all-positive direction: every slab
+    # test then fails, and the regroup keys send them last
+    st["thr"] = v3.where(cont, new_thr, (zero, zero, zero))
+    st["o"] = v3.where(cont, new_o, (zero + DEAD_O,) * 3)
+    st["d"] = v3.where(cont, new_d, (zero + INV_SQRT3,) * 3)
+    st["alive"] = cont
+    st["prev_did_nee"] = hit & (kind == DIFFUSE) & (n_light > 0) & cfg.use_nee
+    st["prev_pdf"] = pdf_cos
+    st["rad"] = rad
+    st["nrays"] = nrays
+    return st
+
+
 def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed0: int,
                 row0=0, band_h=None, col0=0, band_w=None, pix=None, bvh=None,
-                sort=False, state_in=None, emit_state=False):
+                sort=False, state_in=None, bounce_lo=0, bounce_hi=None,
+                emit_state=False):
     """One sample per pixel of the window at (row0, col0), pass seed seed0
     (int32): (rad V3 planes, nrays int64 tensor). pix: optional (py, px)
-    GLOBAL pixel-coordinate planes that replace the window's. bvh, sort,
-    state_in and emit_state are the JAX core's gates of later slices: any
-    value but the default raises."""
-    check_supported(cfg, bvh=bvh, sort=sort, state_in=state_in, emit_state=emit_state)
+    GLOBAL pixel-coordinate planes that replace the window's. bvh: None,
+    a ClusterSet or FrameClusters (see the module docstring).
+
+    Staged launches: state_in (a state dict from unpack_state) replaces the
+    camera rays; bounces bounce_lo .. bounce_hi (default cfg.max_bounces)
+    run; emit_state returns the state dict (rad and nrays inside) instead of
+    (rad, nrays). The state carries px/py, and every draw of a staged call
+    is keyed on them."""
+    check_supported(cfg, bvh=bvh, sort=sort)
+    if bounce_hi is None:
+        bounce_hi = cfg.max_bounces
+    if bounce_lo > 0 and state_in is None:
+        raise ValueError("bounce_lo > 0 needs state_in, the state of bounce_lo - 1")
+    staged = emit_state or state_in is not None
     h, w = (band_h or cfg.height), (band_w or cfg.width)
     device = scene.device
     counts = _counts(scene)
-    n_light = counts[2]
 
-    def draw_b(b, n):
+    if state_in is not None:
+        st = dict(state_in)
+        st["nrays"] = torch.zeros((), dtype=torch.int64, device=device)
+    else:
         if pix is not None:
-            return uniform_pcg_coords(seed0, b, n, pix[1], pix[0])
-        return uniform_pcg(seed0, b, n, h, w, row0=row0, col0=col0, device=device)
-
-    u = draw_b(0, 2)
-    o, d = _camera_rays(cfg, cam_pos, cam_quat, u[0], u[1], row0=row0, col0=col0,
-                        coords=pix)
-    zero = d[0] * 0.0
-    o = v3.add(o, v3.scale(d, 0.0))
-    thr = (zero + 1.0, zero + 1.0, zero + 1.0)
-    rad = (zero, zero, zero)
-    alive = torch.ones_like(zero, dtype=torch.bool)
-    prev_did_nee = torch.zeros_like(alive)
-    prev_pdf = zero
-    nrays = torch.zeros((), dtype=torch.int64, device=device)
-    dead_o = (zero + DEAD_O,) * 3
-    dead_d = (zero + INV_SQRT3,) * 3
-
-    for b in range(cfg.max_bounces + 1):
-        nu = 6 if cfg.rr_start > 0 else 5  # [5] = roulette coin
-        u = draw_b(b + 1, nu)
-        nrays = nrays + alive.sum()
-
-        isect = _intersect(scene, o, d, cfg.t_min, counts)
-        hit = isect["hit"] & alive
-        albedo, emission, kind, ior = _mat_lookup(scene, isect["mat_id"])
-        n, p = isect["n"], isect["p"]
-
-        # --- emission (MIS vs NEE of the previous vertex) ------------------
-        emissive = (emission[0] > 0.0) | (emission[1] > 0.0) | (emission[2] > 0.0)
-        cos_l = torch.abs(v3.dot(n, d))
-        if cfg.light_sampling == "uniform":
-            sel_density = 1.0 / torch.clamp_min(isect["light_area"] * max(n_light, 1), 1e-20)
+            u = uniform_pcg_coords(seed0, 0, 2, pix[1], pix[0])
         else:
-            lum_e = 0.2126 * emission[0] + 0.7152 * emission[1] + 0.0722 * emission[2]
-            sel_density = lum_e / torch.clamp_min(scene.light_total_power, 1e-20)
-        pdf_light_w = sel_density * (isect["t"] * isect["t"]) / torch.clamp_min(cos_l, 1e-6)
-        w_b = torch.where(prev_did_nee, sampler.power_heuristic(prev_pdf, pdf_light_w), 1.0)
-        gate = torch.where(hit & emissive, w_b, 0.0)
-        rad = v3.add(rad, v3.mul(thr, v3.scale(emission, gate)))
+            u = uniform_pcg(seed0, 0, 2, h, w, row0=row0, col0=col0, device=device)
+        o, d = _camera_rays(cfg, cam_pos, cam_quat, u[0], u[1], row0=row0, col0=col0,
+                            coords=pix)
+        zero = d[0] * 0.0
+        o = v3.add(o, v3.scale(d, 0.0))
+        st = dict(o=o, d=d, thr=(zero + 1.0, zero + 1.0, zero + 1.0), rad=(zero, zero, zero),
+                  alive=torch.ones_like(zero, dtype=torch.bool),
+                  prev_did_nee=torch.zeros_like(zero, dtype=torch.bool), prev_pdf=zero,
+                  nrays=torch.zeros((), dtype=torch.int64, device=device))
+        if pix is not None:
+            st["py"], st["px"] = pix[0].to(torch.int64), pix[1].to(torch.int64)
+        elif staged:
+            st["px"] = torch.arange(w, device=device).expand(h, w) + col0
+            st["py"] = torch.arange(h, device=device)[:, None].expand(h, w) + row0
 
-        # --- NEE ------------------------------------------------------------
-        if cfg.use_nee:
-            lp, ln, le, pdf_area = _sample_light(scene, u[2], u[3], u[4], n_light,
-                                                 uniform=cfg.light_sampling == "uniform")
-            to_l = v3.sub(lp, p)
-            dist = v3.length(to_l)
-            wi = v3.scale(to_l, 1.0 / torch.clamp_min(dist, 1e-20))
-            cos_ll = torch.abs(v3.dot(ln, wi))
-            light_ok = (cos_ll > 1e-6) & (dist > cfg.eps) & (n_light > 0)
-            cos_s = v3.dot(n, wi)
-            cand = hit & (kind == DIFFUSE) & light_ok & (cos_s > 0.0)
-            nrays = nrays + cand.sum()
-            # park non-candidate shadow rays far away; `vis` is cand-gated
-            sh_o = v3.where(cand, v3.add(p, v3.scale(n, cfg.eps)), dead_o)
-            sh_d = v3.where(cand, wi, dead_d)
-            max_t = dist * (1.0 - 1e-3)
-            vis = cand & ~_occluded(scene, sh_o, sh_d, max_t, cfg.t_min, counts)
-            pdf_w = pdf_area * (dist * dist) / torch.clamp_min(cos_ll, 1e-6)
-            w_nee = sampler.power_heuristic(pdf_w, v3.div(cos_s, PI))
-            scale = torch.where(
-                vis, v3.div(cos_s / torch.clamp_min(pdf_w, 1e-20) * w_nee, PI), 0.0)
-            rad = v3.add(rad, v3.mul(v3.mul(thr, albedo), v3.scale(le, scale)))
+    def draw(ctr, n):
+        if "px" in st:
+            return uniform_pcg_coords(seed0, ctr, n, st["px"], st["py"])
+        return uniform_pcg(seed0, ctr, n, h, w, row0=row0, col0=col0, device=device)
 
-        # --- scatter --------------------------------------------------------
-        diff_d, pdf_cos = sampler.cosine_hemisphere(u[0], u[1], n)
-        mirr_d = v3.sub(d, v3.scale(n, 2.0 * v3.dot(d, n)))
-        new_d = v3.where(kind == MIRROR, mirr_d, diff_d)
-        new_o = v3.add(p, v3.scale(n, cfg.eps))
-        if scene.has_dielectric:
-            # exact unpolarized Fresnel split between reflection and Snell
-            # refraction; u[0] is the R/T coin (glass lanes draw no
-            # hemisphere sample)
-            eta = torch.where(isect["front"], 1.0 / ior, ior)
-            cosi = -v3.dot(d, n)  # n faces the ray: >= 0
-            kk = 1.0 - eta * eta * (1.0 - cosi * cosi)
-            cost = torch.sqrt(torch.clamp_min(kk, 0.0))
-            rs = (eta * cosi - cost) / torch.clamp_min(eta * cosi + cost, 1e-20)
-            rp = (eta * cost - cosi) / torch.clamp_min(eta * cost + cosi, 1e-20)
-            refl_p = torch.where(kk <= 0.0, 1.0, 0.5 * (rs * rs + rp * rp))
-            refr_d = v3.add(v3.scale(d, eta), v3.scale(n, eta * cosi - cost))
-            reflect = u[0] < refl_p
-            is_diel = kind == DIELECTRIC
-            new_d = v3.where(is_diel, v3.where(reflect, mirr_d, refr_d), new_d)
-            # refracted rays continue THROUGH the surface: offset inward
-            off = torch.where(is_diel & ~reflect, -cfg.eps, cfg.eps)
-            new_o = v3.add(p, v3.scale(n, off))
-        new_thr = v3.mul(thr, albedo)
-        thr_max = torch.maximum(new_thr[0], torch.maximum(new_thr[1], new_thr[2]))
-        cont = hit & (thr_max > 0.0)
-        if cfg.rr_start > 0 and b >= cfg.rr_start:
-            # Russian roulette: survive w.p. p_c, divide throughput by p_c
-            p_c = torch.clamp(thr_max, 0.05, 1.0)
-            cont = cont & (u[5] < p_c)
-            new_thr = v3.scale(new_thr, 1.0 / p_c)
-        thr = v3.where(cont, new_thr, (zero, zero, zero))
-        o = v3.where(cont, new_o, dead_o)
-        d = v3.where(cont, new_d, dead_d)
-        alive = cont
-        prev_did_nee = hit & (kind == DIFFUSE) & (n_light > 0) & cfg.use_nee
-        prev_pdf = pdf_cos
-    return rad, nrays
+    for b in range(bounce_lo, bounce_hi + 1):
+        st = _bounce(cfg, scene, st, b, draw, counts, bvh)
+    if emit_state:
+        return st
+    return st["rad"], st["nrays"]
+
+
+def trace_window_planes(*args, **kwargs):
+    """Plane-returning core (the staged-launch interface of K5's oracle)."""
+    return _trace_core(*args, **kwargs)
 
 
 def trace_pass_soa(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed0: int,
-                   row0=0, band_h=None, col0=0, band_w=None):
+                   row0=0, band_h=None, col0=0, band_w=None, bvh=None):
     """One sample per pixel: ((h, w, 3) image, nrays)."""
     rad, nrays = _trace_core(cfg, scene, cam_pos, cam_quat, seed0, row0, band_h,
-                             col0, band_w)
+                             col0, band_w, bvh=bvh)
     return v3.stack(rad), nrays
 
 
@@ -392,13 +568,15 @@ def render_pt_fast(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
                    seed: int = 0, spp_offset: int = 0, bvh=None, sort=False):
     """Average of spp passes: ((H, W, 3) image, nrays). seed is the int32
     base seed (ops.rng_pcg.seed_from_int(s) for jax.random.PRNGKey(s); 0
-    for the JAX default key); pass i uses pass_seed(seed, spp_offset + i)."""
+    for the JAX default key); pass i uses pass_seed(seed, spp_offset + i).
+    bvh: a ClusterSet for meshes of any size (the gather path; on a CUDA
+    scene its sweeps launch kernel K6)."""
     check_supported(cfg, bvh=bvh, sort=sort)
     acc = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32, device=scene.device)
     nrays = torch.zeros((), dtype=torch.int64, device=scene.device)
     for i in range(spp):
         img, nr = trace_pass_soa(cfg, scene, cam_pos, cam_quat,
-                                 pass_seed(seed, spp_offset + i))
+                                 pass_seed(seed, spp_offset + i), bvh=bvh)
         acc = acc + img
         nrays = nrays + nr
     return v3.div(acc, spp), nrays

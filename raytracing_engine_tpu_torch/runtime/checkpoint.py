@@ -79,7 +79,7 @@ def load_checkpoint(path: str, device=None) -> ProgressiveState:
 
 def progressive_render(cfg, scene, state: ProgressiveState, target_spp: int,
                        passes_per_chunk: int = 16, checkpoint_path: str | None = None,
-                       render_fn=None):
+                       render_fn=None, bvh=None):
     """Advance a progressive render to target_spp in resumable chunks.
 
     Yields the state after each chunk (also checkpointing if a path is
@@ -88,6 +88,7 @@ def progressive_render(cfg, scene, state: ProgressiveState, target_spp: int,
     beyond float summation order. render_fn defaults to the K4 megakernel
     wrapper (ops.cuda.pt.render_pt_mega: the kernel for a CUDA scene, its
     plain version for a CPU one); any function with its signature fits.
+    bvh: a ClusterSet for a mesh scene, handed to render_fn.
     """
     if render_fn is None:
         from raytracing_engine_tpu_torch.ops.cuda.pt import render_pt_mega as render_fn
@@ -95,7 +96,7 @@ def progressive_render(cfg, scene, state: ProgressiveState, target_spp: int,
     while state.spp_done < target_spp:
         n = min(passes_per_chunk, target_spp - state.spp_done)
         img, _ = render_fn(cfg, scene, state.cam_pos, state.cam_quat, n, seed=seed,
-                           spp_offset=state.spp_done)
+                           spp_offset=state.spp_done, bvh=bvh)
         state = ProgressiveState(
             accum=state.accum + img * float(n),
             spp_done=state.spp_done + n,

@@ -33,6 +33,13 @@ SHADE_OPS_PER_LIGHT = 45    # one light's Phong terms, without its march
 # caller's compares: 26) and every live triangle (tri_hit: 57)
 PT_SPHERE_TEST_OPS = 26
 PT_TRIANGLE_TEST_OPS = 57
+# csrc/cluster.cuh, counted as the JAX package's cluster cost model does
+# (raytracing_engine_tpu/accel/clusters.py:206): one box slab test with its
+# gate 28 operations, one Baldwin–Weber triangle test 30. The counts of
+# tests come from the plain sweep's replay of the same rays
+# (ops/cuda/cluster.work), so they are what these inputs need.
+CLUSTER_SLAB_OPS = 28
+CLUSTER_TEST_OPS = 30
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -56,6 +63,31 @@ def pt_ops(nrays: int, n_sph: int, n_tri: int) -> int:
     """Intersection operations of K4 for nrays segments (closest-hit and
     NEE shadow rays alike) against n_sph spheres and n_tri triangles."""
     return nrays * (PT_SPHERE_TEST_OPS * n_sph + PT_TRIANGLE_TEST_OPS * n_tri)
+
+
+def sweep_ops(slabs: int, tests: int) -> int:
+    """Operations of a cluster sweep that ran `slabs` box tests and `tests`
+    triangle tests (K6, and the sweeps inside K4 and K5)."""
+    return slabs * CLUSTER_SLAB_OPS + tests * CLUSTER_TEST_OPS
+
+
+def cluster_table_bytes(tables) -> int:
+    """Bytes of a ClusterSet's kernel records (ops/cuda/cluster.sweep_tables)
+    plus the frame's visit orders: read once by a launch."""
+    return sum(4 * t.numel() for t in tables if t is not None)
+
+
+def k6_bytes(n_rays: int, attrs: bool, table_bytes: int) -> int:
+    """K6 reads 7 planes per ray (o, d, t_max) and writes 2 (t, slot), 7
+    with the attributes, besides the tables."""
+    return 4 * n_rays * (7 + (7 if attrs else 2)) + table_bytes
+
+
+def k5_bytes(n_rays: int, bounces: int, table_bytes: int) -> int:
+    """One frame of K5 launches (bounces 0..bounces): bounce 0 writes the
+    17-plane state, every later launch reads and writes it; each launch
+    reads the tables."""
+    return 4 * 17 * n_rays * (1 + 2 * bounces) + (bounces + 1) * table_bytes
 
 
 @dataclasses.dataclass
