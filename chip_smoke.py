@@ -47,7 +47,35 @@ Phases, each printing its own lines:
      camera z, best of 3 rounds, host enqueue beside), its torch.profiler
      split (K5 per bounce, sort, permute, un-permute), render_pt_mega(bvh=cs)
      at 512x512, render_pt_fast(bvh=cs), progressive_render(bvh=cs); then K5
-     per bounce alone, and the K4 / K5 / K6 least times.
+     per bounce alone, and the K4 / K5 / K6 least times;
+ 13. config 3's mesh as a raw BVH (accel.build_bvh) and kernel K8 against
+     its plain version on the card, bit for bit: the 512x512 camera rays and
+     the bounce-1 rays (closest hit), the NEE-style shadow rays (any hit,
+     t_max = 0.999 of the light distance), axis-parallel and parked rays;
+     K8 timed beside K6 on the same camera rays (device time by
+     torch.profiler, CUDA events beside), and K8's least time;
+ 14. BASELINE config 5 (benchmarks/run_all.py:317-500: 30 instances of a
+     35,200-triangle torus knot, 1,056,000 triangles) and kernel K7 against
+     its plain version, bit for bit: on 2 x 2 instances of the knot at
+     512x512 (closest with normals, then render_instanced_phong's shadow
+     rays from those hits, misses and back faces parked) and on
+     axis-parallel and parked rays against two scaled instances;
+     render_instanced_phong (hard and soft shadows) through K7 against its
+     plain version on a band of the 1920x1088 frame at the full 30
+     instances (the instances its rows hit logged), bands equal to the rows
+     of the full frame; the path-traced cell at 512x512: render_pt_rebin ==
+     render_pt_mega(bvh=InstancedClusters) in every regroup mode, K4 and K5
+     against their plain versions on the 2 rows whose camera rays hit the
+     most instances, render_pt_fast(bvh=InstancedClusters) through K7
+     against K4;
+ 15. the slice's main paths under the launch counters, timed by CUDA events
+     (best of 3 rounds, host enqueue beside): the config-5 Phong orbit (8
+     chained 1920x1088 frames, hard shadows), its soft-shadow orbit (4
+     frames), the config-5 path-traced cell through render_pt_rebin and
+     render_pt_mega, config 3 through render_pt_fast with the raw BVH; the
+     torch.profiler split (K7 closest against any hit per Phong frame, K5
+     per bounce); then K7 alone on a full Phong frame's camera rays, held
+     to its plain version bit for bit, and its least time.
 Then one JSON line of per-kernel results, the card line, and as the last
 line {"ok": true, "device": {...}}. Any failure exits non-zero before the
 last line; so does a machine without CUDA or a directory without the repo.
@@ -119,6 +147,28 @@ C3_ROUNDS = 3
 C3_BAND = (224, 64)  # rows of the band check
 C3_CHUNK_RTOL = 2 * 4 * 2.0 ** -24  # the summation bound for n = 4 passes
 K6_REPS = 20
+
+# BASELINE config 5 (benchmarks/run_all.py:317-500): 30 instances of a
+# 35,200-triangle torus knot, camera at the origin
+C5_KNOT = dict(segments=550, sides=32)
+C5_GRID = dict(nx=6, ny=5, spacing=4.0, base=(0.0, 14.0, 0.0))
+C5_ALBEDO = ((0.8, 0.5, 0.3), (0.4, 0.7, 0.5), (0.5, 0.5, 0.8))
+C5_LIGHT = (6.0, 2.0, 8.0)
+C5_SIZE = (1920, 1088)
+C5_FRAMES = 8        # Phong orbit: yaw = linspace(0, 0.5, 8), hard shadows
+C5_SOFT_FRAMES = 4   # soft-shadow orbit
+C5_SOFT = dict(light_radius=1.5, shadow_samples=4)
+C5_PT = dict(width=512, height=512, max_bounces=2)
+C5_PT_FRAMES = 4     # chained path-traced frames per timing round
+C5_ROUNDS = 3
+C5_BAND = (540, 8)      # Phong rows held to the plain version (30 instances)
+# path-traced rows held to the plain K4 and K5 versions: the run of rows
+# whose camera rays hit the most instances (the plain two-level sweep costs
+# seconds per call, nearly whatever the ray count)
+C5_PT_BAND_H = 2
+K7_REPS = 10
+K8_REPS = 20
+RAW_FRAMES = 3       # config-3 render_pt_fast frames with the raw BVH per round
 
 
 def log(msg: str):
@@ -671,10 +721,10 @@ def c3_setup(device):
     return mesh, cs, scene, PTConfig(**C3, rng="pcg"), build_s
 
 
-def hold_sweep(label, got, want):
-    """K6 against its plain version: -> (max abs error of t and attributes
-    where both hit, fraction of rays whose slot differs); raises unless
-    every output is equal bit for bit."""
+def hold_sweep(label, got, want, kernel="K6"):
+    """A sweep kernel (K6, K7, K8) against its plain version: -> the max abs
+    error of t and attributes where both hit; raises unless every output is
+    equal bit for bit."""
     slot_diff = (got[1] != want[1]).double().mean().item()
     both = (got[1] >= 0) & (want[1] >= 0)
     err = 0.0
@@ -685,7 +735,7 @@ def hold_sweep(label, got, want):
     log(f"  {label}: hits {(got[1] >= 0).double().mean().item():.4f}, max_abs_err={err:.6g} "
         f"slots differ on {slot_diff:.6g} of rays, bitwise={bitwise}")
     if not bitwise:
-        raise AssertionError(f"{label}: K6 differs from its plain version")
+        raise AssertionError(f"{label}: {kernel} differs from its plain version")
     return err
 
 
@@ -712,12 +762,35 @@ def axis_parallel_rays(device, n=64):
     return to(o), to(d)
 
 
+def c3_rays(c3, quat, seed, device):
+    """Config 3's rays at 512x512 (phases 10 and 13): the camera rays of pass
+    0, the bounce-1 rays of one K5 pass over the ClusterSet, and the NEE-style
+    shadow directions from their origins toward the light sphere's centre
+    with their distances: (o0, d0, o1, d1, wi, dist)."""
+    from raytracing_engine_tpu_torch.ops.cuda import pt
+    from raytracing_engine_tpu_torch.ops.rng_pcg import pass_seed, uniform_pcg
+    from raytracing_engine_tpu_torch.pathtracer.wavefront import _camera_rays
+
+    _, cs, scene, cfg, _ = c3
+    pos = torch.zeros(3, device=device)
+    u = uniform_pcg(pass_seed(seed, 0), 0, 2, cfg.height, cfg.width, device=device)
+    o0, d0 = _camera_rays(cfg, pos, quat, u[0], u[1])
+    o0, d0 = tuple(x.contiguous() for x in o0), tuple(x.contiguous() for x in d0)
+    _, _, run = pt.rebin_bounce_launcher(cfg, scene, pos, quat, seed, cs)
+    state, _ = run(0, None, 0)
+    o1 = tuple(state[a].clone() for a in range(3))
+    d1 = tuple(state[3 + a].clone() for a in range(3))
+    light = torch.tensor(C3_LIGHT, device=device)
+    to_l = tuple(light[a] - o1[a] for a in range(3))
+    dist = torch.sqrt(to_l[0] * to_l[0] + to_l[1] * to_l[1] + to_l[2] * to_l[2])
+    wi = tuple(c / dist for c in to_l)
+    return o0, d0, o1, d1, wi, dist
+
+
 def phase_cluster_kernel(c3, quat, seed, device, card):
     """K6 against its plain version on the card, and K6 timed."""
     from raytracing_engine_tpu_torch.accel import build_clusters, icosphere
-    from raytracing_engine_tpu_torch.ops.cuda import cluster, pt
-    from raytracing_engine_tpu_torch.ops.rng_pcg import pass_seed, uniform_pcg
-    from raytracing_engine_tpu_torch.pathtracer.wavefront import _camera_rays
+    from raytracing_engine_tpu_torch.ops.cuda import cluster
     from raytracing_engine_tpu_torch.utils.timing import (
         bound_ms,
         cluster_table_bytes,
@@ -732,17 +805,7 @@ def phase_cluster_kernel(c3, quat, seed, device, card):
     pos = torch.zeros(3, device=device)
     fc = cluster.FrameClusters.at(cs, pos)
     orders = dict(order=fc.orders[0], orders=fc.orders, refs=fc.refs)
-    u = uniform_pcg(pass_seed(seed, 0), 0, 2, cfg.height, cfg.width, device=device)
-    o0, d0 = _camera_rays(cfg, pos, quat, u[0], u[1])
-    o0, d0 = tuple(x.contiguous() for x in o0), tuple(x.contiguous() for x in d0)
-    _, _, run = pt.rebin_bounce_launcher(cfg, scene, pos, quat, seed, cs)
-    state, _ = run(0, None, 0)
-    o1 = tuple(state[a].clone() for a in range(3))
-    d1 = tuple(state[3 + a].clone() for a in range(3))
-    light = torch.tensor(C3_LIGHT, device=device)
-    to_l = tuple(light[a] - o1[a] for a in range(3))
-    dist = torch.sqrt(to_l[0] * to_l[0] + to_l[1] * to_l[1] + to_l[2] * to_l[2])
-    wi = tuple(c / dist for c in to_l)
+    o0, d0, o1, d1, wi, dist = c3_rays(c3, quat, seed, device)
     small = build_clusters(icosphere(subdivisions=2, radius=1.2, center=(0.0, 5.0, 0.0)),
                            device=device)
     oa, da = axis_parallel_rays(device)
@@ -995,6 +1058,427 @@ def phase_c3_main(c3, quat, seed, device, card, inv):
                                        "bound_ms": k5_bound[0], "bound_by": k5_bound[1]}}
 
 
+def phase_bvh_kernel(c3, quat, seed, device, card):
+    """K8 against its plain version on config 3's mesh as a raw BVH, bit for
+    bit; K8 timed beside K6 on the same camera rays; -> (K8's results, the
+    BVH)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracing_engine_tpu_torch.accel import build_bvh, icosphere
+    from raytracing_engine_tpu_torch.ops.cuda import bvh_traverse as kbvh
+    from raytracing_engine_tpu_torch.ops.cuda import cluster
+    from raytracing_engine_tpu_torch.pathtracer.wavefront import BVH_MAX_STEPS
+    from raytracing_engine_tpu_torch.utils.timing import bound_ms, bvh_ops, k8_bytes
+
+    mesh, cs, _, cfg, _ = c3
+    t0 = time.perf_counter()
+    bvh = build_bvh(mesh, device=device)
+    torch.cuda.synchronize(device)
+    build_s = time.perf_counter() - t0
+    tables = kbvh.tables_of(bvh)
+    n_nodes, n_tris = bvh.bb_min.shape[0], bvh.v0.shape[0]
+    log(f"  config-3 raw BVH: {n_nodes} nodes over {n_tris} triangles, builder {bvh.builder}, "
+        f"host build {build_s:.3f} s")
+    o0, d0, o1, d1, wi, dist = c3_rays(c3, quat, seed, device)
+    small = kbvh.tables_of(build_bvh(icosphere(subdivisions=2, radius=1.2,
+                                               center=(0.0, 5.0, 0.0)), device=device))
+    oa, da = axis_parallel_rays(device)
+    inf = float("inf")
+    steps = dict(max_steps=BVH_MAX_STEPS)  # the wavefront's cap
+    size = f"{cfg.width}x{cfg.height}"
+    cases = [
+        (f"camera rays {size}, closest", tables, o0, d0, inf, {}),
+        ("bounce-1 rays, closest", tables, o1, d1, inf, {}),
+        ("bounce-1 NEE shadow rays, any hit", tables, o1, wi, dist * 0.999, dict(any_hit=True)),
+        ("axis-parallel + parked rays vs icosphere(2), closest", small, oa, da, inf, {}),
+        ("axis-parallel + parked rays vs icosphere(2), any hit t_max=2", small, oa, da, 2.0,
+         dict(any_hit=True)),
+    ]
+    err, plain = 0.0, {}
+    for k, (label, tb, o, d, t_max, kw) in enumerate(cases):
+        got = kbvh.bvh_intersect_packet(tb, o, d, t_max, **kw, **steps)
+        torch.cuda.synchronize(device)
+        kbvh.work.update(nodes=0, tests=0)
+        t0 = time.perf_counter()
+        want = kbvh.bvh_intersect_packet_reference(tb, o, d, t_max, **kw, **steps)
+        torch.cuda.synchronize(device)
+        if k == 0:
+            plain = dict(plain_ms=(time.perf_counter() - t0) * 1e3, **kbvh.work)
+        err = max(err, hold_sweep(f"K8 {label}", got, want, "K8"))
+
+    # K8 alone on the camera rays, and K6 on the same rays and mesh: CUDA
+    # events over back-to-back calls, and each kernel's device time by the
+    # profiler (a K8 launch takes about as long as its wrapper's host work,
+    # so the event time can be the host's)
+    fc = cluster.FrameClusters.at(cs, torch.zeros(3, device=device))
+    k6kw = dict(order=fc.orders[0], orders=fc.orders, refs=fc.refs)
+    k8_call = lambda k: kbvh.bvh_intersect_packet(tables, o0, d0, inf, **steps)  # noqa: E731
+    k6_call = lambda k: cluster.cluster_intersect(cs, o0, d0, inf, **k6kw)  # noqa: E731
+    k8_call(0), k6_call(0)  # warm-up
+    ev_ms, host_ms = cuda_ms(k8_call, K8_REPS)
+    k6_ev_ms, _ = cuda_ms(k6_call, K8_REPS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cuda_ms(k8_call, K8_REPS)
+        cuda_ms(k6_call, K8_REPS)
+    dev = {"traverse_kernel": [], "cluster_kernel": []}
+    for e in prof.events():
+        for name, times in dev.items():
+            if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name:
+                times.append(e.time_range.elapsed_us() / 1e3)
+    seen = {name: len(v) for name, v in dev.items()}
+    if all(n >= K8_REPS // 2 for n in seen.values()):  # one launch per call
+        ms, k6_ms = (sum(v) / len(v) for v in dev.values())
+        how = f"mean device time per launch by the profiler, launches seen {seen}"
+    else:
+        ms, k6_ms = ev_ms, k6_ev_ms
+        names = sorted({e.name for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA})[:8]
+        how = (f"CUDA events: the profiler saw {seen} of {K8_REPS} launches each; its device "
+               f"events {names}")
+    n = cfg.width * cfg.height
+    n_bytes = k8_bytes(n, n_nodes, n_tris)  # a scalar t_max: no plane read
+    n_ops = bvh_ops(plain["nodes"], plain["tests"])
+    bound = bound_ms(n_bytes, n_ops)
+    log(f"  K8 camera rays {size} (closest): kernel {ms:.4f} ms, K6 on the same rays and mesh "
+        f"{k6_ms:.4f} ms ({how}; K8 at {k6_ms / ms:.2f}x its speed); CUDA events over "
+        f"back-to-back calls K8 {ev_ms:.4f} ms (host enqueue {host_ms:.4f} ms), K6 "
+        f"{k6_ev_ms:.4f} ms; plain {plain['plain_ms']:.1f} ms; {plain['nodes']} node + "
+        f"{plain['tests']} triangle tests -> bound {bound[0]:.5f} ms by {bound[1]} ({n_bytes} B, "
+        f"{n_ops} ops), kernel at {bound[0] / ms:.2%} of it [{card}]")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain["plain_ms"], "bound_ms": bound[0],
+            "bound_by": bound[1]}, bvh
+
+
+def c5_setup(device):
+    """Config 5 as benchmarks/run_all.py:338-345 and :456-471 build it: the
+    knot, its BVH and ClusterSet (no triangle materials), the 30 instances,
+    the Phong cells' albedos and light, and the path-traced cell's scene and
+    InstancedClusters."""
+    from raytracing_engine_tpu_torch.accel import (
+        build_bvh,
+        build_clusters,
+        grid_instances,
+        make_instanced_clusters,
+        torus_knot,
+    )
+    from raytracing_engine_tpu_torch.pathtracer import DIFFUSE, PTConfig, build_pt_scene
+
+    mesh = torus_knot(**C5_KNOT)
+    t0 = time.perf_counter()
+    bvh = build_bvh(mesh, device=device)
+    cs = build_clusters(mesh, device=device)
+    inst = grid_instances(bvh, **C5_GRID, mats=np.arange(30, dtype=np.int32) % 3,
+                          device=device)
+    torch.cuda.synchronize(device)
+    build_s = time.perf_counter() - t0
+    scene = build_pt_scene(
+        spheres=[((8.0, 2.0, 10.0), 2.0, 3), ((0.0, 14.0, -103.0), 100.0, 4)],
+        materials=[{"albedo": (0.75, 0.5, 0.3), "kind": DIFFUSE},
+                   {"albedo": (0.4, 0.7, 0.5), "kind": DIFFUSE},
+                   {"albedo": (0.5, 0.5, 0.8), "kind": DIFFUSE},
+                   {"albedo": (0, 0, 0), "emission": (40.0, 38.0, 34.0), "kind": DIFFUSE},
+                   {"albedo": (0.55, 0.55, 0.5), "kind": DIFFUSE}], device=device)
+    ic = make_instanced_clusters(inst, cs, scene=scene, device=device)
+    return dict(mesh=mesh, bvh=bvh, cs=cs, inst=inst, ic=ic, scene=scene, build_s=build_s,
+                albedo=torch.tensor(C5_ALBEDO, device=device),
+                light=torch.tensor(C5_LIGHT, device=device), cam=torch.zeros(3, device=device),
+                cfg=PTConfig(**C5_PT, rng="pcg"))
+
+
+def instances_hit(code, t_pad: int, n_inst: int) -> int:
+    """How many distinct instances the hit codes of a plane name."""
+    inst = code[code >= 0] // t_pad
+    return int(torch.bincount(inst.long(), minlength=n_inst).gt(0).sum())
+
+
+def busiest_rows(code, t_pad: int, n_inst: int, bh: int) -> tuple[int, int]:
+    """(row0, instances): the first run of bh rows whose hit codes name the
+    most distinct instances, and how many they name."""
+    h = code.shape[0]
+    inst = torch.where(code >= 0, code // t_pad + 1, 0).long()
+    rows = torch.zeros(h, n_inst + 1, device=code.device).scatter_(1, inst, 1.0)[:, 1:]
+    cover = rows.unfold(0, bh, 1).amax(-1).gt(0).sum(1)
+    row0 = int(torch.argmax(cover))
+    return row0, int(cover[row0])
+
+
+def phase_instanced_kernel(c5, quat, seed, device):
+    """K7 and the instanced paths against their plain versions on the card;
+    -> K7's max error."""
+    from raytracing_engine_tpu_torch.accel import (
+        build_bvh,
+        build_clusters,
+        grid_instances,
+        icosphere,
+        make_instanced_clusters,
+        make_instances,
+    )
+    from raytracing_engine_tpu_torch.models.instanced import (
+        camera_rays,
+        render_instanced_phong,
+        render_instanced_phong_reference,
+        shadow_rays,
+    )
+    from raytracing_engine_tpu_torch.ops.cuda import instanced as kinst
+    from raytracing_engine_tpu_torch.ops.cuda import pt
+    from raytracing_engine_tpu_torch.ops.rng_pcg import pass_seed, uniform_pcg
+    from raytracing_engine_tpu_torch.pathtracer.wavefront import _camera_rays, render_pt_fast
+
+    cs, ic, cam, cfg, scene = c5["cs"], c5["ic"], c5["cam"], c5["cfg"], c5["scene"]
+    log(f"  config 5: {ic.num_instances} instances x {c5['mesh'].shape[0]} triangles = "
+        f"{c5['inst'].total_triangles} triangles; base set {cs.num_clusters} clusters, "
+        f"{cs.num_super} super clusters, {cs.padded_tris} slots; host build {c5['build_s']:.3f} s")
+
+    def held(label, tab, cset, o, d, **kw):
+        got = kinst.instanced_cluster_intersect(tab, cset, o, d, **kw)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        want = kinst.instanced_cluster_intersect_reference(tab, cset, o, d, **kw)
+        torch.cuda.synchronize(device)
+        err = hold_sweep(f"K7 {label} (plain {time.perf_counter() - t0:.1f} s)", got, want, "K7")
+        return err, got
+
+    # reduced: 2 x 2 instances of the knot at the path tracer's 512x512
+    inst4 = grid_instances(c5["bvh"], nx=2, ny=2, spacing=4.0, base=(0.0, 14.0, 0.0),
+                           mats=[0, 1, 2, 0], device=device)
+    ic4 = make_instanced_clusters(inst4, cs, device=device)
+    u = uniform_pcg(pass_seed(seed, 0), 0, 2, cfg.height, cfg.width, device=device)
+    o0, d0 = _camera_rays(cfg, cam, quat, u[0], u[1])
+    o0, d0 = tuple(x.contiguous() for x in o0), tuple(x.contiguous() for x in d0)
+    errs = []
+    e, got = held(f"2x2 instances, camera rays {cfg.width}x{cfg.height}, closest + normal",
+                  ic4.inst_tab, cs, o0, d0, attrs=True, origin=cam)
+    errs.append(e)
+    so, sd, tm = shadow_rays(o0, d0, got, c5["light"])
+    errs.append(held("2x2 instances, render_instanced_phong's shadow rays from those hits "
+                     "(misses and back faces parked), any hit", ic4.inst_tab, cs, so, sd,
+                     any_hit=True, t_max=tm, origin=cam)[0])
+    ico = icosphere(subdivisions=2, radius=1.0)
+    rot = np.array([[np.cos(0.7), -np.sin(0.7), 0.0], [np.sin(0.7), np.cos(0.7), 0.0],
+                    [0.0, 0.0, 1.0]], np.float32)
+    pair = make_instances(build_bvh(ico, device=device),
+                          [(np.eye(3, dtype=np.float32), (0.0, 5.0, 0.0), 1.2),
+                           (rot, (0.6, 5.4, 0.3), 0.8)], device=device)
+    icp = make_instanced_clusters(pair, build_clusters(ico, device=device), device=device)
+    oa, da = axis_parallel_rays(device)
+    errs.append(held("axis-parallel + parked rays vs 2 scaled instances, closest + normal",
+                     icp.inst_tab, icp.cs, oa, da, attrs=True)[0])
+    errs.append(held("axis-parallel + parked rays vs 2 scaled instances, any hit t_max=2",
+                     icp.inst_tab, icp.cs, oa, da, any_hit=True, t_max=2.0)[0])
+
+    # the full config 5: render_instanced_phong through K7 against its plain
+    # version on a band (its K7 closest and any-hit launches on the path's own
+    # rays; the whole frame's camera rays are held in phase 15, where their
+    # replay gives K7's bound), and bands
+    n_inst, t_pad = ic.num_instances, cs.padded_tris
+    width, height = C5_SIZE
+    row0, bh = C5_BAND
+    ob, db = camera_rays(cam, 0.0, width, height, row0=row0, band_h=bh)
+    band_code = kinst.instanced_cluster_intersect(ic.inst_tab, cs, ob, db, origin=cam)[1]
+    log(f"  Phong rows {row0}..{row0 + bh}: the camera rays hit "
+        f"{instances_hit(band_code, t_pad, n_inst)} of the {n_inst} instances")
+    args = (ic.inst_tab, cs, c5["inst"].mat, c5["albedo"], cam, 0.0, c5["light"])
+    band = dict(row0=row0, band_h=bh)
+    for label, kw in (("hard shadows", {}), (f"soft shadows {C5_SOFT}", C5_SOFT)):
+        full = render_instanced_phong(*args, **kw)
+        got = render_instanced_phong(*args, **kw, **band)
+        t0 = time.perf_counter()
+        want = render_instanced_phong_reference(*args, **kw, **band)
+        torch.cuda.synchronize(device)
+        plain_s = time.perf_counter() - t0
+        same, rows = torch.equal(got, want), torch.equal(got, full[row0:row0 + bh])
+        log(f"  render_instanced_phong {width}x{height}, {label}: rows {row0}..{row0 + bh} "
+            f"through K7 == plain version bit for bit: {same} (plain {plain_s:.1f} s); band == "
+            f"rows of the full frame: {rows}; lit pixels "
+            f"{(full.amax(-1) > 0).double().mean().item():.4f}, finite "
+            f"{bool(torch.isfinite(full).all())}")
+        if not (same and rows and torch.isfinite(full).all()):
+            raise AssertionError(f"render_instanced_phong ({label}) differs from its plain "
+                                 "version or from the full frame")
+
+    # the path-traced cell: K5 == K4, both against their plain versions
+    k4, n4 = pt.render_pt_mega(cfg, scene, cam, quat, 1, seed=seed, bvh=ic)
+    for mode in ("none,morton", "none", "oct", "morton", "oct_morton", "tile_oct"):
+        img, n = pt.render_pt_rebin(cfg, scene, cam, quat, 1, seed=seed, bvh=ic, rebin=mode)
+        if not (torch.equal(img, k4) and int(n) == int(n4)):
+            raise AssertionError(f"config 5: rebin={mode!r} differs from K4")
+    log(f"  config 5 PT {cfg.width}x{cfg.height}: render_pt_rebin == render_pt_mega(bvh=ic) bit "
+        f"for bit in every regroup mode (none,morton, none, oct, morton, oct_morton, tile_oct); "
+        f"rays {int(n4)}; lit pixels {(k4.amax(-1) > 0).double().mean().item():.4f}")
+    # K4 and K5 against their plain versions on the band of rows whose camera
+    # rays hit the most instances
+    cam_code = kinst.instanced_cluster_intersect(ic.inst_tab, cs, o0, d0, origin=cam)[1]
+    row0, covered = busiest_rows(cam_code, t_pad, n_inst, C5_PT_BAND_H)
+    bh = C5_PT_BAND_H
+    rows = f"rows {row0}..{row0 + bh} (their camera rays hit {covered} of the {n_inst} instances)"
+    kw = dict(seed=seed, bvh=ic, row0=row0, band_h=bh)
+    for label, run, plain in (("K4", pt.render_pt_mega, pt.render_pt_mega_reference),
+                              ("K5", pt.render_pt_rebin, pt.render_pt_rebin_reference)):
+        band, nband = run(cfg, scene, cam, quat, 1, **kw)
+        if not torch.equal(band, k4[row0:row0 + bh]):
+            raise AssertionError(f"a config-5 {label} band differs from the rows of the full "
+                                 "render")
+        t0 = time.perf_counter()
+        want, nwant = plain(cfg, scene, cam, quat, 1, **kw)
+        torch.cuda.synchronize(device)
+        hold_pt(f"{label} with {n_inst} instances vs its plain version, {rows} (plain "
+                f"{time.perf_counter() - t0:.1f} s; band == full-frame rows)", band, nband, want,
+                nwant)
+    f, nf = render_pt_fast(cfg, scene, cam, quat, 1, seed=seed, bvh=ic)
+    hold_pt("render_pt_fast(bvh=ic) through K7 vs K4", f, nf, k4, n4)
+    return max(errs)
+
+
+def phase_c5_main(c5, c3, bvh3, quat, seed, device, card):
+    """The slice's main paths under the launch counters, timed; the
+    profiler splits; K7 alone on a Phong frame, held to its plain version
+    bit for bit, and its least time; -> the launches and K7's numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracing_engine_tpu_torch.models.instanced import camera_rays, render_instanced_phong
+    from raytracing_engine_tpu_torch.ops.cuda import bvh_traverse as kbvh
+    from raytracing_engine_tpu_torch.ops.cuda import cluster, pt
+    from raytracing_engine_tpu_torch.ops.cuda import instanced as kinst
+    from raytracing_engine_tpu_torch.pathtracer.wavefront import render_pt_fast
+    from raytracing_engine_tpu_torch.utils.timing import (
+        bound_ms,
+        cluster_table_bytes,
+        instanced_ops,
+        k7_bytes,
+    )
+
+    cs, ic, cam, cfg, scene = c5["cs"], c5["ic"], c5["cam"], c5["cfg"], c5["scene"]
+    width, height = C5_SIZE
+    phong = (ic.inst_tab, cs, c5["inst"].mat, c5["albedo"], cam)
+    yaws = [torch.tensor(y, dtype=torch.float32, device=device)
+            for y in np.linspace(0.0, 0.5, C5_FRAMES)]
+    zs = [torch.tensor([0.0, 0.0, 1e-4 * k], device=device) for k in range(C5_PT_FRAMES)]
+
+    def rounds(label, fn, n_frames):
+        """Best ms/frame of C5_ROUNDS rounds of n_frames chained frames (a
+        warm-up first); fn(k) -> its ray count or None."""
+        fn(0)
+        best = None
+        for r in range(C5_ROUNDS):
+            rays = []
+            ms, host_ms = cuda_ms(lambda k: rays.append(fn(k)), n_frames)
+            n = None if rays[0] is None else int(torch.stack(rays).sum()) // n_frames
+            rate = "" if n is None else f" = {n / ms / 1e3:.2f} Mrays/s, {n} rays/frame"
+            log(f"  {label} round {r}: {ms:.4f} ms/frame (host enqueue {host_ms:.4f} ms){rate} "
+                f"[{card}]")
+            if best is None or ms < best[0]:
+                best = (ms, n)
+        return best
+
+    def phong_frame(k, **kw):
+        render_instanced_phong(*phong, yaws[k], c5["light"], **kw)
+
+    kinst.launches = kbvh.launches = cluster.launches = pt.launches = pt.rebin_launches = 0
+    hard_ms, _ = rounds(f"config 5 Phong orbit {width}x{height}, hard shadows", phong_frame,
+                        C5_FRAMES)
+    soft_ms, _ = rounds(f"config 5 soft-shadow orbit {width}x{height} {C5_SOFT}",
+                        lambda k: phong_frame(k, **C5_SOFT), C5_SOFT_FRAMES)
+    rebin_ms, rays5 = rounds(f"config 5 PT render_pt_rebin(bvh=ic) {cfg.width}x{cfg.height}",
+                             lambda k: pt.render_pt_rebin(cfg, scene, zs[k], quat, 1, seed=seed,
+                                                          bvh=ic)[1], C5_PT_FRAMES)
+    mega_ms, _ = rounds(f"config 5 PT render_pt_mega(bvh=ic) {cfg.width}x{cfg.height}",
+                        lambda k: pt.render_pt_mega(cfg, scene, zs[k], quat, 1, seed=seed,
+                                                    bvh=ic)[1], C5_PT_FRAMES)
+    _, _, scene3, cfg3, _ = c3
+    raw_ms, rays3 = rounds(f"config 3 render_pt_fast(bvh=raw BVH) {cfg3.width}x{cfg3.height}",
+                           lambda k: render_pt_fast(cfg3, scene3, zs[k], quat, 1, seed=seed,
+                                                    bvh=bvh3)[1], RAW_FRAMES)
+    torch.cuda.synchronize(device)
+    counts = {"K7": kinst.launches, "K8": kbvh.launches, "K4": pt.launches,
+              "K5": pt.rebin_launches, "K6": cluster.launches}
+    nb = cfg.max_bounces + 1
+
+    def runs(n_frames):  # the warm-up and the timed rounds
+        return 1 + C5_ROUNDS * n_frames
+
+    want = {"K7": 2 * runs(C5_FRAMES) + (1 + C5_SOFT["shadow_samples"]) * runs(C5_SOFT_FRAMES),
+            "K8": 2 * nb * runs(RAW_FRAMES), "K4": runs(C5_PT_FRAMES),
+            "K5": nb * runs(C5_PT_FRAMES), "K6": 0}
+    log(f"  launches on the slice's main paths {counts} (expected {want}: 2 K7 per hard-shadow "
+        f"frame, {1 + C5_SOFT['shadow_samples']} per soft-shadow frame, {nb} K5 per rebin frame, "
+        f"1 K4 per mega frame, {2 * nb} K8 per render_pt_fast frame: closest and shadow per "
+        f"bounce)")
+    if counts != want:
+        raise AssertionError(f"config-5 / raw-BVH launch counts {counts} != {want}")
+
+    # profiler: K7 closest against any hit per Phong frame; K5 per bounce
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_ms, _ = cuda_ms(phong_frame, C5_FRAMES)
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    if events:
+        k7 = [e.time_range.elapsed_us() for e in events if "instanced_kernel" in e.name]
+        busy = sum(e.time_range.elapsed_us() for e in events) / C5_FRAMES
+        closest, anyhit = sum(k7[0::2]) / C5_FRAMES, sum(k7[1::2]) / C5_FRAMES
+        log(f"  profile Phong orbit ({C5_FRAMES} frames, profiler on: {prof_ms:.4f} ms/frame): "
+            f"K7 closest {closest:.1f} us + any hit {anyhit:.1f} us per frame; device busy "
+            f"{busy:.1f} us/frame = {busy / 1e3 / hard_ms:.1%} of the unprofiled {hard_ms:.4f} "
+            f"ms frame; the rest (Phong math, orders) {busy - closest - anyhit:.1f} us [{card}]")
+    else:
+        log("  profiler: no device events; the Phong split is not measured")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_ms, _ = cuda_ms(lambda k: pt.render_pt_rebin(cfg, scene, zs[k], quat, 1, seed=seed,
+                                                          bvh=ic), C5_PT_FRAMES)
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    if events:
+        k5 = [e.time_range.elapsed_us() for e in events if "pt_rebin_kernel" in e.name]
+        per_bounce = [sum(k5[b::nb]) / C5_PT_FRAMES for b in range(nb)]
+        busy = sum(e.time_range.elapsed_us() for e in events) / C5_PT_FRAMES
+        log(f"  profile config 5 PT render_pt_rebin ({C5_PT_FRAMES} frames, profiler on: "
+            f"{prof_ms:.4f} ms/frame): K5 by bounce {[round(x, 1) for x in per_bounce]} us; device "
+            f"busy {busy:.1f} us/frame = {busy / 1e3 / rebin_ms:.1%} of the unprofiled "
+            f"{rebin_ms:.4f} ms frame; the regroup and the rest {busy - sum(per_bounce):.1f} us "
+            f"[{card}]")
+    else:
+        log("  profiler: no device events; the K5 split is not measured")
+
+    # K7 alone on the camera rays of a Phong frame (closest + normal), and
+    # its least time from the plain version's replay of the same rays
+    o, d = camera_rays(cam, 0.0, width, height)
+    o, d = tuple(x.contiguous() for x in o), tuple(x.contiguous() for x in d)
+    # the frame's orders made once, as render_instanced_phong makes them, so
+    # the timed loop enqueues the kernel alone: building them per call makes
+    # the loop host-bound
+    iorder, iorders = kinst.instance_orders(ic.inst_tab, cs, cam)
+    kw = dict(attrs=True, iorder=iorder, iorders=iorders)
+    got = kinst.instanced_cluster_intersect(ic.inst_tab, cs, o, d, **kw)  # and warm-up
+    ms, host_ms = cuda_ms(lambda k: kinst.instanced_cluster_intersect(ic.inst_tab, cs, o, d, **kw),
+                          K7_REPS)
+    kinst.work.update(gates=0, transforms=0)
+    cluster.work.update(slabs=0, tests=0)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    want = kinst.instanced_cluster_intersect_reference(ic.inst_tab, cs, o, d, **kw)
+    torch.cuda.synchronize(device)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = hold_sweep(f"K7 config 5, Phong camera rays {width}x{height} (yaw 0), closest + normal",
+                     got, want, "K7")
+    tb = cluster.sweep_tables(cs)
+    n = width * height
+    tables = cluster_table_bytes([tb.sbox, tb.crec, tb.trec, tb.tsmooth, ic.inst_tab, iorders])
+    n_bytes = k7_bytes(n, True, tables)  # a scalar t_max: no plane read
+    n_ops = instanced_ops(kinst.work["gates"], kinst.work["transforms"], cluster.work["slabs"],
+                          cluster.work["tests"])
+    bound = bound_ms(n_bytes, n_ops)
+    log(f"  K7 Phong camera rays {width}x{height} (closest + normal): kernel {ms:.4f} ms (host "
+        f"enqueue {host_ms:.4f} ms), plain {plain_ms:.1f} ms; {kinst.work['gates']} instance "
+        f"gates, {kinst.work['transforms']} transforms, {cluster.work['slabs']} box + "
+        f"{cluster.work['tests']} triangle tests -> bound {bound[0]:.5f} ms by {bound[1]} "
+        f"({n_bytes} B, {n_ops} ops), kernel at {bound[0] / ms:.2%} of it [{card}]")
+    log(f"  config 5: Phong orbit {hard_ms:.4f} ms/frame = {1e3 / hard_ms:.1f} fps, soft shadows "
+        f"{soft_ms:.4f} ms/frame; PT 512x512 rebin {rebin_ms:.4f} ms/frame = "
+        f"{rays5 / rebin_ms / 1e3:.2f} Mrays/s, mega {mega_ms:.4f} ms/frame; config 3 raw BVH "
+        f"render_pt_fast {raw_ms:.4f} ms/frame = {rays3 / raw_ms / 1e3:.2f} Mrays/s [{card}]")
+    return {"launches": counts, "k7_err": err,
+            "k7": {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -1043,6 +1527,13 @@ def main() -> int:
     inv = phase_c3_invariants(c3, pt_quat, pt_seed, device)
     log("phase 12: config-3 main path and timing (CUDA events)")
     c3_main = phase_c3_main(c3, pt_quat, pt_seed, device, card, inv)
+    log("phase 13: config 3's raw BVH and K8 vs its plain version")
+    k8, bvh3 = phase_bvh_kernel(c3, pt_quat, pt_seed, device, card)
+    c5 = c5_setup(device)
+    log("phase 14: BASELINE config 5, K7 and the instanced paths vs their plain versions")
+    k7_err = phase_instanced_kernel(c5, pt_quat, pt_seed, device)
+    log("phase 15: the slice's main paths and timing (CUDA events)")
+    c5_main = phase_c5_main(c5, c3, bvh3, pt_quat, pt_seed, device, card)
 
     # no single PyTorch call computes any of these kernels: library_ms null
     src = "raytracing_engine_tpu_torch/csrc/conemarch.cu"
@@ -1072,6 +1563,16 @@ def main() -> int:
          "source": "raytracing_engine_tpu_torch/csrc/cluster.cu",
          "replaces": "raytracing_engine_tpu/ops/pallas/cluster_intersect.py:439",
          "launches": c3_main["launches"]["K6"], **k6, "library_ms": None},
+        {"name": "instanced_kernel (K7)", "route": "cuda",
+         "source": "raytracing_engine_tpu_torch/csrc/instanced.cu",
+         "replaces": "raytracing_engine_tpu/ops/pallas/instanced_intersect.py:225",
+         "launches": c5_main["launches"]["K7"],
+         "max_abs_err": max(k7_err, c5_main["k7_err"]), **c5_main["k7"],
+         "library_ms": None},
+        {"name": "traverse_kernel (K8)", "route": "cuda",
+         "source": "raytracing_engine_tpu_torch/csrc/bvh.cu",
+         "replaces": "raytracing_engine_tpu/ops/pallas/bvh_traverse.py:60",
+         "launches": c5_main["launches"]["K8"], **k8, "library_ms": None},
     ]
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,85 @@
+// Kernel K7, the instanced cluster intersector, for Hopper (sm_90a), and its
+// C entry point (bound with ctypes by ops/cuda/instanced.py and
+// ops/cuda/common.py).
+//
+// Replaces raytracing_engine_tpu/ops/pallas/instanced_intersect.py:
+// _instanced_kernel (K7, launched by instanced_cluster_intersect): closest or
+// any hit of a grid of rays against N instances of one base ClusterSet,
+// with the world-space normal of the closest hit on request. The two-level
+// sweep itself is instanced.cuh, over cluster.cuh's sweep.
+//
+// What bounds it on this card: FP32 ALU work and divergence, not bytes. A
+// ray reads 7 floats and writes 2 (5 with the normal); it tests every
+// instance's world box (28 operations), moves into the object space of the
+// ones it enters (about 40), and runs the cluster sweep there (box tests of
+// 28 and triangle tests of 30 operations). So: one thread per ray, each ray
+// gates and culls on its own, the near-to-far instance order lets a near
+// hit cull the far instances' boxes; the base set's tables (about 5 MB at
+// BASELINE config 5, for 1,056,000 triangles) and the 30 x 96-byte
+// instance table are read through the read-only path and stay in the L2.
+//
+// Block: 128 threads over consecutive rays; the ragged end is masked.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+//        --fmad=false -shared -Xcompiler -fPIC
+#include "instanced.cuh"
+
+namespace ins {
+
+constexpr int kBlock = 128;
+
+// Launch arguments, passed by value. Mirrored field for field by
+// InstancedArgs in ops/cuda/instanced.py.
+struct Args {
+  cl::Tables tables;
+  Instances inst;
+  const float* ox;   // (n,) ray origins and directions, one plane each
+  const float* oy;
+  const float* oz;
+  const float* dx;
+  const float* dy;
+  const float* dz;
+  const float* tmax;  // (n,) initial t (the any-hit cutoff)
+  float* out_t;       // (n,) t of the hit, +inf on a miss
+  int* out_code;      // (n,) instance * t_pad + slot, -1 on a miss
+  float* out_n;       // (3, n) unnormalized world normal, or null
+  int n;
+  float t_min;
+  int any_hit;
+  int device;        // CUDA ordinal the pointers and the stream belong to
+};
+
+__global__ void __launch_bounds__(kBlock) instanced_kernel(const Args a) {
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i >= a.n) return;
+  const float3 o = make_float3(__ldg(a.ox + i), __ldg(a.oy + i), __ldg(a.oz + i));
+  const float3 d = make_float3(__ldg(a.dx + i), __ldg(a.dy + i), __ldg(a.dz + i));
+  InstHit h;
+  instanced_sweep(a.tables, a.inst, o, d, __ldg(a.tmax + i), a.t_min, a.any_hit != 0,
+                  a.out_n != nullptr, h);
+  a.out_t[i] = h.code >= 0 ? h.t : __int_as_float(0x7f800000);
+  a.out_code[i] = h.code;
+  if (a.out_n != nullptr) {
+    a.out_n[i] = h.n.x;
+    a.out_n[a.n + i] = h.n.y;
+    a.out_n[2 * a.n + i] = h.n.z;
+  }
+}
+
+}  // namespace ins
+
+// Launches on `stream` (a cudaStream_t), does not synchronise, and returns
+// cudaGetLastError() as an int (0 = launched).
+extern "C" int instanced_intersect(const ins::Args* a, void* stream) {
+  cudaError_t err = cudaSetDevice(a->device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (a->n > 0) {
+    const dim3 grid((a->n + ins::kBlock - 1) / ins::kBlock);
+    ins::instanced_kernel<<<grid, ins::kBlock, 0, static_cast<cudaStream_t>(stream)>>>(*a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* instanced_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -3,8 +3,9 @@
 // ops/cuda/pt.py and ops/cuda/common.py).
 //
 // K4 replaces raytracing_engine_tpu/ops/pallas/pt_kernel.py:_pt_kernel for
-// scenes of spheres and up to TRI_UNROLL_MAX unrolled triangles, or of
-// spheres and a mesh given as a ClusterSet (BASELINE configs 2, 3 and 4):
+// scenes of spheres and up to TRI_UNROLL_MAX unrolled triangles, of spheres
+// and a mesh given as a ClusterSet, or of spheres and instances of such a
+// mesh (BASELINE configs 2, 3, 4 and 5's path-traced cell):
 // the whole path of a pixel (camera ray, spp loop, bounce loop, NEE + MIS,
 // the PCG4D stream keyed on global pixel coordinates) runs in one thread, in
 // registers.
@@ -20,7 +21,8 @@
 //
 // What bounds them on this card: FP32 ALU work and divergence, not bytes.
 // Each segment tests every live sphere and then every unrolled triangle or
-// the cluster hierarchy (box tests and Baldwin–Weber tests); paths end at
+// the cluster hierarchy (box tests and Baldwin–Weber tests), per instance
+// entered with instances (instanced.cuh); paths end at
 // different bounces. K4 writes only its output (5.8 MB at config 2); K5
 // moves 17 planes in and out per bounce (36 MB at 512², well under its
 // sweep work at config 3). So: one thread per ray, a thread that misses or
@@ -75,7 +77,9 @@ __device__ __forceinline__ Scene stage_scene(const Args& a, float* tables, int t
   sc.n_light = min(max(__ldg(a.counts + 3), 0), a.L);
   sc.total_power = __ldg(a.light + 8);
   sc.cl = a.cl;
+  sc.inst = a.inst;
   sc.mesh = a.cl.trec != nullptr;
+  sc.instanced = sc.mesh && a.inst.tab != nullptr;
   return sc;
 }
 

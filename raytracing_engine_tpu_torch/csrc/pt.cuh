@@ -2,8 +2,10 @@
 //
 // Replaces the per-tile body of raytracing_engine_tpu/ops/pallas/pt_kernel.py
 // (_pt_kernel and _pt_rebin_kernel -> pathtracer/wavefront.py _trace_core):
-// camera rays, the unrolled sphere and triangle intersection or the cluster
-// sweep of a mesh (cluster.cuh), NEE toward the light table with
+// camera rays, the unrolled sphere and triangle intersection, the cluster
+// sweep of a mesh (cluster.cuh) or the two-level sweep of an instanced mesh
+// (instanced.cuh: materials per instance, light area 1 for its hits, as
+// wavefront.py:397-488), NEE toward the light table with
 // power-heuristic MIS, DIFFUSE / MIRROR / smooth DIELECTRIC scattering,
 // Russian roulette, and the PCG4D stream keyed on global pixel coordinates
 // (ops/rng_pcg.py).
@@ -31,6 +33,7 @@
 #include <cstdint>
 
 #include "cluster.cuh"
+#include "instanced.cuh"
 
 namespace pt {
 
@@ -78,6 +81,7 @@ struct Args {
   int max_bounces, rr_start, use_nee, uniform_lights;
   float ratio_x, ratio_y, t_min, eps;
   cl::Tables cl;           // a mesh as a ClusterSet (cl.trec null: none)
+  ins::Instances inst;     // instances of cl's mesh (inst.tab null: none)
   float* state;            // K5: (17, n_state) ray state, updated in place
   int n_state, bounce;     // K5: rays in the state, the bounce this launch runs
   int device;              // CUDA ordinal the pointers and the stream belong to
@@ -93,7 +97,9 @@ struct Scene {
   int n_sph, n_tri, n_light;
   float total_power;
   cl::Tables cl;
-  bool mesh;  // intersect cl instead of the unrolled triangle slots
+  ins::Instances inst;
+  bool mesh;       // intersect cl instead of the unrolled triangle slots
+  bool instanced;  // intersect the instances of cl instead
 };
 
 // max/min that propagate NaN as torch.maximum / torch.clamp do
@@ -223,8 +229,9 @@ struct Hit {
   bool front;
 };
 
-// wavefront._intersect (unrolled slots) or wavefront._intersect_clusters (a
-// mesh, the attributes path); returns false on a miss (t = BIG).
+// wavefront._intersect (unrolled slots), wavefront._intersect_clusters (a
+// mesh, the attributes path) or wavefront._intersect_instanced (instances);
+// returns false on a miss (t = BIG).
 __device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
                                           float t_min, Hit& h) {
   float t_s = kBig;
@@ -240,7 +247,11 @@ __device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
   float t_t = kBig;
   int i_t = -1;
   cl::SweepHit ch;
-  if (sc.mesh) {
+  ins::InstHit ih;
+  if (sc.instanced) {
+    ins::instanced_sweep(sc.cl, sc.inst, o, d, kBig, t_min, false, true, ih);
+    if (ih.code >= 0) t_t = ih.t;
+  } else if (sc.mesh) {
     cl::sweep(sc.cl, o, d, kBig, t_min, false, ch);
     if (ch.idx >= 0) t_t = ch.t;
   } else {
@@ -259,7 +270,11 @@ __device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
   h.p = make_float3(o.x + d.x * t, o.y + d.y * t, o.z + d.z * t);
   float3 n;
   float light_area;
-  if (use_tri && sc.mesh) {
+  if (use_tri && sc.instanced) {
+    n = ih.n;
+    light_area = 1.0f;
+    h.mat = static_cast<int>(ins::hit_material(sc.inst, ih.code));
+  } else if (use_tri && sc.mesh) {
     float mat, area2;
     cl::hit_attrs(sc.cl, ch, n, mat, area2);
     light_area = area2 * 0.5f;
@@ -284,7 +299,7 @@ __device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
   return true;
 }
 
-// wavefront._occluded: any live sphere or triangle (or mesh) hit in
+// wavefront._occluded: any live sphere or triangle (or mesh, or instance) hit in
 // (t_min, max_t).
 __device__ __forceinline__ bool occluded(const Scene& sc, float3 o, float3 d,
                                          float max_t, float t_min) {
@@ -292,6 +307,11 @@ __device__ __forceinline__ bool occluded(const Scene& sc, float3 o, float3 d,
     float disc;
     const float t = sphere_t(sc.sph + k * kSphW, o, d, t_min, disc);
     if (disc > 0.0f && t > t_min && t < max_t) return true;
+  }
+  if (sc.instanced) {
+    ins::InstHit h;
+    ins::instanced_sweep(sc.cl, sc.inst, o, d, max_t, t_min, true, false, h);
+    return h.code >= 0;
   }
   if (sc.mesh) {
     cl::SweepHit h;

@@ -3,4 +3,8 @@
 - ``conemarch``     — plain PyTorch depth-pyramid renderer (reference parity);
                       the oracle for the CUDA kernels and the CPU path
 - ``cuda_renderer`` — the same frame through the hand-written CUDA kernels
+- ``instanced``     — Phong-shaded frames of instanced scenes (BASELINE
+                      config 5) through kernel K7
 """
+
+from raytracing_engine_tpu_torch.models.instanced import render_instanced_phong  # noqa: F401

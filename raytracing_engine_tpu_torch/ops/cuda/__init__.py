@@ -10,6 +10,8 @@ a plain-integer ``launches`` count:
   triangles or a ClusterSet), and K5, one bounce per launch with the
   regroup between launches (render_pt_rebin)
 - ``cluster`` — K6, the cluster sweep of a ClusterSet (closest / any hit)
+- ``instanced`` — K7, the two-level sweep over instances of a ClusterSet
+- ``bvh_traverse`` — K8, the skip-link traversal of a raw BVH
 
 ``common`` builds one library per csrc/*.cu source and launches entries.
 """

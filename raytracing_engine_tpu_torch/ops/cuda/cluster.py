@@ -285,11 +285,7 @@ def _attrs(tb: SweepTables, idx, u, v):
 
 
 def _flat_inputs(cs, o_planes, d_planes, t_max, order):
-    shape = tuple(o_planes[0].shape)
-    o = tuple(p.reshape(-1).to(torch.float32).contiguous() for p in o_planes)
-    d = tuple(p.reshape(-1).to(torch.float32).contiguous() for p in d_planes)
-    t0 = torch.as_tensor(t_max, dtype=torch.float32, device=o[0].device)
-    t0 = t0.expand(shape).reshape(-1).contiguous()
+    shape, o, d, t0 = common.flat_rays(o_planes, d_planes, t_max)
     if order is None:
         order = torch.arange(cs.num_super, dtype=torch.int32, device=cs.device)
     return shape, o, d, t0, order

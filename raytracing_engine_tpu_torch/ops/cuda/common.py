@@ -2,8 +2,8 @@
 
 Each ``.cu`` source of ``csrc/`` is compiled with ``nvcc`` into its own
 library, ``build/lib<name>.so`` inside this package (``libconemarch.so``:
-K1-K3; ``libpt.so``: K4 and K5; ``libcluster.so``: K6), at first use and
-all at once (one nvcc process per
+K1-K3; ``libpt.so``: K4 and K5; ``libcluster.so``: K6; ``libbvh.so``: K8;
+``libinstanced.so``: K7), at first use and all at once (one nvcc process per
 source, started together). Each library is keyed on a hash of every
 ``csrc/`` file and the flags, and loaded with ``ctypes`` through a plain C
 interface: an entry takes a pointer to its argument struct and a stream.
@@ -23,8 +23,6 @@ from pathlib import Path
 
 import torch
 
-from raytracing_engine_tpu_torch.models.conemarch import check_seed_source
-
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
@@ -34,6 +32,8 @@ LIBRARIES = {
     "conemarch": ("conemarch.cu", ("conemarch_depth", "conemarch_shade", "conemarch_fused")),
     "pt": ("pt.cu", ("pt_render", "pt_rebin")),
     "cluster": ("cluster.cu", ("cluster_intersect",)),
+    "bvh": ("bvh.cu", ("bvh_traverse",)),
+    "instanced": ("instanced.cu", ("instanced_intersect",)),
 }
 
 # --fmad=false and no fast math: the marches' hit tests flip pixels when one
@@ -155,6 +155,21 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def flat_rays(o_planes, d_planes, t_max):
+    """(shape, o, d, t0) of a grid of rays for a sweep kernel: the origin and
+    direction planes flattened to contiguous f32 (n,) tensors, and t_max (a
+    scalar or a plane) as an (n,) plane; a scalar through torch.full, since
+    a host-to-device copy would wait for the stream."""
+    shape = tuple(o_planes[0].shape)
+    o = tuple(p.reshape(-1).to(torch.float32).contiguous() for p in o_planes)
+    d = tuple(p.reshape(-1).to(torch.float32).contiguous() for p in d_planes)
+    if isinstance(t_max, torch.Tensor):
+        t0 = t_max.to(torch.float32).expand(shape).reshape(-1).contiguous()
+    else:
+        t0 = torch.full((o[0].numel(),), float(t_max), dtype=torch.float32, device=o[0].device)
+    return shape, o, d, t0
+
+
 def check(t, name: str, shape, dtype, device):
     """Raise unless `t` is a contiguous tensor of `shape`/`dtype` on `device`."""
     if not isinstance(t, torch.Tensor):
@@ -202,6 +217,8 @@ def scene_args(cfg, scene, cam_pos, cam_quat, level: int) -> Args:
 
 def set_seed_source(args: Args, prev, h: int, w: int, device):
     """Point args.src at the previous level `prev` (or nullptr: seed 1)."""
+    from raytracing_engine_tpu_torch.models.conemarch import check_seed_source
+
     if prev is None:
         return
     check_seed_source(prev.shape, h, w)

@@ -3,8 +3,10 @@
 - ``render_pt_mega`` launches ``pt_kernel`` (K4), which replaces
   raytracing_engine_tpu/ops/pallas/pt_kernel.py ``_pt_kernel``: the whole
   path per pixel, for scenes of spheres and up to TRI_UNROLL_MAX unrolled
-  triangles (BASELINE configs 2 and 4), or spheres and a mesh given as a
-  ClusterSet (config 3, ``bvh=``).
+  triangles (BASELINE configs 2 and 4), spheres and a mesh given as a
+  ClusterSet (config 3, ``bvh=``), or spheres and instances of such a mesh
+  (config 5's path-traced cell, ``bvh=InstancedClusters``: K7's two-level
+  sweep inside the kernel).
 - ``render_pt_rebin`` launches ``pt_rebin_kernel`` (K5), which replaces
   ``_pt_rebin_kernel``: one launch per bounce over a packed 17-plane ray
   state, with an image-wide regroup between launches (``rebin_keys``, a
@@ -27,9 +29,12 @@ import numpy as np
 import torch
 
 from raytracing_engine_tpu_torch.accel.clusters import ClusterSet
+from raytracing_engine_tpu_torch.accel.instancing import InstancedClusters
 from raytracing_engine_tpu_torch.ops.cuda import cluster as kcluster
 from raytracing_engine_tpu_torch.ops.cuda import common
+from raytracing_engine_tpu_torch.ops.cuda import instanced as kinst
 from raytracing_engine_tpu_torch.ops.cuda.cluster import ClusterTables, FrameClusters
+from raytracing_engine_tpu_torch.ops.cuda.instanced import FrameInstances, InstanceTables
 from raytracing_engine_tpu_torch.ops.rng_pcg import pass_seed, to_int32
 from raytracing_engine_tpu_torch.pathtracer.integrator import PTConfig
 from raytracing_engine_tpu_torch.pathtracer.scene import TRI_UNROLL_MAX, PTScene
@@ -86,6 +91,7 @@ class PTArgs(ctypes.Structure):
         ("t_min", ctypes.c_float),
         ("eps", ctypes.c_float),
         ("cl", ClusterTables),
+        ("inst", InstanceTables),
         ("state", ctypes.c_void_p),
         ("n_state", ctypes.c_int),
         ("bounce", ctypes.c_int),
@@ -121,9 +127,10 @@ def pack_pt_scene(scene: PTScene):
 
 
 def kernel_scene(scene: PTScene, bvh) -> PTScene:
-    """With a ClusterSet the mesh lives in its tables: keep only the first
-    TRI_UNROLL_MAX triangle slots (the NEE light geometry) of the scene, as
-    the JAX megakernel does (pt_kernel.py:488-500)."""
+    """With a ClusterSet or InstancedClusters the mesh lives in its tables:
+    keep only the first TRI_UNROLL_MAX triangle slots (the NEE light
+    geometry) of the scene, as the JAX megakernel does
+    (pt_kernel.py:488-500)."""
     if bvh is None:
         return scene
     n = min(scene.tri_v0.shape[0], TRI_UNROLL_MAX)
@@ -136,11 +143,13 @@ def kernel_scene(scene: PTScene, bvh) -> PTScene:
 def _prepare(cfg: PTConfig, scene: PTScene, row0: int, band_h, bvh, need_bvh=False):
     """The config the kernels render (rng forced to pcg, as the JAX
     wrappers do) and the band height, after the slice's checks."""
-    if bvh is not None and not isinstance(bvh, ClusterSet):
-        raise TypeError("the megakernels take a ClusterSet (accel.clusters.build_clusters), "
-                        f"got {type(bvh).__name__}")
+    if bvh is not None and not isinstance(bvh, (ClusterSet, InstancedClusters)):
+        raise TypeError("the megakernels take a ClusterSet (accel.clusters.build_clusters) or "
+                        "an InstancedClusters (accel.instancing.make_instanced_clusters), got "
+                        f"{type(bvh).__name__}; for a skip-link BVH use render_pt_fast")
     if need_bvh and bvh is None:
-        raise TypeError("render_pt_rebin needs a ClusterSet (accel.clusters.build_clusters)")
+        raise TypeError("render_pt_rebin needs a ClusterSet (accel.clusters.build_clusters) "
+                        "or an InstancedClusters")
     if bvh is None and scene.tri_v0.shape[0] > TRI_UNROLL_MAX:
         raise ValueError(f"megakernel unrolls triangles; {scene.tri_v0.shape[0]} slots > "
                          f"{TRI_UNROLL_MAX}: pass bvh=build_clusters(mesh) instead")
@@ -153,16 +162,28 @@ def _prepare(cfg: PTConfig, scene: PTScene, row0: int, band_h, bvh, need_bvh=Fal
     return cfg, h
 
 
+def frame_view(bvh, cam_pos):
+    """The in-kernel view of `bvh` for a frame seen from cam_pos (3,):
+    FrameClusters of a ClusterSet, FrameInstances of an InstancedClusters,
+    None without a mesh."""
+    if bvh is None:
+        return None
+    if isinstance(bvh, InstancedClusters):
+        return FrameInstances.at(bvh, cam_pos)
+    return FrameClusters.at(bvh, cam_pos)
+
+
 def render_pt_mega_reference(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
                              seed: int = 0, spp_offset: int = 0, row0: int = 0, band_h=None,
                              bvh=None):
     """Plain PyTorch version: the wavefront core per pass (the attributes
-    path with the camera's visit orders for a ClusterSet), passes summed in
-    pass order and then scaled by 1/spp (ops/pallas/pt_kernel.py:360-363).
+    path with the camera's visit orders for a ClusterSet or an
+    InstancedClusters), passes summed in pass order and then scaled by
+    1/spp (ops/pallas/pt_kernel.py:360-363).
     → ((band_h or H, W, 3) image, nrays int64)."""
     cfg, h = _prepare(cfg, scene, row0, band_h, bvh)
     scene_k = kernel_scene(scene, bvh)
-    frame = None if bvh is None else FrameClusters.at(bvh, cam_pos)
+    frame = frame_view(bvh, cam_pos)
     acc = torch.zeros((h, cfg.width, 3), dtype=torch.float32, device=scene.device)
     nrays = torch.zeros((), dtype=torch.int64, device=scene.device)
     for s in range(spp):
@@ -190,8 +211,17 @@ def _kernel_args(cfg: PTConfig, scene_k: PTScene, cam_pos, cam_quat, h: int, row
         raise ValueError(f"scene tables of {table_bytes} B exceed the kernel's "
                          f"{_MAX_TABLE_BYTES} B of shared memory")
     keep = list(tables)
-    cl = ClusterTables()
-    if frame is not None:
+    cl, inst = ClusterTables(), InstanceTables()
+    if isinstance(frame, FrameInstances):
+        cs = frame.ic.cs
+        if cs.device != device:
+            raise ValueError(f"InstancedClusters on {cs.device}, scene on {device}")
+        tb = kcluster.sweep_tables(cs)
+        order = torch.arange(cs.num_super, dtype=torch.int32, device=device)
+        cl = kcluster.tables_struct(tb, order)
+        inst = kinst.instance_struct(frame.ic.inst_tab, cs, frame.iorder, frame.iorders)
+        keep += [tb, order, frame]
+    elif frame is not None:
         if frame.cs.device != device:
             raise ValueError(f"ClusterSet on {frame.cs.device}, scene on {device}")
         tb = kcluster.sweep_tables(frame.cs)
@@ -209,6 +239,7 @@ def _kernel_args(cfg: PTConfig, scene_k: PTScene, cam_pos, cam_quat, h: int, row
         max_bounces=cfg.max_bounces, rr_start=cfg.rr_start, use_nee=int(cfg.use_nee),
         uniform_lights=int(cfg.light_sampling == "uniform"),
         ratio_x=cfg.ratio[0], ratio_y=cfg.ratio[1], t_min=cfg.t_min, eps=cfg.eps, cl=cl,
+        inst=inst,
         device=device.index if device.index is not None else torch.cuda.current_device(),
     )
     return args, keep
@@ -225,8 +256,10 @@ def render_pt_mega(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
     of the cfg.height image; a band equals the same rows of the full render,
     since the camera and the stream are keyed on global pixel coordinates.
     bvh: a ClusterSet for a mesh of any size (its closest and shadow sweeps
-    run in the kernel, K6's sweep); without one, at most TRI_UNROLL_MAX
-    triangle slots.
+    run in the kernel, K6's sweep), or an InstancedClusters (K7's two-level
+    sweep in the kernel, materials per instance); without one, at most
+    TRI_UNROLL_MAX triangle slots. A raw BVH raises TypeError, as in the
+    JAX package: it goes to render_pt_fast.
     """
     global launches
     if scene.device.type == "cpu":
@@ -235,9 +268,8 @@ def render_pt_mega(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
     cfg, h = _prepare(cfg, scene, row0, band_h, bvh)
     if spp < 1:
         raise ValueError(f"spp must be >= 1, got {spp}")
-    frame = None if bvh is None else FrameClusters.at(bvh, cam_pos)
     args, keep = _kernel_args(cfg, kernel_scene(scene, bvh), cam_pos, cam_quat, h, row0,
-                              seed, spp_offset, frame)
+                              seed, spp_offset, frame_view(bvh, cam_pos))
     out = torch.empty((h, cfg.width, 3), dtype=torch.float32, device=scene.device)
     nrays = torch.zeros((1,), dtype=torch.int64, device=scene.device)
     args.out, args.nrays, args.spp = out.data_ptr(), nrays.data_ptr(), spp
@@ -362,7 +394,7 @@ def render_pt_rebin_reference(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, 
     regroup and scatter."""
     cfg, h = _prepare(cfg, scene, row0, band_h, bvh, need_bvh=True)
     scene_k = kernel_scene(scene, bvh)
-    frame = FrameClusters.at(bvh, cam_pos)
+    frame = frame_view(bvh, cam_pos)
     n = h * cfg.width
 
     def run_bounce(b, state, gpass):
@@ -379,7 +411,7 @@ def render_pt_rebin_reference(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, 
 
 
 def rebin_bounce_launcher(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed: int,
-                          bvh: ClusterSet, row0: int = 0, band_h=None):
+                          bvh, row0: int = 0, band_h=None):
     """(cfg, band height, run_bounce): run_bounce(b, state, gpass) launches
     K5 for bounce b of global pass gpass on the (17, n) state (None for
     b = 0: a new one), updates it in place and returns (state, nrays).
@@ -387,9 +419,8 @@ def rebin_bounce_launcher(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed
     once here."""
     cfg, h = _prepare(cfg, scene, row0, band_h, bvh, need_bvh=True)
     dev = scene.device
-    frame = FrameClusters.at(bvh, cam_pos)
     args, keep = _kernel_args(cfg, kernel_scene(scene, bvh), cam_pos, cam_quat, h, row0,
-                              seed, 0, frame)
+                              seed, 0, frame_view(bvh, cam_pos))
     n = h * cfg.width
     args.n_state, args.spp = n, 1
 
@@ -414,7 +445,8 @@ def render_pt_rebin(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
                     row0: int = 0, band_h=None, stripes=None, rebin: str = "none,morton"):
     """Rebin render: ((band_h or H, W, 3) image, nrays int64 0-dim), the
     estimator of render_pt_mega executed as one K5 launch per bounce with an
-    image-wide regroup between launches. bvh: a ClusterSet (required).
+    image-wide regroup between launches. bvh: a ClusterSet or an
+    InstancedClusters (required).
 
     rebin: the regroup key per gap, comma-joined; the last entry repeats for
     deeper bounces (modes: "none" keeps the order, else rebin_keys). The

@@ -9,17 +9,28 @@ any shape, and every expression keeps the JAX operation order, because
 csrc/pt.cuh is held to this code on the card.
 
 Triangles: up to TRI_UNROLL_MAX slots are walked slot by slot; a mesh of any
-size comes as a ClusterSet (accel/clusters.py), intersected in one of two
-ways, as in the JAX package:
+size comes as a raw BVH, a ClusterSet or instances of one, as in the JAX
+package:
 
+- ``bvh=BVH`` (accel/bvh.py): the skip-link traversal (JAX ``_tri_hits``'s
+  BVH branch): kernel K8 on a CUDA scene, whatever ``packet`` says (the
+  plain traversal must not run on the card), ``accel.bvh.bvh_intersect`` on
+  the CPU; then the normal e1 x e2 and the material gathered by the
+  original index;
 - ``bvh=ClusterSet``: the gather path (JAX ``_tri_hits``): the cluster
   intersector (kernel K6 on a CUDA scene, its plain version on the CPU) with
   visit orders from the mean live origin, then the normal, area and
   material gathered by the hit slot (material from ``scene.tri_mat``);
-- ``bvh=FrameClusters`` (ops/cuda/cluster.py): the attributes path of the
-  JAX megakernel (``_intersect_clusters``): the plain sweep returns the
-  normal, material (tri row 12) and area itself, with the frame's visit
-  orders (row 0 from the camera). This is K4's and K5's oracle.
+- ``bvh=InstancedClusters`` (accel/instancing.py): the two-level host path
+  (JAX ``_intersect_instanced``): kernel K7 with attributes (its plain
+  version on the CPU), the material from the hit's instance (table column
+  19), light area 1 for mesh hits;
+- ``bvh=FrameClusters`` / ``FrameInstances`` (ops/cuda/cluster.py,
+  ops/cuda/instanced.py): the attributes paths of the JAX megakernel
+  (``_intersect_clusters``, ``_intersect_instanced`` on KernelInstances):
+  the plain sweeps with the frame's visit orders (from the camera). These
+  are K4's and K5's oracles; the public entry points refuse them on a CUDA
+  scene, where they would run the plain sweeps on the card.
 
 Staged launches (``state_in`` / ``bounce_lo`` / ``bounce_hi`` /
 ``emit_state``, kernel K5's oracle): a call runs bounces [bounce_lo,
@@ -29,8 +40,8 @@ calls draws the same numbers.
 
 Not in this slice (each raises NotImplementedError; ROADMAP queue 1 lists
 them in order): thin-lens DOF, fog and media, the R_d sampler, the light
-tree, textures other than nearest, a raw BVH and the sorted wavefront (the
-next slice), and rng other than "pcg".
+tree, textures other than nearest, the sorted wavefront (``sort``, with
+pathtracer/compaction.py, after K9), and rng other than "pcg".
 """
 
 from __future__ import annotations
@@ -38,11 +49,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from raytracing_engine_tpu_torch.accel.bvh import BVH
+from raytracing_engine_tpu_torch.accel.bvh import BVH, bvh_intersect
 from raytracing_engine_tpu_torch.accel.clusters import CLUSTER, ClusterSet, visit_orders
+from raytracing_engine_tpu_torch.accel.instancing import InstancedClusters
 from raytracing_engine_tpu_torch.ops import vec3 as v3
+from raytracing_engine_tpu_torch.ops.cuda import bvh_traverse as kbvh
 from raytracing_engine_tpu_torch.ops.cuda import cluster as kcluster
+from raytracing_engine_tpu_torch.ops.cuda import instanced as kinst
 from raytracing_engine_tpu_torch.ops.cuda.cluster import FrameClusters
+from raytracing_engine_tpu_torch.ops.cuda.instanced import FrameInstances
 from raytracing_engine_tpu_torch.ops.rng_pcg import pass_seed, uniform_pcg, uniform_pcg_coords
 from raytracing_engine_tpu_torch.pathtracer import sampler
 from raytracing_engine_tpu_torch.pathtracer.integrator import PTConfig
@@ -58,9 +73,11 @@ PI = sampler.PI
 BIG = float(np.float32(3.4e38))
 DEAD_O = 1e18                       # parked-dead-ray origin
 INV_SQRT3 = float(np.float32(0.5773502691896258))
+BVH_MAX_STEPS = 10_000              # JAX bvh_intersect's per-ray node cap
+_MESHES = (BVH, ClusterSet, InstancedClusters, FrameClusters, FrameInstances)
 
 _LATER = "ROADMAP.md queue 1 item 2, K4 features still to port"
-_NEXT = "ROADMAP.md queue 1 item 3, the next slice: kernel K8 and pathtracer/compaction.py"
+_AFTER_K9 = "ROADMAP.md queue 1, after kernel K9: pathtracer/compaction.py"
 
 
 def _not_yet(what: str, where: str = _LATER):
@@ -81,13 +98,21 @@ def check_supported(cfg: PTConfig, bvh=None, sort=False):
         _not_yet("light_sampling='tree' (the light tree)")
     if cfg.tex_filter != "nearest":
         _not_yet(f"tex_filter={cfg.tex_filter!r}")
-    if isinstance(bvh, BVH):
-        _not_yet("a raw BVH (accel.bvh.bvh_intersect and its kernel K8)", _NEXT)
-    if bvh is not None and not isinstance(bvh, (ClusterSet, FrameClusters)):
-        raise TypeError(f"bvh must be a ClusterSet (accel.clusters.build_clusters), "
-                        f"got {type(bvh).__name__}")
+    if bvh is not None and not isinstance(bvh, _MESHES):
+        raise TypeError(f"bvh must be a BVH (accel.bvh.build_bvh), a ClusterSet "
+                        f"(accel.clusters.build_clusters) or an InstancedClusters "
+                        f"(accel.instancing.make_instanced_clusters), got {type(bvh).__name__}")
     if sort:
-        _not_yet("sort (the regrouped single-call wavefront)", _NEXT)
+        _not_yet("sort (the regrouped single-call wavefront)", _AFTER_K9)
+
+
+def check_entry(scene: PTScene, bvh):
+    """The public entry points take the host containers. The in-kernel
+    views (FrameClusters, FrameInstances) run the plain sweeps; they are the
+    kernels' oracles, refused on a CUDA scene, where no kernel would run."""
+    if isinstance(bvh, (FrameClusters, FrameInstances)) and scene.device.type == "cuda":
+        raise TypeError(f"{type(bvh).__name__} is the megakernels' in-kernel view: on a CUDA "
+                        "scene pass the ClusterSet or InstancedClusters itself")
 
 
 def _counts(scene: PTScene):
@@ -247,18 +272,24 @@ def _surface(scene: PTScene, o, d, t_s, i_s, t_t, n_tri, use_tri_mat, tri_area):
 
 
 def _intersect(scene: PTScene, o, d, t_min, counts, bvh=None):
-    """Closest hit among spheres and triangles (unrolled slots, a ClusterSet
-    by the gather path, or FrameClusters by the attributes path): dict of
+    """Closest hit among spheres and triangles (unrolled slots, a raw BVH,
+    a ClusterSet by the gather path, FrameClusters by the attributes path,
+    or instances: see the module docstring): dict of
     planes t, hit, p, n (unit, facing the ray), mat_id, light_area, is_tri,
     front."""
     n_sph, n_tri, _ = counts
     t_s, i_s = _sphere_hits(scene, o, d, t_min, n_sph)
     if isinstance(bvh, FrameClusters):
         return _intersect_clusters(scene, o, d, t_min, t_s, i_s, bvh)
+    if isinstance(bvh, (InstancedClusters, FrameInstances)):
+        return _intersect_instanced(scene, o, d, t_min, t_s, i_s, bvh)
     T = scene.tri_v0.shape[0]
     if isinstance(bvh, ClusterSet):
         t_t, i_t, n_tri_v, nlen2 = _tri_hits_clusters(o, d, t_min, bvh)
         tri_mat = scene.tri_mat[i_t]  # gather — T too large to unroll
+    elif isinstance(bvh, BVH):
+        t_t, i_t, n_tri_v, nlen2 = _tri_hits_bvh(o, d, t_min, bvh)
+        tri_mat = scene.tri_mat[i_t]
     else:
         if T > TRI_UNROLL_MAX:
             raise ValueError(f"{T} triangle slots > TRI_UNROLL_MAX={TRI_UNROLL_MAX} without "
@@ -273,6 +304,48 @@ def _intersect(scene: PTScene, o, d, t_min, counts, bvh=None):
     return _surface(scene, o, d, t_s, i_s, t_t, n_tri_v, tri_mat, 0.5 * nlen2)
 
 
+def _bvh_hits(o, d, t_max, t_min, bvh: BVH, any_hit: bool):
+    """(t, reordered idx) of a raw-BVH traversal: kernel K8 on a CUDA
+    device, the plain ``bvh_intersect`` on the CPU (the same walk)."""
+    if o[0].device.type == "cuda":
+        return kbvh.bvh_intersect_packet(kbvh.tables_of(bvh), o, d, t_max, t_min=t_min,
+                                         any_hit=any_hit, max_steps=BVH_MAX_STEPS)
+    t, idx, _, _ = bvh_intersect(bvh, v3.stack(o), v3.stack(d), t_min=t_min, t_max=t_max,
+                                 any_hit=any_hit, max_steps=BVH_MAX_STEPS)
+    return t, idx
+
+
+def _tri_hits_bvh(o, d, t_min, bvh: BVH):
+    """(t, original tri index, n V3 unnormalized, |n|) of the nearest raw-BVH
+    hit (JAX wavefront.py:348-369); t = BIG on a miss."""
+    t, ridx = _bvh_hits(o, d, float("inf"), t_min, bvh, False)
+    safe = torch.clamp_min(ridx, 0).to(torch.int64)
+    idx = bvh.perm[safe].to(torch.int64)
+    n = v3.cross(v3.unstack(bvh.e1[safe]), v3.unstack(bvh.e2[safe]))
+    return torch.where(ridx >= 0, t, BIG), idx, n, v3.length(n)
+
+
+def _intersect_instanced(scene: PTScene, o, d, t_min, t_s, i_s, bvh):
+    """The two-level closest hit (JAX wavefront.py:397-488): kernel K7 with
+    attributes for an InstancedClusters (the identity orders, as the JAX
+    host path), the plain sweep with the frame's orders for FrameInstances.
+    Materials come per instance (table column 19); light_area is 1 for mesh
+    hits (instanced emissive materials are refused, so it is never read)."""
+    if isinstance(bvh, FrameInstances):
+        ic = bvh.ic
+        t_w, code, cnx, cny, cnz = kinst.instanced_cluster_intersect_reference(
+            ic.inst_tab, ic.cs, o, d, t_min=t_min, attrs=True, t_max=BIG, iorder=bvh.iorder,
+            iorders=bvh.iorders)
+    else:
+        ic = bvh
+        t_w, code, cnx, cny, cnz = kinst.instanced_cluster_intersect(
+            ic.inst_tab, ic.cs, o, d, t_min=t_min, attrs=True)
+    inst_id = torch.clamp_min(code, 0).to(torch.int64) // ic.cs.padded_tris
+    inst_mat = _sel(inst_id, ic.inst_tab[:, 19], ic.num_instances)
+    t_t = torch.where(code >= 0, t_w, BIG)
+    return _surface(scene, o, d, t_s, i_s, t_t, (cnx, cny, cnz), inst_mat.to(torch.int32), 1.0)
+
+
 def _intersect_clusters(scene: PTScene, o, d, t_min, t_s, i_s, fc: FrameClusters):
     """The attributes path (JAX wavefront.py:177-244): the plain sweep with
     the frame's orders returns normal, material (tri row 12) and area."""
@@ -285,7 +358,8 @@ def _intersect_clusters(scene: PTScene, o, d, t_min, t_s, i_s, fc: FrameClusters
 
 def _occluded(scene: PTScene, o, d, max_t, t_min, counts, bvh=None):
     """Any live sphere or triangle hit in (t_min, max_t): bool plane. With a
-    ClusterSet or FrameClusters the mesh replaces the unrolled slots."""
+    mesh (a raw BVH, a ClusterSet, instances, or a frame view) the mesh
+    replaces the unrolled slots."""
     n_sph, n_tri, _ = counts
     blocked = torch.zeros_like(o[0], dtype=torch.bool)
     for k in range(min(n_sph, scene.sph_pos.shape[0])):
@@ -299,6 +373,18 @@ def _occluded(scene: PTScene, o, d, max_t, t_min, counts, bvh=None):
         order = visit_orders(bvh, _mean_live_origin(o)[None])[0]
         _, idx = kcluster.cluster_intersect(bvh, o, d, max_t, t_min=t_min, any_hit=True,
                                             order=order)
+        return blocked | (idx >= 0)
+    if isinstance(bvh, FrameInstances):
+        _, code = kinst.instanced_cluster_intersect_reference(
+            bvh.ic.inst_tab, bvh.ic.cs, o, d, t_min=t_min, any_hit=True, t_max=max_t,
+            iorder=bvh.iorder, iorders=bvh.iorders)
+        return blocked | (code >= 0)
+    if isinstance(bvh, InstancedClusters):
+        _, code = kinst.instanced_cluster_intersect(bvh.inst_tab, bvh.cs, o, d, t_min=t_min,
+                                                    any_hit=True, t_max=max_t)
+        return blocked | (code >= 0)
+    if isinstance(bvh, BVH):
+        _, idx = _bvh_hits(o, d, max_t, t_min, bvh, True)
         return blocked | (idx >= 0)
     t_t, _ = _tri_hits_unrolled(scene, o, d, t_min, n_tri)
     return blocked | (t_t < max_t)
@@ -500,7 +586,8 @@ def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed0: int,
     """One sample per pixel of the window at (row0, col0), pass seed seed0
     (int32): (rad V3 planes, nrays int64 tensor). pix: optional (py, px)
     GLOBAL pixel-coordinate planes that replace the window's. bvh: None,
-    a ClusterSet or FrameClusters (see the module docstring).
+    a BVH, a ClusterSet, an InstancedClusters or a frame view (see the
+    module docstring).
 
     Staged launches: state_in (a state dict from unpack_state) replaces the
     camera rays; bounces bounce_lo .. bounce_hi (default cfg.max_bounces)
@@ -557,21 +644,29 @@ def trace_window_planes(*args, **kwargs):
 
 
 def trace_pass_soa(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed0: int,
-                   row0=0, band_h=None, col0=0, band_w=None, bvh=None):
-    """One sample per pixel: ((h, w, 3) image, nrays)."""
+                   row0=0, band_h=None, col0=0, band_w=None, bvh=None, packet=None):
+    """One sample per pixel: ((h, w, 3) image, nrays). packet: JAX's choice
+    between the packet kernel and the gather traversal for a raw BVH; here
+    a CUDA scene always launches K8 and a CPU one traverses plainly, so it
+    is accepted and ignored."""
+    del packet
+    check_entry(scene, bvh)
     rad, nrays = _trace_core(cfg, scene, cam_pos, cam_quat, seed0, row0, band_h,
                              col0, band_w, bvh=bvh)
     return v3.stack(rad), nrays
 
 
 def render_pt_fast(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
-                   seed: int = 0, spp_offset: int = 0, bvh=None, sort=False):
+                   seed: int = 0, spp_offset: int = 0, bvh=None, packet=None, sort=False):
     """Average of spp passes: ((H, W, 3) image, nrays). seed is the int32
     base seed (ops.rng_pcg.seed_from_int(s) for jax.random.PRNGKey(s); 0
     for the JAX default key); pass i uses pass_seed(seed, spp_offset + i).
-    bvh: a ClusterSet for meshes of any size (the gather path; on a CUDA
-    scene its sweeps launch kernel K6)."""
+    bvh: a raw BVH (on a CUDA scene every closest-hit and shadow query
+    launches kernel K8, whatever ``packet`` says), a ClusterSet (the gather
+    path; kernel K6) or an InstancedClusters (kernel K7), for meshes of any
+    size."""
     check_supported(cfg, bvh=bvh, sort=sort)
+    check_entry(scene, bvh)
     acc = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32, device=scene.device)
     nrays = torch.zeros((), dtype=torch.int64, device=scene.device)
     for i in range(spp):

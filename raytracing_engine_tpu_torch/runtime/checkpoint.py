@@ -88,7 +88,8 @@ def progressive_render(cfg, scene, state: ProgressiveState, target_spp: int,
     beyond float summation order. render_fn defaults to the K4 megakernel
     wrapper (ops.cuda.pt.render_pt_mega: the kernel for a CUDA scene, its
     plain version for a CPU one); any function with its signature fits.
-    bvh: a ClusterSet for a mesh scene, handed to render_fn.
+    bvh: a ClusterSet for a mesh scene or an InstancedClusters for an
+    instanced one (K4 sweeps either in-kernel), handed to render_fn.
     """
     if render_fn is None:
         from raytracing_engine_tpu_torch.ops.cuda.pt import render_pt_mega as render_fn

@@ -40,6 +40,19 @@ PT_TRIANGLE_TEST_OPS = 57
 # (ops/cuda/cluster.work), so they are what these inputs need.
 CLUSTER_SLAB_OPS = 28
 CLUSTER_TEST_OPS = 30
+# csrc/bvh.cu (K8), by the same rule: one node test (slab, gate and the next
+# link) 28 operations, one Möller-Trumbore test 57 (pt.cuh tri_hit's count);
+# the counts of tests come from the plain traversal of the same rays
+# (ops/cuda/bvh_traverse.work)
+BVH_NODE_OPS = 28
+BVH_TEST_OPS = PT_TRIANGLE_TEST_OPS
+# csrc/instanced.cuh (K7): one instance's world-box gate 28 operations per
+# ray and instance visited; the move to object space (3 subtractions, 2
+# rotations of 15, 3 products and a reciprocal) 40 per ray and instance
+# entered; the cluster sweeps inside by the cluster counts above
+# (ops/cuda/instanced.work and ops/cuda/cluster.work)
+INST_GATE_OPS = 28
+INST_XFORM_OPS = 40
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -71,16 +84,52 @@ def sweep_ops(slabs: int, tests: int) -> int:
     return slabs * CLUSTER_SLAB_OPS + tests * CLUSTER_TEST_OPS
 
 
+def bvh_ops(nodes: int, tests: int) -> int:
+    """Operations of a BVH traversal that ran `nodes` node tests and `tests`
+    triangle tests (K8)."""
+    return nodes * BVH_NODE_OPS + tests * BVH_TEST_OPS
+
+
+def instanced_ops(gates: int, transforms: int, slabs: int, tests: int) -> int:
+    """Operations of a two-level sweep (K7, and the sweeps inside K4 and K5
+    with instances): instance gates and transforms, then the cluster
+    sweeps' box and triangle tests."""
+    return gates * INST_GATE_OPS + transforms * INST_XFORM_OPS + sweep_ops(slabs, tests)
+
+
 def cluster_table_bytes(tables) -> int:
     """Bytes of a ClusterSet's kernel records (ops/cuda/cluster.sweep_tables)
     plus the frame's visit orders: read once by a launch."""
     return sum(4 * t.numel() for t in tables if t is not None)
 
 
-def k6_bytes(n_rays: int, attrs: bool, table_bytes: int) -> int:
-    """K6 reads 7 planes per ray (o, d, t_max) and writes 2 (t, slot), 7
-    with the attributes, besides the tables."""
-    return 4 * n_rays * (7 + (7 if attrs else 2)) + table_bytes
+def k6_bytes(n_rays: int, attrs: bool, table_bytes: int, tmax_plane: bool = False) -> int:
+    """K6 reads 6 planes per ray (o, d), 7 when the caller passes a t_max
+    plane, and writes 2 (t, slot), 7 with the attributes, besides the
+    tables."""
+    return 4 * n_rays * (6 + int(tmax_plane) + (7 if attrs else 2)) + table_bytes
+
+
+# the K8 record fields the traversal reads: a node's box (6 f32) and its
+# first, count and skip (3 int32); a triangle's v0, e1 and e2 (9 f32). The
+# records' padding (ops/cuda/bvh_traverse.BVHTables) is not counted.
+BVH_NODE_BYTES = 36
+BVH_TRI_BYTES = 36
+
+
+def k8_bytes(n_rays: int, n_nodes: int, n_tris: int, tmax_plane: bool = False) -> int:
+    """K8 reads 6 planes per ray (o, d), 7 when the caller passes a t_max
+    plane, and writes 2 (t, idx), besides the node and triangle fields it
+    reads."""
+    return (4 * n_rays * (6 + int(tmax_plane) + 2)
+            + BVH_NODE_BYTES * n_nodes + BVH_TRI_BYTES * n_tris)
+
+
+def k7_bytes(n_rays: int, attrs: bool, table_bytes: int, tmax_plane: bool = False) -> int:
+    """K7 reads 6 planes per ray (o, d), 7 when the caller passes a t_max
+    plane, and writes 2 (t, code), 5 with the world normal, besides the
+    base set's records, the instance table and the orders."""
+    return 4 * n_rays * (6 + int(tmax_plane) + (5 if attrs else 2)) + table_bytes
 
 
 def k5_bytes(n_rays: int, bounces: int, table_bytes: int) -> int:

@@ -256,8 +256,8 @@ def test_gates_of_this_slice(port):
     with pytest.raises(ValueError, match="unrolls"):
         pt.render_pt_mega(cfg, scene, pos, quat, 1)  # 320 slots, no ClusterSet
     raw = pbvh.build_bvh(_mesh_scene_args()["triangles"], device=CPU)
-    with pytest.raises(NotImplementedError, match="K8"):
-        wavefront.render_pt_fast(cfg, scene, pos, quat, 1, bvh=raw)
+    with pytest.raises(TypeError, match="render_pt_fast"):  # a raw BVH: K8, not the megakernels
+        pt.render_pt_rebin(cfg, scene, pos, quat, 1, bvh=raw)
     with pytest.raises(NotImplementedError, match="compaction"):
         wavefront.render_pt_fast(cfg, scene, pos, quat, 1, bvh=cs, sort=True)
     with pytest.raises(ValueError, match="rebin mode"):
