@@ -75,7 +75,21 @@ Phases, each printing its own lines:
      render_pt_mega, config 3 through render_pt_fast with the raw BVH; the
      torch.profiler split (K7 closest against any hit per Phong frame, K5
      per bounce); then K7 alone on a full Phong frame's camera rays, held
-     to its plain version bit for bit, and its least time.
+     to its plain version bit for bit, and its least time;
+ 16. kernel K9 (threefry2x32 uniforms) against its plain version, bit for
+     bit, at (8, 1088, 1920) and on a band of rows 517..581, and against
+     literal values of jax.random.uniform(PRNGKey(0), ...) and of the JAX
+     package's uniform_planes(-7, ...) taken on the CPU; the slice's main
+     path under the launch counters: render_pt_fast at BASELINE config 2's
+     scene and size (800x608, 4 bounces, 4 spp, PRNGKey(1)) at the default
+     rng="threefry", then at rng="pallas", timed by CUDA events, their mean
+     against K4's pcg render of the same scene, a band of trace_pass_soa
+     against the rows of the full pass bit for bit; progressive_render's
+     default route (render_pt_fast with the state's key) chunk-invariant at
+     config 4, and through config 3's ClusterSet (K6 and K9) and raw BVH
+     (K8 and K9); K9 timed by CUDA events and by torch.profiler, beside its
+     plain version, its least time and torch.rand (Philox, another stream,
+     for scale only).
 Then one JSON line of per-kernel results, the card line, and as the last
 line {"ok": true, "device": {...}}. Any failure exits non-zero before the
 last line; so does a machine without CUDA or a directory without the repo.
@@ -169,6 +183,28 @@ C5_PT_BAND_H = 2
 K7_REPS = 10
 K8_REPS = 20
 RAW_FRAMES = 3       # config-3 render_pt_fast frames with the raw BVH per round
+
+# kernel K9 (phase 16): the threefry and pallas streams at config 2
+K9_SHAPE = (8, 1088, 1920)
+K9_BAND = (517, 64)  # rows of the band check
+K9_RAGGED = (3, 17, 33)  # no plane a whole number of the kernel's 256-thread blocks
+K9_RAGGED_BAND = (5, 7)
+K9_REPS = 50
+RNG_FRAMES = 3       # timed render_pt_fast frames per rng mode
+RNG_BAND = (304, 64)
+# float32 bit patterns of jax.random.uniform(jax.random.PRNGKey(0), K9_SHAPE)
+# and of the JAX package's ops/pallas/rng.uniform_planes(-7, *K9_SHAPE) at
+# these indices, taken with JAX 0.9.0 on the CPU (jax_threefry_partitionable)
+JAX_UNIFORM_KEY0 = {(0, 0, 0): 0x3F729A4E, (0, 0, 1): 0x3F7A8436, (3, 517, 1000): 0x3C458680,
+                    (5, 100, 1234): 0x3E984328, (7, 1087, 1919): 0x3E50D0F0}
+JAX_PLANES_M7 = {(0, 0, 0): 0x3EE4CB84, (0, 0, 1): 0x3F0468F2, (3, 517, 1000): 0x3E8F6FD0,
+                 (5, 100, 1234): 0x3DE93050, (7, 1087, 1919): 0x3F50D1A8}
+# the threefry and pallas renders' means against K4's pcg render of the same
+# scene: two unbiased estimates of one image at 4 spp, 1.15e-4 and under 5e-5
+# apart on the H100; a sanity check only, since every draw of a pass is held
+# to the plain version bit for bit
+RNG_MEAN_RTOL = 1e-3
+C4_DEFAULT_CHUNKS = 2  # progressive_render chunks of 16 passes timed on its default route
 
 
 def log(msg: str):
@@ -557,7 +593,8 @@ def phase_pt_invariants(quat, seed, c2, c4, device):
     # chunking: two 128-spp chunks of progressive_render vs one 256-spp call
     cfg, scene, pos = c4
     state = ProgressiveState.start(cfg, pos, quat, key=1, device=device)
-    chunks = progressive_render(cfg, scene, state, C4_SPP, passes_per_chunk=C4_CHUNK)
+    chunks = progressive_render(cfg, scene, state, C4_SPP, passes_per_chunk=C4_CHUNK,
+                                render_fn=pt.render_pt_mega)
     state = next(chunks)
     state = next(chunks)
     chunks.close()
@@ -904,7 +941,8 @@ def phase_c3_invariants(c3, quat, seed, device):
     hold_pt("render_pt_fast(bvh=cs) through K6 vs K4", f, nf, k4, n4)
 
     state = ProgressiveState.start(cfg, pos, quat, key=1, device=device)
-    for state in progressive_render(cfg, scene, state, 4, passes_per_chunk=2, bvh=cs):
+    for state in progressive_render(cfg, scene, state, 4, passes_per_chunk=2, bvh=cs,
+                                    render_fn=pt.render_pt_mega):
         pass
     one, _ = pt.render_pt_mega(cfg, scene, pos, quat, 4, seed=seed, bvh=cs)
     want = one * 4.0
@@ -1001,7 +1039,8 @@ def phase_c3_main(c3, quat, seed, device, card, inv):
     pos = torch.zeros(3, device=device)
     fast_ms, _ = cuda_ms(lambda k: render_pt_fast(cfg, scene, pos, quat, 1, seed=seed, bvh=cs), 1)
     state = ProgressiveState.start(cfg, pos, quat, key=1, device=device)
-    for state in progressive_render(cfg, scene, state, 2, passes_per_chunk=1, bvh=cs):
+    for state in progressive_render(cfg, scene, state, 2, passes_per_chunk=1, bvh=cs,
+                                    render_fn=pt.render_pt_mega):
         pass
     torch.cuda.synchronize(device)
     counts = {"K4": pt.launches, "K5": pt.rebin_launches, "K6": cluster.launches}
@@ -1479,6 +1518,257 @@ def phase_c5_main(c5, c3, bvh3, quat, seed, device, card):
             "k7": {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1]}}
 
 
+def time_k9(key, device, card):
+    """K9 at K9_SHAPE by CUDA events over back-to-back calls and by
+    torch.profiler, its plain version, and torch.rand at the same shape
+    (Philox, another stream: for scale only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracing_engine_tpu_torch.ops import rng
+    from raytracing_engine_tpu_torch.ops.cuda import rng as krng
+
+    n, h, w = K9_SHAPE
+    krng.uniform_key(key, n, h, w, device=device)  # warm-up
+    ms, host_ms = cuda_ms(lambda k: krng.uniform_key(key, n, h, w, device=device), K9_REPS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cuda_ms(lambda k: krng.uniform_key(key, n, h, w, device=device), K9_REPS)
+    k9 = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and "rng_kernel" in e.name]
+    device_ms = sum(k9) / len(k9) / 1e3 if k9 else None
+    rng.uniform(key, n, h, w, device=device)
+    plain_ms, _ = cuda_ms(lambda k: rng.uniform(key, n, h, w, device=device), 3)
+    torch.rand(K9_SHAPE, device=device)
+    rand_ms, _ = cuda_ms(lambda k: torch.rand(K9_SHAPE, device=device), K9_REPS)
+    log(f"  K9 {K9_SHAPE}: {ms:.4f} ms by CUDA events (host enqueue {host_ms:.4f} ms), "
+        + (f"{device_ms:.4f} ms device time by the profiler ({len(k9)} launches)"
+           if k9 else "profiler: no device events, device time not measured")
+        + f"; plain version {plain_ms:.2f} ms; torch.rand (Philox, another stream, for "
+        f"scale only) {rand_ms:.4f} ms [{card}]")
+    return ms, device_ms, plain_ms
+
+
+def draws_match_plain(cfg2, scene, pos, quat, device):
+    """Every K9 draw of one config-2 pass of the main path (global pass 0 of
+    key=1), at threefry and at pallas: the key it was drawn under against
+    the one the JAX package derives, and the kernel's planes against the
+    plain version's on the same key and shape, bit for bit."""
+    import dataclasses
+
+    from raytracing_engine_tpu_torch.ops import rng
+    from raytracing_engine_tpu_torch.ops.cuda import rng as krng
+    from raytracing_engine_tpu_torch.ops.rng_pcg import to_int32
+    from raytracing_engine_tpu_torch.pathtracer.wavefront import trace_pass_soa
+
+    pkey = rng.fold_in(1, 0)
+    nd = cfg2.max_bounces + 2  # the camera draw and one per bounce
+    wants = {"threefry": [rng.fold_in(pkey, c) for c in range(nd)],
+             "pallas": [rng.planes_key(to_int32(rng.key_to_seed(pkey) + c)) for c in range(nd)]}
+    kernel = krng.uniform_key
+    for mode, want_keys in wants.items():
+        calls = []
+
+        def recorded(key, n, h, w, row0=0, band_h=None, device=None):
+            out = kernel(key, n, h, w, row0=row0, band_h=band_h, device=device)
+            calls.append((rng.key_words(key), (n, h, w, row0, band_h), out))
+            return out
+
+        krng.uniform_key = recorded
+        try:
+            trace_pass_soa(dataclasses.replace(cfg2, rng=mode), scene, pos, quat, key=pkey)
+        finally:
+            krng.uniform_key = kernel
+        keys = [c[0] for c in calls]
+        shapes = sorted({c[1] for c in calls})
+        same = [torch.equal(out, rng.uniform(k, *shape, device=device))
+                for k, shape, out in calls]
+        log(f"  {mode}: the {len(calls)} K9 draws of one config-2 pass, shapes (n, h, w, row0, "
+            f"band_h) {shapes}: keys as the JAX package derives them {keys == want_keys}; "
+            f"kernel == plain version bit for bit {sum(same)}/{len(same)}")
+        if keys != want_keys or not all(same):
+            raise AssertionError(f"the {mode} pass's K9 draws differ from the plain version "
+                                 f"or were drawn under other keys: {keys} != {want_keys}")
+
+
+def time_c4_routes(quat, c4, device, card):
+    """progressive_render at config 4 (pcg) for C4_DEFAULT_CHUNKS chunks of
+    16 passes: its default route (render_pt_fast, the plain wavefront with
+    the pcg draws) and render_fn=render_pt_mega (K4), by CUDA events."""
+    from raytracing_engine_tpu_torch.ops.cuda import pt
+    from raytracing_engine_tpu_torch.runtime import ProgressiveState, progressive_render
+
+    cfg, scene, pos = c4
+    spp = 16 * C4_DEFAULT_CHUNKS
+    out = {}
+    for label, fn in (("default route (render_pt_fast)", None),
+                      ("render_fn=render_pt_mega (K4)", pt.render_pt_mega)):
+        kw = {} if fn is None else {"render_fn": fn}
+        state = ProgressiveState.start(cfg, pos, quat, key=1, device=device)
+        for state in progressive_render(cfg, scene, state, 1, passes_per_chunk=1, **kw):
+            pass  # warm-up
+        state = ProgressiveState.start(cfg, pos, quat, key=1, device=device)
+        torch.cuda.synchronize(device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for state in progressive_render(cfg, scene, state, spp, **kw):
+            pass
+        end.record()
+        end.synchronize()
+        host_s = time.perf_counter() - t0
+        s = start.elapsed_time(end) / 1e3
+        out[label] = (s, state.accum.mean().item() / spp)
+        log(f"  config 4 {cfg_size(c4)} pcg, progressive_render {label}: {spp} spp "
+            f"({C4_DEFAULT_CHUNKS} chunks of 16) in {s:.4f} s by CUDA events ({host_s:.4f} s "
+            f"host) = {spp / s:.1f} spp/s, {C4_SPP} spp at this rate {C4_SPP / (spp / s):.2f} s "
+            f"(extrapolated) [{card}]")
+        if state.spp_done != spp or not torch.isfinite(state.accum).all():
+            raise AssertionError(f"config 4 progressive_render {label} incomplete or non-finite")
+    (fast_s, fast_mean), (mega_s, mega_mean) = out.values()
+    log(f"  config 4: the default route takes {fast_s / mega_s:.1f}x K4's time; image means "
+        f"{fast_mean:.6f} and {mega_mean:.6f}")
+
+
+def phase_rng(quat, c2, c4, c3, bvh3, device, card):
+    """K9 against its plain version and JAX's literal values; the threefry
+    and pallas render_pt_fast at config 2 under the launch counters, timed;
+    bands, progressive_render's default route, the mesh paths."""
+    import dataclasses
+
+    from raytracing_engine_tpu_torch.ops import rng
+    from raytracing_engine_tpu_torch.ops.cuda import bvh_traverse, cluster, pt
+    from raytracing_engine_tpu_torch.ops.cuda import rng as krng
+    from raytracing_engine_tpu_torch.ops.rng_pcg import seed_from_int
+    from raytracing_engine_tpu_torch.pathtracer.wavefront import render_pt_fast, trace_pass_soa
+    from raytracing_engine_tpu_torch.runtime import ProgressiveState, progressive_render
+    from raytracing_engine_tpu_torch.utils.timing import rng_bound_ms
+
+    n, h, w = K9_SHAPE
+    key = rng.fold_in(1, 0)
+    got = krng.uniform_key(key, n, h, w, device=device)
+    want = rng.uniform(key, n, h, w, device=device)
+    err = (got - want).abs().max().item()
+    row0, bh = K9_BAND
+    band = krng.uniform_key(key, n, h, w, row0=row0, band_h=bh, device=device)
+    band_want = rng.uniform(key, n, h, w, row0=row0, band_h=bh, device=device)
+    ok = (torch.equal(got, want) and torch.equal(band, band_want)
+          and torch.equal(band, got[:, row0:row0 + bh]))
+    log(f"  K9 vs its plain version {K9_SHAPE} bit for bit: {torch.equal(got, want)} "
+        f"(max_abs_err {err:.6g}); rows {row0}..{row0 + bh}: kernel == plain "
+        f"{torch.equal(band, band_want)}, == rows of the full draw "
+        f"{torch.equal(band, got[:, row0:row0 + bh])}; in [0, 1): "
+        f"{bool(got.min() >= 0.0) and bool(got.max() < 1.0)}")
+    if not ok or not (got.min() >= 0.0 and got.max() < 1.0):
+        raise AssertionError("K9 disagrees with its plain version")
+    rn, rh_, rw = K9_RAGGED
+    rr0, rbh = K9_RAGGED_BAND
+    rag = krng.uniform_key(key, rn, rh_, rw, device=device)
+    rag_band = krng.uniform_key(key, rn, rh_, rw, row0=rr0, band_h=rbh, device=device)
+    okr = (torch.equal(rag, rng.uniform(key, rn, rh_, rw, device=device))
+           and torch.equal(rag_band, rng.uniform(key, rn, rh_, rw, rr0, rbh, device=device)))
+    before = krng.launches
+    empty = (krng.uniform_key(key, 0, rh_, rw, device=device).numel()
+             + krng.uniform_key(key, rn, rh_, rw, row0=rr0, band_h=0, device=device).numel())
+    log(f"  K9 vs its plain version at {K9_RAGGED} ({rh_ * rw} elements a plane, the last "
+        f"block ragged) and rows {rr0}..{rr0 + rbh}, bit for bit: {okr}; empty draws counted "
+        f"{krng.launches - before} launches (expected 0)")
+    if not okr or empty or krng.launches != before:
+        raise AssertionError("K9 disagrees with its plain version on a ragged plane, or an "
+                             "empty draw counted a launch")
+    for label, u, table in (
+            ("jax.random.uniform(PRNGKey(0))", krng.uniform_key(0, n, h, w, device=device),
+             JAX_UNIFORM_KEY0),
+            ("uniform_planes(-7)", krng.uniform_planes(-7, n, h, w, device=device),
+             JAX_PLANES_M7)):
+        bits = {i: int(u[i].view(torch.int32).item()) & 0xFFFFFFFF for i in table}
+        log(f"  K9 {label} at {len(table)} indices == JAX's: {bits == table}")
+        if bits != table:
+            raise AssertionError(f"K9 {label} differs from JAX: {bits} != {table}")
+
+    # the slice's main path: render_pt_fast at config 2, threefry then pallas
+    cfg2, scene, _ = c2
+    zs = [torch.tensor([0.0, 0.0, 1e-3 + 1e-4 * k], device=device) for k in range(RNG_FRAMES)]
+    krng.launches = pt.launches = 0
+    krng.work["elements"] = 0
+    renders, times = {}, {}
+    for mode in ("threefry", "pallas"):
+        cfg = dataclasses.replace(cfg2, rng=mode)
+        renders[mode] = render_pt_fast(cfg, scene, zs[0], quat, C2_SPP, key=1)
+        ms, host_ms = cuda_ms(lambda k: render_pt_fast(cfg, scene, zs[k], quat, C2_SPP, key=1),
+                              RNG_FRAMES)
+        times[mode] = ms
+        log(f"  render_pt_fast rng={mode!r} {cfg_size(c2)} {C2_SPP} spp: {ms:.2f} ms/frame "
+            f"(host enqueue {host_ms:.2f} ms; the plain wavefront around K9) [{card}]")
+    torch.cuda.synchronize(device)
+    launches, elements = krng.launches, krng.work["elements"]
+    draws = C2_SPP * (cfg2.max_bounces + 2)  # the camera draw and one per bounce, a pass
+    want = 2 * (1 + RNG_FRAMES) * draws
+    log(f"  K9 launches on the main path {launches} (expected {want}: {draws} per render, "
+        f"{1 + RNG_FRAMES} renders per rng mode), {elements} uniforms; K4 launches {pt.launches}")
+    if launches != want or pt.launches != 0:
+        raise AssertionError(f"K9 launches {launches} != {want} or K4 launched")
+    draws_match_plain(cfg2, scene, zs[0], quat, device)
+
+    ref, _ = pt.render_pt_mega(cfg2, scene, zs[0], quat, C2_SPP, seed=seed_from_int(1))
+    for mode, (img, nr) in renders.items():
+        rel = abs(img.mean().item() / ref.mean().item() - 1.0)
+        log(f"  {mode}: finite {bool(torch.isfinite(img).all())}, mean {img.mean().item():.7f} "
+            f"against K4's pcg {ref.mean().item():.7f} (relative {rel:.3e}, limit "
+            f"{RNG_MEAN_RTOL}), {int(nr)} rays")
+        if img.shape != ref.shape or not torch.isfinite(img).all() or rel > RNG_MEAN_RTOL:
+            raise AssertionError(f"the {mode} render is off")
+
+    pkey = rng.fold_in(1, 0)
+    cfg = dataclasses.replace(cfg2, rng="threefry")
+    full, _ = trace_pass_soa(cfg, scene, zs[0], quat, key=pkey)
+    r0, rh = RNG_BAND
+    part, _ = trace_pass_soa(cfg, scene, zs[0], quat, key=pkey, row0=r0, band_h=rh)
+    log(f"  trace_pass_soa rows {r0}..{r0 + rh} == rows of the full pass bit for bit: "
+        f"{torch.equal(part, full[r0:r0 + rh])}")
+    if not torch.equal(part, full[r0:r0 + rh]):
+        raise AssertionError("a threefry band differs from the rows of the full pass")
+
+    # progressive_render's default route: render_pt_fast with the state's key
+    time_c4_routes(quat, c4, device, card)
+    cfg4 = dataclasses.replace(c4[0], rng="threefry")
+    _, scene4, pos4 = c4
+    state = ProgressiveState.start(cfg4, pos4, quat, key=1, device=device)
+    for state in progressive_render(cfg4, scene4, state, 4, passes_per_chunk=2):
+        pass
+    one, _ = render_pt_fast(cfg4, scene4, pos4, quat, 4, key=1)
+    okc = torch.allclose(state.accum, one * 4.0, rtol=C3_CHUNK_RTOL, atol=0.0)
+    log(f"  progressive_render (default route, threefry) {cfg_size((cfg4,))} 2 x 2 spp vs one "
+        f"4-spp render_pt_fast (sums) within rtol {C3_CHUNK_RTOL:.3g}: {okc}")
+    if state.spp_done != 4 or not okc:
+        raise AssertionError("progressive_render's threefry route depends on the chunking")
+
+    _, cs, scene3, cfg3, _ = c3
+    cfg3 = dataclasses.replace(cfg3, rng="threefry")
+    pos3 = torch.zeros(3, device=device)
+    cluster.launches = bvh_traverse.launches = krng.launches = 0
+    img, _ = render_pt_fast(cfg3, scene3, pos3, quat, 1, key=1, bvh=cs)
+    counts = {"K6": cluster.launches, "K9": krng.launches}
+    state = ProgressiveState.start(cfg3, pos3, quat, key=1, device=device)
+    for state in progressive_render(cfg3, scene3, state, 1, bvh=bvh3):
+        pass
+    torch.cuda.synchronize(device)
+    counts["K8"], counts["K9"] = bvh_traverse.launches, krng.launches
+    nb = cfg3.max_bounces + 1
+    wantc = {"K6": 2 * nb, "K9": 2 * (nb + 1), "K8": 2 * nb}
+    log(f"  config 3 threefry: render_pt_fast(bvh=cs) and progressive_render(bvh=raw BVH), "
+        f"1 spp each: launches {counts} (expected {wantc}); lit "
+        f"{(img.amax(-1) > 0).double().mean().item():.4f} and "
+        f"{(state.accum.amax(-1) > 0).double().mean().item():.4f}")
+    if counts != wantc or not (torch.isfinite(img).all() and torch.isfinite(state.accum).all()):
+        raise AssertionError(f"config-3 threefry launch counts {counts} != {wantc}")
+
+    k9_ms, device_ms, plain_ms = time_k9(key, device, card)
+    bound = rng_bound_ms(n * h * w)
+    log(f"  K9 bound {bound[0]:.5f} ms by {bound[1]} ({n * h * w} uniforms); kernel at "
+        f"{bound[0] / k9_ms:.2%} of it by events [{card}]")
+    return {"launches": launches, "max_abs_err": err, "ms": k9_ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -1534,8 +1824,11 @@ def main() -> int:
     k7_err = phase_instanced_kernel(c5, pt_quat, pt_seed, device)
     log("phase 15: the slice's main paths and timing (CUDA events)")
     c5_main = phase_c5_main(c5, c3, bvh3, pt_quat, pt_seed, device, card)
+    log("phase 16: kernel K9 and the threefry and pallas streams")
+    k9 = phase_rng(pt_quat, c2, c4, c3, bvh3, device, card)
 
-    # no single PyTorch call computes any of these kernels: library_ms null
+    # no single PyTorch call computes any of these kernels (torch.rand draws
+    # Philox, not threefry): library_ms null
     src = "raytracing_engine_tpu_torch/csrc/conemarch.cu"
     kernels = [
         {"name": "depth_kernel (K1)", "route": "cuda", "source": src,
@@ -1573,6 +1866,9 @@ def main() -> int:
          "source": "raytracing_engine_tpu_torch/csrc/bvh.cu",
          "replaces": "raytracing_engine_tpu/ops/pallas/bvh_traverse.py:60",
          "launches": c5_main["launches"]["K8"], **k8, "library_ms": None},
+        {"name": "rng_kernel (K9)", "route": "cuda",
+         "source": "raytracing_engine_tpu_torch/csrc/rng.cu",
+         "replaces": "raytracing_engine_tpu/ops/pallas/rng.py:24", **k9, "library_ms": None},
     ]
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

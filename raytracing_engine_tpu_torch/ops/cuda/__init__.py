@@ -12,6 +12,8 @@ a plain-integer ``launches`` count:
 - ``cluster`` — K6, the cluster sweep of a ClusterSet (closest / any hit)
 - ``instanced`` — K7, the two-level sweep over instances of a ClusterSet
 - ``bvh_traverse`` — K8, the skip-link traversal of a raw BVH
+- ``rng`` — K9, threefry2x32 uniforms (the path tracer's ``"threefry"`` and
+  ``"pallas"`` draws)
 
 ``common`` builds one library per csrc/*.cu source and launches entries.
 """

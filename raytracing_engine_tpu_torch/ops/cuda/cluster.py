@@ -44,7 +44,7 @@ SUB_TRIS = CLUSTER // SUBS
 PARKED = 1e17
 _INF = float("inf")
 _TEXTURES = ("UV and tangent attributes of ClusterSet UV tables (ROWS_UV) are not ported "
-             "yet (ROADMAP.md queue 1 item 2, the texture features)")
+             "yet (ROADMAP.md queue 1 item 4, the texture features)")
 
 # kernel launches since the count was last set to 0 (plain-version calls
 # do not count)

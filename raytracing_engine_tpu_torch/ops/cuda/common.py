@@ -3,7 +3,7 @@
 Each ``.cu`` source of ``csrc/`` is compiled with ``nvcc`` into its own
 library, ``build/lib<name>.so`` inside this package (``libconemarch.so``:
 K1-K3; ``libpt.so``: K4 and K5; ``libcluster.so``: K6; ``libbvh.so``: K8;
-``libinstanced.so``: K7), at first use and all at once (one nvcc process per
+``libinstanced.so``: K7; ``librng.so``: K9), at first use and all at once (one nvcc process per
 source, started together). Each library is keyed on a hash of every
 ``csrc/`` file and the flags, and loaded with ``ctypes`` through a plain C
 interface: an entry takes a pointer to its argument struct and a stream.
@@ -34,6 +34,7 @@ LIBRARIES = {
     "cluster": ("cluster.cu", ("cluster_intersect",)),
     "bvh": ("bvh.cu", ("bvh_traverse",)),
     "instanced": ("instanced.cu", ("instanced_intersect",)),
+    "rng": ("rng.cu", ("rng_uniform",)),
 }
 
 # --fmad=false and no fast math: the marches' hit tests flip pixels when one

@@ -35,6 +35,7 @@ from raytracing_engine_tpu_torch.ops.cuda import common
 from raytracing_engine_tpu_torch.ops.cuda import instanced as kinst
 from raytracing_engine_tpu_torch.ops.cuda.cluster import ClusterTables, FrameClusters
 from raytracing_engine_tpu_torch.ops.cuda.instanced import FrameInstances, InstanceTables
+from raytracing_engine_tpu_torch.ops.rng import pcg_base_seed
 from raytracing_engine_tpu_torch.ops.rng_pcg import pass_seed, to_int32
 from raytracing_engine_tpu_torch.pathtracer.integrator import PTConfig
 from raytracing_engine_tpu_torch.pathtracer.scene import TRI_UNROLL_MAX, PTScene
@@ -246,13 +247,16 @@ def _kernel_args(cfg: PTConfig, scene_k: PTScene, cam_pos, cam_quat, h: int, row
 
 
 def render_pt_mega(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
-                   seed: int = 0, spp_offset: int = 0, row0: int = 0, band_h=None,
-                   bvh=None):
+                   seed=None, spp_offset: int = 0, row0: int = 0, band_h=None,
+                   bvh=None, key=None, interpret=None, tile=(64, 256), stripes=None, groups=1,
+                   fast_math=False, adaptive_tol=0.0, adaptive_min=8, return_spp=False):
     """Megakernel render: ((band_h or H, W, 3) image, nrays int64 0-dim).
 
-    seed: the int32 base seed (ops.rng_pcg.seed_from_int(1) matches
-    jax.random.PRNGKey(1)); pass s uses the global pass index
-    spp_offset + s. row0/band_h: render only rows row0 .. row0 + band_h - 1
+    The pcg stream, whatever cfg.rng says, as in the JAX package. seed: the
+    int32 base seed (ops.rng_pcg.seed_from_int(1) matches
+    jax.random.PRNGKey(1)), or key: the PRNG key itself (ops/rng.py
+    key_words), not both; default PRNGKey(0). Pass s uses the global pass
+    index spp_offset + s. row0/band_h: render only rows row0 .. row0 + band_h - 1
     of the cfg.height image; a band equals the same rows of the full render,
     since the camera and the stream are keyed on global pixel coordinates.
     bvh: a ClusterSet for a mesh of any size (its closest and shadow sweeps
@@ -260,8 +264,17 @@ def render_pt_mega(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
     sweep in the kernel, materials per instance); without one, at most
     TRI_UNROLL_MAX triangle slots. A raw BVH raises TypeError, as in the
     JAX package: it goes to render_pt_fast.
+
+    interpret, tile, stripes, groups and fast_math are TPU knobs, accepted
+    and ignored. Adaptive spp (adaptive_tol > 0, return_spp) is not ported
+    yet and raises.
     """
     global launches
+    del interpret, tile, stripes, groups, fast_math, adaptive_min
+    if adaptive_tol > 0.0 or return_spp:
+        raise NotImplementedError("adaptive spp (adaptive_tol, adaptive_min, return_spp) is not "
+                                  "ported yet (ROADMAP.md queue 1 item 4, K4 feature 14)")
+    seed = pcg_base_seed(seed, key)
     if scene.device.type == "cpu":
         return render_pt_mega_reference(cfg, scene, cam_pos, cam_quat, spp, seed,
                                          spp_offset, row0, band_h, bvh)
@@ -441,8 +454,9 @@ def rebin_bounce_launcher(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed
 
 
 def render_pt_rebin(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
-                    seed: int = 0, bvh=None, spp_offset: int = 0, tile=None, tile_b=None,
-                    row0: int = 0, band_h=None, stripes=None, rebin: str = "none,morton"):
+                    seed=None, bvh=None, spp_offset: int = 0, tile=None, tile_b=None,
+                    row0: int = 0, band_h=None, stripes=None, rebin: str = "none,morton",
+                    key=None, interpret=None, fast_math=False, skip_dead=True):
     """Rebin render: ((band_h or H, W, 3) image, nrays int64 0-dim), the
     estimator of render_pt_mega executed as one K5 launch per bounce with an
     image-wide regroup between launches. bvh: a ClusterSet or an
@@ -453,9 +467,11 @@ def render_pt_rebin(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
     default "none,morton" keeps pixel order into bounce 1 and regroups by
     origin Morton cell before bounce 2+, so dead rays gather at the end.
     Each launch updates the state in place; each regroup makes a new one.
-    tile, tile_b and stripes are TPU knobs, accepted and ignored.
+    seed or key: as render_pt_mega's. tile, tile_b, stripes, interpret,
+    fast_math and skip_dead are TPU knobs, accepted and ignored.
     """
-    del tile, tile_b, stripes
+    del tile, tile_b, stripes, interpret, fast_math, skip_dead
+    seed = pcg_base_seed(seed, key)
     if scene.device.type == "cpu":
         return render_pt_rebin_reference(cfg, scene, cam_pos, cam_quat, spp, seed, bvh,
                                          spp_offset, row0, band_h, rebin)

@@ -1,12 +1,12 @@
 """Path-tracer configuration (raytracing_engine_tpu/pathtracer/integrator.py).
 
 ``PTConfig`` is copied with every field and default, so a configuration
-means the same in both packages. This slice of the port renders the pcg
-stream, pinhole camera, NEE with power or uniform light selection, Russian
-roulette and nearest texture filtering; the other fields are carried and
-refused where they change the render (pathtracer/wavefront.py). The stacked
-cross-check integrator (``render_pt``) is still to port (ROADMAP queue 1
-item 2).
+means the same in both packages. The port renders the three streams
+(threefry, pcg, pallas), pinhole camera, NEE with power or uniform light
+selection, Russian roulette and nearest texture filtering; the other fields
+are carried and refused where they change the render (pathtracer/
+wavefront.py). The stacked cross-check integrator (``render_pt``) is still
+to port (ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ class PTConfig:
     fog_density: float = 0.0
     fog_color: tuple = (0.0, 0.0, 0.0)
     fog_scatter: float = 0.0
-    # "threefry", "pcg" or "pallas"; the port renders "pcg"
+    # "threefry", "pcg" or "pallas" (the megakernels render "pcg")
     rng: str = "threefry"
     # "nearest", "bilinear" or "trilinear" atlas filtering
     tex_filter: str = "nearest"

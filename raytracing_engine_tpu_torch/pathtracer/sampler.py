@@ -3,7 +3,7 @@
 
 Every sampler takes uniform [0, 1) planes and returns V3 planes
 (ops/vec3.py), in the JAX operation order. The GGX functions come with the
-metal slice (ROADMAP queue 1 item 2).
+metal slice (ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations

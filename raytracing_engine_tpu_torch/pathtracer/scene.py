@@ -37,7 +37,7 @@ LIGHT_TRI = 1
 # Rec.709 luminance weights: the "power" of power-weighted light selection
 _LUM = np.array([0.2126, 0.7152, 0.0722], np.float64)
 
-_LATER = "ROADMAP.md queue 1 item 2, K4 features still to port"
+_LATER = "ROADMAP.md queue 1 item 4, K4 features still to port"
 
 
 def _not_yet(what: str):

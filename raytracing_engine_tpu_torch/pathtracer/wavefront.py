@@ -1,12 +1,21 @@
 """The plain PyTorch path tracer: the oracle of kernels K4 and K5 and the
 CPU renderer (raytracing_engine_tpu/pathtracer/wavefront.py).
 
-Same estimator and the same pcg sample stream as the JAX wavefront: NEE
+Same estimator and the same sample streams as the JAX wavefront: NEE
 toward power- or uniform-selected sphere and triangle lights with
 power-heuristic MIS, DIFFUSE / MIRROR / smooth DIELECTRIC / emissive
 materials, optional Russian roulette. Per-ray state is component planes of
 any shape, and every expression keeps the JAX operation order, because
 csrc/pt.cuh is held to this code on the card.
+
+Streams (``PTConfig.rng``): ``"pcg"``, the counter-based PCG4D hash keyed on
+pixel coordinates (ops/rng_pcg.py; the megakernels' stream); ``"threefry"``
+(the default), jax.random's threefry2x32 draw ``uniform(fold_in(pass_key,
+b), (n, H, W))``; ``"pallas"``, ``uniform_planes(key_to_seed(pass_key) + b,
+n, H, W)``, the JAX package's off-TPU stand-in for its hardware stream. The
+last two draw image-wide planes through kernel K9 (ops/cuda/rng.py) on a
+CUDA scene, and a band draws only its own rows of them, equal to the rows
+of the full draw.
 
 Triangles: up to TRI_UNROLL_MAX slots are walked slot by slot; a mesh of any
 size comes as a raw BVH, a ClusterSet or instances of one, as in the JAX
@@ -41,7 +50,7 @@ calls draws the same numbers.
 Not in this slice (each raises NotImplementedError; ROADMAP queue 1 lists
 them in order): thin-lens DOF, fog and media, the R_d sampler, the light
 tree, textures other than nearest, the sorted wavefront (``sort``, with
-pathtracer/compaction.py, after K9), and rng other than "pcg".
+pathtracer/compaction.py).
 """
 
 from __future__ import annotations
@@ -56,9 +65,22 @@ from raytracing_engine_tpu_torch.ops import vec3 as v3
 from raytracing_engine_tpu_torch.ops.cuda import bvh_traverse as kbvh
 from raytracing_engine_tpu_torch.ops.cuda import cluster as kcluster
 from raytracing_engine_tpu_torch.ops.cuda import instanced as kinst
+from raytracing_engine_tpu_torch.ops.cuda import rng as krng
 from raytracing_engine_tpu_torch.ops.cuda.cluster import FrameClusters
 from raytracing_engine_tpu_torch.ops.cuda.instanced import FrameInstances
-from raytracing_engine_tpu_torch.ops.rng_pcg import pass_seed, uniform_pcg, uniform_pcg_coords
+from raytracing_engine_tpu_torch.ops.rng import (
+    fold_in,
+    key_to_seed,
+    key_words,
+    pcg_base_seed,
+    planes_key,
+)
+from raytracing_engine_tpu_torch.ops.rng_pcg import (
+    pass_seed,
+    to_int32,
+    uniform_pcg,
+    uniform_pcg_coords,
+)
 from raytracing_engine_tpu_torch.pathtracer import sampler
 from raytracing_engine_tpu_torch.pathtracer.integrator import PTConfig
 from raytracing_engine_tpu_torch.pathtracer.scene import (
@@ -76,8 +98,9 @@ INV_SQRT3 = float(np.float32(0.5773502691896258))
 BVH_MAX_STEPS = 10_000              # JAX bvh_intersect's per-ray node cap
 _MESHES = (BVH, ClusterSet, InstancedClusters, FrameClusters, FrameInstances)
 
-_LATER = "ROADMAP.md queue 1 item 2, K4 features still to port"
-_AFTER_K9 = "ROADMAP.md queue 1, after kernel K9: pathtracer/compaction.py"
+_LATER = "ROADMAP.md queue 1 item 4, K4 features still to port"
+_COMPACTION = "ROADMAP.md queue 1 item 7, pathtracer/compaction.py"
+RNGS = ("threefry", "pcg", "pallas")
 
 
 def _not_yet(what: str, where: str = _LATER):
@@ -86,8 +109,8 @@ def _not_yet(what: str, where: str = _LATER):
 
 def check_supported(cfg: PTConfig, bvh=None, sort=False):
     """Raise NotImplementedError for every static gate this slice lacks."""
-    if cfg.rng != "pcg":
-        _not_yet(f"rng={cfg.rng!r} (the port renders rng='pcg')")
+    if cfg.rng not in RNGS:
+        raise ValueError(f"rng must be one of {RNGS}, got {cfg.rng!r}")
     if cfg.aperture > 0.0:
         _not_yet("aperture > 0 (thin-lens DOF)")
     if cfg.fog_density > 0.0 or cfg.fog_scatter > 0.0:
@@ -102,8 +125,10 @@ def check_supported(cfg: PTConfig, bvh=None, sort=False):
         raise TypeError(f"bvh must be a BVH (accel.bvh.build_bvh), a ClusterSet "
                         f"(accel.clusters.build_clusters) or an InstancedClusters "
                         f"(accel.instancing.make_instanced_clusters), got {type(bvh).__name__}")
+    if sort and cfg.rng != "pcg":
+        raise ValueError("sort=True requires rng='pcg'")
     if sort:
-        _not_yet("sort (the regrouped single-call wavefront)", _AFTER_K9)
+        _not_yet("sort (the regrouped single-call wavefront)", _COMPACTION)
 
 
 def check_entry(scene: PTScene, bvh):
@@ -579,30 +604,67 @@ def _bounce(cfg: PTConfig, scene: PTScene, st, b: int, draw, counts, bvh):
     return st
 
 
-def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed0: int,
+def _draws(cfg: PTConfig, key, h: int, w: int, row0, band_h, col0, band_w, device):
+    """draw(ctr, n) of a threefry or pallas pass under the pass key: the
+    (n, h, w) planes of the window from the image-wide draw of counter ctr,
+    which covers rows row0 .. and columns col0 .. only where band_h and
+    band_w are given (JAX wavefront.py:1488-1505)."""
+    words = key_words(key)
+    r0 = row0 if band_h is not None else 0
+    c0 = col0 if band_w is not None else 0
+    if cfg.rng == "pallas":
+        seed = key_to_seed(words)
+
+        def key_of(ctr):
+            return planes_key(to_int32(seed + ctr))
+    else:
+        def key_of(ctr):
+            return fold_in(words, ctr)
+
+    def draw(ctr, n):
+        u = krng.uniform_key(key_of(ctr), n, cfg.height, cfg.width, row0=r0, band_h=h,
+                             device=device)
+        return u if w == cfg.width else u[:, :, c0:c0 + w]
+
+    return draw
+
+
+def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed0=None,
                 row0=0, band_h=None, col0=0, band_w=None, pix=None, bvh=None,
                 sort=False, state_in=None, bounce_lo=0, bounce_hi=None,
-                emit_state=False):
-    """One sample per pixel of the window at (row0, col0), pass seed seed0
-    (int32): (rad V3 planes, nrays int64 tensor). pix: optional (py, px)
-    GLOBAL pixel-coordinate planes that replace the window's. bvh: None,
-    a BVH, a ClusterSet, an InstancedClusters or a frame view (see the
-    module docstring).
+                emit_state=False, key=None):
+    """One sample per pixel of the window at (row0, col0): (rad V3 planes,
+    nrays int64 tensor). The pass's stream: at rng="pcg" the int32 seed0
+    (else key_to_seed(key)); at "threefry" and "pallas" the pass key. pix:
+    optional (py, px) GLOBAL pixel-coordinate planes that replace the
+    window's. bvh: None, a BVH, a ClusterSet, an InstancedClusters or a
+    frame view (see the module docstring).
 
     Staged launches: state_in (a state dict from unpack_state) replaces the
     camera rays; bounces bounce_lo .. bounce_hi (default cfg.max_bounces)
     run; emit_state returns the state dict (rad and nrays inside) instead of
     (rad, nrays). The state carries px/py, and every draw of a staged call
-    is keyed on them."""
+    is keyed on them (rng="pcg" only, as in the JAX package)."""
     check_supported(cfg, bvh=bvh, sort=sort)
     if bounce_hi is None:
         bounce_hi = cfg.max_bounces
     if bounce_lo > 0 and state_in is None:
         raise ValueError("bounce_lo > 0 needs state_in, the state of bounce_lo - 1")
     staged = emit_state or state_in is not None
+    if pix is not None and cfg.rng != "pcg":
+        raise ValueError("pix coordinate planes require rng='pcg'")
+    if staged and cfg.rng != "pcg":
+        raise ValueError("state_in/emit_state staging requires rng='pcg'")
     h, w = (band_h or cfg.height), (band_w or cfg.width)
     device = scene.device
     counts = _counts(scene)
+    window_draw = None
+    if cfg.rng == "pcg" and seed0 is None:
+        seed0 = key_to_seed(0 if key is None else key)
+    elif cfg.rng != "pcg":
+        if key is None:
+            raise ValueError(f"rng={cfg.rng!r} draws from the pass key: pass key=")
+        window_draw = _draws(cfg, key, h, w, row0, band_h, col0, band_w, device)
 
     if state_in is not None:
         st = dict(state_in)
@@ -610,6 +672,8 @@ def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed0: int,
     else:
         if pix is not None:
             u = uniform_pcg_coords(seed0, 0, 2, pix[1], pix[0])
+        elif window_draw is not None:
+            u = window_draw(0, 2)
         else:
             u = uniform_pcg(seed0, 0, 2, h, w, row0=row0, col0=col0, device=device)
         o, d = _camera_rays(cfg, cam_pos, cam_quat, u[0], u[1], row0=row0, col0=col0,
@@ -626,10 +690,12 @@ def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed0: int,
             st["px"] = torch.arange(w, device=device).expand(h, w) + col0
             st["py"] = torch.arange(h, device=device)[:, None].expand(h, w) + row0
 
-    def draw(ctr, n):
-        if "px" in st:
-            return uniform_pcg_coords(seed0, ctr, n, st["px"], st["py"])
-        return uniform_pcg(seed0, ctr, n, h, w, row0=row0, col0=col0, device=device)
+    draw = window_draw
+    if draw is None:
+        def draw(ctr, n):
+            if "px" in st:
+                return uniform_pcg_coords(seed0, ctr, n, st["px"], st["py"])
+            return uniform_pcg(seed0, ctr, n, h, w, row0=row0, col0=col0, device=device)
 
     for b in range(bounce_lo, bounce_hi + 1):
         st = _bounce(cfg, scene, st, b, draw, counts, bvh)
@@ -643,35 +709,54 @@ def trace_window_planes(*args, **kwargs):
     return _trace_core(*args, **kwargs)
 
 
-def trace_pass_soa(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed0: int,
-                   row0=0, band_h=None, col0=0, band_w=None, bvh=None, packet=None):
-    """One sample per pixel: ((h, w, 3) image, nrays). packet: JAX's choice
-    between the packet kernel and the gather traversal for a raw BVH; here
-    a CUDA scene always launches K8 and a CPU one traverses plainly, so it
-    is accepted and ignored."""
+def trace_pass_soa(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed0=None,
+                   row0=0, band_h=None, col0=0, band_w=None, bvh=None, packet=None, key=None):
+    """One sample per pixel: ((h, w, 3) image, nrays). The pass's stream:
+    seed0, the int32 pcg seed (at rng="pcg"; else key_to_seed(key)), or key,
+    the pass key (see ops/rng.py; required at "threefry" and "pallas").
+    packet: JAX's choice between the packet kernel and the gather traversal
+    for a raw BVH; here a CUDA scene always launches K8 and a CPU one
+    traverses plainly, so it is accepted and ignored."""
     del packet
     check_entry(scene, bvh)
     rad, nrays = _trace_core(cfg, scene, cam_pos, cam_quat, seed0, row0, band_h,
-                             col0, band_w, bvh=bvh)
+                             col0, band_w, bvh=bvh, key=key)
     return v3.stack(rad), nrays
 
 
 def render_pt_fast(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
-                   seed: int = 0, spp_offset: int = 0, bvh=None, packet=None, sort=False):
-    """Average of spp passes: ((H, W, 3) image, nrays). seed is the int32
-    base seed (ops.rng_pcg.seed_from_int(s) for jax.random.PRNGKey(s); 0
-    for the JAX default key); pass i uses pass_seed(seed, spp_offset + i).
+                   seed=None, spp_offset: int = 0, bvh=None, packet=None, sort=False,
+                   key=None):
+    """Average of spp passes: ((H, W, 3) image, nrays).
+
+    key: the render's PRNG key (ops/rng.py key_words: a JAX key's data or
+    an int s for jax.random.PRNGKey(s); default PRNGKey(0)). Global pass g
+    = spp_offset + i draws, at rng="pcg", from pass_seed(key_to_seed(key),
+    g), and otherwise from fold_in(key, g), as in the JAX package. seed:
+    the int32 pcg base seed in place of a key (ops.rng_pcg.seed_from_int(s)
+    for PRNGKey(s)); pcg only, and not with key.
+
     bvh: a raw BVH (on a CUDA scene every closest-hit and shadow query
     launches kernel K8, whatever ``packet`` says), a ClusterSet (the gather
     path; kernel K6) or an InstancedClusters (kernel K7), for meshes of any
     size."""
     check_supported(cfg, bvh=bvh, sort=sort)
     check_entry(scene, bvh)
+    if cfg.rng == "pcg":
+        base = pcg_base_seed(seed, key)
+    elif seed is not None:
+        raise ValueError(f"rng={cfg.rng!r} draws from a key: pass key=, not the pcg seed=")
+    else:
+        words = key_words(0 if key is None else key)
     acc = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32, device=scene.device)
     nrays = torch.zeros((), dtype=torch.int64, device=scene.device)
     for i in range(spp):
-        img, nr = trace_pass_soa(cfg, scene, cam_pos, cam_quat,
-                                 pass_seed(seed, spp_offset + i), bvh=bvh)
+        g = int(spp_offset) + i
+        if cfg.rng == "pcg":
+            img, nr = trace_pass_soa(cfg, scene, cam_pos, cam_quat, pass_seed(base, g), bvh=bvh)
+        else:
+            img, nr = trace_pass_soa(cfg, scene, cam_pos, cam_quat, bvh=bvh,
+                                     key=fold_in(words, g))
         acc = acc + img
         nrays = nrays + nr
     return v3.div(acc, spp), nrays

@@ -4,9 +4,9 @@
 (accumulated radiance, spp done, PRNG key, camera pose) is the complete
 state of a progressive render (BASELINE config 4: 1024 spp in chunks). It is
 stored as a plain .npz with the JAX package's keys; ``key`` is the uint32
-key data (jax.random.PRNGKey(s) is [0, s]), and the base seed is
-``seed_from_key_data(key)``, so a checkpoint the JAX package wrote resumes
-here and the other way round.
+key data (jax.random.PRNGKey(s) is [0, s]): the threefry and pallas streams
+fold it in, the pcg stream's base seed is ``seed_from_key_data(key)``, so a
+checkpoint the JAX package wrote resumes here and the other way round.
 """
 
 from __future__ import annotations
@@ -78,25 +78,39 @@ def load_checkpoint(path: str, device=None) -> ProgressiveState:
 
 
 def progressive_render(cfg, scene, state: ProgressiveState, target_spp: int,
-                       passes_per_chunk: int = 16, checkpoint_path: str | None = None,
-                       render_fn=None, bvh=None):
+                       passes_per_chunk: int = 16, bvh=None, checkpoint_path: str | None = None,
+                       fast: bool = True, donate: bool = True, mesh=None, mega: bool = False,
+                       tile=(64, 256), render_fn=None):
     """Advance a progressive render to target_spp in resumable chunks.
 
     Yields the state after each chunk (also checkpointing if a path is
     given). Pass i of the whole render always uses global pass index i
     (spp_offset = spp_done), so the result does not depend on the chunking
-    beyond float summation order. render_fn defaults to the K4 megakernel
-    wrapper (ops.cuda.pt.render_pt_mega: the kernel for a CUDA scene, its
-    plain version for a CPU one); any function with its signature fits.
-    bvh: a ClusterSet for a mesh scene or an InstancedClusters for an
-    instanced one (K4 sweeps either in-kernel), handed to render_fn.
+    beyond float summation order.
+
+    The JAX package's signature and route: fast=True renders each chunk
+    with pathtracer.wavefront.render_pt_fast(..., key=state.key, bvh=bvh,
+    spp_offset=state.spp_done), so the config's rng is kept and bvh may be
+    a raw BVH (kernel K8 on the card), a ClusterSet (K6) or an
+    InstancedClusters (K7). render_fn replaces render_pt_fast (e.g.
+    ops.cuda.pt.render_pt_mega, the K4 megakernel, which renders the pcg
+    stream); any function with its signature fits. donate and tile change
+    memory and tiling in the JAX package, not the result: accepted and
+    ignored. fast=False (the stacked integrator) and mesh (sharding, with
+    mega) are not ported yet and raise.
     """
+    del donate, tile
+    if mesh is not None:
+        raise NotImplementedError(f"progressive_render(mesh=..., mega={mega}) is not ported yet "
+                                  "(ROADMAP.md queue 1 item 6, sharding)")
     if render_fn is None:
-        from raytracing_engine_tpu_torch.ops.cuda.pt import render_pt_mega as render_fn
-    seed = state.seed
+        if not fast:
+            raise NotImplementedError("progressive_render(fast=False), the stacked integrator "
+                                      "render_pt, is not ported yet (ROADMAP.md queue 1 item 5)")
+        from raytracing_engine_tpu_torch.pathtracer.wavefront import render_pt_fast as render_fn
     while state.spp_done < target_spp:
         n = min(passes_per_chunk, target_spp - state.spp_done)
-        img, _ = render_fn(cfg, scene, state.cam_pos, state.cam_quat, n, seed=seed,
+        img, _ = render_fn(cfg, scene, state.cam_pos, state.cam_quat, n, key=state.key,
                            spp_offset=state.spp_done, bvh=bvh)
         state = ProgressiveState(
             accum=state.accum + img * float(n),

@@ -7,9 +7,12 @@ shadow ray per live light per output pixel) and the derived Mrays/s.
 the larger of its bytes (each input read once, each output written once)
 over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (NVIDIA's data
 sheet; 67 TFLOP/s counts an FMA as two operations, and the kernels build
-with --fmad=false, so the rate they could reach is half of it). The
-operation counts below are read off the CUDA sources and count only the
-work every step or segment must do, so the bound stays a lower one.
+with --fmad=false, so the rate they could reach is half of it). K9's work
+is integer: its operations count against the INT32 rate, 132 SMs x 64
+INT32 lanes x 1.98 GHz = 16.7 TOP/s (the Hopper architecture white paper's
+SM; the data sheet lists no INT32 rate). The operation counts below are read
+off the CUDA sources and count only the work every step or segment must
+do, so the bound stays a lower one.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 
 H100_FP32_OPS_PER_S = 67e12
+H100_INT32_OPS_PER_S = 132 * 64 * 1.98e9
 H100_BYTES_PER_S = 3.35e12
 
 # csrc/conemarch.cuh: one march step (march_ray or shadow_ray) does 12
@@ -53,13 +57,35 @@ BVH_TEST_OPS = PT_TRIANGLE_TEST_OPS
 # (ops/cuda/instanced.work and ops/cuda/cluster.work)
 INST_GATE_OPS = 28
 INST_XFORM_OPS = 40
+# csrc/rng.cu (K9), per element: 20 rounds of an add, a rotate (one funnel
+# shift) and a xor; 12 key additions (the first 2, then 2 at each of the 5
+# injections; a key word plus its round constant is the same for every
+# thread); the xor of the two output words; the shift and the or that make
+# the float's bits (one LEA.HI in the compiled kernel); one float
+# subtraction: 75 integer operations and 1 float one. Only the 41 rotations
+# and xors need the INT32 lanes: the compiler puts the 32 additions either
+# there (IADD3) or on the FP32 pipe (IMAD.IADD), and the kernel's SASS has
+# both. So the bound charges the 41 to the INT32 rate (all 75 integer
+# operations over both pipes' 128 lanes would take less). The counter's
+# index arithmetic is not counted. Each element writes 4 bytes, reads none.
+RNG_INT32_OPS = 20 + 20 + 1
+RNG_ELEMENT_BYTES = 4
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    """(least ms on an H100 SXM, "bytes" or "operations": which bounds)."""
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = H100_FP32_OPS_PER_S) -> tuple[float, str]:
+    """(least ms on an H100 SXM, "bytes" or "operations": which bounds);
+    n_ops at ops_per_s (FP32 unless given)."""
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = n_ops / H100_FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rng_bound_ms(n_elements: int) -> tuple[float, str]:
+    """K9's least time for n_elements uniforms: 41 operations on the INT32
+    lanes and 4 bytes written each."""
+    return bound_ms(RNG_ELEMENT_BYTES * n_elements, RNG_INT32_OPS * n_elements,
+                    H100_INT32_OPS_PER_S)
 
 
 def march_ops(steps: int, n_obj: int) -> int:

@@ -33,7 +33,7 @@ import chip_smoke  # noqa: F401
 loaded = [m for m, v in sys.modules.items() if v is not None
           and any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 assert not loaded, loaded
-print(len(names), "modules")
+print(len(names), "modules:", " ".join(names))
 """
 
 
@@ -41,5 +41,8 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    n = int(out.stdout.split()[0])
+    n, names = int(out.stdout.split()[0]), out.stdout.split()[2:]
     assert n >= 30, out.stdout  # every module of the package was walked
+    # the threefry stream (K9's plain version) and K9's wrapper among them
+    assert {"raytracing_engine_tpu_torch.ops.rng",
+            "raytracing_engine_tpu_torch.ops.cuda.rng"} <= set(names), out.stdout

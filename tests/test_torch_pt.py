@@ -321,7 +321,6 @@ UNSUPPORTED_CONFIGS = {
     "r2": dict(sampler="r2"),
     "tree": dict(light_sampling="tree"),
     "bilinear": dict(tex_filter="bilinear"),
-    "threefry": dict(rng="threefry"),
 }
 
 
