@@ -41,13 +41,20 @@ Phases, each printing its own lines:
      both are bit for bit the rows of the full render), within the
      megakernel bounds; render_pt_fast(bvh=cs) through K6 within the
      megakernel bounds of K4; progressive_render(bvh=cs) in two chunks
-     against one render;
+     against one render; then K5's warp sweep on the rays where it can
+     break, one bounce on a state of them against the plain version bit for
+     bit: rays at the knot's shared vertices and edges, rays
+     grazing its cluster boxes, a warp whose lanes pick different visit-order
+     rows, and the duplicated icosphere of tests/test_torch_cluster.py (every
+     hit an exact tie) hit at its vertices and by axis-parallel and parked
+     rays; every set ends in a ragged warp;
  12. the config-3 main path under the launch counters, timed by CUDA events:
      render_pt_rebin at 512x512 and 1920x1088 (chained frames with distinct
      camera z, best of 3 rounds, host enqueue beside), its torch.profiler
      split (K5 per bounce, sort, permute, un-permute), render_pt_mega(bvh=cs)
      at 512x512, render_pt_fast(bvh=cs), progressive_render(bvh=cs); then K5
-     per bounce alone, and the K4 / K5 / K6 least times;
+     per bounce alone (the profiler's device time) and the K4 / K5 / K6
+     least times;
  13. config 3's mesh as a raw BVH (accel.build_bvh) and kernel K8 against
      its plain version on the card, bit for bit: the 512x512 camera rays and
      the bounce-1 rays (closest hit), the NEE-style shadow rays (any hit,
@@ -67,15 +74,20 @@ Phases, each printing its own lines:
      render_pt_mega(bvh=InstancedClusters) in every regroup mode, K4 and K5
      against their plain versions on the 2 rows whose camera rays hit the
      most instances, render_pt_fast(bvh=InstancedClusters) through K7
-     against K4;
+     against K4; then K7's and K5's warp sweeps with instances on the rays
+     where they can break, bit for bit: rays at the world vertices and edges of the knot instances, rays grazing
+     the instances' world boxes, two instances of the duplicated icosphere
+     (ties) hit at their vertices and by axis-parallel and parked rays,
+     each set ending in a ragged warp;
  15. the slice's main paths under the launch counters, timed by CUDA events
      (best of 3 rounds, host enqueue beside): the config-5 Phong orbit (8
      chained 1920x1088 frames, hard shadows), its soft-shadow orbit (4
      frames), the config-5 path-traced cell through render_pt_rebin and
      render_pt_mega, config 3 through render_pt_fast with the raw BVH; the
      torch.profiler split (K7 closest against any hit per Phong frame, K5
-     per bounce); then K7 alone on a full Phong frame's camera rays, held
-     to its plain version bit for bit, and its least time;
+     per bounce); then K7 alone on a full Phong frame's camera rays (the
+     profiler's device time), held to its plain version bit for bit, and
+     its least time;
  16. kernel K9 (threefry2x32 uniforms) against its plain version, bit for
      bit, at (8, 1088, 1920) and on a band of rows 517..581, and against
      literal values of jax.random.uniform(PRNGKey(0), ...) and of the JAX
@@ -90,9 +102,11 @@ Phases, each printing its own lines:
      (K8 and K9); K9 timed by CUDA events and by torch.profiler, beside its
      plain version, its least time and torch.rand (Philox, another stream,
      for scale only).
-Then one JSON line of per-kernel results, the card line, and as the last
-line {"ok": true, "device": {...}}. Any failure exits non-zero before the
-last line; so does a machine without CUDA or a directory without the repo.
+Then one JSON line of per-kernel results, each number measured in this run
+but the bounds, computed from its inputs; the card line, and as the last
+line {"ok": true, "device": {...}}. Any failure exits
+non-zero before the last line; so does a machine without CUDA or a
+directory without the repo.
 
 Usage: python3 chip_smoke.py
 """
@@ -101,6 +115,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -181,6 +196,9 @@ C5_BAND = (540, 8)      # Phong rows held to the plain version (30 instances)
 # seconds per call, nearly whatever the ray count)
 C5_PT_BAND_H = 2
 K7_REPS = 10
+# a spin kernel of about 1 ms at the H100's clocks: what device_ms's event
+# timing enqueues ahead of a launch, so the card waits on no host work
+SPIN_CYCLES = 2_000_000
 K8_REPS = 20
 RAW_FRAMES = 3       # config-3 render_pt_fast frames with the raw BVH per round
 
@@ -889,6 +907,296 @@ def phase_cluster_kernel(c3, quat, seed, device, card):
             "bound_ms": bound[0], "bound_by": bound[1]}
 
 
+# --- the warp sweep's hard rays (phases 11 and 14) ----------------------------
+
+def np_rays(o, d, device):
+    """(3, n) numpy origins and directions -> plane tuples on the card."""
+    def to(a):
+        return tuple(torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device) for x in a)
+
+    return to(o), to(d)
+
+
+def unit(v):
+    return (v / np.linalg.norm(v, axis=0, keepdims=True)).astype(np.float32)
+
+
+def vertex_rays(tris, n, rng, reach=0.7):
+    """Rays aimed at the shared vertices and edge midpoints of a mesh (T, 3,
+    3): each from a point `reach` out on the side of its face's normal, so
+    it meets the mesh where two or more triangles meet and rounding decides
+    which one holds the hit. -> (o, d), (3, n) each."""
+    pick = rng.choice(tris.shape[0], n, replace=tris.shape[0] < n)
+    t = tris[pick].astype(np.float64)
+    k = rng.integers(0, 3, n)
+    a, b = t[np.arange(n), k], t[np.arange(n), (k + 1) % 3]
+    target = np.where((np.arange(n) % 2 == 0)[:, None], a, 0.5 * (a + b))
+    nrm = np.cross(t[:, 1] - t[:, 0], t[:, 2] - t[:, 0])
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-30)
+    jitter = rng.normal(0.0, 0.6, (n, 3))
+    off = nrm + jitter - np.minimum((jitter * nrm).sum(1, keepdims=True), 0.0) * nrm
+    o = target + reach * off / np.linalg.norm(off, axis=1, keepdims=True)
+    return o.T.astype(np.float32), unit((target - o).T)
+
+
+def grazing_rays(boxes, n, rng):
+    """Rays that graze boxes (rows [min(3), max(3), ...], NaN rows skipped):
+    along a face in its plane, along an edge, through a corner, and nearly
+    parallel to a face. -> (o, d), (3, n) each."""
+    live = boxes[~np.isnan(boxes[:, 0])][:, :6].astype(np.float32)
+    o, d = np.zeros((3, n), np.float32), np.zeros((3, n), np.float32)
+    for i in range(n):
+        b = live[rng.integers(live.shape[0])]
+        mn, mx = b[:3], b[3:]
+        mid = 0.5 * (mn + mx)
+        kind, ax = i % 4, (i // 4) % 3
+        a1, a2 = (ax + 1) % 3, (ax + 2) % 3
+        if kind == 0:      # in the plane of the face x_ax = min, along a1
+            o[:, i] = mid
+            o[ax, i], o[a1, i] = mn[ax], mn[a1] - 0.5
+            d[a1, i] = 1.0
+        elif kind == 1:    # along the edge x_ax = max, x_a1 = max, along a2
+            o[:, i] = mx
+            o[a2, i] = mx[a2] + 0.5
+            d[a2, i] = -1.0
+        elif kind == 2:    # through the min corner
+            d[:, i] = unit(rng.uniform(0.2, 1.0, (3, 1)))[:, 0]
+            o[:, i] = mn - 0.5 * d[:, i]
+        else:              # nearly parallel to the face x_ax = max
+            o[:, i] = mid
+            o[ax, i], o[a1, i] = mx[ax], mn[a1] - 0.5
+            d[a1, i], d[ax, i] = 1.0, (-1e-6 if i % 8 < 4 else 1e-6)
+            d[:, i] = unit(d[:, i:i + 1])[:, 0]
+    return o, d
+
+
+def mixed_row_rays(refs, center, n, rng):
+    """Rays whose origins sit by the visit-order references in turn (lane j
+    by reference j mod K), so the lanes of one warp pick different order
+    rows; aimed at `center` with a spread. -> (o, d), (3, n) each."""
+    k = np.arange(n) % refs.shape[0]
+    o = refs[k].T + rng.normal(0.0, 0.05, (3, n))
+    target = center[:, None] + rng.normal(0.0, 1.5, (3, n))
+    return o.astype(np.float32), unit(target - o)
+
+
+def axis_parallel_np(center, n, rng):
+    """axis_parallel_rays' pattern around `center` as (3, n) arrays: exact
+    +-0 direction components, some in a box face's plane, the last quarter
+    parked at 1e18."""
+    o, d = np.zeros((3, n), np.float32), np.zeros((3, n), np.float32)
+    for k in range(n):
+        axis, sign = k % 3, (1.0 if (k // 3) % 2 == 0 else -1.0)
+        off = rng.uniform(-1.4, 1.4, 3).astype(np.float32)
+        off[axis] = -3.0 * sign
+        if k % 5 == 0:
+            off[(axis + 1) % 3] = 0.0
+        o[:, k] = center + off
+        d[:, k] = np.where(np.arange(3) == axis, sign, -0.0 if k % 2 else 0.0)
+    o[:, 3 * n // 4:] = 1e18
+    d[:, 3 * n // 4:] = np.float32(0.5773502691896258)
+    return o, d
+
+
+def dup_icosphere():
+    """tests/test_torch_cluster.py::test_batched_selection_equals_sequential_scan's
+    set: icosphere(1) at (0, 5, 0), every triangle twice, so every hit is an
+    exact tie and the first one visited must win."""
+    from raytracing_engine_tpu_torch.accel import icosphere
+
+    tris = icosphere(subdivisions=1, radius=1.2, center=(0.0, 5.0, 0.0))
+    return np.concatenate([tris, tris])
+
+
+def dup_scene(device, tris=None):
+    """A path-tracing scene of a light sphere, a ground sphere and, given,
+    the diffuse triangles `tris` (e.g. dup_icosphere())."""
+    from raytracing_engine_tpu_torch.pathtracer import DIFFUSE, build_pt_scene
+
+    mesh = {} if tris is None else dict(triangles=tris, tri_mats=np.zeros(len(tris), np.int32))
+    return build_pt_scene(
+        spheres=[((2.5, 7.5, 2.5), 0.6, 1), ((0.0, 5.0, -103.0), 100.0, 2)], device=device,
+        materials=[{"albedo": (0.7, 0.6, 0.4), "kind": DIFFUSE},
+                   {"albedo": (0, 0, 0), "emission": (10.0,) * 3, "kind": DIFFUSE},
+                   {"albedo": (0.5, 0.5, 0.6), "kind": DIFFUSE}], **mesh)
+
+
+def ray_state(o, d):
+    """A K5 state of rays (o, d) after a bounce: throughput 1, radiance 0,
+    alive, no NEE before, pixel ids 0..n-1 on row 0 (they key the draws);
+    a ray whose origin is parked (|o.x| >= 1e17) is a dead one, as a bounce
+    leaves it: direction (1, 1, 1)/sqrt(3), throughput 0, not alive."""
+    n = o[0].numel()
+    st = torch.zeros((17, n), dtype=torch.float32, device=o[0].device)
+    for a in range(3):
+        st[a], st[3 + a] = o[a], d[a]
+    st[6:9] = 1.0
+    st[12] = 1.0
+    st[15] = torch.arange(n, dtype=torch.float32, device=o[0].device)
+    dead = o[0].abs() >= 1e17
+    st[3:6, dead] = float(np.float32(0.5773502691896258))
+    st[6:9, dead] = 0.0
+    st[12, dead] = 0.0
+    return st
+
+
+def same_state(got, want) -> bool:
+    """K5's state against its plain version's, bit for bit, except planes
+    13-14 (prev_did_nee, prev_pdf) of the rays parked after the bounce: read
+    by no later launch, regroup or scatter, zeroed by the kernel's park and
+    left by the plain version at what it computed on every lane
+    (pathtracer/wavefront.py _bounce)."""
+    live = want[0].abs() < 1e17
+    return (torch.equal(got[:13], want[:13]) and torch.equal(got[15:], want[15:])
+            and torch.equal(got[13:15, live], want[13:15, live]))
+
+
+def hold_k5_rays(label, scene, bvh, o, d, seed, quat):
+    """Bounce 1 of K5 on a state of the rays (o, d) against its plain
+    version (the wavefront core on the same state, as
+    render_pt_rebin_reference runs it), bit for bit."""
+    from raytracing_engine_tpu_torch.ops.cuda import pt
+    from raytracing_engine_tpu_torch.ops.rng_pcg import pass_seed
+    from raytracing_engine_tpu_torch.pathtracer import PTConfig
+    from raytracing_engine_tpu_torch.pathtracer.wavefront import (
+        STATE_PLANES,
+        _trace_core,
+        pack_state,
+        unpack_state,
+    )
+
+    n = o[0].numel()
+    cfg = PTConfig(width=n, height=1, max_bounces=2, rng="pcg")
+    pos = torch.zeros(3, device=o[0].device)
+    state = ray_state(o, d)
+    t0 = time.perf_counter()
+    st = _trace_core(cfg, pt.kernel_scene(scene, bvh), pos, quat, pass_seed(seed, 0),
+                     state_in=unpack_state(state), bvh=pt.frame_view(bvh, pos), bounce_lo=1,
+                     bounce_hi=1, emit_state=True)
+    want, n_want = pack_state(st).reshape(STATE_PLANES, n), int(st["nrays"])
+    plain_s = time.perf_counter() - t0
+    _, _, run = pt.rebin_bounce_launcher(cfg, scene, pos, quat, seed, bvh)
+    got, n_got = run(1, state.clone(), 0)
+    torch.cuda.synchronize()
+    same = same_state(got, want) and int(n_got) == n_want
+    live = int((state[0].abs() < 1e17).sum())
+    log(f"  K5 {label}: {n} rays ({live} live, last warp {n % 32 or 32} lanes), bounce 1 vs "
+        f"its plain version bit for bit (the state; planes 13-14 of the "
+        f"{int((want[0].abs() >= 1e17).sum())} rays it parks aside): {same}; rays "
+        f"{n_want}, alive after it {(want[12] > 0).double().mean().item():.3f}; plain "
+        f"{plain_s:.1f} s")
+    if not same:
+        raise AssertionError(f"K5 {label}: differs from its plain version")
+
+
+def hold_k7_rays(label, inst_tab, cs, o, d, origin):
+    """K7 against its plain version on the rays (o, d), closest hit with
+    normals and any hit (t_max 2.5), bit for bit; -> the max abs error."""
+    from raytracing_engine_tpu_torch.ops.cuda import instanced as kinst
+
+    err = 0.0
+    n = o[0].numel()
+    for what, mode in (("closest + normal", dict(attrs=True)),
+                       ("any hit", dict(any_hit=True, t_max=2.5))):
+        want = kinst.instanced_cluster_intersect_reference(inst_tab, cs, o, d, origin=origin,
+                                                           **mode)
+        got = kinst.instanced_cluster_intersect(inst_tab, cs, o, d, origin=origin, **mode)
+        torch.cuda.synchronize()
+        err = max(err, hold_sweep(f"K7 {label}, {n} rays (last warp {n % 32 or 32} lanes), "
+                                  f"{what}", got, want, "K7"))
+    return err
+
+
+def instance_world(inst_tab, pts):
+    """(P, 3) object-space points -> (N, P, 3) world points of every instance
+    of a pack_instances table: R (s p) + trans, R = inv_rot^T."""
+    tab = inst_tab.cpu().numpy().astype(np.float64)
+    inv = tab[:, 0:9].reshape(-1, 3, 3)
+    return (np.einsum("nji,pj->npi", inv, pts.astype(np.float64)) * tab[:, None, 12:13]
+            + tab[:, None, 9:12])
+
+
+def phase_c3_warp_rays(c3, quat, seed, device):
+    """K5's warp sweep (phase 11) on the rays where it can break, config 3's
+    set and the duplicated icosphere, against its plain version bit for
+    bit."""
+    from raytracing_engine_tpu_torch.ops.cuda import cluster
+
+    mesh, cs, scene, _, _ = c3
+    from raytracing_engine_tpu_torch.accel import build_clusters
+
+    rng = np.random.default_rng(7)
+    tris = dup_icosphere()
+    dscene = dup_scene(device, tris)
+    dcs = build_clusters(tris, tri_mats=np.zeros(len(tris), np.int32), device=device)
+    refs = cluster.FrameClusters.at(cs, torch.zeros(3, device=device)).refs.cpu().numpy()
+    knot_center = np.array([0.0, 8.0, 0.0], np.float32)
+    sets = [
+        ("config 3, knot vertices and edge midpoints", scene, cs,
+         vertex_rays(mesh, 32 * 40 + 13, rng)),
+        ("config 3, grazing cluster boxes", scene, cs,
+         grazing_rays(cs.boxes.cpu().numpy(), 32 * 24 + 7, rng)),
+        (f"config 3, lanes by the {refs.shape[0]} order references in turn (mixed rows)", scene,
+         cs, mixed_row_rays(refs, knot_center, 32 * 24 + 19, rng)),
+        ("duplicated icosphere (every hit a tie), vertices and edges", dscene, dcs,
+         vertex_rays(dup_icosphere(), 32 * 12 + 5, rng)),
+        ("duplicated icosphere, axis-parallel and parked", dscene, dcs,
+         axis_parallel_np(np.array([0.0, 5.0, 0.0], np.float32), 32 * 12 + 1, rng)),
+    ]
+    for label, sc, cset, (o, d) in sets:
+        hold_k5_rays(label, sc, cset, *np_rays(o, d, device), seed, quat)
+
+
+def phase_c5_warp_rays(c5, quat, seed, device):
+    """K7's and K5's warp sweeps with instances (phase 14) on the rays where
+    they can break, against their plain versions bit for bit; -> K7's max
+    error."""
+    from raytracing_engine_tpu_torch.accel import (
+        build_bvh,
+        build_clusters,
+        make_instanced_clusters,
+        make_instances,
+    )
+
+    rng = np.random.default_rng(11)
+    cs, ic, mesh = c5["cs"], c5["ic"], c5["mesh"]
+    # the duplicated icosphere as two instances, one rotated and scaled
+    dup = dup_icosphere() - np.array([0.0, 5.0, 0.0], np.float32)
+    rot = np.array([[np.cos(0.7), -np.sin(0.7), 0.0], [np.sin(0.7), np.cos(0.7), 0.0],
+                    [0.0, 0.0, 1.0]], np.float32)
+    pair = make_instances(build_bvh(dup, device=device),
+                          [(np.eye(3, dtype=np.float32), (0.0, 5.0, 0.0), 1.0),
+                           (rot, (1.4, 5.4, 0.3), 0.8)], device=device)
+    dcs = build_clusters(dup, device=device)
+    dic = make_instanced_clusters(pair, dcs, device=device)
+    # world vertices of a few config-5 instances, and of both duplicates
+    pick = rng.choice(mesh.shape[0], 256, replace=False)
+    world = instance_world(ic.inst_tab, mesh[pick].reshape(-1, 3)).reshape(-1, 256, 3, 3)
+    knot_w = world[rng.integers(0, world.shape[0], 256), np.arange(256)]  # one instance each
+    dup_w = instance_world(dic.inst_tab, dup.reshape(-1, 3)).reshape(-1, 3, 3)
+    err = 0.0
+    for label, tab, cset, (o, d) in (
+            ("config 5, instance-space knot vertices and edges in the world", ic.inst_tab, cs,
+             vertex_rays(knot_w, 32 * 20 + 9, rng)),
+            ("config 5, grazing the instances' world boxes", ic.inst_tab, cs,
+             grazing_rays(ic.inst_tab[:, 13:19].cpu().numpy(), 32 * 8 + 3, rng)),
+            ("two instances of the duplicated icosphere (ties), vertices and edges",
+             dic.inst_tab, dcs, vertex_rays(dup_w, 32 * 12 + 17, rng)),
+            ("two instances of the duplicated icosphere, axis-parallel and parked",
+             dic.inst_tab, dcs, axis_parallel_np(np.array([0.0, 5.0, 0.0], np.float32),
+                                                 32 * 12 + 1, rng))):
+        err = max(err, hold_k7_rays(label, tab, cset, *np_rays(o, d, device),
+                                    origin=torch.zeros(3, device=device)))
+    # K5 with instances: config 5's cell and the duplicates as a scene
+    dscene = dup_scene(device)
+    dic_pt = make_instanced_clusters(pair, dcs, scene=dscene, device=device)
+    hold_k5_rays("config 5, knot vertices and edges of the instances", c5["scene"], ic,
+                 *np_rays(*vertex_rays(knot_w, 32 * 10 + 21, rng), device), seed, quat)
+    hold_k5_rays("two instances of the duplicated icosphere (ties)", dscene, dic_pt,
+                 *np_rays(*vertex_rays(dup_w, 32 * 8 + 3, rng), device), seed, quat)
+    return err
+
+
 def phase_c3_invariants(c3, quat, seed, device):
     """The config-3 path through K4, K5 and K6 against the plain versions
     and each other; -> the plain times, K5's error and the sweep work of
@@ -1055,27 +1363,9 @@ def phase_c3_main(c3, quat, seed, device, card, inv):
     if counts != want:
         raise AssertionError(f"config-3 launch counts {counts} != {want}")
 
-    # K5 alone, bounce by bounce, on the states of the phase-11 frame
-    _, _, run = pt.rebin_bounce_launcher(cfg, scene, pos, quat, seed, cs)
-    modes = pt._gap_modes("none,morton")
-    inputs = [None]
-    st, _ = run(0, None, 0)
-    for b in range(1, nb):
-        st = pt.regroup(st, modes[min(b - 1, len(modes) - 1)])
-        inputs.append(st.clone())
-        st, _ = run(b, st, 0)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    k5_ms = []
-    for b, x in enumerate(inputs):
-        total = 0.0
-        for _ in range(5):
-            y = None if x is None else x.clone()
-            start.record()
-            run(b, y, 0)
-            end.record()
-            end.synchronize()
-            total += start.elapsed_time(end)
-        k5_ms.append(total / 5)
+    # K5 alone, bounce by bounce, on the states of the phase-11 frame: the
+    # profiler's device time per launch
+    k5_ms = k5_bounce_ms(cfg, scene, cs, pos, quat, seed)
     fc = cluster.FrameClusters.at(cs, pos)
     tb = cluster.sweep_tables(cs)
     tables = cluster_table_bytes([tb.sbox, tb.crec, tb.trec, tb.tsmooth, fc.orders, fc.refs])
@@ -1085,7 +1375,8 @@ def phase_c3_main(c3, quat, seed, device, card, inv):
         inv["nrays"], int(scene.sph_count), 0)
     k5_bound = bound_ms(k5_bytes(n, cfg.max_bounces, tables), ops)
     k4_bound = bound_ms(12 * n + tables, ops)
-    log(f"  K5 alone per bounce {[round(x, 4) for x in k5_ms]} ms = {sum(k5_ms):.4f} ms/frame; "
+    log(f"  K5 alone per bounce (device time) {[round(x, 4) for x in k5_ms]} ms = "
+        f"{sum(k5_ms):.4f} ms/frame; "
         f"bound {k5_bound[0]:.5f} ms by {k5_bound[1]} ({ops} ops: sweeps + "
         f"{int(scene.sph_count)} spheres x {inv['nrays']} rays); K5 at "
         f"{k5_bound[0] / sum(k5_ms):.2%} of it [{card}]")
@@ -1095,6 +1386,67 @@ def phase_c3_main(c3, quat, seed, device, card, inv):
         f"by {k4_bound[1]} [{card}]")
     return {"launches": counts, "k5": {"ms": sum(k5_ms), "plain_ms": inv["plain_rebin_ms"],
                                        "bound_ms": k5_bound[0], "bound_by": k5_bound[1]}}
+
+
+def device_ms(launch, reps: int, name: str, setup=lambda k: None) -> float:
+    """Median device time (ms) of kernel `name` over reps calls of
+    launch(setup(k)), setup's work (a fresh input) made before each call:
+    by torch.profiler, after one call outside it. Where three profiled runs
+    record no device event (it happens now and then), each call is timed by
+    CUDA events instead, enqueued behind a spin kernel so that the events
+    bracket the kernel and not the host's enqueue. Raises unless the time is
+    finite and positive."""
+    from torch.profiler import ProfilerActivity, profile
+
+    launch(setup(reps))
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for k in range(reps):
+                launch(setup(k))
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+        if us:
+            ms = sorted(us)[len(us) // 2] / 1e3
+            break
+    else:
+        times = []
+        for k in range(reps):
+            x = setup(k)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPIN_CYCLES)
+            start.record()
+            launch(x)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = sorted(times)[len(times) // 2]
+        log(f"  {name}: the profiler recorded no device event in 3 runs; CUDA events behind a "
+            f"spin kernel: {ms:.4f} ms")
+    if not (math.isfinite(ms) and ms > 0.0):
+        raise AssertionError(f"{name}: no device time measured ({ms})")
+    return ms
+
+
+def k5_bounce_ms(cfg, scene, bvh, pos, quat, seed) -> list:
+    """K5's device time per bounce on the states of one frame (render_pt_rebin's
+    default regroup between bounces); each timed launch gets a fresh copy of
+    its bounce's state (K5 updates the state in place)."""
+    from raytracing_engine_tpu_torch.ops.cuda import pt
+
+    _, _, run = pt.rebin_bounce_launcher(cfg, scene, pos, quat, seed, bvh)
+    modes = pt._gap_modes("none,morton")
+    inputs = [None]
+    st, _ = run(0, None, 0)
+    for b in range(1, cfg.max_bounces + 1):
+        st = pt.regroup(st, modes[min(b - 1, len(modes) - 1)])
+        inputs.append(st.clone())
+        st, _ = run(b, st, 0)
+    return [device_ms(lambda y, b=b: run(b, y, 0), 9, "pt_rebin_kernel",
+                      setup=lambda k, x=x: None if x is None else x.clone())
+            for b, x in enumerate(inputs)]
 
 
 def phase_bvh_kernel(c3, quat, seed, device, card):
@@ -1487,8 +1839,9 @@ def phase_c5_main(c5, c3, bvh3, quat, seed, device, card):
     iorder, iorders = kinst.instance_orders(ic.inst_tab, cs, cam)
     kw = dict(attrs=True, iorder=iorder, iorders=iorders)
     got = kinst.instanced_cluster_intersect(ic.inst_tab, cs, o, d, **kw)  # and warm-up
-    ms, host_ms = cuda_ms(lambda k: kinst.instanced_cluster_intersect(ic.inst_tab, cs, o, d, **kw),
-                          K7_REPS)
+    k7_call = lambda k: kinst.instanced_cluster_intersect(ic.inst_tab, cs, o, d, **kw)  # noqa: E731
+    ev_ms, host_ms = cuda_ms(k7_call, K7_REPS)
+    ms = device_ms(lambda _: k7_call(0), K7_REPS, "instanced_kernel")
     kinst.work.update(gates=0, transforms=0)
     cluster.work.update(slabs=0, tests=0)
     torch.cuda.synchronize(device)
@@ -1505,8 +1858,8 @@ def phase_c5_main(c5, c3, bvh3, quat, seed, device, card):
     n_ops = instanced_ops(kinst.work["gates"], kinst.work["transforms"], cluster.work["slabs"],
                           cluster.work["tests"])
     bound = bound_ms(n_bytes, n_ops)
-    log(f"  K7 Phong camera rays {width}x{height} (closest + normal): kernel {ms:.4f} ms (host "
-        f"enqueue {host_ms:.4f} ms), plain {plain_ms:.1f} ms; {kinst.work['gates']} instance "
+    log(f"  K7 Phong camera rays {width}x{height} (closest + normal): kernel {ms:.4f} ms of "
+        f"device time (CUDA events {ev_ms:.4f} ms, host enqueue {host_ms:.4f} ms), plain {plain_ms:.1f} ms; {kinst.work['gates']} instance "
         f"gates, {kinst.work['transforms']} transforms, {cluster.work['slabs']} box + "
         f"{cluster.work['tests']} triangle tests -> bound {bound[0]:.5f} ms by {bound[1]} "
         f"({n_bytes} B, {n_ops} ops), kernel at {bound[0] / ms:.2%} of it [{card}]")
@@ -1515,7 +1868,8 @@ def phase_c5_main(c5, c3, bvh3, quat, seed, device, card):
         f"{rays5 / rebin_ms / 1e3:.2f} Mrays/s, mega {mega_ms:.4f} ms/frame; config 3 raw BVH "
         f"render_pt_fast {raw_ms:.4f} ms/frame = {rays3 / raw_ms / 1e3:.2f} Mrays/s [{card}]")
     return {"launches": counts, "k7_err": err,
-            "k7": {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1]}}
+            "k7": {"ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound[0], "bound_by": bound[1]}}
 
 
 def time_k9(key, device, card):
@@ -1815,13 +2169,15 @@ def main() -> int:
     k6 = phase_cluster_kernel(c3, pt_quat, pt_seed, device, card)
     log("phase 11: config 3 through K4, K5 and K6, and its invariants")
     inv = phase_c3_invariants(c3, pt_quat, pt_seed, device)
+    phase_c3_warp_rays(c3, pt_quat, pt_seed, device)
     log("phase 12: config-3 main path and timing (CUDA events)")
     c3_main = phase_c3_main(c3, pt_quat, pt_seed, device, card, inv)
     log("phase 13: config 3's raw BVH and K8 vs its plain version")
     k8, bvh3 = phase_bvh_kernel(c3, pt_quat, pt_seed, device, card)
     c5 = c5_setup(device)
     log("phase 14: BASELINE config 5, K7 and the instanced paths vs their plain versions")
-    k7_err = phase_instanced_kernel(c5, pt_quat, pt_seed, device)
+    k7_err = max(phase_instanced_kernel(c5, pt_quat, pt_seed, device),
+                 phase_c5_warp_rays(c5, pt_quat, pt_seed, device))
     log("phase 15: the slice's main paths and timing (CUDA events)")
     c5_main = phase_c5_main(c5, c3, bvh3, pt_quat, pt_seed, device, card)
     log("phase 16: kernel K9 and the threefry and pallas streams")
@@ -1870,6 +2226,11 @@ def main() -> int:
          "source": "raytracing_engine_tpu_torch/csrc/rng.cu",
          "replaces": "raytracing_engine_tpu/ops/pallas/rng.py:24", **k9, "library_ms": None},
     ]
+    for k in kernels:  # a timing that failed fails the run
+        bad = [key for key in ("ms", "plain_ms", "bound_ms", "max_abs_err")
+               if not math.isfinite(k[key])]
+        if bad:
+            raise AssertionError(f"{k['name']}: {bad} not finite")
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

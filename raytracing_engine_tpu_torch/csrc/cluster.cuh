@@ -24,8 +24,31 @@
 // float4 loads per test), with the smooth-normal rows beside it in a
 // 12-float record [s0(3), s1-s0(3), s2-s0(3), 0 x3]; each cluster gets one
 // 36-float record [box(6), 0, 0, oc(3), 0, sub-box 0..3 (6 each)], so the
-// sub-boxes sit beside their cluster. Everything is read through the
-// read-only path from global memory: config 3's 9.7 MB fit in the L2.
+// sub-boxes sit beside their cluster. `sweep` (K4, K6) reads everything
+// through the read-only path from global memory: config 3's 9.7 MB fit in
+// the L2.
+//
+// `sweep_warp` (K5, K7) is the same sweep run by the 32 lanes of a warp
+// together, one ray a lane. Each lane walks its own visit order and applies
+// its own gates with its own running t, so its gate decisions, and its
+// result, are those of `sweep`; the lanes step through the hierarchy in
+// lockstep, and a level is skipped when no lane's gate opens. What the warp
+// shares is the sub-box test: when the gates of m <= kCoopMax lanes open on
+// a step, the warp loads each requested sub-box's 32 triangle records once,
+// coalesced (lane j record j), and lane j tests triangle j against each
+// requesting ray in turn (the ray broadcast by __shfl_sync); a warp
+// reduction keeps the smallest t and, on equal t, the lowest slot, which is
+// what the serial scan's strict `tt < t` in slot order keeps (the rule that
+// tests/test_torch_cluster.py::test_batched_selection_equals_sequential_scan
+// holds on a set whose every triangle is duplicated, so every hit is a
+// tie). With more requests each requesting lane scans its 32 records in
+// order, as `sweep` does. Measured on the H100 before this design (PERF.md
+// §5, ab_config3.py --lanes): 1.5-2.3 lanes of a warp test a sub-box
+// together in K5 and 6 in K7, and m <= 8 covers 97-99% of K5's sub-box
+// tests. Both read every table through the read-only path, as `sweep` does:
+// staging the super boxes and cluster records in shared memory took 5-8%
+// off K5 at config 5 only, a frame bound by the host's regroup, and slowed
+// K7 (PERF.md §6).
 //
 // Arithmetic: NaN-propagating min/max (CUDA's fminf/fmaxf drop NaN, and the
 // padding boxes are all-NaN never-hit boxes), 1/d then products for the
@@ -168,6 +191,136 @@ __device__ __forceinline__ void sweep(const Tables& tb, float3 o, float3 d, floa
         }
       }
       if (any_hit && h.idx >= 0) return;
+    }
+  }
+}
+
+// --- the warp sweep (K5, K7) ---------------------------------------------------
+
+constexpr unsigned kFullWarp = 0xFFFFFFFFu;
+// Most requests of one sub-box step that the warp tests together; above it
+// each requesting lane scans its 32 records alone. Measured (PERF.md §6,
+// ab_config3.py on copies of the tree): 16 against 4, 8 and 32, best for K7
+// and within 1-2% of the best for K5.
+constexpr int kCoopMax = 16;
+
+__device__ __forceinline__ unsigned lane_id() {
+  unsigned lane;
+  asm("mov.u32 %0, %%laneid;" : "=r"(lane));
+  return lane;
+}
+
+// The requests `req` (a lane mask) of one sub-box step, tested by the whole
+// warp: for each requesting lane r in turn, lane j tests triangle j of r's
+// sub-box (c, sub) against r's ray (lo, d, t_min, its running t), and the
+// warp keeps the smallest t, on a tie the lowest j: test_sub's result for r,
+// bit for bit. Called by all 32 lanes with the same req and sub.
+__device__ __forceinline__ void test_sub_warp(const Tables& tb, unsigned req, int c, int sub,
+                                              float3 lo, float3 d, float t_min, SweepHit& h) {
+  const unsigned lane = lane_id();
+  int loaded = -1;
+  float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f), r1 = a, r2 = a;
+  while (req != 0u) {
+    const int r = __ffs(req) - 1;
+    req &= req - 1u;
+    const int base = __shfl_sync(kFullWarp, c, r) * kCluster + sub * kSubTris;
+    if (base != loaded) {  // warp-uniform: one coalesced load of the 32 records
+      const float4* rec =
+          reinterpret_cast<const float4*>(tb.trec) + (base + static_cast<int>(lane)) * (kTriW / 4);
+      a = __ldg(rec);
+      r1 = __ldg(rec + 1);
+      r2 = __ldg(rec + 2);
+      loaded = base;
+    }
+    const float lx = __shfl_sync(kFullWarp, lo.x, r);
+    const float ly = __shfl_sync(kFullWarp, lo.y, r);
+    const float lz = __shfl_sync(kFullWarp, lo.z, r);
+    const float dx = __shfl_sync(kFullWarp, d.x, r);
+    const float dy = __shfl_sync(kFullWarp, d.y, r);
+    const float dz = __shfl_sync(kFullWarp, d.z, r);
+    const float tm = __shfl_sync(kFullWarp, t_min, r);
+    const float tr = __shfl_sync(kFullWarp, h.t, r);
+    // test_sub's arithmetic, in its order. Each sweep keeps its own copy:
+    // helpers shared by both (this test, instanced.cuh's transform) cost K4
+    // 4 B more of spills, as ptxas measured it.
+    const float den = a.x * dx + a.y * dy + a.z * dz;
+    const float num = a.x * lx + a.y * ly + a.z * lz + a.w;
+    const float inv = 1.0f / den;
+    const float tt = -num * inv;
+    const float px = lx + tt * dx;
+    const float py = ly + tt * dy;
+    const float pz = lz + tt * dz;
+    const float u = r1.x * px + r1.y * py + r1.z * pz + r1.w;
+    const float v = r2.x * px + r2.y * py + r2.z * pz + r2.w;
+    const bool ok = u >= 0.0f && v >= 0.0f && u + v <= 1.0f && tt > tm && tt < tr;
+    // (t, slot) minimum over the warp; a miss is (+inf, 32). An accepted t is
+    // below tr <= +inf, so it is finite and beats every miss.
+    float bt = ok ? tt : __int_as_float(0x7f800000);
+    int bj = ok ? static_cast<int>(lane) : kSubTris;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ot = __shfl_xor_sync(kFullWarp, bt, off);
+      const int oj = __shfl_xor_sync(kFullWarp, bj, off);
+      if (ot < bt || (ot == bt && oj < bj)) {
+        bt = ot;
+        bj = oj;
+      }
+    }
+    if (bj < kSubTris) {  // warp-uniform
+      const float bu = __shfl_sync(kFullWarp, u, bj);
+      const float bv = __shfl_sync(kFullWarp, v, bj);
+      if (static_cast<int>(lane) == r) {
+        h.t = bt;
+        h.idx = base + bj;
+        h.u = bu;
+        h.v = bv;
+      }
+    }
+  }
+}
+
+// `sweep` for the ray of each lane whose `active` is set, called by all 32
+// lanes of the warp together (a lane without a ray passes active false and
+// its h is not to be read).
+__device__ __forceinline__ void sweep_warp(const Tables& tb, float3 o, float3 d, float t0,
+                                           float t_min, bool any_hit, bool active,
+                                           SweepHit& h) {
+  __syncwarp(kFullWarp);
+  h.t = t0;
+  h.idx = -1;
+  h.u = 0.0f;
+  h.v = 0.0f;
+  bool live = active;
+  if (any_hit && fabsf(o.x) >= kParked) {
+    h.idx = 0;  // parked: its caller gates it by its own candidate mask
+    live = false;
+  }
+  const float3 inv = make_float3(1.0f / d.x, 1.0f / d.y, 1.0f / d.z);
+  const int* order = any_hit ? tb.order : ray_order(tb, o);
+  for (int si = 0; si < tb.n_super; ++si) {
+    if (!__any_sync(kFullWarp, live)) break;
+    const int s = __ldg(order + si);
+    const bool g_super = live && box_gate(tb.sbox + s * 8, o, inv, t_min, h.t);
+    if (!__any_sync(kFullWarp, g_super)) continue;
+    for (int k = 0; k < kSuper; ++k) {
+      const int c = s * kSuper + k;
+      const float* cr = tb.crec + c * kClusterW;
+      const bool g_cluster = g_super && live && box_gate(cr, o, inv, t_min, h.t);
+      if (!__any_sync(kFullWarp, g_cluster)) continue;
+      const float3 lo = make_float3(o.x - __ldg(cr + kOcOff), o.y - __ldg(cr + kOcOff + 1),
+                                    o.z - __ldg(cr + kOcOff + 2));
+      for (int sub = 0; sub < kSubs; ++sub) {
+        const bool g_sub =
+            g_cluster && box_gate(cr + kSubOff + 6 * sub, o, inv, t_min, h.t);
+        const unsigned req = __ballot_sync(kFullWarp, g_sub);
+        if (req == 0u) continue;
+        if (__popc(req) <= kCoopMax) {
+          test_sub_warp(tb, req, c, sub, lo, d, t_min, h);
+        } else if (g_sub) {
+          test_sub(tb, c, sub, lo, d, t_min, h);
+        }
+      }
+      if (any_hit && g_cluster && h.idx >= 0) live = false;  // sweep's return
     }
   }
 }

@@ -6,19 +6,32 @@
 // _instanced_kernel (K7, launched by instanced_cluster_intersect): closest or
 // any hit of a grid of rays against N instances of one base ClusterSet,
 // with the world-space normal of the closest hit on request. The two-level
-// sweep itself is instanced.cuh, over cluster.cuh's sweep.
+// sweep itself is instanced.cuh's instanced_sweep_warp, over cluster.cuh's
+// sweep_warp.
 //
-// What bounds it on this card: FP32 ALU work and divergence, not bytes. A
-// ray reads 7 floats and writes 2 (5 with the normal); it tests every
-// instance's world box (28 operations), moves into the object space of the
-// ones it enters (about 40), and runs the cluster sweep there (box tests of
-// 28 and triangle tests of 30 operations). So: one thread per ray, each ray
-// gates and culls on its own, the near-to-far instance order lets a near
-// hit cull the far instances' boxes; the base set's tables (about 5 MB at
-// BASELINE config 5, for 1,056,000 triangles) and the 30 x 96-byte
-// instance table are read through the read-only path and stay in the L2.
+// What bounds it on this card: FP32 ALU work and latency, not bytes. A ray
+// reads 7 floats and writes 2 (5 with the normal); it tests every instance's
+// world box (28 operations), moves into the object space of the ones it
+// enters (about 40), and runs the cluster sweep there (box tests of 28 and
+// triangle tests of 30 operations). Measured before this design (PERF.md §5,
+// ab_config3.py --lanes): on config 5's Phong camera rays the warp ran its
+// sub-box tests with 6 of 32 lanes on average (19%), each a serial loop of
+// 32 record loads. So: one ray a lane, the warp together (instanced.cuh
+// instanced_sweep_warp over cluster.cuh sweep_warp): the lanes walk the
+// instances and super orders in lockstep, each with its own gates, and a
+// sub-box that up to 16 lanes enter is loaded once, coalesced, and tested by
+// the whole warp; the near-to-far instance order lets a near hit cull the
+// far instances' boxes. The tables are read through the read-only path and
+// stay in the L1 and L2: the base set's 59,200 B of super boxes and cluster
+// records at BASELINE config 5, its 5 MB of triangle records, the 30 x
+// 96-byte instance table. Staging the box hierarchy in shared memory, once
+// per block, measured slower here (0.858 against 0.727 ms on the
+// 1080p camera rays, blocks of 256, PERF.md §6): each of a 1080p frame's
+// 8,160 blocks copies 59 KB, and three blocks instead of four fit an SM.
 //
-// Block: 128 threads over consecutive rays; the ragged end is masked.
+// Block: 128 threads over consecutive rays (measured faster than 256: 0.658
+// against 0.727 ms); every lane enters the sweep, those past the ragged end
+// without a ray.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC
@@ -51,12 +64,19 @@ struct Args {
 
 __global__ void __launch_bounds__(kBlock) instanced_kernel(const Args a) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i >= a.n) return;
-  const float3 o = make_float3(__ldg(a.ox + i), __ldg(a.oy + i), __ldg(a.oz + i));
-  const float3 d = make_float3(__ldg(a.dx + i), __ldg(a.dy + i), __ldg(a.dz + i));
+  const bool active = i < a.n;
+  float3 o = make_float3(cl::kParked * 10.0f, cl::kParked * 10.0f, cl::kParked * 10.0f);
+  float3 d = make_float3(1.0f, 1.0f, 1.0f);
+  float t0 = 0.0f;
+  if (active) {
+    o = make_float3(__ldg(a.ox + i), __ldg(a.oy + i), __ldg(a.oz + i));
+    d = make_float3(__ldg(a.dx + i), __ldg(a.dy + i), __ldg(a.dz + i));
+    t0 = __ldg(a.tmax + i);
+  }
   InstHit h;
-  instanced_sweep(a.tables, a.inst, o, d, __ldg(a.tmax + i), a.t_min, a.any_hit != 0,
-                  a.out_n != nullptr, h);
+  instanced_sweep_warp(a.tables, a.inst, o, d, t0, a.t_min, a.any_hit != 0, a.out_n != nullptr,
+                       active, h);
+  if (!active) return;
   a.out_t[i] = h.code >= 0 ? h.t : __int_as_float(0x7f800000);
   a.out_code[i] = h.code;
   if (a.out_n != nullptr) {

@@ -19,16 +19,23 @@
 // (a stable sort on a coherence key, then a permutation of every plane).
 // Both kernels run the same `bounce` (pt.cuh), so K5 equals K4 bit for bit.
 //
-// What bounds them on this card: FP32 ALU work and divergence, not bytes.
-// Each segment tests every live sphere and then every unrolled triangle or
-// the cluster hierarchy (box tests and Baldwin–Weber tests), per instance
-// entered with instances (instanced.cuh); paths end at
-// different bounces. K4 writes only its output (5.8 MB at config 2); K5
-// moves 17 planes in and out per bounce (36 MB at 512², well under its
-// sweep work at config 3). So: one thread per ray, a thread that misses or
-// dies stops, warps retire on their own; the scene tables load once per
-// block into shared memory (broadcast reads); the cluster tables stay in
-// global memory behind the read-only path (9.7 MB at config 3, in the L2).
+// What bounds them on this card: FP32 ALU work, divergence and latency, not
+// bytes. Each segment tests every live sphere and then every unrolled
+// triangle or the cluster hierarchy (box tests and Baldwin–Weber tests), per
+// instance entered with instances (instanced.cuh); paths end at different
+// bounces. K4 writes only its output (5.8 MB at config 2); K5 moves 17
+// planes in and out per bounce (36 MB at 512², well under its sweep work at
+// config 3). So: one thread per ray, a thread that misses or dies stops,
+// warps retire on their own; the scene tables load once per block into
+// shared memory (broadcast reads). K4 sweeps a mesh one thread a ray
+// (cluster.cuh sweep), through the read-only path. K5 sweeps it with the
+// warp's lanes together (cluster.cuh sweep_warp, instanced.cuh
+// instanced_sweep_warp): measured before that design (PERF.md §5,
+// ab_config3.py --lanes), K5's sub-box tests ran on 1.5-2.3 of 32 lanes,
+// each a serial loop of 32 record loads from the L2; now a sub-box that few
+// lanes enter is loaded once, coalesced, and tested by the whole warp.
+// Both read the cluster tables through the read-only path (9.7 MB at config
+// 3, in the L2).
 // None of the TPU layout is kept: no tiles, stripes, f32 alive masks or
 // SMEM/VMEM packing.
 //
@@ -36,8 +43,9 @@
 // shadow-ray candidate; a warp-level sum, one shared-memory add per warp and
 // one 64-bit integer atomicAdd per block.
 //
-// Blocks: K4 16 x 8 threads (a warp covers 16 x 2 pixels); K5 128 threads
-// over consecutive ranks. Ragged edges are masked.
+// Blocks: K4 16 x 8 threads (a warp covers 16 x 2 pixels); K5 256 threads
+// over consecutive ranks, every lane of a warp in the sweeps (those past the
+// ragged end and those of dead rays without a ray). Ragged edges are masked.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC   (see pt.cuh on why no FMA
@@ -49,9 +57,11 @@ namespace pt {
 constexpr int kBlockX = 16;
 constexpr int kBlockY = 8;
 constexpr int kThreads = kBlockX * kBlockY;
+constexpr int kRebinThreads = 256;  // K5's block
 
 // Stage the scene tables in shared memory (call from every thread, then
 // __syncthreads) and describe them; the live counts come from a.counts.
+template <int kBlock>
 __device__ __forceinline__ Scene stage_scene(const Args& a, float* tables, int tid) {
   const int n_sph_f = a.S * kSphW, n_tri_f = a.T * kTriW;
   const int n_mat_f = a.M * kMatW, n_light_f = a.L * kLightW;
@@ -59,10 +69,10 @@ __device__ __forceinline__ Scene stage_scene(const Args& a, float* tables, int t
   float* s_tri = s_sph + n_sph_f;
   float* s_mat = s_tri + n_tri_f;
   float* s_light = s_mat + n_mat_f;
-  for (int i = tid; i < n_sph_f; i += kThreads) s_sph[i] = __ldg(a.sph + i);
-  for (int i = tid; i < n_tri_f; i += kThreads) s_tri[i] = __ldg(a.tri + i);
-  for (int i = tid; i < n_mat_f; i += kThreads) s_mat[i] = __ldg(a.mat + i);
-  for (int i = tid; i < n_light_f; i += kThreads) s_light[i] = __ldg(a.light + i);
+  for (int i = tid; i < n_sph_f; i += kBlock) s_sph[i] = __ldg(a.sph + i);
+  for (int i = tid; i < n_tri_f; i += kBlock) s_tri[i] = __ldg(a.tri + i);
+  for (int i = tid; i < n_mat_f; i += kBlock) s_mat[i] = __ldg(a.mat + i);
+  for (int i = tid; i < n_light_f; i += kBlock) s_light[i] = __ldg(a.light + i);
   Scene sc;
   sc.sph = s_sph;
   sc.tri = s_tri;
@@ -102,7 +112,7 @@ __global__ void __launch_bounds__(kThreads) pt_kernel(const Args a) {
   extern __shared__ float tables[];
   __shared__ unsigned block_rays;
   const int tid = threadIdx.y * kBlockX + threadIdx.x;
-  const Scene sc = stage_scene(a, tables, tid);
+  const Scene sc = stage_scene<kThreads>(a, tables, tid);
   if (tid == 0) block_rays = 0u;
   __syncthreads();
 
@@ -119,7 +129,9 @@ __global__ void __launch_bounds__(kThreads) pt_kernel(const Args a) {
     for (int s = 0; s < a.spp; ++s) {
       const uint32_t seed = pass_seed(a, s);
       Ray r = camera_ray(a, px, py, seed, cam, q);
-      for (int b = 0; b <= a.max_bounces && r.alive; ++b) bounce(a, sc, r, b, seed, nrays);
+      for (int b = 0; b <= a.max_bounces && r.alive; ++b) {
+        bounce<ThreadSweep>(a, sc, r, b, seed, nrays);
+      }
       acc = add3(acc, r.rad);
     }
     const float inv = 1.0f / static_cast<float>(a.spp);
@@ -131,22 +143,30 @@ __global__ void __launch_bounds__(kThreads) pt_kernel(const Args a) {
   count_rays(a, &block_rays, tid, nrays);
 }
 
-__global__ void __launch_bounds__(kThreads) pt_rebin_kernel(const Args a) {
+__global__ void __launch_bounds__(kRebinThreads) pt_rebin_kernel(const Args a) {
   extern __shared__ float tables[];
   __shared__ unsigned block_rays;
   const int tid = threadIdx.x;
-  const Scene sc = stage_scene(a, tables, tid);
+  const Scene sc = stage_scene<kRebinThreads>(a, tables, tid);
   if (tid == 0) block_rays = 0u;
   __syncthreads();
 
-  const int i = blockIdx.x * kThreads + tid;
+  const int i = blockIdx.x * kRebinThreads + tid;
   const size_t n = static_cast<size_t>(a.n_state);
   unsigned nrays = 0u;
-  if (i < a.n_state) {
-    float* st = a.state + i;
-    const uint32_t seed = pass_seed(a, 0);
-    Ray r;
-    bool live = true;
+  const uint32_t seed = pass_seed(a, 0);
+  // every lane enters bounce (the warp sweeps together); a lane past the
+  // ragged end or holding a dead ray (|o.x| >= 1e17: the per-thread form of
+  // the TPU kernel's skip_dead) carries a parked ray, with live false, and
+  // leaves its state unchanged
+  Ray r;
+  park(r);
+  r.rad = make_float3(0.0f, 0.0f, 0.0f);
+  r.px = 0u;
+  r.py = 0u;
+  bool live = i < a.n_state;
+  float* st = a.state + (live ? i : 0);
+  if (live) {
     if (a.bounce == 0) {
       const float3 cam = make_float3(__ldg(a.cam_pos), __ldg(a.cam_pos + 1), __ldg(a.cam_pos + 2));
       const float4 q = make_float4(__ldg(a.cam_quat), __ldg(a.cam_quat + 1),
@@ -154,9 +174,10 @@ __global__ void __launch_bounds__(kThreads) pt_rebin_kernel(const Args a) {
       r = camera_ray(a, static_cast<uint32_t>(i % a.w), static_cast<uint32_t>(i / a.w + a.row0),
                      seed, cam, q);
     } else {
-      r.o = make_float3(st[0], st[n], st[2 * n]);
-      live = fabsf(r.o.x) < cl::kParked;
+      const float ox = st[0];
+      live = fabsf(ox) < cl::kParked;
       if (live) {
+        r.o = make_float3(ox, st[n], st[2 * n]);
         r.d = make_float3(st[3 * n], st[4 * n], st[5 * n]);
         r.thr = make_float3(st[6 * n], st[7 * n], st[8 * n]);
         r.rad = make_float3(st[9 * n], st[10 * n], st[11 * n]);
@@ -167,15 +188,15 @@ __global__ void __launch_bounds__(kThreads) pt_rebin_kernel(const Args a) {
         r.py = static_cast<uint32_t>(st[16 * n]);
       }
     }
-    if (live) {
-      bounce(a, sc, r, a.bounce, seed, nrays);
-      const float planes[kStatePlanes] = {
-          r.o.x, r.o.y, r.o.z, r.d.x, r.d.y, r.d.z, r.thr.x, r.thr.y, r.thr.z,
-          r.rad.x, r.rad.y, r.rad.z, r.alive ? 1.0f : 0.0f, r.prev_did_nee ? 1.0f : 0.0f,
-          r.prev_pdf, static_cast<float>(r.px), static_cast<float>(r.py)};
+  }
+  bounce<WarpSweep>(a, sc, r, a.bounce, seed, nrays, live);
+  if (live) {
+    const float planes[kStatePlanes] = {
+        r.o.x, r.o.y, r.o.z, r.d.x, r.d.y, r.d.z, r.thr.x, r.thr.y, r.thr.z,
+        r.rad.x, r.rad.y, r.rad.z, r.alive ? 1.0f : 0.0f, r.prev_did_nee ? 1.0f : 0.0f,
+        r.prev_pdf, static_cast<float>(r.px), static_cast<float>(r.py)};
 #pragma unroll
-      for (int k = 0; k < kStatePlanes; ++k) st[k * n] = planes[k];
-    }
+    for (int k = 0; k < kStatePlanes; ++k) st[k * n] = planes[k];
   }
   count_rays(a, &block_rays, tid, nrays);
 }
@@ -204,8 +225,8 @@ extern "C" int pt_rebin(const pt::Args* a, void* stream) {
   cudaError_t err = cudaSetDevice(a->device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (a->n_state > 0) {
-    const dim3 grid((a->n_state + pt::kThreads - 1) / pt::kThreads);
-    pt::pt_rebin_kernel<<<grid, pt::kThreads, pt::table_bytes(a),
+    const dim3 grid((a->n_state + pt::kRebinThreads - 1) / pt::kRebinThreads);
+    pt::pt_rebin_kernel<<<grid, pt::kRebinThreads, pt::table_bytes(a),
                           static_cast<cudaStream_t>(stream)>>>(*a);
   }
   return static_cast<int>(cudaGetLastError());

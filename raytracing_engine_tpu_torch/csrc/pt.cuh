@@ -14,12 +14,21 @@
 // `bounce`, over a per-ray state (`Ray`, the 17 planes of
 // wavefront.pack_state): K4 loops it over the bounces of every pass in
 // registers, K5 runs one bounce per launch on the state it reads back, so
-// K5 equals K4 by construction. Every expression keeps the operation order
-// of the plain PyTorch version (pathtracer/wavefront.py), and the library
-// builds with --fmad=false and IEEE division and square root, so the two
-// agree bit for bit where the math library does: a branch decision
-// (u < refl_p, t < best_t, the CDF walk) flips when one rounding changes, and
-// then the whole path differs.
+// K5 equals K4 by construction. `bounce`, `intersect` and `occluded` are
+// templates on the mesh sweep: K4 takes ThreadSweep (cluster.cuh sweep,
+// instanced.cuh instanced_sweep, one thread's), K5 takes WarpSweep
+// (sweep_warp, instanced_sweep_warp: the warp's lanes together). Every lane
+// of a K5 warp calls `bounce`, a lane without a live ray with live false,
+// and the body reaches both sweeps on every lane (a lane that missed or
+// casts no shadow ray enters them inactive) and parks a miss only after the
+// shadow sweep; for K4 those branches fold away. Both sweeps equal the
+// plain sweep bit for bit per ray, so K5 still equals K4.
+//
+// Every expression keeps the operation order of the plain PyTorch version
+// (pathtracer/wavefront.py), and the library builds with --fmad=false and
+// IEEE division and square root, so the two agree bit for bit where the
+// math library does: a branch decision (u < refl_p, t < best_t, the CDF
+// walk) flips when one rounding changes, and then the whole path differs.
 //
 // Where the plain version computes a value on every lane and selects, this
 // code computes it only on the lanes that keep it; where a dead lane's work
@@ -229,11 +238,45 @@ struct Hit {
   bool front;
 };
 
+// The mesh sweeps of K4: one thread, one ray.
+struct ThreadSweep {
+  static constexpr bool kWarp = false;
+  __device__ __forceinline__ static void mesh(const cl::Tables& tb, float3 o, float3 d,
+                                              float t0, float t_min, bool any_hit, bool,
+                                              cl::SweepHit& h) {
+    cl::sweep(tb, o, d, t0, t_min, any_hit, h);
+  }
+  __device__ __forceinline__ static void inst(const cl::Tables& tb, const ins::Instances& in,
+                                              float3 o, float3 d, float t0, float t_min,
+                                              bool any_hit, bool attrs, bool,
+                                              ins::InstHit& h) {
+    ins::instanced_sweep(tb, in, o, d, t0, t_min, any_hit, attrs, h);
+  }
+};
+
+// The mesh sweeps of K5: the 32 lanes of a warp together, each with its own
+// ray or none (active false).
+struct WarpSweep {
+  static constexpr bool kWarp = true;
+  __device__ __forceinline__ static void mesh(const cl::Tables& tb, float3 o, float3 d,
+                                              float t0, float t_min, bool any_hit, bool active,
+                                              cl::SweepHit& h) {
+    cl::sweep_warp(tb, o, d, t0, t_min, any_hit, active, h);
+  }
+  __device__ __forceinline__ static void inst(const cl::Tables& tb, const ins::Instances& in,
+                                              float3 o, float3 d, float t0, float t_min,
+                                              bool any_hit, bool attrs, bool active,
+                                              ins::InstHit& h) {
+    ins::instanced_sweep_warp(tb, in, o, d, t0, t_min, any_hit, attrs, active, h);
+  }
+};
+
 // wavefront._intersect (unrolled slots), wavefront._intersect_clusters (a
 // mesh, the attributes path) or wavefront._intersect_instanced (instances);
-// returns false on a miss (t = BIG).
+// returns false on a miss (t = BIG) and for an inactive lane.
+template <class Sw>
 __device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
-                                          float t_min, Hit& h) {
+                                          float t_min, Hit& h, bool active = true) {
   float t_s = kBig;
   int i_s = -1;
   for (int k = 0; k < sc.n_sph; ++k) {
@@ -249,10 +292,10 @@ __device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
   cl::SweepHit ch;
   ins::InstHit ih;
   if (sc.instanced) {
-    ins::instanced_sweep(sc.cl, sc.inst, o, d, kBig, t_min, false, true, ih);
+    Sw::inst(sc.cl, sc.inst, o, d, kBig, t_min, false, true, active, ih);
     if (ih.code >= 0) t_t = ih.t;
   } else if (sc.mesh) {
-    cl::sweep(sc.cl, o, d, kBig, t_min, false, ch);
+    Sw::mesh(sc.cl, o, d, kBig, t_min, false, active, ch);
     if (ch.idx >= 0) t_t = ch.t;
   } else {
     for (int k = 0; k < sc.n_tri; ++k) {
@@ -265,7 +308,7 @@ __device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
   }
   const bool use_tri = t_t < t_s;
   const float t = fminf(t_s, t_t);
-  if (!(t < kBig)) return false;
+  if (!active || !(t < kBig)) return false;
   h.t = t;
   h.p = make_float3(o.x + d.x * t, o.y + d.y * t, o.z + d.z * t);
   float3 n;
@@ -300,24 +343,32 @@ __device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
 }
 
 // wavefront._occluded: any live sphere or triangle (or mesh, or instance) hit in
-// (t_min, max_t).
+// (t_min, max_t). An inactive lane (WarpSweep) enters the mesh sweep without
+// a ray; what it returns is not to be read.
+template <class Sw>
 __device__ __forceinline__ bool occluded(const Scene& sc, float3 o, float3 d,
-                                         float max_t, float t_min) {
+                                         float max_t, float t_min, bool active = true) {
+  bool sphere = false;  // K5: blocked by a sphere, the mesh sweep entered inactive
   for (int k = 0; k < sc.n_sph; ++k) {
     float disc;
     const float t = sphere_t(sc.sph + k * kSphW, o, d, t_min, disc);
-    if (disc > 0.0f && t > t_min && t < max_t) return true;
+    if (disc > 0.0f && t > t_min && t < max_t) {
+      if (!Sw::kWarp) return true;
+      sphere = true;
+      break;
+    }
   }
   if (sc.instanced) {
     ins::InstHit h;
-    ins::instanced_sweep(sc.cl, sc.inst, o, d, max_t, t_min, true, false, h);
-    return h.code >= 0;
+    Sw::inst(sc.cl, sc.inst, o, d, max_t, t_min, true, false, active && !sphere, h);
+    return sphere || h.code >= 0;
   }
   if (sc.mesh) {
     cl::SweepHit h;
-    cl::sweep(sc.cl, o, d, max_t, t_min, true, h);
-    return h.idx >= 0;
+    Sw::mesh(sc.cl, o, d, max_t, t_min, true, active && !sphere, h);
+    return sphere || h.idx >= 0;
   }
+  if (sphere) return true;
   for (int k = 0; k < sc.n_tri; ++k) {
     float t;
     if (tri_hit(sc.tri + k * kTriW, o, d, t_min, max_t, t)) return true;
@@ -440,21 +491,61 @@ __device__ __forceinline__ void park(Ray& r) {
   r.prev_pdf = 0.0f;
 }
 
+// The NEE shadow ray of a diffuse hit at p (normal n) toward a light sample
+// (wavefront._bounce's NEE): false when the sample casts none.
+struct Nee {
+  LightSample ls;
+  float3 wi;
+  float dist, cos_ll, cos_s;
+};
+__device__ __forceinline__ bool nee_sample(const Args& a, const Scene& sc, float3 p, float3 n,
+                                           const float* u, bool uniform, Nee& e) {
+  e.ls = sample_light(sc, u[2], u[3], u[4], uniform);
+  const float3 to_l = sub3(e.ls.p, p);
+  e.dist = sqrtf(dot3(to_l, to_l));
+  e.wi = scale3(to_l, 1.0f / vmax(e.dist, 1e-20f));
+  e.cos_ll = fabsf(dot3(e.ls.n, e.wi));
+  e.cos_s = dot3(n, e.wi);
+  return e.cos_ll > 1e-6f && e.dist > a.eps && e.cos_s > 0.0f;
+}
+
+// The light an unoccluded shadow ray brings, MIS-weighted, added to r.rad.
+__device__ __forceinline__ void nee_add(Ray& r, float3 thr, float3 albedo, const Nee& e) {
+  const float pdf_w = e.ls.pdf_area * (e.dist * e.dist) / vmax(e.cos_ll, 1e-6f);
+  const float w_nee = power_heuristic(pdf_w, e.cos_s / kPi);
+  const float s = e.cos_s / vmax(pdf_w, 1e-20f) * w_nee / kPi;
+  r.rad.x = r.rad.x + thr.x * albedo.x * (e.ls.le.x * s);
+  r.rad.y = r.rad.y + thr.y * albedo.y * (e.ls.le.y * s);
+  r.rad.z = r.rad.z + thr.z * albedo.z * (e.ls.le.z * s);
+}
+
 // Bounce b of a live ray for the pass of `seed`: adds its emission and NEE
 // to r.rad, scatters or parks it, and counts its rays (one segment, one
-// shadow-ray candidate) into nrays.
+// shadow-ray candidate) into nrays. With WarpSweep every lane of the warp
+// calls it together, a lane without a live ray with live false (it changes
+// nothing that its caller keeps and counts no ray).
+template <class Sw>
 __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, int b,
-                                       uint32_t seed, unsigned& nrays) {
+                                       uint32_t seed, unsigned& nrays, bool live = true) {
   const bool uniform = a.uniform_lights != 0;
   float u[8];
   // bounce draws: ctr b + 1, two blocks of 4 (nu = 5, or 6 with RR)
   draw4(r.px, r.py, static_cast<uint32_t>(b + 1) * 2u, seed, u);
   draw4(r.px, r.py, static_cast<uint32_t>(b + 1) * 2u + 1u, seed, u + 4);
-  nrays += 1;
+  if (live) nrays += 1;
   const float3 d = r.d;
 
   Hit h;
-  if (!intersect(sc, r.o, d, a.t_min, h)) {
+  if (Sw::kWarp) {  // a miss goes on to the shadow sweep as a hit on nothing
+    h.t = 0.0f;
+    h.p = r.o;
+    h.n = make_float3(0.0f, 0.0f, 1.0f);
+    h.mat = -1;
+    h.light_area = 0.0f;
+    h.front = true;
+  }
+  const bool hit = intersect<Sw>(sc, r.o, d, a.t_min, h, live);
+  if (!Sw::kWarp && !hit) {
     park(r);
     return;
   }
@@ -485,24 +576,26 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
   }
 
   // --- NEE ------------------------------------------------------------------
-  if (a.use_nee && kind == kDiffuse && sc.n_light > 0) {
-    const LightSample ls = sample_light(sc, u[2], u[3], u[4], uniform);
-    const float3 to_l = sub3(ls.p, p);
-    const float dist = sqrtf(dot3(to_l, to_l));
-    const float3 wi = scale3(to_l, 1.0f / vmax(dist, 1e-20f));
-    const float cos_ll = fabsf(dot3(ls.n, wi));
-    const float cos_s = dot3(n, wi);
-    if (cos_ll > 1e-6f && dist > a.eps && cos_s > 0.0f) {
+  const bool nee = hit && a.use_nee && kind == kDiffuse && sc.n_light > 0;
+  if (Sw::kWarp) {  // every lane reaches the shadow sweep; those without one inactive
+    Nee e;
+    e.wi = make_float3(1.0f, 0.0f, 0.0f);
+    e.dist = 0.0f;
+    const bool cast = nee && nee_sample(a, sc, p, n, u, uniform, e);
+    if (cast) nrays += 1;
+    const float3 sh_o = add3(p, scale3(n, a.eps));
+    const bool blocked = occluded<Sw>(sc, sh_o, e.wi, e.dist * 0.999f, a.t_min, cast);
+    if (cast && !blocked) nee_add(r, thr, albedo, e);
+    if (!hit) {
+      park(r);
+      return;
+    }
+  } else if (nee) {
+    Nee e;
+    if (nee_sample(a, sc, p, n, u, uniform, e)) {
       nrays += 1;
       const float3 sh_o = add3(p, scale3(n, a.eps));
-      if (!occluded(sc, sh_o, wi, dist * 0.999f, a.t_min)) {
-        const float pdf_w = ls.pdf_area * (dist * dist) / vmax(cos_ll, 1e-6f);
-        const float w_nee = power_heuristic(pdf_w, cos_s / kPi);
-        const float s = cos_s / vmax(pdf_w, 1e-20f) * w_nee / kPi;
-        r.rad.x = r.rad.x + thr.x * albedo.x * (ls.le.x * s);
-        r.rad.y = r.rad.y + thr.y * albedo.y * (ls.le.y * s);
-        r.rad.z = r.rad.z + thr.z * albedo.z * (ls.le.z * s);
-      }
+      if (!occluded<Sw>(sc, sh_o, e.wi, e.dist * 0.999f, a.t_min)) nee_add(r, thr, albedo, e);
     }
   }
 

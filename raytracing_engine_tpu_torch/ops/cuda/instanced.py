@@ -16,6 +16,9 @@ NotImplementedError (ops/cuda/cluster.py). Rays on the CPU take the plain
 version, ``instanced_cluster_intersect_reference``; rays on a CUDA device
 launch the kernel or raise.
 
+The kernel sweeps with the 32 lanes of a warp together (csrc/cluster.cuh
+sweep_warp).
+
 ``FrameInstances`` is the in-kernel view of one frame (the JAX megakernel's
 KernelInstances): the orders from the camera, which K4 and K5 take and the
 plain wavefront replays. ``work`` counts the instance gates and transforms

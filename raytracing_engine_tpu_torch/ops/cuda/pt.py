@@ -11,9 +11,10 @@
   ``_pt_rebin_kernel``: one launch per bounce over a packed 17-plane ray
   state, with an image-wide regroup between launches (``rebin_keys``, a
   stable ``torch.sort``, then ``index_select`` of every plane) and a final
-  scatter of the radiance to pixel order. The regroup only changes which
-  thread runs a ray: every draw is keyed on the pixel coordinates the state
-  carries, so the image equals K4's bit for bit.
+  scatter of the radiance to pixel order. K5 sweeps the mesh with the 32
+  lanes of a warp together (csrc/cluster.cuh sweep_warp). The regroup only
+  changes which thread runs a ray: every draw is keyed on the pixel
+  coordinates the state carries, so the image equals K4's bit for bit.
 
 A scene on the CPU takes the plain versions, ``render_pt_mega_reference``
 and ``render_pt_rebin_reference``; a scene on a CUDA device launches the
@@ -54,8 +55,8 @@ rebin_launches = 0
 
 # the kernels stage the scene tables in shared memory
 _MAX_TABLE_BYTES = 48 * 1024
-# K5's block (csrc/pt.cu kThreads): the "tile" of the tile_oct regroup key
-REBIN_TILE = 128
+# K5's block (csrc/pt.cu kRebinThreads): the "tile" of the tile_oct regroup key
+REBIN_TILE = 256
 
 
 class PTArgs(ctypes.Structure):

@@ -60,9 +60,11 @@ from raytracing_engine_tpu.pathtracer import PTConfig as JPTConfig
 from raytracing_engine_tpu.pathtracer.scene import build_pt_scene as jax_build_pt_scene
 from raytracing_engine_tpu.pathtracer.wavefront import render_pt_fast as jax_render_pt_fast
 
-from raytracing_engine_tpu_torch.accel import BVH, cluster_set_from_numpy, instancing
+from raytracing_engine_tpu_torch.accel import BVH, cluster_set_from_numpy, clusters, instancing
+from raytracing_engine_tpu_torch.accel import build_bvh as accel_build_bvh
 from raytracing_engine_tpu_torch.accel.clusters import visit_orders
 from raytracing_engine_tpu_torch.models import instanced as pmodels
+from raytracing_engine_tpu_torch.ops.cuda import cluster as kcluster
 from raytracing_engine_tpu_torch.ops.cuda import common, instanced, pt
 from raytracing_engine_tpu_torch.ops.cuda.cluster import FrameClusters
 from raytracing_engine_tpu_torch.ops.cuda.instanced import FrameInstances
@@ -266,6 +268,32 @@ def test_k7_orders_change_no_result(setup):
     b = instanced.instanced_cluster_intersect(ptab, pcs, _torch(o), _torch(d), attrs=True,
                                               origin=torch.zeros(3))
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_k7_plain_keeps_the_sets_tie_rule(any_hit):
+    """One instance at the identity of the set whose every triangle is there
+    twice (tests/test_torch_cluster.py::test_batched_selection_equals_sequential_scan):
+    every hit is an exact tie, and K7's plain version keeps the slot, and the
+    t, that the set's own sweep keeps in the instance's super order. K7's
+    warp reduction holds this rule on the card (chip_smoke.py phase 14)."""
+    tris = icosphere(1, radius=1.2, center=(0.0, 8.0, 0.0))
+    dup = np.concatenate([tris, tris])
+    cs = clusters.build_clusters(dup, device=CPU)
+    inst = instancing.make_instances(accel_build_bvh(dup, device=CPU),
+                                     [(np.eye(3, dtype=np.float32), (0.0, 0.0, 0.0), 1.0)],
+                                     device=CPU)
+    tab = instanced.pack_instances(inst)
+    iorder, iorders = instanced.instance_orders(tab, cs, torch.zeros(3))
+    o, d = _rays(seed=3)
+    t_max = 9.0 if any_hit else float("inf")
+    t, code = instanced.instanced_cluster_intersect_reference(
+        tab, cs, _torch(o), _torch(d), any_hit=any_hit, t_max=t_max, iorder=iorder,
+        iorders=iorders)
+    want_t, want_i = kcluster.cluster_intersect_reference(cs, _torch(o), _torch(d), t_max,
+                                                          any_hit=any_hit, order=iorders[0])
+    assert torch.equal(code, want_i) and torch.equal(t, want_t)
+    assert (code[:H - 2] >= 0).sum() > 100
 
 
 def test_wrapper_on_cpu_is_its_plain_version(setup):

@@ -340,6 +340,13 @@ def test_pt_args_mirror_the_cuda_struct():
     assert re.findall(r"(\w+)\s*[,;]", body) == [f for f, _ in pt.PTArgs._fields_]
 
 
+def test_rebin_tile_is_the_k5_block():
+    """The tile_oct regroup key groups ranks by K5's block (csrc/pt.cu
+    kRebinThreads), which the wrapper mirrors as REBIN_TILE."""
+    src = (common.CSRC_DIR / "pt.cu").read_text()
+    assert int(re.search(r"constexpr int kRebinThreads = (\d+);", src).group(1)) == pt.REBIN_TILE
+
+
 def test_every_library_has_its_source():
     for name, (source, entries) in common.LIBRARIES.items():
         text = (common.CSRC_DIR / source).read_text()
