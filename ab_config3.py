@@ -13,8 +13,13 @@ beside):
     seed_from_int(1)) through render_pt_mega and render_pt_rebin;
   - config 5's path-traced cell (:456-471: 30 instances of a 35,200-triangle
     knot, 512x512, 2 bounces) through both;
-  - config 2 (:89-117: material_spheres, 800x608, 4 bounces, 4 spp)
-    through render_pt_mega: K4 without a mesh;
+  - the sphere rows, K4 without a mesh: config 2 (:89-117:
+    material_spheres, 800x608, 4 bounces, 4 spp) and material_spheres at
+    1920x1088 and 4 spp (BASELINE.json's 1080p axis), each as frames and as
+    the profiler's device time of one launch, and config 4 (:228-266:
+    cornell_box, 256x256, 4 bounces) for 1024 spp through render_pt_mega in
+    8 chunks of 128 passes (progressive_render's calls), with the device
+    time of one chunk;
 
 then, by torch.profiler's device time per launch: K5 alone by bounce on the
 states of one config-3 and one config-5 frame, and K7 on config 5's Phong
@@ -22,6 +27,9 @@ camera rays at 1920x1088 (closest hit with normals) and on their hard-shadow
 rays (any hit). Every output (K4, K5 and K7) is hashed; the parent process
 prints whether A's and B's hashes agree. The card's name and power limit go
 with every number.
+
+Spheres: the sphere rows alone, A B B A; they run on any checkout of the
+port, also one without clusters (commit cee9bc9, spheres only).
 
 Lanes: builds an instrumented copy of a checkout's per-thread sweep
 (csrc/cluster.cuh cl::sweep, csrc/instanced.cuh instanced_sweep) in a
@@ -32,16 +40,21 @@ gate, cluster-box gate, sub-box gate and 32-triangle sub-box test: the warp
 execution efficiency of each level of the sweep, and the histogram of
 lanes that test one sub-box together. It is meant for a checkout whose K5
 and K7 run the per-thread sweep, such as commit df81868; where they run
-the warp sweep only its serial sub-box scan carries a probe.
+the warp sweep only its serial sub-box scan carries a probe. It needs
+csrc/instanced.cuh's per-thread instanced_sweep, which K4 ran until K4
+took the warp sweep (commit 7a35006 is the last that has it): on a later
+checkout it exits 1 without measuring.
 
 Bound5: K5's least time for a config-5 frame (utils/timing.bound_ms),
 from the work the plain rebin renderer counts on the whole frame, which it
 holds to K4's frame bit for bit (about two minutes).
 
 Usage: python3 ab_config3.py DIR_A DIR_B
+       python3 ab_config3.py --spheres DIR_A DIR_B
        python3 ab_config3.py --lanes DIR
        python3 ab_config3.py --bound5 DIR
        python3 ab_config3.py --worker DIR   (one checkout, once)
+       python3 ab_config3.py --sphere-worker DIR   (its sphere rows, once)
 (each DIR holds a raytracing_engine_tpu_torch package, e.g. a `git archive`
 of a commit unpacked into a gitignored directory)
 """
@@ -57,10 +70,14 @@ import tempfile
 import time
 from pathlib import Path
 
-C3_FRAMES, C5_FRAMES, C2_FRAMES, ROUNDS = 8, 4, 8, 3
+C3_FRAMES, C5_FRAMES, C2_FRAMES, HD_FRAMES, ROUNDS = 8, 4, 8, 4, 3
+C4_SPP, C4_CHUNK = 1024, 128
 BOUNCE_REPS, K7_REPS = 9, 10
 SPIN_CYCLES = 2_000_000  # about 1 ms on the H100: device_ms's event timing
 KERNELS = ("pt_kernel", "pt_rebin_kernel", "instanced_kernel")
+# K4's instantiations by mesh kind (csrc/pt.cuh kMeshNone, kMeshClusters,
+# kMeshInstances); a checkout before them has one pt_kernel
+MESH_KINDS = {0: "none", 1: "clusters", 2: "instances"}
 
 
 def card_line() -> str:
@@ -71,12 +88,16 @@ def card_line() -> str:
 
 def ptxas_lines(log: str):
     """(kernel, registers, stack B, spill stores B, spill loads B, smem B) of
-    each entry of KERNELS in nvcc's -Xptxas -v log."""
+    each entry of KERNELS in nvcc's -Xptxas -v log; an instantiation of K4 on
+    a mesh kind is named pt_kernel<kind>."""
     out, entry, stack = [], None, None
     for line in log.splitlines():
         m = re.search(r"entry function '(\w+)'", line)
         if m:
             name = next((k for k in KERNELS if re.search(rf"\d{k}[EI]", m.group(1))), None)
+            kind = re.search(r"\dpt_kernelILi(\d+)E", m.group(1))
+            if name and kind:
+                name = f"{name}<{MESH_KINDS.get(int(kind.group(1)), kind.group(1))}>"
             entry, stack = name, None
             continue
         if entry is None:
@@ -96,7 +117,7 @@ def ptxas_lines(log: str):
 
 
 def setup(device):
-    """(config 3, config 5, config 2) as chip_smoke.py builds them."""
+    """(config 3, config 5) as chip_smoke.py builds them."""
     import numpy as np
     import torch
 
@@ -107,7 +128,7 @@ def setup(device):
         make_instanced_clusters,
         torus_knot,
     )
-    from raytracing_engine_tpu_torch.pathtracer import DIFFUSE, PTConfig, build_pt_scene, scenes
+    from raytracing_engine_tpu_torch.pathtracer import DIFFUSE, PTConfig, build_pt_scene
 
     mesh = torus_knot(segments=1100, sides=32, center=(0.0, 8.0, 0.0))
     mats_t = np.zeros(mesh.shape[0], np.int32)
@@ -135,9 +156,7 @@ def setup(device):
     ic = make_instanced_clusters(inst, base, scene=scene5, device=device)
     c5 = dict(cfg=PTConfig(width=512, height=512, max_bounces=2, rng="pcg"), scene=scene5, bvh=ic,
               cs=base, inst=inst, light=torch.tensor((6.0, 2.0, 8.0), device=device))
-    c2 = dict(cfg=PTConfig(width=800, height=608, max_bounces=4, rng="pcg"),
-              scene=scenes.material_spheres(device), bvh=None)
-    return c3, c5, c2
+    return c3, c5
 
 
 def digest(*tensors) -> str:
@@ -230,6 +249,110 @@ def device_ms(launch, reps: int, name: str, setup=lambda k: None) -> float:
     return ms
 
 
+def frames(root, card, label, fn, c, quat, seed, n_frames, spp=1, kernel=None):
+    """Best ms/frame of ROUNDS rounds of n_frames chained frames with distinct
+    camera z by CUDA events (host enqueue beside), the image's hash and,
+    with `kernel`, the profiler's device time of that kernel in one frame."""
+    import torch
+
+    device = quat.device
+    kw = dict(seed=seed) if c.get("bvh") is None else dict(seed=seed, bvh=c["bvh"])
+    zs = [torch.tensor([0.0, 0.0, 1e-4 * k], device=device) for k in range(n_frames)]
+    img, _ = fn(c["cfg"], c["scene"], zs[0], quat, spp, **kw)
+    best = None
+    for _ in range(ROUNDS):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for k in range(n_frames):
+            fn(c["cfg"], c["scene"], zs[k], quat, spp, **kw)
+        host = (time.perf_counter() - t0) * 1e3 / n_frames
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / n_frames
+        if best is None or ms < best[0]:
+            best = (ms, host)
+    dev = ""
+    if kernel:
+        dev_ms = device_ms(lambda k: fn(c["cfg"], c["scene"], zs[k % n_frames], quat, spp, **kw),
+                           BOUNCE_REPS, kernel, setup=lambda k: k)
+        dev = f", {kernel} {dev_ms:.4f} ms (device time)"
+    print(f"  {root}: {label}: best {best[0]:.4f} ms/frame (host enqueue {best[1]:.4f} ms)"
+          f"{dev}, image {digest(img)} [{card}]", flush=True)
+
+
+def sphere_rows(root, card, device, quat, seed):
+    """K4 without a mesh: config 2 and the 1080p row as frames, config 4's
+    1024 spp in progressive_render's chunks. Only what the spheres-only
+    checkout cee9bc9 already has is called."""
+    import torch
+
+    from raytracing_engine_tpu_torch.ops.cuda import pt
+    from raytracing_engine_tpu_torch.pathtracer import PTConfig, scenes
+
+    spheres = scenes.material_spheres(device)
+    c2 = dict(cfg=PTConfig(width=800, height=608, max_bounces=4, rng="pcg"), scene=spheres)
+    hd = dict(cfg=PTConfig(width=1920, height=1088, max_bounces=4, rng="pcg"), scene=spheres)
+    frames(root, card, "config 2 800x608 4 spp render_pt_mega", pt.render_pt_mega, c2, quat, seed,
+           C2_FRAMES, spp=4, kernel="pt_kernel")
+    frames(root, card, "material_spheres 1920x1088 4 spp render_pt_mega", pt.render_pt_mega, hd,
+           quat, seed, HD_FRAMES, spp=4, kernel="pt_kernel")
+
+    cfg4 = PTConfig(width=256, height=256, max_bounces=4, rng="pcg")
+    cornell, pos = scenes.cornell_box(device=device), torch.tensor([0.0, 0.2, 0.0], device=device)
+
+    def c4_render():
+        acc = torch.zeros((cfg4.height, cfg4.width, 3), device=device)
+        for done in range(0, C4_SPP, C4_CHUNK):
+            img, _ = pt.render_pt_mega(cfg4, cornell, pos, quat, C4_CHUNK, seed=seed,
+                                       spp_offset=done)
+            acc = acc + img * float(C4_CHUNK)
+        return acc
+
+    acc = c4_render()
+    best = None
+    for _ in range(ROUNDS):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        c4_render()
+        host = time.perf_counter() - t0
+        end.record()
+        end.synchronize()
+        s = start.elapsed_time(end) / 1e3
+        if best is None or s < best[0]:
+            best = (s, host)
+    chunk = device_ms(lambda k: pt.render_pt_mega(cfg4, cornell, pos, quat, C4_CHUNK, seed=seed,
+                                                  spp_offset=C4_CHUNK * (k % 8)),
+                      BOUNCE_REPS, "pt_kernel", setup=lambda k: k)
+    print(f"  {root}: config 4 256x256 {C4_SPP} spp render_pt_mega ({C4_SPP // C4_CHUNK} chunks): "
+          f"best {best[0]:.4f} s (host enqueue {best[1]:.4f} s), pt_kernel {chunk:.4f} ms a "
+          f"{C4_CHUNK}-spp chunk (device time), image {digest(acc)} [{card}]", flush=True)
+
+
+def sphere_worker(root: str) -> int:
+    sys.path.insert(0, str(Path(root).resolve()))
+    import torch
+
+    from raytracing_engine_tpu_torch.ops.cuda import common
+    from raytracing_engine_tpu_torch.ops.rng_pcg import seed_from_int
+
+    if not torch.cuda.is_available():
+        print("ab_config3: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+    device = torch.device("cuda", 0)
+    info = common.build()
+    for name, regs, stack, st, ld, smem in ptxas_lines(info["log"]):
+        print(f"  {root}: ptxas {name}: {regs} registers, {stack} B stack, spill stores {st} B / "
+              f"loads {ld} B, {smem} B static smem", flush=True)
+    sphere_rows(root, card, device, torch.tensor([0.0, 0.0, 0.0, 1.0], device=device),
+                seed_from_int(1))
+    return 0
+
+
 def worker(root: str) -> int:
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
@@ -247,34 +370,15 @@ def worker(root: str) -> int:
     for name, regs, stack, st, ld, smem in ptxas_lines(info["log"]):
         print(f"  {root}: ptxas {name}: {regs} registers, {stack} B stack, spill stores {st} B / "
               f"loads {ld} B, {smem} B static smem", flush=True)
-    c3, c5, c2 = setup(device)
+    c3, c5 = setup(device)
     quat = torch.tensor([0.0, 0.0, 0.0, 1.0], device=device)
     seed = seed_from_int(1)
 
-    def frames(label, fn, c, n_frames, spp=1):
-        zs = [torch.tensor([0.0, 0.0, 1e-4 * k], device=device) for k in range(n_frames)]
-        img, _ = fn(c["cfg"], c["scene"], zs[0], quat, spp, seed=seed, bvh=c["bvh"])
-        best = None
-        for _ in range(ROUNDS):
-            torch.cuda.synchronize()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            t0 = time.perf_counter()
-            for k in range(n_frames):
-                fn(c["cfg"], c["scene"], zs[k], quat, spp, seed=seed, bvh=c["bvh"])
-            host = (time.perf_counter() - t0) * 1e3 / n_frames
-            end.record()
-            end.synchronize()
-            ms = start.elapsed_time(end) / n_frames
-            if best is None or ms < best[0]:
-                best = (ms, host)
-        print(f"  {root}: {label}: best {best[0]:.4f} ms/frame (host enqueue {best[1]:.4f} ms), "
-              f"image {digest(img)} [{card}]", flush=True)
-
     for cname, c, n in (("config 3", c3, C3_FRAMES), ("config 5 PT", c5, C5_FRAMES)):
-        frames(f"{cname} 512x512 render_pt_mega", pt.render_pt_mega, c, n)
-        frames(f"{cname} 512x512 render_pt_rebin", pt.render_pt_rebin, c, n)
-    frames("config 2 800x608 4 spp render_pt_mega", pt.render_pt_mega, c2, C2_FRAMES, spp=4)
+        frames(root, card, f"{cname} 512x512 render_pt_mega", pt.render_pt_mega, c, quat, seed, n,
+               kernel="pt_kernel")
+        frames(root, card, f"{cname} 512x512 render_pt_rebin", pt.render_pt_rebin, c, quat, seed, n)
+    sphere_rows(root, card, device, quat, seed)
 
     for cname, c in (("config 3", c3), ("config 5 PT", c5)):
         run, inputs, last = bounce_states(c, quat, seed, device)
@@ -321,7 +425,7 @@ def bound5(root: str) -> int:
 
     card = card_line()
     device = torch.device("cuda", 0)
-    _, c5, _ = setup(device)
+    _, c5 = setup(device)
     ic, cs, cfg, scene = c5["bvh"], c5["cs"], c5["cfg"], c5["scene"]
     cam, quat, seed = torch.zeros(3, device=device), torch.tensor([0.0, 0.0, 0.0, 1.0],
                                                                   device=device), seed_from_int(1)
@@ -419,7 +523,7 @@ def lanes(root: str) -> int:
     card = card_line()
     device = torch.device("cuda", 0)
     common.build()
-    c3, c5, _ = setup(device)
+    c3, c5 = setup(device)
     quat = torch.tensor([0.0, 0.0, 0.0, 1.0], device=device)
     seed = seed_from_int(1)
 
@@ -480,13 +584,19 @@ def main() -> int:
         return lanes(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--bound5":
         return bound5(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--sphere-worker":
+        return sphere_worker(sys.argv[2])
+    mode = "--worker"
+    if len(sys.argv) == 4 and sys.argv[1] == "--spheres":
+        mode = "--sphere-worker"
+        del sys.argv[1]
     if len(sys.argv) != 3:
         print(__doc__, file=sys.stderr)
         return 2
     a, b = sys.argv[1:]
     hashes = {}
     for root in (a, b, b, a):
-        proc = subprocess.run([sys.executable, __file__, "--worker", root], timeout=900,
+        proc = subprocess.run([sys.executable, __file__, mode, root], timeout=900,
                               capture_output=True, text=True)
         sys.stdout.write(proc.stdout)
         sys.stderr.write(proc.stderr)

@@ -17,7 +17,11 @@ Phases, each printing its own lines:
      config-4 chunk (cornell_box, 256x256, 4 bounces, 128 spp), held to the
      repo's megakernel-vs-wavefront bounds (tests/test_megakernel.py:37-40:
      < 1% of pixels off by more than 1e-3, mean difference < 1e-4, ray
-     counts within max(8, 1e-3 n)), and whether the match is bitwise;
+     counts within max(8, 1e-3 n)), and whether the match is bitwise; then
+     K4's instantiation without a mesh on a band ragged in both directions
+     (509 columns, an odd row count) at 3 spp with Russian roulette, bit for
+     bit (phases 11 and 14 do the same for the cluster and instance
+     instantiations);
   8. physics and invariants through K4: furnace corners at 1.0 (atol 1e-4),
      bands equal to the rows of the full render bit for bit, the first two
      128-spp chunks of progressive_render equal to one 256-spp render within
@@ -26,7 +30,8 @@ Phases, each printing its own lines:
      events: config 2 frames with distinct camera z (and their device time
      by torch.profiler), config 4's 1024 spp through progressive_render,
      material_spheres at 1920x1088 and 4 spp; then the plain version's
-     config-2 frame and K4's least time;
+     config-2 frame, K4's device time of a config-2 frame (the profiler's)
+     and K4's least times at config 2 and at 1080p;
  10. BASELINE config 3's ClusterSet (the 70,400-triangle torus knot of
      benchmarks/run_all.py:120-148, built on the host, BVH builder named)
      and kernel K6 against its plain version on the card, bit for bit: the
@@ -36,12 +41,14 @@ Phases, each printing its own lines:
      set; K6 timed by CUDA events;
  11. the config-3 path and its invariants at 512x512, 2 bounces, 1 spp,
      seed_from_int(1): render_pt_rebin (K5) == render_pt_mega(bvh=cs) (K4)
-     bit for bit in every regroup mode; K5 against its plain version on the
-     whole frame and K4 against its plain version on a 64-row band (bands of
-     both are bit for bit the rows of the full render), within the
-     megakernel bounds; render_pt_fast(bvh=cs) through K6 within the
-     megakernel bounds of K4; progressive_render(bvh=cs) in two chunks
-     against one render; then K5's warp sweep on the rays where it can
+     bit for bit in every regroup mode; K5 and K4 against their plain
+     versions on the whole frame, within the megakernel bounds (K4's replay
+     counts the work of its least time), and 64-row bands of both bit for
+     bit the rows of the full render; render_pt_fast(bvh=cs) through K6
+     within the megakernel bounds of K4; progressive_render(bvh=cs) in two chunks
+     against one render; K4's cluster instantiation on a ragged band (509
+     columns, 5 rows) at 3 spp with Russian roulette against its plain
+     version bit for bit; then K5's warp sweep on the rays where it can
      break, one bounce on a state of them against the plain version bit for
      bit: rays at the knot's shared vertices and edges, rays
      grazing its cluster boxes, a warp whose lanes pick different visit-order
@@ -53,8 +60,8 @@ Phases, each printing its own lines:
      camera z, best of 3 rounds, host enqueue beside), its torch.profiler
      split (K5 per bounce, sort, permute, un-permute), render_pt_mega(bvh=cs)
      at 512x512, render_pt_fast(bvh=cs), progressive_render(bvh=cs); then K5
-     per bounce alone (the profiler's device time) and the K4 / K5 / K6
-     least times;
+     per bounce alone (the profiler's device time), K4 alone on the frame
+     of phase 11 and the K4 / K5 / K6 least times;
  13. config 3's mesh as a raw BVH (accel.build_bvh) and kernel K8 against
      its plain version on the card, bit for bit: the 512x512 camera rays and
      the bounce-1 rays (closest hit), the NEE-style shadow rays (any hit,
@@ -71,10 +78,15 @@ Phases, each printing its own lines:
      plain version on a band of the 1920x1088 frame at the full 30
      instances (the instances its rows hit logged), bands equal to the rows
      of the full frame; the path-traced cell at 512x512: render_pt_rebin ==
-     render_pt_mega(bvh=InstancedClusters) in every regroup mode, K4 and K5
-     against their plain versions on the 2 rows whose camera rays hit the
-     most instances, render_pt_fast(bvh=InstancedClusters) through K7
-     against K4; then K7's and K5's warp sweeps with instances on the rays
+     render_pt_mega(bvh=InstancedClusters) in every regroup mode, the 2 rows
+     whose camera rays hit the most instances through K4 and K5 equal to the
+     rows of the full frame and K5 against its plain version there, K4
+     against its plain version on the whole frame (its replay counts the
+     work of K4's least time), render_pt_fast(bvh=InstancedClusters)
+     through K7 against K4; K4's instance instantiation on a ragged band
+     (509 columns, 5 rows) of two scaled icosphere instances at 3 spp with
+     Russian roulette against its plain version bit for bit; then K7's and K5's
+     warp sweeps with instances on the rays
      where they can break, bit for bit: rays at the world vertices and edges of the knot instances, rays grazing
      the instances' world boxes, two instances of the duplicated icosphere
      (ties) hit at their vertices and by axis-parallel and parked rays,
@@ -83,7 +95,8 @@ Phases, each printing its own lines:
      (best of 3 rounds, host enqueue beside): the config-5 Phong orbit (8
      chained 1920x1088 frames, hard shadows), its soft-shadow orbit (4
      frames), the config-5 path-traced cell through render_pt_rebin and
-     render_pt_mega, config 3 through render_pt_fast with the raw BVH; the
+     render_pt_mega (then K4 alone on the frame of phase 14, beside its
+     least time), config 3 through render_pt_fast with the raw BVH; the
      torch.profiler split (K7 closest against any hit per Phong frame, K5
      per bounce); then K7 alone on a full Phong frame's camera rays (the
      profiler's device time), held to its plain version bit for bit, and
@@ -103,7 +116,10 @@ Phases, each printing its own lines:
      plain version, its least time and torch.rand (Philox, another stream,
      for scale only).
 Then one JSON line of per-kernel results, each number measured in this run
-but the bounds, computed from its inputs; the card line, and as the last
+but the bounds, computed from its inputs (K4 once per instantiation, on its
+main path's frames: without a mesh at config 2, with clusters at config 3
+and with instances at config 5, each 512x512 frame's bound from the work
+its plain version counts); the card line, and as the last
 line {"ok": true, "device": {...}}. Any failure exits
 non-zero before the last line; so does a machine without CUDA or a
 directory without the repo.
@@ -223,6 +239,16 @@ JAX_PLANES_M7 = {(0, 0, 0): 0x3EE4CB84, (0, 0, 1): 0x3F0468F2, (3, 517, 1000): 0
 # to the plain version bit for bit
 RNG_MEAN_RTOL = 1e-3
 C4_DEFAULT_CHUNKS = 2  # progressive_render chunks of 16 passes timed on its default route
+
+# K4 at each mesh kind on a band ragged in both directions (509 columns: 31
+# of its 16-wide blocks and 13 more; an odd row count), 3 spp, Russian
+# roulette from bounce 1, held to the plain version bit for bit: the warp
+# form's loops across passes, ended paths and lanes off the image
+RAGGED_W = 509
+RAGGED_SPP = 3
+RAGGED_RR_START = 1
+RAGGED_ROWS = 5
+K4_REPS = 9
 
 
 def log(msg: str):
@@ -531,6 +557,100 @@ def profile_frames(cfg, scene, poses, frame_ms, card):
         f"{[round(x, 1) for x in levels]} us [{card}]")
 
 
+def k4_table_bytes(scene, bvh, pos) -> int:
+    """Bytes of the tables K4 reads once for a frame seen from pos: the
+    packed scene and, with a mesh, its sweep tables and visit orders."""
+    from raytracing_engine_tpu_torch.accel.instancing import InstancedClusters
+    from raytracing_engine_tpu_torch.ops.cuda import cluster, pt
+    from raytracing_engine_tpu_torch.utils.timing import cluster_table_bytes
+
+    n = 4 * sum(t.numel() for t in pt.pack_pt_scene(pt.kernel_scene(scene, bvh)))
+    if bvh is None:
+        return n
+    frame = pt.frame_view(bvh, pos)
+    if isinstance(bvh, InstancedClusters):
+        cs, extra = bvh.cs, [bvh.inst_tab, frame.iorder, frame.iorders]
+    else:
+        cs, extra = bvh, [frame.orders, frame.refs]
+    tb = cluster.sweep_tables(cs)
+    return n + cluster_table_bytes([tb.sbox, tb.crec, tb.trec, tb.tsmooth, *extra])
+
+
+def hold_k4_ragged(what, cfg, scene, bvh, pos, quat, seed, row0, rows) -> float:
+    """K4 on the ragged band of scene `what` (RAGGED_W columns, rows row0 .. row0 + rows,
+    RAGGED_SPP spp, Russian roulette from bounce RAGGED_RR_START) against
+    render_pt_mega_reference, bit for bit, through the instantiation of the
+    scene's mesh kind; -> the max error (0). A check only: the kernels line
+    times K4 on its main paths' frames."""
+    import dataclasses
+
+    from raytracing_engine_tpu_torch.ops.cuda import pt
+
+    cfg = dataclasses.replace(cfg, width=RAGGED_W, rr_start=RAGGED_RR_START)
+    kw = dict(seed=seed, bvh=bvh, row0=row0, band_h=rows)
+    kind = pt.mesh_kind(pt.frame_view(bvh, pos))
+    before = dict(pt.mesh_launches)
+    got, n_got = pt.render_pt_mega(cfg, scene, pos, quat, RAGGED_SPP, **kw)
+    picked = {k: pt.mesh_launches[k] - before[k] for k in before}
+    t0 = time.perf_counter()
+    want, n_want = pt.render_pt_mega_reference(cfg, scene, pos, quat, RAGGED_SPP, **kw)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    same = torch.equal(got, want) and int(n_got) == int(n_want)
+    err = (got - want).abs().max().item()
+    most = 2 * RAGGED_SPP * RAGGED_W * rows * (cfg.max_bounces + 1)
+    label = (f"K4<{kind}> on a ragged band of {what}, {RAGGED_W}x{rows} (rows {row0}..{row0 + rows}"
+             f"), {RAGGED_SPP} spp, Russian roulette from bounce {RAGGED_RR_START}")
+    log(f"  {label} vs its plain version: bit for bit {same} (max_abs_err={err:.6g}); rays "
+        f"{int(n_got)} == {int(n_want)} (at most {most} without an ended path); lit pixels "
+        f"{(got.amax(-1) > 0).double().mean().item():.4f}; launches by kind {picked} (plain "
+        f"{plain_ms:.1f} ms)")
+    if (not same or not torch.isfinite(got).all() or picked[kind] != 1
+            or sum(picked.values()) != 1):
+        raise AssertionError(f"{label}: differs from its plain version or took another kind")
+    return err
+
+
+def hold_k4_frame(what, cfg, scene, bvh, pos, quat, seed, k4, n4, device) -> dict:
+    """K4's whole 1-spp frame from pos (k4, n4: render_pt_mega's output) against
+    render_pt_mega_reference on the same inputs; the plain run's time and the
+    work it counts (instance gates and transforms, box and triangle tests:
+    K4's, as its frame equals the plain one), from which the frame's least
+    time follows; -> the kernels-line numbers but K4's own time."""
+    from raytracing_engine_tpu_torch.ops.cuda import cluster, pt
+    from raytracing_engine_tpu_torch.ops.cuda import instanced as kinst
+    from raytracing_engine_tpu_torch.utils.timing import bound_ms, instanced_ops, pt_ops
+
+    cluster.work.update(slabs=0, tests=0)
+    kinst.work.update(gates=0, transforms=0)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    want, n_want = pt.render_pt_mega_reference(cfg, scene, pos, quat, 1, seed=seed, bvh=bvh)
+    torch.cuda.synchronize(device)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    kind = pt.mesh_kind(pt.frame_view(bvh, pos))
+    err = hold_pt(f"K4<{kind}> {what} {cfg.width}x{cfg.height} frame vs its plain version "
+                  f"(plain {plain_ms / 1e3:.1f} s)", k4, n4, want, n_want)
+    ops = pt_ops(int(n_want), int(scene.sph_count), 0) + instanced_ops(
+        kinst.work["gates"], kinst.work["transforms"], cluster.work["slabs"],
+        cluster.work["tests"])
+    n_bytes = 12 * cfg.width * cfg.height + k4_table_bytes(scene, bvh, pos)
+    bound = bound_ms(n_bytes, ops)
+    log(f"  K4<{kind}> {what} frame bound {bound[0]:.5f} ms by {bound[1]} ({n_bytes} B, {ops} "
+        f"ops: {kinst.work['gates']} instance gates, {kinst.work['transforms']} transforms, "
+        f"{cluster.work['slabs']} box + {cluster.work['tests']} triangle tests, {int(n_want)} "
+        f"rays x {int(scene.sph_count)} spheres)")
+    return {"max_abs_err": err, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1]}
+
+
+def reset_k4():
+    """K4's launch counts, in all and by mesh kind, to 0."""
+    from raytracing_engine_tpu_torch.ops.cuda import pt
+
+    pt.launches = 0
+    pt.mesh_launches.update(dict.fromkeys(pt.mesh_launches, 0))
+
+
 def pt_setup(device):
     """(quat, seed, config 2 (cfg, scene, pos), config 4 (cfg, scene, pos))."""
     from raytracing_engine_tpu_torch.ops.rng_pcg import seed_from_int
@@ -565,7 +685,8 @@ def hold_pt(label, got, n_got, want, n_want) -> float:
 
 
 def phase_pt_kernel(quat, seed, c2, c4):
-    """K4 vs render_pt_mega_reference on the same inputs, on the card."""
+    """K4 vs render_pt_mega_reference on the same inputs, on the card; ->
+    the max error, the ragged band's included."""
     from raytracing_engine_tpu_torch.ops.cuda import pt
 
     errs = []
@@ -575,6 +696,9 @@ def phase_pt_kernel(quat, seed, c2, c4):
         got, n_got = pt.render_pt_mega(cfg, scene, pos, quat, spp, seed=seed)
         want, n_want = pt.render_pt_mega_reference(cfg, scene, pos, quat, spp, seed=seed)
         errs.append(hold_pt(f"K4 {label}", got, n_got, want, n_want))
+    cfg, scene, pos = c2
+    errs.append(hold_k4_ragged("config 2", cfg, scene, None, pos, quat, seed,
+                               cfg.height // 2 - 3, RAGGED_ROWS))
     return max(errs)
 
 
@@ -692,7 +816,7 @@ def phase_pt_main(quat, seed, c2, c4, card, device):
                 best = (ms, n)
         return best
 
-    pt.launches = 0
+    reset_k4()
     c2_ms, c2_rays = frames(c2, C2_SPP, f"config 2 {cfg_size(c2)} {C2_SPP} spp")
     profile_pt_frames(c2, quat, seed, device, c2_ms, card)
 
@@ -729,7 +853,7 @@ def phase_pt_main(quat, seed, c2, c4, card, device):
 
     hd = (PTConfig(**HD, rng="pcg"), scenes.material_spheres(device), None)
     hd_ms, hd_rays = frames(hd, C2_SPP, f"material_spheres {cfg_size(hd)} {C2_SPP} spp")
-    launches = pt.launches
+    launches, by_kind = pt.launches, dict(pt.mesh_launches)
 
     cfg, scene, pos = c2
     pt.render_pt_mega_reference(cfg, scene, pos, quat, C2_SPP, seed=seed)  # warm-up
@@ -740,17 +864,29 @@ def phase_pt_main(quat, seed, c2, c4, card, device):
     c2_bound = bound_ms(c2_bytes, pt_ops(c2_rays, int(scene.sph_count), int(scene.tri_count)))
     log(f"  plain version config 2: {plain_ms:.4f} ms/frame (x{plain_ms / c2_ms:.1f} the "
         f"kernel) [{card}]")
+    zs = [torch.tensor([0.0, 0.0, 1e-3 + 1e-4 * k], device=device) for k in range(C2_FRAMES)]
+    k4_ms = device_ms(lambda k: pt.render_pt_mega(cfg, scene, zs[k % C2_FRAMES], quat, C2_SPP,
+                                                  seed=seed), K4_REPS, "pt_kernel",
+                      setup=lambda k: k)
     log(f"  K4 config 2 bound {c2_bound[0]:.5f} ms by {c2_bound[1]} ({c2_bytes} B, "
         f"{pt_ops(c2_rays, int(scene.sph_count), int(scene.tri_count))} ops for {c2_rays} "
-        f"rays); kernel at {c2_bound[0] / c2_ms:.2%} of it [{card}]")
+        f"rays); K4 {k4_ms:.4f} ms of device time a frame (the profiler's), at "
+        f"{c2_bound[0] / k4_ms:.2%} of it [{card}]")
+    hd_cfg, hd_scene, _ = hd
+    hd_bytes = 12 * hd_cfg.width * hd_cfg.height + table_bytes
+    hd_ops = pt_ops(hd_rays, int(hd_scene.sph_count), int(hd_scene.tri_count))
+    hd_bound = bound_ms(hd_bytes, hd_ops)
+    log(f"  K4 {cfg_size(hd)} {C2_SPP} spp bound {hd_bound[0]:.5f} ms by {hd_bound[1]} "
+        f"({hd_bytes} B, {hd_ops} ops for {hd_rays} rays, as the plain version counts them: "
+        f"they are K4's bit for bit); the frame at {hd_bound[0] / hd_ms:.2%} of it [{card}]")
 
     n_c2 = 1 + (C2_ROUNDS + 1) * C2_FRAMES  # warm-up, timed rounds, profiled frames
     want = n_c2 + C4_SPP // C4_CHUNK + 1 + C2_ROUNDS * C2_FRAMES
     log(f"  K4 launches on the main path {launches} (expected {want}: {n_c2} config-2 frames, "
         f"{C4_SPP // C4_CHUNK} config-4 chunks, {1 + C2_ROUNDS * C2_FRAMES} 1080p frames)")
-    if launches != want:
-        raise AssertionError(f"K4 launches {launches} != {want}")
-    return {"launches": launches, "ms": c2_ms, "plain_ms": plain_ms,
+    if launches != want or by_kind["none"] != launches:
+        raise AssertionError(f"K4 launches {launches} ({by_kind} by mesh kind) != {want}")
+    return {"launches": launches, "ms": k4_ms, "plain_ms": plain_ms,
             "bound_ms": c2_bound[0], "bound_by": c2_bound[1]}
 
 
@@ -1200,7 +1336,7 @@ def phase_c5_warp_rays(c5, quat, seed, device):
 def phase_c3_invariants(c3, quat, seed, device):
     """The config-3 path through K4, K5 and K6 against the plain versions
     and each other; -> the plain times, K5's error and the sweep work of
-    the frame (for the bounds)."""
+    the frame (for K5's bound), K4's frame numbers but its time."""
     from raytracing_engine_tpu_torch.ops.cuda import cluster, pt
     from raytracing_engine_tpu_torch.pathtracer.wavefront import render_pt_fast
     from raytracing_engine_tpu_torch.runtime import ProgressiveState, progressive_render
@@ -1230,20 +1366,19 @@ def phase_c3_invariants(c3, quat, seed, device):
     log(f"  plain version 512x512: render_pt_rebin_reference {plain_rebin_ms:.1f} ms; sweep "
         f"work of the frame {work['slabs']} box + {work['tests']} triangle tests")
 
-    # bands: the plain megakernel version on a band only (its cost is its
-    # Python loop over boxes); bands of both kernels bit for bit
+    # bands of both kernels bit for bit the rows of the full render
     row0, band_h = C3_BAND
     band = dict(seed=seed, bvh=cs, row0=row0, band_h=band_h)
     b5, _ = pt.render_pt_rebin(cfg, scene, pos, quat, 1, **band)
-    b4, nb4 = pt.render_pt_mega(cfg, scene, pos, quat, 1, **band)
+    b4, _ = pt.render_pt_mega(cfg, scene, pos, quat, 1, **band)
     rows = k4[row0:row0 + band_h]
     log(f"  band rows {row0}..{row0 + band_h}: K5 == full render rows {torch.equal(b5, rows)}, "
         f"K4 == full render rows {torch.equal(b4, rows)}")
     if not (torch.equal(b5, rows) and torch.equal(b4, rows)):
         raise AssertionError("a config-3 band differs from the rows of the full render")
-    pm, pmn = pt.render_pt_mega_reference(cfg, scene, pos, quat, 1, **band)
-    hold_pt(f"K4 with clusters vs its plain version, rows {row0}..{row0 + band_h}", b4, nb4, pm,
-            pmn)
+    # K4 against its plain version on the whole frame, the band's rows
+    # included; the replay counts the work of K4's least time
+    k4_frame = hold_k4_frame("config 3", cfg, scene, cs, pos, quat, seed, k4, n4, device)
 
     f, nf = render_pt_fast(cfg, scene, pos, quat, 1, seed=seed, bvh=cs)
     hold_pt("render_pt_fast(bvh=cs) through K6 vs K4", f, nf, k4, n4)
@@ -1259,8 +1394,10 @@ def phase_c3_invariants(c3, quat, seed, device):
         f"{(state.accum - want).abs().max().item():.6g} within rtol {C3_CHUNK_RTOL:.3g}: {ok}")
     if state.spp_done != 4 or not ok:
         raise AssertionError("progressive_render(bvh=cs) depends on the chunking")
+    ragged = hold_k4_ragged("config 3", cfg, scene, cs, pos, quat, seed, C3_BAND[0], RAGGED_ROWS)
+    k4_frame["max_abs_err"] = max(k4_frame["max_abs_err"], ragged)
     return {"max_abs_err": err, "plain_rebin_ms": plain_rebin_ms, "work": work,
-            "nrays": int(n4)}
+            "nrays": int(n4), "k4": k4_frame}
 
 
 def profile_rebin(cfg, scene, cs, quat, seed, zs, frame_ms, card):
@@ -1336,7 +1473,8 @@ def phase_c3_main(c3, quat, seed, device, card, inv):
                 best = (ms, n)
         return best, zs
 
-    pt.launches = pt.rebin_launches = cluster.launches = 0
+    reset_k4()
+    pt.rebin_launches = cluster.launches = 0
     (c3_ms, c3_rays), zs = frames(cfg, pt.render_pt_rebin, C3_FRAMES,
                                   f"config 3 render_pt_rebin {cfg.width}x{cfg.height}")
     profile_rebin(cfg, scene, cs, quat, seed, zs, c3_ms, card)
@@ -1352,6 +1490,7 @@ def phase_c3_main(c3, quat, seed, device, card, inv):
         pass
     torch.cuda.synchronize(device)
     counts = {"K4": pt.launches, "K5": pt.rebin_launches, "K6": cluster.launches}
+    k4_clusters = pt.mesh_launches["clusters"]
     nb = cfg.max_bounces + 1
     rebin_frames = (1 + C3_ROUNDS * C3_FRAMES + C3_FRAMES) + (1 + C3_ROUNDS * C3_HD_FRAMES)
     want = {"K4": 1 + C3_ROUNDS * C3_FRAMES + 2, "K5": nb * rebin_frames, "K6": 2 * nb}
@@ -1360,8 +1499,9 @@ def phase_c3_main(c3, quat, seed, device, card, inv):
     log(f"  launches on the config-3 main path {counts} (expected {want}: {nb} K5 per rebin frame "
         f"x {rebin_frames}, K4 per mega frame and progressive chunk, 2 K6 per bounce of the "
         f"render_pt_fast frame)")
-    if counts != want:
-        raise AssertionError(f"config-3 launch counts {counts} != {want}")
+    if counts != want or k4_clusters != counts["K4"]:
+        raise AssertionError(f"config-3 launch counts {counts} (K4 with clusters {k4_clusters}) "
+                             f"!= {want}")
 
     # K5 alone, bounce by bounce, on the states of the phase-11 frame: the
     # profiler's device time per launch
@@ -1374,7 +1514,10 @@ def phase_c3_main(c3, quat, seed, device, card, inv):
     ops = sweep_ops(inv["work"]["slabs"], inv["work"]["tests"]) + pt_ops(
         inv["nrays"], int(scene.sph_count), 0)
     k5_bound = bound_ms(k5_bytes(n, cfg.max_bounces, tables), ops)
-    k4_bound = bound_ms(12 * n + tables, ops)
+    k4 = inv["k4"]
+    # K4 on the frame whose plain replay gave its bound (zs[0] == pos)
+    k4_ms = device_ms(lambda _: pt.render_pt_mega(cfg, scene, pos, quat, 1, seed=seed, bvh=cs),
+                      K4_REPS, "pt_kernel")
     log(f"  K5 alone per bounce (device time) {[round(x, 4) for x in k5_ms]} ms = "
         f"{sum(k5_ms):.4f} ms/frame; "
         f"bound {k5_bound[0]:.5f} ms by {k5_bound[1]} ({ops} ops: sweeps + "
@@ -1382,10 +1525,12 @@ def phase_c3_main(c3, quat, seed, device, card, inv):
         f"{k5_bound[0] / sum(k5_ms):.2%} of it [{card}]")
     log(f"  config 3 512x512: rebin {c3_ms:.4f} ms/frame = {c3_rays / c3_ms / 1e3:.2f} Mrays/s; "
         f"mega {mega_ms:.4f} ms/frame; 1920x1088 rebin {hd_ms:.4f} ms/frame = "
-        f"{hd_rays / hd_ms / 1e3:.2f} Mrays/s; K4 config-3 frame bound {k4_bound[0]:.5f} ms "
-        f"by {k4_bound[1]} [{card}]")
+        f"{hd_rays / hd_ms / 1e3:.2f} Mrays/s; K4 config-3 frame bound {k4['bound_ms']:.5f} ms "
+        f"by {k4['bound_by']}; K4 {k4_ms:.4f} ms of device time a frame (the profiler's), at "
+        f"{k4['bound_ms'] / k4_ms:.2%} of it [{card}]")
     return {"launches": counts, "k5": {"ms": sum(k5_ms), "plain_ms": inv["plain_rebin_ms"],
-                                       "bound_ms": k5_bound[0], "bound_by": k5_bound[1]}}
+                                       "bound_ms": k5_bound[0], "bound_by": k5_bound[1]},
+            "k4": {**k4, "ms": k4_ms}}
 
 
 def device_ms(launch, reps: int, name: str, setup=lambda k: None) -> float:
@@ -1595,7 +1740,7 @@ def busiest_rows(code, t_pad: int, n_inst: int, bh: int) -> tuple[int, int]:
 
 def phase_instanced_kernel(c5, quat, seed, device):
     """K7 and the instanced paths against their plain versions on the card;
-    -> K7's max error."""
+    -> (K7's max error, K4<instances>'s frame numbers but its time)."""
     from raytracing_engine_tpu_torch.accel import (
         build_bvh,
         build_clusters,
@@ -1696,31 +1841,41 @@ def phase_instanced_kernel(c5, quat, seed, device):
     log(f"  config 5 PT {cfg.width}x{cfg.height}: render_pt_rebin == render_pt_mega(bvh=ic) bit "
         f"for bit in every regroup mode (none,morton, none, oct, morton, oct_morton, tile_oct); "
         f"rays {int(n4)}; lit pixels {(k4.amax(-1) > 0).double().mean().item():.4f}")
-    # K4 and K5 against their plain versions on the band of rows whose camera
-    # rays hit the most instances
+    # K4 and K5 on the band of rows whose camera rays hit the most instances,
+    # bit for bit the rows of the full render; K5 against its plain version
+    # there, K4 against its own on the whole frame (its replay counts the
+    # work of K4's least time)
     cam_code = kinst.instanced_cluster_intersect(ic.inst_tab, cs, o0, d0, origin=cam)[1]
     row0, covered = busiest_rows(cam_code, t_pad, n_inst, C5_PT_BAND_H)
     bh = C5_PT_BAND_H
     rows = f"rows {row0}..{row0 + bh} (their camera rays hit {covered} of the {n_inst} instances)"
     kw = dict(seed=seed, bvh=ic, row0=row0, band_h=bh)
-    for label, run, plain in (("K4", pt.render_pt_mega, pt.render_pt_mega_reference),
-                              ("K5", pt.render_pt_rebin, pt.render_pt_rebin_reference)):
-        band, nband = run(cfg, scene, cam, quat, 1, **kw)
-        if not torch.equal(band, k4[row0:row0 + bh]):
-            raise AssertionError(f"a config-5 {label} band differs from the rows of the full "
-                                 "render")
-        t0 = time.perf_counter()
-        want, nwant = plain(cfg, scene, cam, quat, 1, **kw)
-        torch.cuda.synchronize(device)
-        hold_pt(f"{label} with {n_inst} instances vs its plain version, {rows} (plain "
-                f"{time.perf_counter() - t0:.1f} s; band == full-frame rows)", band, nband, want,
-                nwant)
+    b4, _ = pt.render_pt_mega(cfg, scene, cam, quat, 1, **kw)
+    band, nband = pt.render_pt_rebin(cfg, scene, cam, quat, 1, **kw)
+    if not (torch.equal(b4, k4[row0:row0 + bh]) and torch.equal(band, k4[row0:row0 + bh])):
+        raise AssertionError("a config-5 K4 or K5 band differs from the rows of the full render")
+    t0 = time.perf_counter()
+    want, nwant = pt.render_pt_rebin_reference(cfg, scene, cam, quat, 1, **kw)
+    torch.cuda.synchronize(device)
+    hold_pt(f"K5 with {n_inst} instances vs its plain version, {rows} (plain "
+            f"{time.perf_counter() - t0:.1f} s; K4's and K5's bands == full-frame rows)", band,
+            nband, want, nwant)
+    k4_frame = hold_k4_frame("config 5 PT", cfg, scene, ic, cam, quat, seed, k4, n4, device)
     f, nf = render_pt_fast(cfg, scene, cam, quat, 1, seed=seed, bvh=ic)
     hold_pt("render_pt_fast(bvh=ic) through K7 vs K4", f, nf, k4, n4)
-    return max(errs)
+    # K4 with instances on the ragged band, through the two scaled icosphere
+    # instances (config 5's lights and materials): the plain two-level sweep
+    # costs seconds per call, instance and super cluster (61.6 s for 3 rows
+    # of the 30 knots at 3 spp, 27.7 s for 5 rows of 2 x 2 knots)
+    code = kinst.instanced_cluster_intersect(icp.inst_tab, icp.cs, o0, d0, origin=cam)[1]
+    row0, _ = busiest_rows(code, icp.cs.padded_tris, icp.num_instances, RAGGED_ROWS)
+    ragged = hold_k4_ragged("2 icosphere instances", cfg, scene, icp, cam, quat, seed, row0,
+                            RAGGED_ROWS)
+    k4_frame["max_abs_err"] = max(k4_frame["max_abs_err"], ragged)
+    return max(errs), k4_frame
 
 
-def phase_c5_main(c5, c3, bvh3, quat, seed, device, card):
+def phase_c5_main(c5, c3, bvh3, quat, seed, device, card, k4):
     """The slice's main paths under the launch counters, timed; the
     profiler splits; K7 alone on a Phong frame, held to its plain version
     bit for bit, and its least time; -> the launches and K7's numbers."""
@@ -1764,7 +1919,8 @@ def phase_c5_main(c5, c3, bvh3, quat, seed, device, card):
     def phong_frame(k, **kw):
         render_instanced_phong(*phong, yaws[k], c5["light"], **kw)
 
-    kinst.launches = kbvh.launches = cluster.launches = pt.launches = pt.rebin_launches = 0
+    reset_k4()
+    kinst.launches = kbvh.launches = cluster.launches = pt.rebin_launches = 0
     hard_ms, _ = rounds(f"config 5 Phong orbit {width}x{height}, hard shadows", phong_frame,
                         C5_FRAMES)
     soft_ms, _ = rounds(f"config 5 soft-shadow orbit {width}x{height} {C5_SOFT}",
@@ -1782,6 +1938,7 @@ def phase_c5_main(c5, c3, bvh3, quat, seed, device, card):
     torch.cuda.synchronize(device)
     counts = {"K7": kinst.launches, "K8": kbvh.launches, "K4": pt.launches,
               "K5": pt.rebin_launches, "K6": cluster.launches}
+    k4_instances = pt.mesh_launches["instances"]
     nb = cfg.max_bounces + 1
 
     def runs(n_frames):  # the warm-up and the timed rounds
@@ -1794,8 +1951,15 @@ def phase_c5_main(c5, c3, bvh3, quat, seed, device, card):
         f"frame, {1 + C5_SOFT['shadow_samples']} per soft-shadow frame, {nb} K5 per rebin frame, "
         f"1 K4 per mega frame, {2 * nb} K8 per render_pt_fast frame: closest and shadow per "
         f"bounce)")
-    if counts != want:
-        raise AssertionError(f"config-5 / raw-BVH launch counts {counts} != {want}")
+    if counts != want or k4_instances != counts["K4"]:
+        raise AssertionError(f"config-5 / raw-BVH launch counts {counts} (K4 with instances "
+                             f"{k4_instances}) != {want}")
+    # K4 on the frame whose plain replay (phase 14) gave its bound
+    k4_ms = device_ms(lambda _: pt.render_pt_mega(cfg, scene, c5["cam"], quat, 1, seed=seed,
+                                                  bvh=ic), K4_REPS, "pt_kernel")
+    log(f"  K4 config 5 PT {cfg.width}x{cfg.height}: {k4_ms:.4f} ms of device time a frame (the "
+        f"profiler's), at {k4['bound_ms'] / k4_ms:.2%} of its bound {k4['bound_ms']:.5f} ms by "
+        f"{k4['bound_by']} [{card}]")
 
     # profiler: K7 closest against any hit per Phong frame; K5 per bounce
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1867,7 +2031,7 @@ def phase_c5_main(c5, c3, bvh3, quat, seed, device, card):
         f"{soft_ms:.4f} ms/frame; PT 512x512 rebin {rebin_ms:.4f} ms/frame = "
         f"{rays5 / rebin_ms / 1e3:.2f} Mrays/s, mega {mega_ms:.4f} ms/frame; config 3 raw BVH "
         f"render_pt_fast {raw_ms:.4f} ms/frame = {rays3 / raw_ms / 1e3:.2f} Mrays/s [{card}]")
-    return {"launches": counts, "k7_err": err,
+    return {"launches": counts, "k7_err": err, "k4": {**k4, "ms": k4_ms},
             "k7": {"ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound[0], "bound_by": bound[1]}}
 
@@ -2176,10 +2340,10 @@ def main() -> int:
     k8, bvh3 = phase_bvh_kernel(c3, pt_quat, pt_seed, device, card)
     c5 = c5_setup(device)
     log("phase 14: BASELINE config 5, K7 and the instanced paths vs their plain versions")
-    k7_err = max(phase_instanced_kernel(c5, pt_quat, pt_seed, device),
-                 phase_c5_warp_rays(c5, pt_quat, pt_seed, device))
+    k7_err, k4_inst = phase_instanced_kernel(c5, pt_quat, pt_seed, device)
+    k7_err = max(k7_err, phase_c5_warp_rays(c5, pt_quat, pt_seed, device))
     log("phase 15: the slice's main paths and timing (CUDA events)")
-    c5_main = phase_c5_main(c5, c3, bvh3, pt_quat, pt_seed, device, card)
+    c5_main = phase_c5_main(c5, c3, bvh3, pt_quat, pt_seed, device, card, k4_inst)
     log("phase 16: kernel K9 and the threefry and pallas streams")
     k9 = phase_rng(pt_quat, c2, c4, c3, bvh3, device, card)
 
@@ -2199,10 +2363,18 @@ def main() -> int:
          "replaces": "raytracing_engine_tpu/ops/pallas/shade.py:194",
          "launches": counts["shade"], "max_abs_err": errs["shade"], **times["shade"],
          "library_ms": None},
-        {"name": "pt_kernel (K4)", "route": "cuda",
+        {"name": "pt_kernel<none> (K4)", "route": "cuda",
          "source": "raytracing_engine_tpu_torch/csrc/pt.cu",
          "replaces": "raytracing_engine_tpu/ops/pallas/pt_kernel.py:194",
          "max_abs_err": pt_err, **pt_main, "library_ms": None},
+        {"name": "pt_kernel<clusters> (K4)", "route": "cuda",
+         "source": "raytracing_engine_tpu_torch/csrc/pt.cu",
+         "replaces": "raytracing_engine_tpu/ops/pallas/pt_kernel.py:194",
+         "launches": c3_main["launches"]["K4"], **c3_main["k4"], "library_ms": None},
+        {"name": "pt_kernel<instances> (K4)", "route": "cuda",
+         "source": "raytracing_engine_tpu_torch/csrc/pt.cu",
+         "replaces": "raytracing_engine_tpu/ops/pallas/pt_kernel.py:194",
+         "launches": c5_main["launches"]["K4"], **c5_main["k4"], "library_ms": None},
         {"name": "pt_rebin_kernel (K5)", "route": "cuda",
          "source": "raytracing_engine_tpu_torch/csrc/pt.cu",
          "replaces": "raytracing_engine_tpu/ops/pallas/pt_kernel.py:699",
@@ -2228,7 +2400,7 @@ def main() -> int:
     ]
     for k in kernels:  # a timing that failed fails the run
         bad = [key for key in ("ms", "plain_ms", "bound_ms", "max_abs_err")
-               if not math.isfinite(k[key])]
+               if key in k and not math.isfinite(k[key])]
         if bad:
             raise AssertionError(f"{k['name']}: {bad} not finite")
     log(f"total {time.perf_counter() - t0:.1f} s")

@@ -24,11 +24,11 @@
 // float4 loads per test), with the smooth-normal rows beside it in a
 // 12-float record [s0(3), s1-s0(3), s2-s0(3), 0 x3]; each cluster gets one
 // 36-float record [box(6), 0, 0, oc(3), 0, sub-box 0..3 (6 each)], so the
-// sub-boxes sit beside their cluster. `sweep` (K4, K6) reads everything
+// sub-boxes sit beside their cluster. `sweep` (K6) reads everything
 // through the read-only path from global memory: config 3's 9.7 MB fit in
 // the L2.
 //
-// `sweep_warp` (K5, K7) is the same sweep run by the 32 lanes of a warp
+// `sweep_warp` (K4, K5, K7) is the same sweep run by the 32 lanes of a warp
 // together, one ray a lane. Each lane walks its own visit order and applies
 // its own gates with its own running t, so its gate decisions, and its
 // result, are those of `sweep`; the lanes step through the hierarchy in
@@ -195,7 +195,7 @@ __device__ __forceinline__ void sweep(const Tables& tb, float3 o, float3 d, floa
   }
 }
 
-// --- the warp sweep (K5, K7) ---------------------------------------------------
+// --- the warp sweep (K4, K5, K7) -----------------------------------------------
 
 constexpr unsigned kFullWarp = 0xFFFFFFFFu;
 // Most requests of one sub-box step that the warp tests together; above it
@@ -241,8 +241,7 @@ __device__ __forceinline__ void test_sub_warp(const Tables& tb, unsigned req, in
     const float tm = __shfl_sync(kFullWarp, t_min, r);
     const float tr = __shfl_sync(kFullWarp, h.t, r);
     // test_sub's arithmetic, in its order. Each sweep keeps its own copy:
-    // helpers shared by both (this test, instanced.cuh's transform) cost K4
-    // 4 B more of spills, as ptxas measured it.
+    // a helper shared by both cost 4 B more of spills, as ptxas measured it.
     const float den = a.x * dx + a.y * dy + a.z * dz;
     const float num = a.x * lx + a.y * ly + a.z * lz + a.w;
     const float inv = 1.0f / den;

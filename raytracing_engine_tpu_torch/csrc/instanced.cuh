@@ -16,12 +16,12 @@
 //
 // The TPU gates a whole tile per instance; here each ray gates itself, and
 // the plain version (ops/cuda/instanced.py) replays exactly that, so K7, K4
-// and K5 agree with it bit for bit. `instanced_sweep` is one thread's (K4);
-// `instanced_sweep_warp` (K5, K7) walks the instances with the 32 lanes of a
-// warp in lockstep (every ray takes the same instance order and, within an
-// instance, the same super order, so the lanes never part), each lane with
-// its own gate, transform (in the same rounding order) and running t, around
-// cluster.cuh's sweep_warp; an instance no lane enters is skipped.
+// and K5 agree with it bit for bit. `instanced_sweep_warp` (K4, K5, K7)
+// walks the instances with the 32 lanes of a warp in lockstep (every ray
+// takes the same instance order and, within an instance, the same super
+// order, so the lanes never part), each lane with its own gate, transform
+// and running t, around cluster.cuh's sweep_warp; an instance no lane
+// enters is skipped.
 #pragma once
 
 #include "cluster.cuh"
@@ -47,58 +47,10 @@ struct InstHit {
   float3 n;  // unnormalized world normal of the hit (attrs), else 0
 };
 
-// One world-space ray against every instance of the base set `tb`.
-__device__ __forceinline__ void instanced_sweep(const cl::Tables& tb, const Instances& in,
-                                                float3 o, float3 d, float t0, float t_min,
-                                                bool any_hit, bool attrs, InstHit& h) {
-  h.t = t0;
-  h.code = -1;
-  h.n = make_float3(0.0f, 0.0f, 0.0f);
-  if (any_hit && fabsf(o.x) >= cl::kParked) {
-    h.code = 0;
-    return;
-  }
-  const float3 winv = make_float3(1.0f / d.x, 1.0f / d.y, 1.0f / d.z);
-  cl::Tables tk = tb;  // each instance sweeps in its own single order
-  tk.orders = nullptr;
-  tk.refs = nullptr;
-  tk.n_orders = 0;
-  for (int ki = 0; ki < in.n; ++ki) {
-    const int k = __ldg(in.iorder + ki);
-    const float* r = in.tab + k * kInstW;
-    if (!cl::box_gate(r + kBoxOff, o, winv, t_min, h.t)) continue;
-    const float r00 = __ldg(r), r01 = __ldg(r + 1), r02 = __ldg(r + 2);
-    const float r10 = __ldg(r + 3), r11 = __ldg(r + 4), r12 = __ldg(r + 5);
-    const float r20 = __ldg(r + 6), r21 = __ldg(r + 7), r22 = __ldg(r + 8);
-    const float s = __ldg(r + 12);
-    const float inv_s = 1.0f / s;
-    const float sx = o.x - __ldg(r + 9), sy = o.y - __ldg(r + 10), sz = o.z - __ldg(r + 11);
-    const float3 oo = make_float3((r00 * sx + r01 * sy + r02 * sz) * inv_s,
-                                  (r10 * sx + r11 * sy + r12 * sz) * inv_s,
-                                  (r20 * sx + r21 * sy + r22 * sz) * inv_s);
-    const float3 dd = make_float3(r00 * d.x + r01 * d.y + r02 * d.z,
-                                  r10 * d.x + r11 * d.y + r12 * d.z,
-                                  r20 * d.x + r21 * d.y + r22 * d.z);
-    tk.order = in.iorders + k * tb.n_super;
-    cl::SweepHit sh;
-    cl::sweep(tk, oo, dd, h.t * inv_s, t_min * inv_s, any_hit, sh);
-    if (sh.idx < 0) continue;
-    h.t = sh.t * s;
-    h.code = k * in.t_pad + sh.idx;
-    if (any_hit) return;
-    if (attrs) {  // object normal -> world: n_w = R n (R = inv_rot^T)
-      float3 n;
-      float mat, area2;
-      cl::hit_attrs(tk, sh, n, mat, area2);
-      h.n = make_float3(r00 * n.x + r10 * n.y + r20 * n.z, r01 * n.x + r11 * n.y + r21 * n.z,
-                        r02 * n.x + r12 * n.y + r22 * n.z);
-    }
-  }
-}
-
-// instanced_sweep for the ray of each lane whose `active` is set, called by
-// all 32 lanes of the warp together (a lane without a ray passes active
-// false and its h is not to be read).
+// One world-space ray against every instance of the base set `tb`, for the
+// ray of each lane whose `active` is set, called by all 32 lanes of the warp
+// together (a lane without a ray passes active false and its h is not to be
+// read). Any hit stops a lane at the first instance that blocks it.
 __device__ __forceinline__ void instanced_sweep_warp(const cl::Tables& tb, const Instances& in,
                                                      float3 o, float3 d, float t0, float t_min,
                                                      bool any_hit, bool attrs, bool active,
@@ -123,8 +75,7 @@ __device__ __forceinline__ void instanced_sweep_warp(const cl::Tables& tb, const
     const float* r = in.tab + k * kInstW;
     const bool enter = live && cl::box_gate(r + kBoxOff, o, winv, t_min, h.t);
     if (!__any_sync(cl::kFullWarp, enter)) continue;
-    // instanced_sweep's transform, in its rounding order (its own copy: see
-    // cluster.cuh test_sub_warp)
+    // the transform, in the reference's rounding order
     const float r00 = __ldg(r), r01 = __ldg(r + 1), r02 = __ldg(r + 2);
     const float r10 = __ldg(r + 3), r11 = __ldg(r + 4), r12 = __ldg(r + 5);
     const float r20 = __ldg(r + 6), r21 = __ldg(r + 7), r22 = __ldg(r + 8);
@@ -144,7 +95,7 @@ __device__ __forceinline__ void instanced_sweep_warp(const cl::Tables& tb, const
     h.t = sh.t * s;
     h.code = k * in.t_pad + sh.idx;
     if (any_hit) {
-      live = false;  // instanced_sweep's return
+      live = false;  // this lane's sweep ends
       continue;
     }
     if (attrs) {  // object normal -> world: n_w = R n (R = inv_rot^T)

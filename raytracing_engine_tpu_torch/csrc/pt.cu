@@ -5,10 +5,11 @@
 // K4 replaces raytracing_engine_tpu/ops/pallas/pt_kernel.py:_pt_kernel for
 // scenes of spheres and up to TRI_UNROLL_MAX unrolled triangles, of spheres
 // and a mesh given as a ClusterSet, or of spheres and instances of such a
-// mesh (BASELINE configs 2, 3, 4 and 5's path-traced cell):
-// the whole path of a pixel (camera ray, spp loop, bounce loop, NEE + MIS,
-// the PCG4D stream keyed on global pixel coordinates) runs in one thread, in
-// registers.
+// mesh (BASELINE configs 2, 3, 4 and 5's path-traced cell), one
+// instantiation for each of these mesh kinds (pt.cuh kMesh*; pt_render
+// picks it from the tables): the whole path of a pixel (camera ray, spp
+// loop, bounce loop, NEE + MIS, the PCG4D stream keyed on global pixel
+// coordinates) runs in one thread, in registers.
 //
 // K5 replaces pt_kernel.py:_pt_rebin_kernel (render_pt_rebin): one launch
 // per bounce over a packed 17-plane ray state. Thread i owns the ray at
@@ -25,17 +26,18 @@
 // instance entered with instances (instanced.cuh); paths end at different
 // bounces. K4 writes only its output (5.8 MB at config 2); K5 moves 17
 // planes in and out per bounce (36 MB at 512², well under its sweep work at
-// config 3). So: one thread per ray, a thread that misses or dies stops,
-// warps retire on their own; the scene tables load once per block into
-// shared memory (broadcast reads). K4 sweeps a mesh one thread a ray
-// (cluster.cuh sweep), through the read-only path. K5 sweeps it with the
-// warp's lanes together (cluster.cuh sweep_warp, instanced.cuh
-// instanced_sweep_warp): measured before that design (PERF.md §5,
-// ab_config3.py --lanes), K5's sub-box tests ran on 1.5-2.3 of 32 lanes,
-// each a serial loop of 32 record loads from the L2; now a sub-box that few
-// lanes enter is loaded once, coalesced, and tested by the whole warp.
-// Both read the cluster tables through the read-only path (9.7 MB at config
-// 3, in the L2).
+// config 3). So: one thread per ray; the scene tables load once per block
+// into shared memory (broadcast reads). Without a mesh (K4's kMeshNone) a
+// thread that misses or dies stops and warps retire on their own: there is
+// no sweep to share. A mesh is swept with the warp's lanes together
+// (cluster.cuh sweep_warp, instanced.cuh instanced_sweep_warp): measured
+// before that design (PERF.md §5), one thread a ray
+// ran K5's sub-box tests on 1.5-2.3 of 32 lanes, each a serial loop of 32
+// record loads from the L2; now a sub-box that few lanes enter is loaded
+// once, coalesced, and tested by the whole warp. In K4's mesh
+// instantiations every lane runs the spp loop and the bounce loop, until no
+// lane of its warp has a live path (full-mask votes). Both kernels read the
+// cluster tables through the read-only path (9.7 MB at config 3, in the L2).
 // None of the TPU layout is kept: no tiles, stripes, f32 alive masks or
 // SMEM/VMEM packing.
 //
@@ -43,8 +45,10 @@
 // shadow-ray candidate; a warp-level sum, one shared-memory add per warp and
 // one 64-bit integer atomicAdd per block.
 //
-// Blocks: K4 16 x 8 threads (a warp covers 16 x 2 pixels); K5 256 threads
-// over consecutive ranks, every lane of a warp in the sweeps (those past the
+// Blocks: K4 16 x 8 threads (a warp covers 16 x 2 pixels), 8 x 16 with
+// instances (8 x 4), every lane of a mesh instantiation's warp in the loops
+// (those past the ragged edges without a ray); K5 256 threads over
+// consecutive ranks, every lane of a warp in the sweeps (those past the
 // ragged end and those of dead rays without a ray). Ragged edges are masked.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
@@ -54,9 +58,18 @@
 
 namespace pt {
 
-constexpr int kBlockX = 16;
-constexpr int kBlockY = 8;
-constexpr int kThreads = kBlockX * kBlockY;
+// K4's block at each mesh kind, and whether its lanes sweep together (with
+// a mesh). Measured on copies of the tree (PERF.md §6, ab_config3.py
+// --worker): the warp form 2.6x the per-thread one at configs 3 and 5;
+// with instances 8 x 16 (a warp 8 x 4 pixels) 3-5% faster than 32 x 4 and
+// 16 x 8; with clusters 16 x 8 and 32 x 4 within 1%, 8 x 16 4-7% slower.
+template <int kMesh>
+struct K4 {
+  static constexpr int kThreads = 128;
+  static constexpr int kBlockX = kMesh == kMeshInstances ? 8 : 16;
+  static constexpr int kBlockY = kThreads / kBlockX;
+  static constexpr bool kWarp = kMesh != kMeshNone;
+};
 constexpr int kRebinThreads = 256;  // K5's block
 
 // Stage the scene tables in shared memory (call from every thread, then
@@ -108,18 +121,23 @@ __device__ __forceinline__ uint32_t pass_seed(const Args& a, int s) {
   return static_cast<uint32_t>(a.seed) + static_cast<uint32_t>(a.spp_offset + s) * kPassPrime;
 }
 
-__global__ void __launch_bounds__(kThreads) pt_kernel(const Args a) {
+template <int kMesh>
+__global__ void __launch_bounds__(K4<kMesh>::kThreads) pt_kernel(const Args a) {
+  using B = K4<kMesh>;
   extern __shared__ float tables[];
   __shared__ unsigned block_rays;
-  const int tid = threadIdx.y * kBlockX + threadIdx.x;
-  const Scene sc = stage_scene<kThreads>(a, tables, tid);
+  const int tid = threadIdx.y * B::kBlockX + threadIdx.x;
+  const Scene sc = stage_scene<B::kThreads>(a, tables, tid);
   if (tid == 0) block_rays = 0u;
   __syncthreads();
 
-  const int x = blockIdx.x * kBlockX + threadIdx.x;
-  const int y = blockIdx.y * kBlockY + threadIdx.y;
+  const int x = blockIdx.x * B::kBlockX + threadIdx.x;
+  const int y = blockIdx.y * B::kBlockY + threadIdx.y;
+  const bool in_image = x < a.w && y < a.h;
   unsigned nrays = 0u;
-  if (x < a.w && y < a.h) {
+  // the warp form: every lane runs both loops, a lane past the ragged edges
+  // with live false throughout (it writes nothing)
+  if (B::kWarp || in_image) {
     const float3 cam = make_float3(__ldg(a.cam_pos), __ldg(a.cam_pos + 1), __ldg(a.cam_pos + 2));
     const float4 q = make_float4(__ldg(a.cam_quat), __ldg(a.cam_quat + 1),
                                  __ldg(a.cam_quat + 2), __ldg(a.cam_quat + 3));
@@ -129,16 +147,28 @@ __global__ void __launch_bounds__(kThreads) pt_kernel(const Args a) {
     for (int s = 0; s < a.spp; ++s) {
       const uint32_t seed = pass_seed(a, s);
       Ray r = camera_ray(a, px, py, seed, cam, q);
-      for (int b = 0; b <= a.max_bounces && r.alive; ++b) {
-        bounce<ThreadSweep>(a, sc, r, b, seed, nrays);
+      if constexpr (B::kWarp) {
+        // a lane whose path has ended bounces with live false (a parked ray)
+        // until no lane of the warp has a live path
+        for (int b = 0; b <= a.max_bounces; ++b) {
+          const bool live = in_image && r.alive;
+          if (!__any_sync(cl::kFullWarp, live)) break;
+          bounce<kMesh, true>(a, sc, r, b, seed, nrays, live);
+        }
+      } else {
+        for (int b = 0; b <= a.max_bounces && r.alive; ++b) {
+          bounce<kMesh, false>(a, sc, r, b, seed, nrays);
+        }
       }
       acc = add3(acc, r.rad);
     }
-    const float inv = 1.0f / static_cast<float>(a.spp);
-    float* out = a.out + (static_cast<size_t>(y) * a.w + x) * 3;
-    out[0] = acc.x * inv;
-    out[1] = acc.y * inv;
-    out[2] = acc.z * inv;
+    if (in_image) {
+      const float inv = 1.0f / static_cast<float>(a.spp);
+      float* out = a.out + (static_cast<size_t>(y) * a.w + x) * 3;
+      out[0] = acc.x * inv;
+      out[1] = acc.y * inv;
+      out[2] = acc.z * inv;
+    }
   }
   count_rays(a, &block_rays, tid, nrays);
 }
@@ -189,7 +219,7 @@ __global__ void __launch_bounds__(kRebinThreads) pt_rebin_kernel(const Args a) {
       }
     }
   }
-  bounce<WarpSweep>(a, sc, r, a.bounce, seed, nrays, live);
+  bounce<kMeshAny, true>(a, sc, r, a.bounce, seed, nrays, live);
   if (live) {
     const float planes[kStatePlanes] = {
         r.o.x, r.o.y, r.o.z, r.d.x, r.d.y, r.d.z, r.thr.x, r.thr.y, r.thr.z,
@@ -206,18 +236,26 @@ size_t table_bytes(const Args* a) {
                           static_cast<size_t>(a->M) * kMatW + static_cast<size_t>(a->L) * kLightW);
 }
 
+template <int kMesh>
+cudaError_t launch_pt(const Args* a, cudaStream_t stream) {
+  using B = K4<kMesh>;
+  const dim3 grid((a->w + B::kBlockX - 1) / B::kBlockX, (a->h + B::kBlockY - 1) / B::kBlockY);
+  pt_kernel<kMesh><<<grid, dim3(B::kBlockX, B::kBlockY), table_bytes(a), stream>>>(*a);
+  return cudaGetLastError();
+}
+
 }  // namespace pt
 
-// Launch K4 on `stream` (a cudaStream_t); does not synchronise, and returns
+// Launch K4 on `stream` (a cudaStream_t), its instantiation for the mesh
+// kind of the tables it is given; does not synchronise, and returns
 // cudaGetLastError() as an int (0 = launched).
 extern "C" int pt_render(const pt::Args* a, void* stream) {
   cudaError_t err = cudaSetDevice(a->device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a->w + pt::kBlockX - 1) / pt::kBlockX,
-                  (a->h + pt::kBlockY - 1) / pt::kBlockY);
-  pt::pt_kernel<<<grid, dim3(pt::kBlockX, pt::kBlockY), pt::table_bytes(a),
-                  static_cast<cudaStream_t>(stream)>>>(*a);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a->cl.trec == nullptr) return static_cast<int>(pt::launch_pt<pt::kMeshNone>(a, s));
+  if (a->inst.tab == nullptr) return static_cast<int>(pt::launch_pt<pt::kMeshClusters>(a, s));
+  return static_cast<int>(pt::launch_pt<pt::kMeshInstances>(a, s));
 }
 
 // Launch K5 (bounce a->bounce over a->state) on `stream`; as pt_render.

@@ -15,14 +15,17 @@
 // wavefront.pack_state): K4 loops it over the bounces of every pass in
 // registers, K5 runs one bounce per launch on the state it reads back, so
 // K5 equals K4 by construction. `bounce`, `intersect` and `occluded` are
-// templates on the mesh sweep: K4 takes ThreadSweep (cluster.cuh sweep,
-// instanced.cuh instanced_sweep, one thread's), K5 takes WarpSweep
-// (sweep_warp, instanced_sweep_warp: the warp's lanes together). Every lane
-// of a K5 warp calls `bounce`, a lane without a live ray with live false,
-// and the body reaches both sweeps on every lane (a lane that missed or
-// casts no shadow ray enters them inactive) and parks a miss only after the
-// shadow sweep; for K4 those branches fold away. Both sweeps equal the
-// plain sweep bit for bit per ray, so K5 still equals K4.
+// templates on the mesh kind (kMesh*: a constant in each of K4's
+// instantiations, so each holds only its own sweep; kMeshAny in K5, whose
+// tables pick it at run time) and on the form: one thread alone (kWarp
+// false, scenes without a mesh: a ray that misses or dies stops at once) or
+// the warp's lanes together (kWarp true: a mesh is swept by cluster.cuh
+// sweep_warp or instanced.cuh instanced_sweep_warp). In the warp form every
+// lane of the warp calls `bounce`, a lane without a live ray with live
+// false, and the body reaches both sweeps on every lane (a lane that missed
+// or casts no shadow ray enters them inactive) and parks a miss only after
+// the shadow sweep. The warp sweeps equal the plain sweep bit for bit per
+// ray, so K5 equals K4.
 //
 // Every expression keeps the operation order of the plain PyTorch version
 // (pathtracer/wavefront.py), and the library builds with --fmad=false and
@@ -71,6 +74,15 @@ constexpr float kDeadO = 1e18f;                    // parked-ray origin
 constexpr float kInvSqrt3 = 0.57735025882720947f;  // its direction components
 constexpr int kStatePlanes = 17;
 
+// Mesh kinds, one instantiation of K4 each (pt_render picks it from the
+// tables, as stage_scene reads them: cl.trec, then inst.tab, null or not;
+// ops/cuda/pt.py MESH_KINDS names them in this order); K5 takes kMeshAny,
+// the kind its tables name.
+constexpr int kMeshNone = 0;       // spheres and up to kTriUnrollMax unrolled triangles
+constexpr int kMeshClusters = 1;   // and a mesh as a ClusterSet (Args.cl)
+constexpr int kMeshInstances = 2;  // and instances of that mesh (Args.inst)
+constexpr int kMeshAny = -1;
+
 // Launch arguments, passed by value. Mirrored field for field by PTArgs in
 // ops/cuda/pt.py.
 struct Args {
@@ -107,9 +119,22 @@ struct Scene {
   float total_power;
   cl::Tables cl;
   ins::Instances inst;
-  bool mesh;       // intersect cl instead of the unrolled triangle slots
-  bool instanced;  // intersect the instances of cl instead
+  bool mesh;       // kMeshAny: intersect cl instead of the unrolled triangle slots
+  bool instanced;  // kMeshAny: intersect the instances of cl instead
 };
+
+// Whether a scene of kind kMesh sweeps instances, else a ClusterSet: a
+// constant in K4's instantiations, read from the scene in K5's (kMeshAny,
+// where sc.mesh also holds with instances: has_clusters is read only where
+// has_instances is false).
+template <int kMesh>
+__device__ __forceinline__ bool has_instances(const Scene& sc) {
+  return kMesh == kMeshAny ? sc.instanced : kMesh == kMeshInstances;
+}
+template <int kMesh>
+__device__ __forceinline__ bool has_clusters(const Scene& sc) {
+  return kMesh == kMeshAny ? sc.mesh : kMesh == kMeshClusters;
+}
 
 // max/min that propagate NaN as torch.maximum / torch.clamp do
 __device__ __forceinline__ float vmax(float a, float b) {
@@ -238,45 +263,13 @@ struct Hit {
   bool front;
 };
 
-// The mesh sweeps of K4: one thread, one ray.
-struct ThreadSweep {
-  static constexpr bool kWarp = false;
-  __device__ __forceinline__ static void mesh(const cl::Tables& tb, float3 o, float3 d,
-                                              float t0, float t_min, bool any_hit, bool,
-                                              cl::SweepHit& h) {
-    cl::sweep(tb, o, d, t0, t_min, any_hit, h);
-  }
-  __device__ __forceinline__ static void inst(const cl::Tables& tb, const ins::Instances& in,
-                                              float3 o, float3 d, float t0, float t_min,
-                                              bool any_hit, bool attrs, bool,
-                                              ins::InstHit& h) {
-    ins::instanced_sweep(tb, in, o, d, t0, t_min, any_hit, attrs, h);
-  }
-};
-
-// The mesh sweeps of K5: the 32 lanes of a warp together, each with its own
-// ray or none (active false).
-struct WarpSweep {
-  static constexpr bool kWarp = true;
-  __device__ __forceinline__ static void mesh(const cl::Tables& tb, float3 o, float3 d,
-                                              float t0, float t_min, bool any_hit, bool active,
-                                              cl::SweepHit& h) {
-    cl::sweep_warp(tb, o, d, t0, t_min, any_hit, active, h);
-  }
-  __device__ __forceinline__ static void inst(const cl::Tables& tb, const ins::Instances& in,
-                                              float3 o, float3 d, float t0, float t_min,
-                                              bool any_hit, bool attrs, bool active,
-                                              ins::InstHit& h) {
-    ins::instanced_sweep_warp(tb, in, o, d, t0, t_min, any_hit, attrs, active, h);
-  }
-};
-
 // wavefront._intersect (unrolled slots), wavefront._intersect_clusters (a
 // mesh, the attributes path) or wavefront._intersect_instanced (instances);
 // returns false on a miss (t = BIG) and for an inactive lane.
-template <class Sw>
+template <int kMesh, bool kWarp>
 __device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
                                           float t_min, Hit& h, bool active = true) {
+  static_assert(kWarp || kMesh == kMeshNone, "a mesh is swept by the warp's lanes together");
   float t_s = kBig;
   int i_s = -1;
   for (int k = 0; k < sc.n_sph; ++k) {
@@ -291,11 +284,12 @@ __device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
   int i_t = -1;
   cl::SweepHit ch;
   ins::InstHit ih;
-  if (sc.instanced) {
-    Sw::inst(sc.cl, sc.inst, o, d, kBig, t_min, false, true, active, ih);
+  const bool instanced = has_instances<kMesh>(sc), mesh = has_clusters<kMesh>(sc);
+  if (instanced) {
+    ins::instanced_sweep_warp(sc.cl, sc.inst, o, d, kBig, t_min, false, true, active, ih);
     if (ih.code >= 0) t_t = ih.t;
-  } else if (sc.mesh) {
-    Sw::mesh(sc.cl, o, d, kBig, t_min, false, active, ch);
+  } else if (mesh) {
+    cl::sweep_warp(sc.cl, o, d, kBig, t_min, false, active, ch);
     if (ch.idx >= 0) t_t = ch.t;
   } else {
     for (int k = 0; k < sc.n_tri; ++k) {
@@ -313,11 +307,11 @@ __device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
   h.p = make_float3(o.x + d.x * t, o.y + d.y * t, o.z + d.z * t);
   float3 n;
   float light_area;
-  if (use_tri && sc.instanced) {
+  if (use_tri && instanced) {
     n = ih.n;
     light_area = 1.0f;
     h.mat = static_cast<int>(ins::hit_material(sc.inst, ih.code));
-  } else if (use_tri && sc.mesh) {
+  } else if (use_tri && mesh) {
     float mat, area2;
     cl::hit_attrs(sc.cl, ch, n, mat, area2);
     light_area = area2 * 0.5f;
@@ -343,29 +337,30 @@ __device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
 }
 
 // wavefront._occluded: any live sphere or triangle (or mesh, or instance) hit in
-// (t_min, max_t). An inactive lane (WarpSweep) enters the mesh sweep without
-// a ray; what it returns is not to be read.
-template <class Sw>
+// (t_min, max_t). An inactive lane (kWarp) enters the mesh sweep without a
+// ray; what it returns is not to be read.
+template <int kMesh, bool kWarp>
 __device__ __forceinline__ bool occluded(const Scene& sc, float3 o, float3 d,
                                          float max_t, float t_min, bool active = true) {
-  bool sphere = false;  // K5: blocked by a sphere, the mesh sweep entered inactive
+  bool sphere = false;  // kWarp: blocked by a sphere, the mesh sweep entered inactive
   for (int k = 0; k < sc.n_sph; ++k) {
     float disc;
     const float t = sphere_t(sc.sph + k * kSphW, o, d, t_min, disc);
     if (disc > 0.0f && t > t_min && t < max_t) {
-      if (!Sw::kWarp) return true;
+      if (!kWarp) return true;
       sphere = true;
       break;
     }
   }
-  if (sc.instanced) {
+  if (has_instances<kMesh>(sc)) {
     ins::InstHit h;
-    Sw::inst(sc.cl, sc.inst, o, d, max_t, t_min, true, false, active && !sphere, h);
+    ins::instanced_sweep_warp(sc.cl, sc.inst, o, d, max_t, t_min, true, false, active && !sphere,
+                              h);
     return sphere || h.code >= 0;
   }
-  if (sc.mesh) {
+  if (has_clusters<kMesh>(sc)) {
     cl::SweepHit h;
-    Sw::mesh(sc.cl, o, d, max_t, t_min, true, active && !sphere, h);
+    cl::sweep_warp(sc.cl, o, d, max_t, t_min, true, active && !sphere, h);
     return sphere || h.idx >= 0;
   }
   if (sphere) return true;
@@ -521,10 +516,10 @@ __device__ __forceinline__ void nee_add(Ray& r, float3 thr, float3 albedo, const
 
 // Bounce b of a live ray for the pass of `seed`: adds its emission and NEE
 // to r.rad, scatters or parks it, and counts its rays (one segment, one
-// shadow-ray candidate) into nrays. With WarpSweep every lane of the warp
-// calls it together, a lane without a live ray with live false (it changes
-// nothing that its caller keeps and counts no ray).
-template <class Sw>
+// shadow-ray candidate) into nrays. With kWarp every lane of the warp calls
+// it together, a lane without a live ray with live false (it parks the ray,
+// keeps its radiance and counts no ray).
+template <int kMesh, bool kWarp>
 __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, int b,
                                        uint32_t seed, unsigned& nrays, bool live = true) {
   const bool uniform = a.uniform_lights != 0;
@@ -536,7 +531,7 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
   const float3 d = r.d;
 
   Hit h;
-  if (Sw::kWarp) {  // a miss goes on to the shadow sweep as a hit on nothing
+  if (kWarp) {  // a miss goes on to the shadow sweep as a hit on nothing
     h.t = 0.0f;
     h.p = r.o;
     h.n = make_float3(0.0f, 0.0f, 1.0f);
@@ -544,8 +539,8 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
     h.light_area = 0.0f;
     h.front = true;
   }
-  const bool hit = intersect<Sw>(sc, r.o, d, a.t_min, h, live);
-  if (!Sw::kWarp && !hit) {
+  const bool hit = intersect<kMesh, kWarp>(sc, r.o, d, a.t_min, h, live);
+  if (!kWarp && !hit) {
     park(r);
     return;
   }
@@ -577,14 +572,14 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
 
   // --- NEE ------------------------------------------------------------------
   const bool nee = hit && a.use_nee && kind == kDiffuse && sc.n_light > 0;
-  if (Sw::kWarp) {  // every lane reaches the shadow sweep; those without one inactive
+  if (kWarp) {  // every lane reaches the shadow sweep; those without one inactive
     Nee e;
     e.wi = make_float3(1.0f, 0.0f, 0.0f);
     e.dist = 0.0f;
     const bool cast = nee && nee_sample(a, sc, p, n, u, uniform, e);
     if (cast) nrays += 1;
     const float3 sh_o = add3(p, scale3(n, a.eps));
-    const bool blocked = occluded<Sw>(sc, sh_o, e.wi, e.dist * 0.999f, a.t_min, cast);
+    const bool blocked = occluded<kMesh, kWarp>(sc, sh_o, e.wi, e.dist * 0.999f, a.t_min, cast);
     if (cast && !blocked) nee_add(r, thr, albedo, e);
     if (!hit) {
       park(r);
@@ -595,7 +590,9 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
     if (nee_sample(a, sc, p, n, u, uniform, e)) {
       nrays += 1;
       const float3 sh_o = add3(p, scale3(n, a.eps));
-      if (!occluded<Sw>(sc, sh_o, e.wi, e.dist * 0.999f, a.t_min)) nee_add(r, thr, albedo, e);
+      if (!occluded<kMesh, kWarp>(sc, sh_o, e.wi, e.dist * 0.999f, a.t_min)) {
+        nee_add(r, thr, albedo, e);
+      }
     }
   }
 

@@ -157,9 +157,9 @@ class FrameInstances:
 def _sweep(tab, iorder, iorders, tb, t_pad: int, o, d, t0, t_min: float, any_hit: bool,
            attrs: bool):
     """The plain two-level sweep over flat (n,) planes (csrc/instanced.cuh
-    instanced_sweep, ray by ray as one batch): -> (t, code int64, normal V3
-    or None); t = t0 where code < 0. tab: the instance table as a numpy
-    (N, 24) f32 array; iorder: a list of ints."""
+    instanced_sweep_warp's result for each ray, as one batch): -> (t, code
+    int64, normal V3 or None); t = t0 where code < 0. tab: the instance
+    table as a numpy (N, 24) f32 array; iorder: a list of ints."""
     dev = o[0].device
     n = o[0].numel()
     t_w = t0.clone()

@@ -6,7 +6,9 @@
   triangles (BASELINE configs 2 and 4), spheres and a mesh given as a
   ClusterSet (config 3, ``bvh=``), or spheres and instances of such a mesh
   (config 5's path-traced cell, ``bvh=InstancedClusters``: K7's two-level
-  sweep inside the kernel).
+  sweep inside the kernel); one instantiation of the kernel for each of
+  these mesh kinds (``mesh_kind``), the two with a mesh sweeping it with the
+  32 lanes of a warp together.
 - ``render_pt_rebin`` launches ``pt_rebin_kernel`` (K5), which replaces
   ``_pt_rebin_kernel``: one launch per bounce over a packed 17-plane ray
   state, with an image-wide regroup between launches (``rebin_keys``, a
@@ -48,9 +50,14 @@ from raytracing_engine_tpu_torch.pathtracer.wavefront import (
     unpack_state,
 )
 
+# K4's instantiations, one a mesh kind, in the order csrc/pt.cuh numbers
+# them (kMeshNone, kMeshClusters, kMeshInstances)
+MESH_KINDS = ("none", "clusters", "instances")
+
 # kernel launches since the counts were last set to 0 (plain-version calls
-# do not count): K4 and K5
+# do not count): K4 (in all, and by mesh kind) and K5
 launches = 0
+mesh_launches = dict.fromkeys(MESH_KINDS, 0)
 rebin_launches = 0
 
 # the kernels stage the scene tables in shared memory
@@ -175,6 +182,17 @@ def frame_view(bvh, cam_pos):
     return FrameClusters.at(bvh, cam_pos)
 
 
+def mesh_kind(frame) -> str:
+    """The name (MESH_KINDS) of K4's instantiation for a frame view
+    (frame_view), which keys mesh_launches: "instances" for FrameInstances,
+    "clusters" for FrameClusters, "none" for None. csrc/pt.cu pt_render
+    picks the instantiation by the same rule from the tables that
+    _kernel_args fills from the view (ClusterTables, InstanceTables)."""
+    if frame is None:
+        return "none"
+    return "instances" if isinstance(frame, FrameInstances) else "clusters"
+
+
 def render_pt_mega_reference(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
                              seed: int = 0, spp_offset: int = 0, row0: int = 0, band_h=None,
                              bvh=None):
@@ -261,8 +279,9 @@ def render_pt_mega(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
     of the cfg.height image; a band equals the same rows of the full render,
     since the camera and the stream are keyed on global pixel coordinates.
     bvh: a ClusterSet for a mesh of any size (its closest and shadow sweeps
-    run in the kernel, K6's sweep), or an InstancedClusters (K7's two-level
-    sweep in the kernel, materials per instance); without one, at most
+    run in the kernel, the warp's lanes together), or an InstancedClusters
+    (K7's two-level sweep in the kernel, materials per instance); without
+    one, at most
     TRI_UNROLL_MAX triangle slots. A raw BVH raises TypeError, as in the
     JAX package: it goes to render_pt_fast.
 
@@ -282,13 +301,15 @@ def render_pt_mega(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
     cfg, h = _prepare(cfg, scene, row0, band_h, bvh)
     if spp < 1:
         raise ValueError(f"spp must be >= 1, got {spp}")
+    frame = frame_view(bvh, cam_pos)
     args, keep = _kernel_args(cfg, kernel_scene(scene, bvh), cam_pos, cam_quat, h, row0,
-                              seed, spp_offset, frame_view(bvh, cam_pos))
+                              seed, spp_offset, frame)
     out = torch.empty((h, cfg.width, 3), dtype=torch.float32, device=scene.device)
     nrays = torch.zeros((1,), dtype=torch.int64, device=scene.device)
     args.out, args.nrays, args.spp = out.data_ptr(), nrays.data_ptr(), spp
     common.launch("pt_render", args, name="pt")
     launches += 1
+    mesh_launches[mesh_kind(frame)] += 1
     del keep
     return out, nrays[0]
 

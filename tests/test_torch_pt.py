@@ -347,6 +347,42 @@ def test_rebin_tile_is_the_k5_block():
     assert int(re.search(r"constexpr int kRebinThreads = (\d+);", src).group(1)) == pt.REBIN_TILE
 
 
+def test_mesh_kind_picks_the_k4_instantiation():
+    """Each scene kind maps to its K4 instantiation (ops/cuda/pt.mesh_kind:
+    none, a ClusterSet, instances of one), named in MESH_KINDS in the order
+    csrc/pt.cuh numbers them; the source of csrc/pt.cu's pt_render (read as
+    text: nothing is launched here) picks each by mesh_kind's rule, from
+    the tables being null or not."""
+    from raytracing_engine_tpu_torch.accel import (
+        build_bvh,
+        build_clusters,
+        grid_instances,
+        make_instanced_clusters,
+        torus_knot,
+    )
+
+    src = (common.CSRC_DIR / "pt.cuh").read_text()
+    kinds = {k: int(v) for k, v in re.findall(r"constexpr int kMesh(\w+) = (-?\d+);", src)}
+    assert kinds == {"None": 0, "Clusters": 1, "Instances": 2, "Any": -1}
+    assert [k.lower() for k, v in sorted(kinds.items(), key=lambda kv: kv[1]) if v >= 0] == list(
+        pt.MESH_KINDS)
+    launch = (common.CSRC_DIR / "pt.cu").read_text()
+    body = re.search(r"extern \"C\" int pt_render\(.*?\n\}", launch, re.S).group(0)
+    assert re.findall(r"if \(a->(\w+\.\w+) == nullptr\) return [^;]*launch_pt<pt::kMesh(\w+)>",
+                      body) == [("cl.trec", "None"), ("inst.tab", "Clusters")]
+    assert re.findall(r"launch_pt<pt::kMesh(\w+)>", body) == ["None", "Clusters", "Instances"]
+    assert list(pt.mesh_launches) == list(pt.MESH_KINDS)
+
+    tris = torus_knot(segments=16, sides=8)
+    cs = build_clusters(tris, device="cpu")
+    inst = grid_instances(build_bvh(tris, device="cpu"), nx=2, ny=1, device="cpu")
+    ic = make_instanced_clusters(inst, cs, device="cpu")
+    cam = torch.zeros(3)
+    assert pt.mesh_kind(pt.frame_view(None, cam)) == "none"
+    assert pt.mesh_kind(pt.frame_view(cs, cam)) == "clusters"
+    assert pt.mesh_kind(pt.frame_view(ic, cam)) == "instances"
+
+
 def test_every_library_has_its_source():
     for name, (source, entries) in common.LIBRARIES.items():
         text = (common.CSRC_DIR / source).read_text()
