@@ -4,7 +4,9 @@
 A/B: for checkout A, B, B, A in turn, each in a process of its own, builds
 the checkout's kernels from its csrc/ (into its own build directory) and
 prints ptxas's registers, stack, spills and shared memory of pt_kernel (K4),
-pt_rebin_kernel (K5) and instanced_kernel (K7); then times, by CUDA events
+pt_rebin_kernel (K5), instanced_kernel (K7), traverse_kernel (K8) and the
+depth pyramid's kernel (K1: depth_kernel, one level a launch, or
+pyramid_kernel, every level in one launch); then times, by CUDA events
 (best of 3 rounds of chained frames with distinct camera z, host enqueue
 beside):
 
@@ -24,9 +26,28 @@ beside):
 then, by torch.profiler's device time per launch: K5 alone by bounce on the
 states of one config-3 and one config-5 frame, and K7 on config 5's Phong
 camera rays at 1920x1088 (closest hit with normals) and on their hard-shadow
-rays (any hit). Every output (K4, K5 and K7) is hashed; the parent process
-prints whether A's and B's hashes agree. The card's name and power limit go
-with every number.
+rays (any hit); the cone march at 1920x1088 (the default scene, 24 orbit
+poses): the frame by CUDA events with its host enqueue, K1's device time a
+frame (every K1 launch of the frame summed) and the pyramid's levels; K8 on
+config 3's knot as a raw BVH (44,961 nodes): its camera, bounce-1 and
+NEE-style shadow rays at 512x512 (as chip_smoke.py phase 13 makes them),
+and render_pt_fast(bvh=BVH) 512x512 frames with K8's device time summed
+over a frame's six launches. Every output (K1, K4, K5, K7, K8 and the
+frames) is hashed; the parent process prints whether A's and B's hashes
+agree. The card's name and power limit go with every number.
+
+Tuning: --worker DIR NAME=VALUE ... runs a copy of DIR's package (in a
+temporary directory; DIR is not touched) with each named constant set:
+a `constexpr int NAME = ...;` of csrc/ or a module-level `NAME = ...` of
+ops/cuda/, which must occur exactly once (for example kTraverseBlock=128
+of csrc/bvh.cu, kPyramidMinBlocks=4 of csrc/conemarch.cu, or kBlockY=8
+TILE_H=8 for the cone march's blocks and K1's mirrored tile).
+
+Cone: the cone-march rows alone (ptxas, the 1920x1088 frame by events with
+its enqueue, K1's device time a frame, hashes), for PAIRS pairs of runs in
+the order A B B A A B B A ..., each run a process of its own; then each
+run's numbers side by side and in how many pairs B's frame, enqueue and K1
+time were below A's. --cone-worker DIR [NAME=VALUE ...] is one such run.
 
 Spheres: the sphere rows alone, A B B A; they run on any checkout of the
 port, also one without clusters (commit cee9bc9, spheres only).
@@ -51,10 +72,12 @@ holds to K4's frame bit for bit (about two minutes).
 
 Usage: python3 ab_config3.py DIR_A DIR_B
        python3 ab_config3.py --spheres DIR_A DIR_B
+       python3 ab_config3.py --cone DIR_A DIR_B [PAIRS]   (default 10)
        python3 ab_config3.py --lanes DIR
        python3 ab_config3.py --bound5 DIR
-       python3 ab_config3.py --worker DIR   (one checkout, once)
+       python3 ab_config3.py --worker DIR [NAME=VALUE ...]   (one checkout, once)
        python3 ab_config3.py --sphere-worker DIR   (its sphere rows, once)
+       python3 ab_config3.py --cone-worker DIR [NAME=VALUE ...]   (its cone rows, once)
 (each DIR holds a raytracing_engine_tpu_torch package, e.g. a `git archive`
 of a commit unpacked into a gitignored directory)
 """
@@ -74,7 +97,11 @@ C3_FRAMES, C5_FRAMES, C2_FRAMES, HD_FRAMES, ROUNDS = 8, 4, 8, 4, 3
 C4_SPP, C4_CHUNK = 1024, 128
 BOUNCE_REPS, K7_REPS = 9, 10
 SPIN_CYCLES = 2_000_000  # about 1 ms on the H100: device_ms's event timing
-KERNELS = ("pt_kernel", "pt_rebin_kernel", "instanced_kernel")
+KERNELS = ("pt_kernel", "pt_rebin_kernel", "instanced_kernel", "traverse_kernel",
+           "depth_kernel", "pyramid_kernel")
+K1_NAMES = ("depth_kernel", "pyramid_kernel")  # K1 before and after it took every level
+CONE_SIZE, CONE_POSES, K8_REPS, RAW_FRAMES = (1920, 1088), 24, 20, 3
+C3_LIGHT = (6.0, 4.0, 6.0)
 # K4's instantiations by mesh kind (csrc/pt.cuh kMeshNone, kMeshClusters,
 # kMeshInstances); a checkout before them has one pt_kernel
 MESH_KINDS = {0: "none", 1: "clusters", 2: "instances"}
@@ -139,7 +166,8 @@ def setup(device):
         materials=[{"albedo": (0.7, 0.6, 0.4), "kind": DIFFUSE},
                    {"albedo": (0, 0, 0), "emission": (10.0,) * 3, "kind": DIFFUSE},
                    {"albedo": (0.5, 0.5, 0.6), "kind": DIFFUSE}])
-    c3 = dict(cfg=PTConfig(width=512, height=512, max_bounces=2, rng="pcg"), scene=scene, bvh=cs)
+    c3 = dict(cfg=PTConfig(width=512, height=512, max_bounces=2, rng="pcg"), scene=scene, bvh=cs,
+              mesh=mesh)
 
     knot = torus_knot(segments=550, sides=32)
     base = build_clusters(knot, device=device)
@@ -249,10 +277,59 @@ def device_ms(launch, reps: int, name: str, setup=lambda k: None) -> float:
     return ms
 
 
-def frames(root, card, label, fn, c, quat, seed, n_frames, spp=1, kernel=None):
+def device_sum_ms(launch, reps: int, names) -> tuple[float, list]:
+    """Device time (ms) of the kernels whose names contain one of `names`,
+    summed over each of reps calls of launch(k) and averaged, by
+    torch.profiler (after one call outside it); and the mean time of each
+    such launch by its place in the call. Where three profiled runs record
+    no device event, by CUDA events around each call enqueued behind a spin
+    kernel (the call's gaps between launches included), places not split.
+    Raises unless the time is finite and positive."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    launch(reps)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for k in range(reps):
+                launch(k)
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in sorted(prof.events(),
+                                                         key=lambda e: e.time_range.start)
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and any(n in e.name for n in names)]
+        if us and len(us) % reps == 0:
+            per = len(us) // reps
+            ms = sum(us) / 1e3 / reps
+            places = [sum(us[i::per]) / 1e3 / reps for i in range(per)]
+            break
+    else:
+        times = []
+        for k in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPIN_CYCLES)
+            start.record()
+            launch(k)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        ms, places = sum(times) / reps, []
+        print(f"  {names}: no whole set of device events in 3 profiled runs; CUDA events behind "
+              "a spin kernel", flush=True)
+    if not (math.isfinite(ms) and ms > 0.0):
+        raise RuntimeError(f"{names}: no device time measured ({ms})")
+    return ms, places
+
+
+def frames(root, card, label, fn, c, quat, seed, n_frames, spp=1, kernel=None, summed=False):
     """Best ms/frame of ROUNDS rounds of n_frames chained frames with distinct
     camera z by CUDA events (host enqueue beside), the image's hash and,
-    with `kernel`, the profiler's device time of that kernel in one frame."""
+    with `kernel`, the profiler's device time of that kernel in one frame
+    (with `summed`, of every launch of it in the frame)."""
     import torch
 
     device = quat.device
@@ -274,7 +351,13 @@ def frames(root, card, label, fn, c, quat, seed, n_frames, spp=1, kernel=None):
         if best is None or ms < best[0]:
             best = (ms, host)
     dev = ""
-    if kernel:
+    if kernel and summed:
+        dev_ms, places = device_sum_ms(
+            lambda k: fn(c["cfg"], c["scene"], zs[k % n_frames], quat, spp, **kw),
+            BOUNCE_REPS, (kernel,))
+        dev = (f", {kernel} {dev_ms:.4f} ms a frame (device time, {len(places)} launches: "
+               f"{' / '.join(f'{x:.4f}' for x in places)})")
+    elif kernel:
         dev_ms = device_ms(lambda k: fn(c["cfg"], c["scene"], zs[k % n_frames], quat, spp, **kw),
                            BOUNCE_REPS, kernel, setup=lambda k: k)
         dev = f", {kernel} {dev_ms:.4f} ms (device time)"
@@ -332,6 +415,120 @@ def sphere_rows(root, card, device, quat, seed):
           f"{C4_CHUNK}-spp chunk (device time), image {digest(acc)} [{card}]", flush=True)
 
 
+def cone_rows(root, card, device):
+    """The cone march at CONE_SIZE: frames of the CONE_POSES orbit poses by
+    CUDA events (best of ROUNDS, host enqueue beside), K1's device time a
+    frame and by launch, the first frame's image and pyramid hashed."""
+    import torch
+
+    import raytracing_engine_tpu_torch as rtt
+    from raytracing_engine_tpu_torch.camera import Camera, orbit_path
+    from raytracing_engine_tpu_torch.models import cuda_renderer
+
+    cfg = rtt.RenderConfig(*CONE_SIZE)
+    scene = rtt.default_scene(device)
+    positions, rotations = orbit_path(CONE_POSES, radius=16.0)
+    quats = Camera(positions, rotations).quat().to(device)
+    positions = positions.to(device)
+
+    def render(k):
+        return cuda_renderer.render(cfg, scene, positions[k % CONE_POSES], quats[k % CONE_POSES])
+
+    img = render(0)
+    levels = cuda_renderer.render_depth_pyramid(cfg, scene, positions[0], quats[0])
+    best = None
+    for _ in range(ROUNDS):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for k in range(CONE_POSES):
+            render(k)
+        host = (time.perf_counter() - t0) * 1e3 / CONE_POSES
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / CONE_POSES
+        if best is None or ms < best[0]:
+            best = (ms, host)
+    k1, places = device_sum_ms(render, CONE_POSES, K1_NAMES)
+    size = f"{cfg.width}x{cfg.height}"
+    print(f"  {root}: cone march {size} frame: best {best[0]:.4f} ms/frame (host enqueue "
+          f"{best[1]:.4f} ms), K1 {k1:.4f} ms a frame (device time; {len(places)} launches a "
+          f"frame: {' / '.join(f'{x:.4f}' for x in places)}), image {digest(img)} [{card}]",
+          flush=True)
+    print(f"  {root}: cone march {size} pyramid: {len(levels)} levels, outputs "
+          f"{digest(*levels)} [{card}]", flush=True)
+    return best[0], best[1], k1
+
+
+def k8_rows(root, card, device, c3, quat, seed):
+    """K8 on config 3's knot as a raw BVH: the camera, bounce-1 and NEE-style
+    shadow rays of chip_smoke.py phase 13 (device time, outputs hashed), and
+    render_pt_fast(bvh=BVH) frames with K8's device time summed a frame."""
+    import torch
+
+    from raytracing_engine_tpu_torch.accel import build_bvh
+    from raytracing_engine_tpu_torch.ops.cuda import bvh_traverse as kbvh
+    from raytracing_engine_tpu_torch.ops.cuda import pt
+    from raytracing_engine_tpu_torch.ops.rng_pcg import pass_seed, uniform_pcg
+    from raytracing_engine_tpu_torch.pathtracer.wavefront import (
+        BVH_MAX_STEPS,
+        _camera_rays,
+        render_pt_fast,
+    )
+
+    cfg, scene = c3["cfg"], c3["scene"]
+    bvh = build_bvh(c3["mesh"], device=device)
+    tables = kbvh.tables_of(bvh)
+    pos = torch.zeros(3, device=device)
+    u = uniform_pcg(pass_seed(seed, 0), 0, 2, cfg.height, cfg.width, device=device)
+    o0, d0 = (tuple(x.contiguous() for x in r) for r in _camera_rays(cfg, pos, quat, u[0], u[1]))
+    _, _, run = pt.rebin_bounce_launcher(cfg, scene, pos, quat, seed, c3["bvh"])
+    state, _ = run(0, None, 0)
+    o1 = tuple(state[a].clone() for a in range(3))
+    d1 = tuple(state[3 + a].clone() for a in range(3))
+    light = torch.tensor(C3_LIGHT, device=device)
+    to_l = tuple(light[a] - o1[a] for a in range(3))
+    dist = torch.sqrt(to_l[0] * to_l[0] + to_l[1] * to_l[1] + to_l[2] * to_l[2])
+    wi = tuple(c / dist for c in to_l)
+    total = 0.0
+    for label, o, d, t_max, kw in (
+            ("camera rays, closest", o0, d0, float("inf"), {}),
+            ("bounce-1 rays, closest", o1, d1, float("inf"), {}),
+            ("bounce-1 NEE shadow rays, any hit", o1, wi, dist * 0.999, dict(any_hit=True))):
+        out = kbvh.bvh_intersect_packet(tables, o, d, t_max, max_steps=BVH_MAX_STEPS, **kw)
+        ms = device_ms(lambda _, o=o, d=d, t_max=t_max, kw=kw: kbvh.bvh_intersect_packet(
+            tables, o, d, t_max, max_steps=BVH_MAX_STEPS, **kw), K8_REPS, "traverse_kernel")
+        total += ms
+        print(f"  {root}: K8 config 3 raw BVH {cfg.width}x{cfg.height} {label}: {ms:.4f} ms "
+              f"(device time), outputs {digest(*out)} [{card}]", flush=True)
+    print(f"  {root}: K8 config 3 raw BVH: the three ray sets {total:.4f} ms [{card}]", flush=True)
+    frames(root, card, "config 3 512x512 render_pt_fast(bvh=BVH)", render_pt_fast,
+           dict(cfg=cfg, scene=scene, bvh=bvh), quat, seed, RAW_FRAMES, kernel="traverse_kernel",
+           summed=True)
+
+
+def variant(root: str, settings) -> Path:
+    """A copy of root's package in a temporary directory with each NAME=VALUE
+    of `settings` set (see the module docstring); -> the copy's root."""
+    tmp = Path(tempfile.mkdtemp(prefix="ab_variant_"))
+    pkg = tmp / "raytracing_engine_tpu_torch"
+    shutil.copytree(Path(root) / "raytracing_engine_tpu_torch", pkg,
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    files = sorted((pkg / "csrc").glob("*.cu*")) + sorted((pkg / "ops" / "cuda").glob("*.py"))
+    for item in settings:
+        name, value = item.split("=", 1)
+        pattern = re.compile(rf"^(\s*constexpr int {name} = )[^;\n]+;|^({name} = )\S+$", re.M)
+        hits = [(f, m) for f in files for m in pattern.finditer(f.read_text())]
+        if len(hits) != 1:
+            raise SystemExit(f"ab_config3: {name} is set {len(hits)} times in {root}, not once")
+        f, m = hits[0]
+        text = f.read_text()
+        new = f"{m.group(1)}{value};" if m.group(1) else f"{m.group(2)}{value}"
+        f.write_text(text[:m.start()] + new + text[m.end():])
+    return tmp
+
+
 def sphere_worker(root: str) -> int:
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
@@ -353,8 +550,62 @@ def sphere_worker(root: str) -> int:
     return 0
 
 
-def worker(root: str) -> int:
-    sys.path.insert(0, str(Path(root).resolve()))
+def cone_worker(root: str, settings=()) -> int:
+    path = variant(root, settings) if settings else Path(root).resolve()
+    root = root + (f" [{' '.join(settings)}]" if settings else "")
+    sys.path.insert(0, str(path))
+    import torch
+
+    from raytracing_engine_tpu_torch.ops.cuda import common
+
+    if not torch.cuda.is_available():
+        print("ab_config3: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+    info = common.build()
+    for name, regs, stack, st, ld, smem in ptxas_lines(info["log"]):
+        if name in K1_NAMES:
+            print(f"  {root}: ptxas {name}: {regs} registers, {stack} B stack, spill stores {st} "
+                  f"B / loads {ld} B, {smem} B static smem", flush=True)
+    frame, host, k1 = cone_rows(root, card, torch.device("cuda", 0))
+    print(f"CONE {frame} {host} {k1}", flush=True)
+    if settings:
+        shutil.rmtree(path, ignore_errors=True)
+    return 0
+
+
+def cone_ab(a: str, b: str, pairs: int) -> int:
+    """PAIRS pairs of --cone-worker runs, A B B A A B ...; see the module
+    docstring."""
+    runs, hashes = {a: [], b: []}, {}
+    order = [(a, b) if k % 2 == 0 else (b, a) for k in range(pairs)]
+    for pair in order:
+        for root in pair:
+            proc = subprocess.run([sys.executable, __file__, "--cone-worker", root], timeout=300,
+                                  capture_output=True, text=True)
+            sys.stdout.write("".join(line + "\n" for line in proc.stdout.splitlines()
+                                     if not line.startswith("CONE ")))
+            sys.stderr.write(proc.stderr)
+            if proc.returncode != 0:
+                return proc.returncode
+            line = next(x for x in proc.stdout.splitlines() if x.startswith("CONE "))
+            runs[root].append(tuple(float(x) for x in line.split()[1:]))
+            for m in re.finditer(r": (cone march .*?): .*(?:image|outputs) (\w{16})", proc.stdout):
+                hashes.setdefault(m.group(1), set()).add(m.group(2))
+    for label, i in (("frame ms (events)", 0), ("host enqueue ms", 1), ("K1 ms a frame", 2)):
+        below = sum(y[i] < x[i] for x, y in zip(runs[a], runs[b]))
+        print(f"{label}: A {' '.join(f'{x[i]:.4f}' for x in runs[a])}; "
+              f"B {' '.join(f'{y[i]:.4f}' for y in runs[b])}; B below A in {below} of {pairs} "
+              f"pairs [{card_line()}]", flush=True)
+    same = all(len(v) == 1 for v in hashes.values())
+    print(f"outputs equal at A and B bit for bit (sha256 of every output): {same}", flush=True)
+    return 0 if same else 1
+
+
+def worker(root: str, settings=()) -> int:
+    path = variant(root, settings) if settings else Path(root).resolve()
+    root = root + (f" [{' '.join(settings)}]" if settings else "")
+    sys.path.insert(0, str(path))
     import torch
 
     from raytracing_engine_tpu_torch.ops.cuda import common, pt
@@ -398,6 +649,10 @@ def worker(root: str) -> int:
                        K7_REPS, "instanced_kernel")
         print(f"  {root}: K7 config 5 Phong 1920x1088 {label}: {ms:.4f} ms (device time), "
               f"outputs {digest(*out)} [{card}]", flush=True)
+    cone_rows(root, card, device)
+    k8_rows(root, card, device, c3, quat, seed)
+    if settings:
+        shutil.rmtree(path, ignore_errors=True)
     return 0
 
 
@@ -578,14 +833,18 @@ def lanes(root: str) -> int:
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--worker":
-        return worker(sys.argv[2])
+    if len(sys.argv) >= 3 and sys.argv[1] == "--worker":
+        return worker(sys.argv[2], sys.argv[3:])
     if len(sys.argv) == 3 and sys.argv[1] == "--lanes":
         return lanes(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--bound5":
         return bound5(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--sphere-worker":
         return sphere_worker(sys.argv[2])
+    if len(sys.argv) >= 3 and sys.argv[1] == "--cone-worker":
+        return cone_worker(sys.argv[2], sys.argv[3:])
+    if len(sys.argv) in (4, 5) and sys.argv[1] == "--cone":
+        return cone_ab(sys.argv[2], sys.argv[3], int(sys.argv[4]) if len(sys.argv) == 5 else 10)
     mode = "--worker"
     if len(sys.argv) == 4 and sys.argv[1] == "--spheres":
         mode = "--sphere-worker"

@@ -5,13 +5,16 @@ Phases, each printing its own lines:
   1. the card's name and power limit; the CUDA kernels built from csrc/;
   2. each kernel against its plain PyTorch version on the card, at the
      1920x1088 configuration's shapes (atol 2e-5, rtol 1e-5, at most 1e-4 of
-     the elements diverging);
+     the elements diverging); K1, the pyramid in one launch, bit for bit
+     against the plain pyramid at every level, at 1920x1088 and 1280x720, for
+     levels 0..N-1 and 0..N-2 in one launch and for each level alone;
   3. the fused renderer against the two-kernel renderer, bit for bit;
   4. a 64x64 render against tests/golden/golden_64.npz;
   5. the main path at 1920x1088 through its user entry points (FrameLoop,
      render_sequence) under the kernels' launch counters;
-  6. CUDA-event timings of each kernel and of the whole frame, beside the
-     plain versions and each kernel's least time (utils/timing.bound_ms);
+  6. CUDA-event timings of each kernel and of the whole frame (host enqueue
+     beside), beside the plain versions and each kernel's least time
+     (utils/timing.bound_ms); K1's device time a frame by torch.profiler;
   7. the path tracer's kernel K4 against its plain version on the card at
      BASELINE config 2 (material_spheres, 800x608, 4 bounces, 4 spp) and one
      config-4 chunk (cornell_box, 256x256, 4 bounces, 128 spp), held to the
@@ -65,9 +68,12 @@ Phases, each printing its own lines:
  13. config 3's mesh as a raw BVH (accel.build_bvh) and kernel K8 against
      its plain version on the card, bit for bit: the 512x512 camera rays and
      the bounce-1 rays (closest hit), the NEE-style shadow rays (any hit,
-     t_max = 0.999 of the light distance), axis-parallel and parked rays;
-     K8 timed beside K6 on the same camera rays (device time by
-     torch.profiler, CUDA events beside), and K8's least time;
+     t_max = 0.999 of the light distance), axis-parallel and parked rays,
+     the duplicated icosphere (every hit a tie) at its vertices and edges,
+     walks cut at max_steps = 7 (the icosphere) and 24 (the camera rays),
+     and ragged ray counts through the knot (a 13 x 509 band and 507 rays of
+     the middle row, neither a whole number of warps); K8 timed on the camera, bounce-1 and shadow rays (device time
+     by torch.profiler), beside K6 on the camera rays, and K8's least time;
  14. BASELINE config 5 (benchmarks/run_all.py:317-500: 30 instances of a
      35,200-triangle torus knot, 1,056,000 triangles) and kernel K7 against
      its plain version, bit for bit: on 2 x 2 instances of the knot at
@@ -143,6 +149,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "golden_64.npz"
 SIZE = (1920, 1088)
+K1_SIZE = (1280, 720)  # a second pyramid whose levels are not exact doubles
 
 # compiled kernel vs plain version: the repo's compiled-vs-reference bound
 # (tests_tpu/test_compiled_kernels.py); isolated silhouette pixels may flip
@@ -216,6 +223,10 @@ K7_REPS = 10
 # timing enqueues ahead of a launch, so the card waits on no host work
 SPIN_CYCLES = 2_000_000
 K8_REPS = 20
+# node caps that cut walks (phase 13): 7 on the duplicated icosphere; 24 on
+# config 3's camera rays, where 1.1% of the rays hit by then against 3.4%
+# uncut (the plain traversal on the CPU)
+K8_CUT_STEPS = (7, 24)
 RAW_FRAMES = 3       # config-3 render_pt_fast frames with the raw BVH per round
 
 # kernel K9 (phase 16): the threefry and pallas streams at config 2
@@ -295,19 +306,42 @@ def phase_build():
         f"sm_90a, --fmad=false)")
 
 
-def phase_kernels(cfg, scene, pos, quat):
-    """Each kernel vs its plain version on the same inputs; → max errors."""
+def hold_k1(cfg, scene, pos, quat) -> float:
+    """K1 against the plain pyramid at every level, bit for bit: levels
+    0..N-1 and 0..N-2 in one launch each, and each level alone seeded from
+    the plain level before; -> the max abs error (0)."""
     from raytracing_engine_tpu_torch.models import conemarch
-    from raytracing_engine_tpu_torch.ops.cuda import depth, fused, shade
+    from raytracing_engine_tpu_torch.ops.cuda import depth
 
     plain = conemarch.render_depth_pyramid(cfg, scene, pos, quat)
-    errs = {"depth": 0.0}
-    for i in range(cfg.level_count):
-        prev = plain[i - 1] if i else None
-        got = depth.depth_level(cfg, i, scene, pos, quat, prev)
-        want = depth.depth_level_reference(cfg, i, scene, pos, quat, prev)
-        err = hold(f"K1 depth level {i} {tuple(got.shape)}", got, want, KERNEL_TOL, KERNEL_FRAC)
-        errs["depth"] = max(errs["depth"], err)
+    n = cfg.level_count
+    runs = [(f"0..{n - 1} in one launch", depth.depth_pyramid(cfg, scene, pos, quat)),
+            (f"0..{n - 2} in one launch", depth.depth_pyramid(cfg, scene, pos, quat, n - 2))]
+    runs.append(("each level alone", tuple(
+        depth.depth_level(cfg, i, scene, pos, quat, plain[i - 1] if i else None)
+        for i in range(n))))
+    err = 0.0
+    for label, levels in runs:
+        for i, got in enumerate(levels):
+            err = max(err, hold(f"K1 {cfg.width}x{cfg.height} levels {label}, level {i} "
+                                f"{tuple(got.shape)}", got, plain[i], KERNEL_TOL, KERNEL_FRAC))
+            if not torch.equal(got, plain[i]):
+                raise AssertionError(f"K1 {label}: level {i} differs from the plain pyramid "
+                                     f"on {(got != plain[i]).double().mean().item():.6g} of "
+                                     "pixels")
+        log(f"  K1 {cfg.width}x{cfg.height} levels {label}: every level bit for bit")
+    return err
+
+
+def phase_kernels(cfg, scene, pos, quat):
+    """Each kernel vs its plain version on the same inputs; → max errors."""
+    import raytracing_engine_tpu_torch as rtt
+    from raytracing_engine_tpu_torch.models import conemarch
+    from raytracing_engine_tpu_torch.ops.cuda import fused, shade
+
+    plain = conemarch.render_depth_pyramid(cfg, scene, pos, quat)
+    errs = {"depth": max(hold_k1(cfg, scene, pos, quat),
+                         hold_k1(rtt.RenderConfig(*K1_SIZE), scene, pos, quat))}
     errs["shade"] = hold(
         "K3 shade", shade.shade(cfg, scene, pos, quat, plain[-1]),
         shade.shade_reference(cfg, scene, pos, quat, plain[-1]), KERNEL_TOL, KERNEL_FRAC)
@@ -402,10 +436,10 @@ def phase_main_path(cfg, scene):
     log(f"  render_sequence two-kernel == fused bit for bit ({TWO_KERNEL} poses)")
 
     n_fused = WALK + ORBIT
-    want = {"depth": (cfg.level_count - 1) * n_fused + cfg.level_count * TWO_KERNEL,
-            "fused": n_fused, "shade": TWO_KERNEL}
-    log(f"  launches {counts} (expected {want}: {cfg.level_count - 1} K1 + 1 K2 per fused "
-        f"frame x {n_fused}, {cfg.level_count} K1 + 1 K3 per two-kernel frame x {TWO_KERNEL})")
+    want = {"depth": n_fused + TWO_KERNEL, "fused": n_fused, "shade": TWO_KERNEL}
+    log(f"  launches {counts} (expected {want}: 1 K1 (levels 0..{cfg.level_count - 2}) + 1 K2 "
+        f"per fused frame x {n_fused}, 1 K1 (levels 0..{cfg.level_count - 1}) + 1 K3 per "
+        f"two-kernel frame x {TWO_KERNEL})")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
     return counts
@@ -449,13 +483,17 @@ def phase_timing(cfg, scene, card):
     poses = [(positions[k], quats[k]) for k in range(TIMED)]
     last = cfg.level_count - 1
 
-    def coarse(level_fn, k):
+    def coarse(k):
+        """K1: the coarse levels 0..last-1 in one launch -> level last-1."""
+        return depth.depth_pyramid(cfg, scene, *poses[k], last - 1)[-1]
+
+    def coarse_plain(k):
         prev = None
         for i in range(last):
-            prev = level_fn(cfg, i, scene, *poses[k], prev)
+            prev = depth.depth_level_reference(cfg, i, scene, *poses[k], prev)
         return prev
 
-    prevs = [coarse(depth.depth_level, k) for k in range(TIMED)]
+    prevs = [coarse(k) for k in range(TIMED)]
     finest = [depth.depth_level(cfg, last, scene, *poses[k], prevs[k]) for k in range(TIMED)]
     torch.cuda.synchronize(device)
 
@@ -463,9 +501,10 @@ def phase_timing(cfg, scene, card):
     pixels = cfg.width * cfg.height
 
     def coarse_work(st):
-        """K1 over the coarse levels: read the previous level, write one."""
-        n_bytes = sum(4 * w * h + (4 * dims[i - 1][0] * dims[i - 1][1] if i else 0)
-                      for i, (w, h) in enumerate(dims[:last]))
+        """K1 over the coarse levels 0..last-1 in one launch from level 0: it
+        writes every level and reads none (a level read back to seed the
+        next is the kernel's own traffic, not the function's)."""
+        n_bytes = sum(4 * w * h for w, h in dims[:last])
         n_ops = RAY_DIR_OPS * sum(w * h for w, h in dims[:last])
         return n_bytes, n_ops + march_ops(st["march"], n_obj)
 
@@ -480,16 +519,23 @@ def phase_timing(cfg, scene, card):
                  + shade_ops(pixels, n_obj, n_light))
         return 16 * pixels, n_ops
 
-    def timed(label, kernel_fn, plain_fn, plain_reps, work=None):
+    def timed(label, kernel_fn, plain_fn, plain_reps, work=None, kernel=None):
         """Kernel and plain ms; with `work`, the least time of the kernel's
         work, its operations counted from the march steps the plain version
-        took on the same poses (the first plain_reps of them)."""
+        took on the same poses (the first plain_reps of them). With `kernel`
+        (a kernel launched once a call), ms is that kernel's device time by
+        the profiler (device_ms), the event time beside it."""
         kernel_fn(0)  # warm-up
         plain_fn(0)
         ms, host_ms = cuda_ms(kernel_fn, TIMED)
         march.steps.update(march=0, shadow=0)
         plain_ms, _ = cuda_ms(plain_fn, plain_reps)
         out = {"ms": ms, "plain_ms": plain_ms}
+        events = ""
+        if kernel is not None:
+            out["ms"] = device_ms(kernel_fn, TIMED, kernel, setup=lambda k: k % TIMED)
+            events = f" device time a call, {ms:.4f} ms by CUDA events"
+            ms = out["ms"]
         bound = ""
         if work is not None:
             st = {k: int(v) // plain_reps for k, v in march.steps.items()}
@@ -497,15 +543,13 @@ def phase_timing(cfg, scene, card):
             out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, n_ops)
             bound = (f"; bound {out['bound_ms']:.5f} ms by {out['bound_by']} ({n_bytes} B, "
                      f"{n_ops} ops; march steps {st})")
-        log(f"  {label}: kernel {ms:.4f} ms (host enqueue {host_ms:.4f} ms), "
+        log(f"  {label}: kernel {ms:.4f} ms{events} (host enqueue {host_ms:.4f} ms), "
             f"plain {plain_ms:.4f} ms (x{plain_ms / ms:.1f}){bound} [{card}]")
         return out
 
     t = {}
-    t["depth"] = timed(f"K1 x{last} levels per frame",
-                       lambda k: coarse(depth.depth_level, k),
-                       lambda k: coarse(depth.depth_level_reference, k), PLAIN_REPS,
-                       coarse_work)
+    t["depth"] = timed(f"K1 levels 0..{last - 1} per frame (one launch)", coarse, coarse_plain,
+                       PLAIN_REPS, coarse_work, kernel="pyramid_kernel")
     t["fused"] = timed("K2 fused finest level",
                        lambda k: fused.depth_shade_fused(cfg, scene, *poses[k], prevs[k]),
                        lambda k: fused.fused_reference(cfg, scene, *poses[k], prevs[k]),
@@ -546,15 +590,14 @@ def profile_frames(cfg, scene, poses, frame_ms, card):
     if not events:
         log("  profiler: no device events; device time by kernel not measured")
         return
-    n_levels = cfg.level_count - 1
-    depth_us = [e.time_range.elapsed_us() for e in events if "depth_kernel" in e.name]
+    depth_us = [e.time_range.elapsed_us() for e in events if "pyramid_kernel" in e.name]
     fused_us = [e.time_range.elapsed_us() for e in events if "fused_kernel" in e.name]
     busy_us = sum(e.time_range.elapsed_us() for e in events) / TIMED
-    levels = [sum(depth_us[i::n_levels]) / TIMED for i in range(n_levels)]
     log(f"  profile ({TIMED} frames, profiler on: {prof_ms:.4f} ms/frame): device busy "
         f"{busy_us:.1f} us/frame = {busy_us / 1e3 / frame_ms:.1%} of the unprofiled "
-        f"{frame_ms:.4f} ms frame; K2 {sum(fused_us) / TIMED:.1f} us; K1 by level "
-        f"{[round(x, 1) for x in levels]} us [{card}]")
+        f"{frame_ms:.4f} ms frame; K2 {sum(fused_us) / max(len(fused_us), 1):.1f} us and K1 "
+        f"{sum(depth_us) / max(len(depth_us), 1):.1f} us a launch ({len(fused_us)} and "
+        f"{len(depth_us)} launches recorded) [{card}]")
 
 
 def k4_table_bytes(scene, bvh, pos) -> int:
@@ -1595,11 +1638,10 @@ def k5_bounce_ms(cfg, scene, bvh, pos, quat, seed) -> list:
 
 
 def phase_bvh_kernel(c3, quat, seed, device, card):
-    """K8 against its plain version on config 3's mesh as a raw BVH, bit for
-    bit; K8 timed beside K6 on the same camera rays; -> (K8's results, the
-    BVH)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """K8 against its plain version on config 3's mesh as a raw BVH and on
+    the rays where a walk can break (ties, cut walks, ragged counts), bit
+    for bit; K8 timed on the camera, bounce-1 and shadow rays, beside K6 on
+    the camera rays; -> (K8's results, the BVH)."""
     from raytracing_engine_tpu_torch.accel import build_bvh, icosphere
     from raytracing_engine_tpu_torch.ops.cuda import bvh_traverse as kbvh
     from raytracing_engine_tpu_torch.ops.cuda import cluster
@@ -1618,7 +1660,14 @@ def phase_bvh_kernel(c3, quat, seed, device, card):
     o0, d0, o1, d1, wi, dist = c3_rays(c3, quat, seed, device)
     small = kbvh.tables_of(build_bvh(icosphere(subdivisions=2, radius=1.2,
                                                center=(0.0, 5.0, 0.0)), device=device))
+    dup = kbvh.tables_of(build_bvh(dup_icosphere(), device=device))
     oa, da = axis_parallel_rays(device)
+    rng = np.random.default_rng(11)
+    ov, dv = np_rays(*vertex_rays(dup_icosphere(), 32 * 12 + 5, rng), device)
+    # ragged counts through the middle of the image, where the knot is
+    mid = cfg.height // 2
+    o_rag, d_rag = (tuple(p[mid - 6:mid + 7, 1:510] for p in x) for x in (o0, d0))
+    o_row, d_row = (tuple(p[mid, :].reshape(-1)[5:] for p in x) for x in (o0, d0))
     inf = float("inf")
     steps = dict(max_steps=BVH_MAX_STEPS)  # the wavefront's cap
     size = f"{cfg.width}x{cfg.height}"
@@ -1629,60 +1678,58 @@ def phase_bvh_kernel(c3, quat, seed, device, card):
         ("axis-parallel + parked rays vs icosphere(2), closest", small, oa, da, inf, {}),
         ("axis-parallel + parked rays vs icosphere(2), any hit t_max=2", small, oa, da, 2.0,
          dict(any_hit=True)),
+        ("duplicated icosphere (every hit a tie), vertices and edges, closest", dup, ov, dv,
+         inf, {}),
+        ("duplicated icosphere, vertices and edges, any hit", dup, ov, dv, inf,
+         dict(any_hit=True)),
+        (f"duplicated icosphere, walks cut at max_steps={K8_CUT_STEPS[0]}", dup, ov, dv, inf,
+         dict(max_steps=K8_CUT_STEPS[0])),
+        (f"camera rays {size}, walks cut at max_steps={K8_CUT_STEPS[1]}", tables, o0, d0, inf,
+         dict(max_steps=K8_CUT_STEPS[1])),
+        (f"camera rays, a 13 x 509 band of the middle rows ({13 * 509} rays: ragged blocks "
+         "and warps)", tables, o_rag, d_rag, inf, {}),
+        (f"camera rays, {cfg.width - 5} of the middle row in a flat list (a ragged last warp)",
+         tables, o_row, d_row, inf, {}),
     ]
     err, plain = 0.0, {}
     for k, (label, tb, o, d, t_max, kw) in enumerate(cases):
-        got = kbvh.bvh_intersect_packet(tb, o, d, t_max, **kw, **steps)
+        kw = {**steps, **kw}
+        got = kbvh.bvh_intersect_packet(tb, o, d, t_max, **kw)
         torch.cuda.synchronize(device)
         kbvh.work.update(nodes=0, tests=0)
         t0 = time.perf_counter()
-        want = kbvh.bvh_intersect_packet_reference(tb, o, d, t_max, **kw, **steps)
+        want = kbvh.bvh_intersect_packet_reference(tb, o, d, t_max, **kw)
         torch.cuda.synchronize(device)
-        if k == 0:
-            plain = dict(plain_ms=(time.perf_counter() - t0) * 1e3, **kbvh.work)
+        if k < 3:
+            plain[k] = dict(plain_ms=(time.perf_counter() - t0) * 1e3, **kbvh.work)
         err = max(err, hold_sweep(f"K8 {label}", got, want, "K8"))
 
-    # K8 alone on the camera rays, and K6 on the same rays and mesh: CUDA
-    # events over back-to-back calls, and each kernel's device time by the
-    # profiler (a K8 launch takes about as long as its wrapper's host work,
-    # so the event time can be the host's)
+    # K8 alone on the camera, bounce-1 and shadow rays (the profiler's device
+    # time: a K8 launch takes about as long as its wrapper's host work), and
+    # K6 on the camera rays and the same mesh
     fc = cluster.FrameClusters.at(cs, torch.zeros(3, device=device))
     k6kw = dict(order=fc.orders[0], orders=fc.orders, refs=fc.refs)
-    k8_call = lambda k: kbvh.bvh_intersect_packet(tables, o0, d0, inf, **steps)  # noqa: E731
-    k6_call = lambda k: cluster.cluster_intersect(cs, o0, d0, inf, **k6kw)  # noqa: E731
-    k8_call(0), k6_call(0)  # warm-up
-    ev_ms, host_ms = cuda_ms(k8_call, K8_REPS)
-    k6_ev_ms, _ = cuda_ms(k6_call, K8_REPS)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        cuda_ms(k8_call, K8_REPS)
-        cuda_ms(k6_call, K8_REPS)
-    dev = {"traverse_kernel": [], "cluster_kernel": []}
-    for e in prof.events():
-        for name, times in dev.items():
-            if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name:
-                times.append(e.time_range.elapsed_us() / 1e3)
-    seen = {name: len(v) for name, v in dev.items()}
-    if all(n >= K8_REPS // 2 for n in seen.values()):  # one launch per call
-        ms, k6_ms = (sum(v) / len(v) for v in dev.values())
-        how = f"mean device time per launch by the profiler, launches seen {seen}"
-    else:
-        ms, k6_ms = ev_ms, k6_ev_ms
-        names = sorted({e.name for e in prof.events()
-                        if e.device_type == torch.autograd.DeviceType.CUDA})[:8]
-        how = (f"CUDA events: the profiler saw {seen} of {K8_REPS} launches each; its device "
-               f"events {names}")
     n = cfg.width * cfg.height
-    n_bytes = k8_bytes(n, n_nodes, n_tris)  # a scalar t_max: no plane read
-    n_ops = bvh_ops(plain["nodes"], plain["tests"])
-    bound = bound_ms(n_bytes, n_ops)
-    log(f"  K8 camera rays {size} (closest): kernel {ms:.4f} ms, K6 on the same rays and mesh "
-        f"{k6_ms:.4f} ms ({how}; K8 at {k6_ms / ms:.2f}x its speed); CUDA events over "
-        f"back-to-back calls K8 {ev_ms:.4f} ms (host enqueue {host_ms:.4f} ms), K6 "
-        f"{k6_ev_ms:.4f} ms; plain {plain['plain_ms']:.1f} ms; {plain['nodes']} node + "
-        f"{plain['tests']} triangle tests -> bound {bound[0]:.5f} ms by {bound[1]} ({n_bytes} B, "
-        f"{n_ops} ops), kernel at {bound[0] / ms:.2%} of it [{card}]")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain["plain_ms"], "bound_ms": bound[0],
-            "bound_by": bound[1]}, bvh
+    rows = []
+    for k, label in enumerate(("camera rays", "bounce-1 rays", "shadow rays")):
+        _, tb, o, d, t_max, kw = cases[k]
+        ms = device_ms(lambda _, o=o, d=d, t_max=t_max, kw=kw: kbvh.bvh_intersect_packet(
+            tb, o, d, t_max, **kw, **steps), K8_REPS, "traverse_kernel")
+        n_bytes = k8_bytes(n, n_nodes, n_tris, tmax_plane=k == 2)
+        n_ops = bvh_ops(plain[k]["nodes"], plain[k]["tests"])
+        bound = bound_ms(n_bytes, n_ops)
+        rows.append(dict(ms=ms, plain_ms=plain[k]["plain_ms"], bound_ms=bound[0],
+                         bound_by=bound[1]))
+        log(f"  K8 {label} {size}: {ms:.4f} ms (device time by the profiler, median of "
+            f"{K8_REPS}); plain {plain[k]['plain_ms']:.1f} ms; {plain[k]['nodes']} node + "
+            f"{plain[k]['tests']} triangle tests -> bound {bound[0]:.5f} ms by {bound[1]} "
+            f"({n_bytes} B, {n_ops} ops), kernel at {bound[0] / ms:.2%} of it [{card}]")
+    k6_ms = device_ms(lambda _: cluster.cluster_intersect(cs, o0, d0, inf, **k6kw), K8_REPS,
+                      "cluster_kernel")
+    log(f"  K8 summed over the three ray sets {sum(r['ms'] for r in rows):.4f} ms; K6 on the "
+        f"camera rays and the same mesh {k6_ms:.4f} ms (K8 at {k6_ms / rows[0]['ms']:.2f}x its "
+        f"speed) [{card}]")
+    return {"max_abs_err": err, **rows[0]}, bvh
 
 
 def c5_setup(device):
@@ -2351,7 +2398,7 @@ def main() -> int:
     # Philox, not threefry): library_ms null
     src = "raytracing_engine_tpu_torch/csrc/conemarch.cu"
     kernels = [
-        {"name": "depth_kernel (K1)", "route": "cuda", "source": src,
+        {"name": "pyramid_kernel (K1)", "route": "cuda", "source": src,
          "replaces": "raytracing_engine_tpu/ops/pallas/depth.py:98",
          "launches": counts["depth"], "max_abs_err": errs["depth"], **times["depth"],
          "library_ms": None},

@@ -8,29 +8,34 @@
 // hit of an interior box, the skip link otherwise), Möller-Trumbore over the
 // <= LEAF_SIZE triangles of a leaf.
 //
-// The TPU walks one scalar node cursor per ray tile, because per-lane
-// pointer chasing is what its vector unit cannot do. Here each thread walks
-// its own cursor, which is what a GPU thread does well: per ray the walk is
-// exactly the plain traversal's (accel/bvh.py traverse, JAX accel.bvh.
-// bvh_intersect): the same nodes in the same preorder, at most max_steps of
-// them, the leaf tests in order with the strict tt < t update, and an
-// any-hit ray stops after the leaf of its first hit. So K8 equals its plain
-// version bit for bit.
+// Per ray the walk is exactly the plain traversal's (accel/bvh.py traverse,
+// JAX accel.bvh.bvh_intersect): the same nodes in the same preorder, at most
+// max_steps of them, the leaf tests in order with the strict tt < t update,
+// and an any-hit ray stops after the leaf of its first hit. So K8 equals its
+// plain version bit for bit.
 //
-// What bounds it on this card: divergence and dependent loads, not FP32
-// work or bytes. A ray reads 7 floats and writes 2, and makes tens to
+// What bounds it on this card: the latency of dependent loads, not FP32
+// work or bytes. A ray reads 7 floats and writes 2, and makes a few to
 // hundreds of node tests (28 operations each) and some tens of triangle
-// tests (57 each) whose next address depends on the last. So: one thread per
-// ray, a warp runs the union of its rays' walks, the tables (a 32-byte box
-// record and a 16-byte link record per node, a 48-byte record per triangle:
-// 5.6 MB at BASELINE config 3) are read through the read-only path and stay
-// in the L2; nothing is staged in shared memory.
+// tests (57 each), and each node's address comes from the node before; a
+// warp lasts as long as its longest walk. The design:
+//   - one 32-byte record per node, [min(3), max(3), first * 8 + count,
+//     skip] (the last two int32 bits): one sector, two float4 loads;
+//   - one thread walks one ray, and it loads the records of both successors
+//     of a node (node + 1 and the skip link) as soon as it has the node's
+//     own, so those loads overlap the node's slab and leaf tests and the
+//     next step finds its record already on the way;
+//   - the tables (5.2 MB at BASELINE config 3) are read through the
+//     read-only path and stay in the L2; nothing is staged in shared memory.
+// Measured on the H100 against this form (PERF.md §6): a warp that
+// serves the smallest cursor of its lanes on one record (2.6x slower over a
+// render_pt_fast frame: the union of 32 walks is near their sum), hybrids of
+// the two, 8 x 4 warp tiles of the ray grid instead of 32 consecutive rays,
+// and 128-thread blocks were all slower.
 //
 // Arithmetic: 1/d then products for the slabs, NaN-propagating min/max
 // (cluster.cuh nmin/nmax: an axis-parallel ray gives 0 * inf = NaN), IEEE
 // division, no FMA contraction (--fmad=false).
-//
-// Block: 128 threads over consecutive rays; the ragged end is masked.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC
@@ -38,14 +43,13 @@
 
 namespace bvh {
 
-constexpr int kBlock = 128;
+constexpr int kTraverseBlock = 256;
 constexpr int kLeafSize = 4;  // accel/bvh.py LEAF_SIZE
 
 // Launch arguments, passed by value. Mirrored field for field by
 // TraverseArgs in ops/cuda/bvh_traverse.py.
 struct Args {
-  const float* node_bb;  // (n_nodes, 8) [min(3), max(3), 0, 0]
-  const int* node_meta;  // (n_nodes, 4) [first_tri, tri_count, skip, 0]
+  const float* node;     // (n_nodes, 8) [min(3), max(3), first * 8 + count, skip]
   const float* tri;      // (n_tris, 12) [v0(3), e1(3), e2(3), 0 x3]
   const float* ox;       // (n,) ray origins and directions, one plane each
   const float* oy;
@@ -70,21 +74,27 @@ __device__ __forceinline__ float nmin(float a, float b) {
   return (a < b || a != a) ? a : b;
 }
 
-__global__ void __launch_bounds__(kBlock) traverse_kernel(const Args a) {
-  const int i = blockIdx.x * kBlock + threadIdx.x;
+__global__ void __launch_bounds__(kTraverseBlock) traverse_kernel(const Args a) {
+  const int i = blockIdx.x * kTraverseBlock + threadIdx.x;
   if (i >= a.n) return;
   const float ox = __ldg(a.ox + i), oy = __ldg(a.oy + i), oz = __ldg(a.oz + i);
   const float dx = __ldg(a.dx + i), dy = __ldg(a.dy + i), dz = __ldg(a.dz + i);
   const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
-  const float4* boxes = reinterpret_cast<const float4*>(a.node_bb);
-  const int4* links = reinterpret_cast<const int4*>(a.node_meta);
+  const float4* nodes = reinterpret_cast<const float4*>(a.node);
   const float4* tris = reinterpret_cast<const float4*>(a.tri);
   float t = __ldg(a.tmax + i);
   int idx = -1;
   int node = 0;
+  const int last = a.n_nodes - 1;
+  float4 b0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), b1 = b0;  // the record of `node`
+  if (a.n_nodes > 0) b0 = __ldg(nodes), b1 = __ldg(nodes + 1);
   for (int steps = 0; steps < a.max_steps && node < a.n_nodes; ++steps) {
-    const float4 b0 = __ldg(boxes + 2 * node);      // min x, y, z, max x
-    const float4 b1 = __ldg(boxes + 2 * node + 1);  // max y, z
+    // min x, y, z, max x | max y, z, first * 8 + count, skip; the successors'
+    // records (clamped into the table: a walk past the end reads neither)
+    const int skip = __float_as_int(b1.w);
+    const int down = min(node + 1, last), across = min(skip, last);
+    const float4 d0 = __ldg(nodes + 2 * down), d1 = __ldg(nodes + 2 * down + 1);
+    const float4 s0 = __ldg(nodes + 2 * across), s1 = __ldg(nodes + 2 * across + 1);
     const float tx0 = (b0.x - ox) * ix;
     const float tx1 = (b0.w - ox) * ix;
     const float ty0 = (b0.y - oy) * iy;
@@ -94,11 +104,13 @@ __global__ void __launch_bounds__(kBlock) traverse_kernel(const Args a) {
     const float t_near = nmax(nmax(nmin(tx0, tx1), nmin(ty0, ty1)), nmin(tz0, tz1));
     const float t_far = nmin(nmin(nmax(tx0, tx1), nmax(ty0, ty1)), nmax(tz0, tz1));
     const bool box_hit = t_near <= t_far && t_far > a.t_min && t_near < t;
-    const int4 link = __ldg(links + node);  // first, count, skip
-    const bool leaf = link.x >= 0;
+    const int packed = __float_as_int(b1.z);
+    const int first = packed >> 3;  // -1 at an interior node
+    const bool leaf = first >= 0;
     if (box_hit && leaf) {
-      for (int k = 0; k < kLeafSize && k < link.y; ++k) {
-        const int ti = min(max(link.x + k, 0), a.n_tris - 1);
+      const int count = packed & 7;
+      for (int k = 0; k < kLeafSize && k < count; ++k) {
+        const int ti = min(max(first + k, 0), a.n_tris - 1);
         const float4 r0 = __ldg(tris + 3 * ti);      // v0, e1.x
         const float4 r1 = __ldg(tris + 3 * ti + 1);  // e1.y, e1.z, e2.x, e2.y
         const float4 r2 = __ldg(tris + 3 * ti + 2);  // e2.z
@@ -124,7 +136,10 @@ __global__ void __launch_bounds__(kBlock) traverse_kernel(const Args a) {
       }
     }
     if (a.any_hit && idx >= 0) break;  // a confirmed hit ends an any-hit walk
-    node = (box_hit && !leaf) ? node + 1 : link.z;
+    const bool descend = box_hit && !leaf;
+    node = descend ? node + 1 : skip;
+    b0 = descend ? d0 : s0;
+    b1 = descend ? d1 : s1;
   }
   a.out_t[i] = idx >= 0 ? t : __int_as_float(0x7f800000);
   a.out_idx[i] = idx;
@@ -138,8 +153,8 @@ extern "C" int bvh_traverse(const bvh::Args* a, void* stream) {
   cudaError_t err = cudaSetDevice(a->device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (a->n > 0) {
-    const dim3 grid((a->n + bvh::kBlock - 1) / bvh::kBlock);
-    bvh::traverse_kernel<<<grid, bvh::kBlock, 0, static_cast<cudaStream_t>(stream)>>>(*a);
+    const dim3 grid((a->n + bvh::kTraverseBlock - 1) / bvh::kTraverseBlock);
+    bvh::traverse_kernel<<<grid, bvh::kTraverseBlock, 0, static_cast<cudaStream_t>(stream)>>>(*a);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,6 +34,7 @@ namespace conemarch {
 
 constexpr int kMaxObjects = 8;
 constexpr int kMaxLights = 8;
+constexpr int kMaxLevels = 16;  // pyramid levels a launch can march (RenderConfig.level_count)
 // reference shaders/fragment.glsl:35-37
 constexpr float kCamFallOff = 0.01f;
 constexpr float kLightFallOff = 0.01f;
@@ -55,17 +56,33 @@ struct Args {
   const float* light_pos;    // (8, 3)
   const float* light_color;  // (8, 3)
   const int* light_count;    // ()
-  // input image: the previous level, read at [y/2, x/2], for the depth and
-  // fused kernels (nullptr: seed 1, the near plane); the finest depth, read
-  // at [y, x], for the shade kernel
+  // input image: the level before `first`, read at [y/2, x/2], for the
+  // pyramid and fused kernels (nullptr: seed 1, the near plane); the finest
+  // depth, read at [y, x], for the shade kernel
   const float* src;
   int src_w, src_h;
-  // output: (h, w) depth, or (h, w, 3) RGB
+  // output: (h, w, 3) RGB of the fused and shade kernels; the pyramid
+  // kernel's levels first..last, level l at out + lvl_off[l], (lvl_h[l],
+  // lvl_w[l]) row-major
   float* out;
   int w, h;
-  // per-level constants (RenderConfig)
+  // per-level constants (RenderConfig) of the shade and fused kernels' level
   float img_sx, img_sy, ratio_x, ratio_y, threshold, render_dist;
   int max_march_steps, max_shadow_steps;
+  // the pyramid kernel: levels first..last in one launch of `items` blocks,
+  // one a kTileX x kTileY tile of a level, level-major; lvl_item[l] is
+  // level l's first tile (ops/cuda/depth.pyramid_items). sync: the launch's
+  // ticket and done counters, then a flag a tile, set to `epoch` when the
+  // tile is written (ops/cuda/depth.py keeps one such buffer a stream)
+  int first, last, items, epoch;
+  int* sync;
+  int lvl_item[kMaxLevels];
+  int lvl_w[kMaxLevels];
+  int lvl_h[kMaxLevels];
+  int lvl_off[kMaxLevels];
+  float lvl_sx[kMaxLevels];
+  float lvl_sy[kMaxLevels];
+  float lvl_thr[kMaxLevels];
   int device;  // CUDA ordinal the pointers and the stream belong to
 };
 
@@ -97,10 +114,12 @@ __device__ __forceinline__ float sphere_sdf(float px, float py, float pz,
 }
 
 // normalize(rotate(q, (nc.x, 1, nc.y))) with
-// normCoord = ((id*2+1)*imageSize - 1)*ratio — reference compute.glsl:71-77
-__device__ __forceinline__ float3 ray_dir(const Args& a, int x, int y) {
-  const float ncx = ((static_cast<float>(x) * 2.0f + 1.0f) * a.img_sx - 1.0f) * a.ratio_x;
-  const float ncy = ((static_cast<float>(y) * 2.0f + 1.0f) * a.img_sy - 1.0f) * a.ratio_y;
+// normCoord = ((id*2+1)*imageSize - 1)*ratio — reference compute.glsl:71-77;
+// (img_sx, img_sy) is the level's imageSize
+__device__ __forceinline__ float3 ray_dir_at(const Args& a, float img_sx, float img_sy,
+                                             int x, int y) {
+  const float ncx = ((static_cast<float>(x) * 2.0f + 1.0f) * img_sx - 1.0f) * a.ratio_x;
+  const float ncy = ((static_cast<float>(y) * 2.0f + 1.0f) * img_sy - 1.0f) * a.ratio_y;
   const float qx = __ldg(a.cam_quat), qy = __ldg(a.cam_quat + 1);
   const float qz = __ldg(a.cam_quat + 2), qw = __ldg(a.cam_quat + 3);
   const float vx = ncx, vy = 1.0f, vz = ncy;
@@ -113,6 +132,10 @@ __device__ __forceinline__ float3 ray_dir(const Args& a, int x, int y) {
   const float rz = vz + 2.0f * (qx * ty - qy * tx);
   const float n = sqrtf(rx * rx + ry * ry + rz * rz);
   return make_float3(rx / n, ry / n, rz / n);
+}
+
+__device__ __forceinline__ float3 ray_dir(const Args& a, int x, int y) {
+  return ray_dir_at(a, a.img_sx, a.img_sy, x, y);
 }
 
 // Algorithm-3 cone march from o along unit d; returns the marched length.
@@ -189,19 +212,22 @@ __device__ __forceinline__ float shadow_ray(float3 o, float3 d, float end,
   return nearest;
 }
 
-// One pyramid-level depth: the seed from the previous level's pixel
-// [y/2, x/2] (compute.glsl:79-82), the march, then max(seed + len, 0) (:86).
-__device__ __forceinline__ float march_depth(const Args& a, const Spheres& s,
-                                             float3 d, int x, int y) {
-  const float seed =
-      a.src != nullptr
-          ? __ldg(a.src + static_cast<size_t>(y >> 1) * a.src_w + (x >> 1))
-          : 1.0f;
+// One pyramid-level depth from its seed: the march from the seed's point
+// along d at the level's threshold, then max(seed + len, 0) (compute.glsl:86).
+__device__ __forceinline__ float depth_from(const Args& a, const Spheres& s, float3 d,
+                                            float seed, float threshold) {
   const float3 o = make_float3(__ldg(a.cam_pos) + d.x * seed,
                                __ldg(a.cam_pos + 1) + d.y * seed,
                                __ldg(a.cam_pos + 2) + d.z * seed);
-  const float length = march_ray(o, d, a.threshold, s, a.render_dist, a.max_march_steps);
+  const float length = march_ray(o, d, threshold, s, a.render_dist, a.max_march_steps);
   return fmaxf(seed + length, 0.0f);
+}
+
+// The seed of pixel (x, y): the previous level's pixel [y/2, x/2] in src
+// (compute.glsl:79-82), or 1 (the near plane) without one.
+__device__ __forceinline__ float src_seed(const Args& a, int x, int y) {
+  return a.src != nullptr ? __ldg(a.src + static_cast<size_t>(y >> 1) * a.src_w + (x >> 1))
+                          : 1.0f;
 }
 
 // Phong shading with soft shadows of one pixel at `depth` along d

@@ -1,29 +1,24 @@
 """Cone-march renderer through the CUDA kernels.
 
-The launch sequence of raytracing_engine_tpu/models/pallas_renderer.py: with
-``fused=True`` (level_count - 1) depth launches (K1), then one fused
-march + shade launch (K2); with ``fused=False`` every level through K1, then
-the shade kernel (K3). Each level reads the previous one directly, so no
-upsample pass runs between launches. Scenes on the CPU go through the
-kernels' plain versions.
+The launch sequence of raytracing_engine_tpu/models/pallas_renderer.py, with
+the pyramid in one launch: with ``fused=True`` one K1 launch of levels
+0..level_count - 2, then one fused march + shade launch (K2); with
+``fused=False`` one K1 launch of every level, then the shade kernel (K3).
+Each launch reads the previous level directly, so no upsample pass runs.
+Scenes on the CPU go through the kernels' plain versions.
 """
 
 from __future__ import annotations
 
 from raytracing_engine_tpu_torch.config import RenderConfig
-from raytracing_engine_tpu_torch.ops.cuda.depth import depth_level
+from raytracing_engine_tpu_torch.ops.cuda.depth import depth_pyramid
 from raytracing_engine_tpu_torch.ops.cuda.fused import depth_shade_fused
 from raytracing_engine_tpu_torch.ops.cuda.shade import shade
 
 
 def render_depth_pyramid(cfg: RenderConfig, scene, cam_pos, cam_quat):
-    """All levels, coarse → fine: a tuple of (h, w) tensors."""
-    levels = []
-    prev = None
-    for i in range(cfg.level_count):
-        prev = depth_level(cfg, i, scene, cam_pos, cam_quat, prev)
-        levels.append(prev)
-    return tuple(levels)
+    """All levels, coarse → fine: a tuple of (h, w) tensors (one K1 launch)."""
+    return depth_pyramid(cfg, scene, cam_pos, cam_quat)
 
 
 def render(cfg: RenderConfig, scene, cam_pos, cam_quat, fused=True):
@@ -32,7 +27,6 @@ def render(cfg: RenderConfig, scene, cam_pos, cam_quat, fused=True):
     if not fused:
         depth = render_depth_pyramid(cfg, scene, cam_pos, cam_quat)[-1]
         return shade(cfg, scene, cam_pos, cam_quat, depth)
-    prev = None
-    for i in range(cfg.level_count - 1):
-        prev = depth_level(cfg, i, scene, cam_pos, cam_quat, prev)
+    last = cfg.level_count - 2
+    prev = depth_pyramid(cfg, scene, cam_pos, cam_quat, last)[-1] if last >= 0 else None
     return depth_shade_fused(cfg, scene, cam_pos, cam_quat, prev)

@@ -12,9 +12,11 @@ accepted and ignored. Rays on the CPU take the plain version,
 
 Each ray walks its own node cursor (the TPU kernel walks one per tile), so
 per ray the kernel visits the nodes the plain traversal visits, in the same
-order, and agrees with it bit for bit. ``work`` counts the node and
-triangle tests the plain version made, for the kernel's bound
-(utils/timing.py).
+order, and agrees with it bit for bit. A node is one 32-byte
+record, ``[min(3), max(3), first * 8 + count, skip]`` with the last two
+stored as int32 bits (``pack_bvh_tables``); the plain version decodes the
+same record. ``work`` counts the node and triangle tests the plain version
+made, for the kernel's bound (utils/timing.py).
 """
 
 from __future__ import annotations
@@ -41,8 +43,7 @@ class TraverseArgs(ctypes.Structure):
     """Mirror of ``bvh::Args`` (csrc/bvh.cu), field for field."""
 
     _fields_ = [
-        ("node_bb", ctypes.c_void_p),
-        ("node_meta", ctypes.c_void_p),
+        ("node", ctypes.c_void_p),
         ("tri", ctypes.c_void_p),
         ("ox", ctypes.c_void_p),
         ("oy", ctypes.c_void_p),
@@ -63,31 +64,50 @@ class TraverseArgs(ctypes.Structure):
     ]
 
 
+# a leaf's first triangle and its count share one int32 as first * 8 + count
+# (an interior node: -1 * 8 + 0); first + 7 must stay below 2^28
+COUNT_BITS = 3
+MAX_TRIS = 1 << (31 - COUNT_BITS)
+
+
 @dataclasses.dataclass
 class BVHTables:
     """A BVH as the kernel reads it (csrc/bvh.cu): one record per node and
     per triangle, nothing transposed."""
 
-    node_bb: torch.Tensor    # (N, 8) f32 [min(3), max(3), 0, 0]
-    node_meta: torch.Tensor  # (N, 4) int32 [first_tri, tri_count, skip, 0]
-    tri: torch.Tensor        # (T, 12) f32 [v0(3), e1(3), e2(3), 0 x3]
+    node: torch.Tensor  # (N, 8) f32 [min(3), max(3), first * 8 + count, skip] (int32 bits)
+    tri: torch.Tensor   # (T, 12) f32 [v0(3), e1(3), e2(3), 0 x3]
 
     @property
     def device(self) -> torch.device:
-        return self.node_bb.device
+        return self.node.device
+
+    def links(self):
+        """(first, count, skip) int32 (N,) decoded from the node records."""
+        packed, skip = self.node[:, 6:8].view(torch.int32).unbind(1)
+        return packed >> COUNT_BITS, packed & ((1 << COUNT_BITS) - 1), skip
 
 
 def pack_bvh_tables(bvh: BVH, device=None) -> BVHTables:
-    """The kernel's records of `bvh`, on `device` (None: the CUDA card)."""
+    """The kernel's records of `bvh`, on `device` (None: the CUDA card).
+    Raises for a BVH whose leaves the node record cannot hold: MAX_TRIS or
+    more triangles, or a leaf of more than 7."""
     device = resolve(device)
-    f32, i32 = torch.float32, torch.int32
     n, t = bvh.bb_min.shape[0], bvh.v0.shape[0]
-    dev = bvh.device
-    node_bb = torch.cat([bvh.bb_min, bvh.bb_max, torch.zeros((n, 2), dtype=f32, device=dev)], 1)
-    node_meta = torch.stack([bvh.first_tri.to(i32), bvh.tri_count.to(i32), bvh.skip.to(i32),
-                             torch.zeros(n, dtype=i32, device=dev)], 1)
-    tri = torch.cat([bvh.v0, bvh.e1, bvh.e2, torch.zeros((t, 3), dtype=f32, device=dev)], 1)
-    return BVHTables(*(x.to(device).contiguous() for x in (node_bb, node_meta, tri)))
+    if t >= MAX_TRIS:
+        raise ValueError(f"{t} triangles: the node record holds first * 8 + count in an "
+                         f"int32, so at most {MAX_TRIS - 1}")
+    i32 = torch.int32
+    first, count = bvh.first_tri.to(torch.int64), bvh.tri_count.to(torch.int64)
+    if n and (int(count.min()) < 0 or int(count.max()) >= 1 << COUNT_BITS):
+        raise ValueError(f"leaf sizes {int(count.min())}..{int(count.max())}: the node "
+                         f"record holds 0..{(1 << COUNT_BITS) - 1}")
+    links = torch.stack([first * (1 << COUNT_BITS) + count, bvh.skip.to(torch.int64)], 1).to(i32)
+    box = torch.cat([bvh.bb_min, bvh.bb_max], 1).to(torch.float32).view(i32)
+    node = torch.cat([box, links], 1).view(torch.float32)
+    tri = torch.cat([bvh.v0, bvh.e1, bvh.e2, torch.zeros((t, 3), dtype=torch.float32,
+                                                        device=bvh.device)], 1)
+    return BVHTables(*(x.to(device).contiguous() for x in (node, tri)))
 
 
 def tables_of(bvh: BVH) -> BVHTables:
@@ -105,9 +125,8 @@ def bvh_intersect_packet_reference(tables: BVHTables, o_planes, d_planes, t_max,
     results); it counts its tests in ``work``."""
     del tile, interpret
     shape, o, d, t0 = common.flat_rays(o_planes, d_planes, t_max)
-    nb, tri = tables.node_bb, tables.tri
-    meta = tables.node_meta
-    t, idx, _, _ = traverse(nb[:, 0:3], nb[:, 3:6], meta[:, 0], meta[:, 1], meta[:, 2],
+    nb, tri = tables.node, tables.tri
+    t, idx, _, _ = traverse(nb[:, 0:3], nb[:, 3:6], *tables.links(),
                             tri[:, 0:3], tri[:, 3:6], tri[:, 6:9], o, d, t0, float(t_min),
                             any_hit, max_steps, work)
     return t.reshape(shape), idx.to(torch.int32).reshape(shape)
@@ -127,9 +146,8 @@ def bvh_intersect_packet(tables: BVHTables, o_planes, d_planes, t_max, t_min=1e-
     if dev.type != "cuda" or o_planes[0].device != dev:
         raise ValueError(f"rays on {o_planes[0].device}, BVH tables on {dev}: the CUDA "
                          "kernel needs both on one CUDA device")
-    n_nodes, n_tris = tables.node_bb.shape[0], tables.tri.shape[0]
-    common.check(tables.node_bb, "node_bb", (n_nodes, 8), torch.float32, dev)
-    common.check(tables.node_meta, "node_meta", (n_nodes, 4), torch.int32, dev)
+    n_nodes, n_tris = tables.node.shape[0], tables.tri.shape[0]
+    common.check(tables.node, "node", (n_nodes, 8), torch.float32, dev)
     common.check(tables.tri, "tri", (n_tris, 12), torch.float32, dev)
     if n_tris == 0:
         raise ValueError("a BVH without triangles")
@@ -138,8 +156,7 @@ def bvh_intersect_packet(tables: BVHTables, o_planes, d_planes, t_max, t_min=1e-
     out_t = torch.empty(n, dtype=torch.float32, device=dev)
     out_idx = torch.empty(n, dtype=torch.int32, device=dev)
     args = TraverseArgs(
-        node_bb=tables.node_bb.data_ptr(), node_meta=tables.node_meta.data_ptr(),
-        tri=tables.tri.data_ptr(),
+        node=tables.node.data_ptr(), tri=tables.tri.data_ptr(),
         ox=o[0].data_ptr(), oy=o[1].data_ptr(), oz=o[2].data_ptr(),
         dx=d[0].data_ptr(), dy=d[1].data_ptr(), dz=d[2].data_ptr(), tmax=t0.data_ptr(),
         out_t=out_t.data_ptr(), out_idx=out_idx.data_ptr(),

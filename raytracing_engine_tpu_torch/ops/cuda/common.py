@@ -29,13 +29,16 @@ BUILD_DIR = PACKAGE_DIR / "build"
 
 # library name -> (its source in csrc/, its C entries)
 LIBRARIES = {
-    "conemarch": ("conemarch.cu", ("conemarch_depth", "conemarch_shade", "conemarch_fused")),
+    "conemarch": ("conemarch.cu", ("conemarch_pyramid", "conemarch_shade", "conemarch_fused")),
     "pt": ("pt.cu", ("pt_render", "pt_rebin")),
     "cluster": ("cluster.cu", ("cluster_intersect",)),
     "bvh": ("bvh.cu", ("bvh_traverse",)),
     "instanced": ("instanced.cu", ("instanced_intersect",)),
     "rng": ("rng.cu", ("rng_uniform",)),
 }
+
+# conemarch::kMaxLevels: the pyramid levels one K1 launch can march
+MAX_LEVELS = 16
 
 # --fmad=false and no fast math: the marches' hit tests flip pixels when one
 # rounding changes (see csrc/conemarch.cuh), and the path tracer's branch
@@ -75,6 +78,18 @@ class Args(ctypes.Structure):
         ("render_dist", ctypes.c_float),
         ("max_march_steps", ctypes.c_int),
         ("max_shadow_steps", ctypes.c_int),
+        ("first", ctypes.c_int),
+        ("last", ctypes.c_int),
+        ("items", ctypes.c_int),
+        ("epoch", ctypes.c_int),
+        ("sync", ctypes.c_void_p),
+        ("lvl_item", ctypes.c_int * MAX_LEVELS),
+        ("lvl_w", ctypes.c_int * MAX_LEVELS),
+        ("lvl_h", ctypes.c_int * MAX_LEVELS),
+        ("lvl_off", ctypes.c_int * MAX_LEVELS),
+        ("lvl_sx", ctypes.c_float * MAX_LEVELS),
+        ("lvl_sy", ctypes.c_float * MAX_LEVELS),
+        ("lvl_thr", ctypes.c_float * MAX_LEVELS),
         ("device", ctypes.c_int),
     ]
 

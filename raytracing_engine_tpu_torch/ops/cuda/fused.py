@@ -2,7 +2,7 @@
 ``fused_kernel`` (csrc/conemarch.cu), which replaces
 raytracing_engine_tpu/ops/pallas/fused.py ``_fused_kernel``. The depth stays
 in a register; the kernel shares its device functions with K1 and K3, so its
-image equals depth_level + shade bit for bit.
+image equals the finest K1 level + shade bit for bit.
 
 A scene on the CPU takes the plain version; a scene on a CUDA device launches
 the kernel or raises.

@@ -136,10 +136,10 @@ def k6_bytes(n_rays: int, attrs: bool, table_bytes: int, tmax_plane: bool = Fals
     return 4 * n_rays * (6 + int(tmax_plane) + (7 if attrs else 2)) + table_bytes
 
 
-# the K8 record fields the traversal reads: a node's box (6 f32) and its
-# first, count and skip (3 int32); a triangle's v0, e1 and e2 (9 f32). The
-# records' padding (ops/cuda/bvh_traverse.BVHTables) is not counted.
-BVH_NODE_BYTES = 36
+# what K8 reads per node and triangle: a node's whole 32-byte record (its box
+# and its packed first, count and skip, two float4 loads); a triangle's v0,
+# e1 and e2 (9 f32; the record's padding is not counted)
+BVH_NODE_BYTES = 32
 BVH_TRI_BYTES = 36
 
 

@@ -28,6 +28,8 @@ K8 itself needs the card: chip_smoke.py phase 13 holds it to this plain
 version bit for bit.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -183,15 +185,26 @@ def test_wrapper_on_cpu_is_its_plain_version(bvhs):
 
 
 def test_pack_bvh_tables_layout(bvhs, monkeypatch):
+    """One 32-byte record per node, [min(3), max(3), first * 8 + count, skip]
+    (the last two int32 bits): first, count and skip decode exactly, and a
+    triangle count the record cannot hold is refused."""
     _, _, pb = bvhs
     tb = bvh_traverse.pack_bvh_tables(pb, device="cpu")
     n, t = pb.bb_min.shape[0], pb.v0.shape[0]
-    assert tb.node_bb.shape == (n, 8) and tb.node_meta.dtype == torch.int32
-    assert torch.equal(tb.node_bb[:, :6], torch.cat([pb.bb_min, pb.bb_max], 1))
-    assert torch.equal(tb.node_meta[:, :3], torch.stack([pb.first_tri, pb.tri_count, pb.skip], 1))
+    assert tb.node.shape == (n, 8) and tb.node.dtype == torch.float32
+    assert tb.node.element_size() * tb.node.shape[1] == 32
+    assert torch.equal(tb.node[:, :6], torch.cat([pb.bb_min, pb.bb_max], 1))
+    first, count, skip = tb.links()
+    assert torch.equal(first, pb.first_tri) and torch.equal(count, pb.tri_count)
+    assert torch.equal(skip, pb.skip) and bool((first == -1).any())
+    packed = tb.node[:, 6].view(torch.int32)
+    assert torch.equal(packed, pb.first_tri * 8 + pb.tri_count)
     assert torch.equal(tb.tri[:, :9], torch.cat([pb.v0, pb.e1, pb.e2], 1))
     assert torch.all(tb.tri[:, 9:] == 0) and tb.tri.shape == (t, 12)
     assert bvh_traverse.tables_of(pb) is bvh_traverse.tables_of(pb)  # built once per BVH
+    big = dataclasses.replace(pb, v0=pb.v0[:1].expand(bvh_traverse.MAX_TRIS, 3))
+    with pytest.raises(ValueError, match="at most 268435455"):
+        bvh_traverse.pack_bvh_tables(big, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bvh_traverse.pack_bvh_tables(pb)  # the default is the card

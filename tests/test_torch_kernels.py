@@ -96,6 +96,10 @@ def test_cpu_tensors_launch_no_kernel(golden_levels, port):
     cfg, tscene, tpos, tquat = port
     before = (depth.launches, shade.launches, fused.launches)
     lvl0 = depth.depth_level(cfg, 0, tscene, tpos, tquat)
+    pyramid = depth.depth_pyramid(cfg, tscene, tpos, tquat)
+    assert len(pyramid) == cfg.level_count and torch.equal(pyramid[0], lvl0)
+    tail = depth.march_levels(cfg, 2, 3, tscene, tpos, tquat, pyramid[1])
+    assert all(torch.equal(a, b) for a, b in zip(tail, pyramid[2:]))
     shade.shade(cfg, tscene, tpos, tquat, torch.from_numpy(golden_levels[-1]))
     fused.depth_shade_fused(cfg, tscene, tpos, tquat, torch.from_numpy(golden_levels[-2]))
     assert (depth.launches, shade.launches, fused.launches) == before
@@ -112,11 +116,17 @@ def test_non_cuda_device_raises(port):
 
 
 def test_launch_args_mirror_the_cuda_struct():
-    """ops/cuda/common.Args lists the fields of conemarch::Args in order."""
+    """ops/cuda/common.Args lists the fields of conemarch::Args in order,
+    the per-level arrays with kMaxLevels entries."""
     src = (common.CSRC_DIR / "conemarch.cuh").read_text()
     body = re.search(r"struct Args \{(.*?)\};", src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
-    assert re.findall(r"(\w+)\s*[,;]", body) == [f for f, _ in common.Args._fields_]
+    fields = re.findall(r"(\w+)(\[kMaxLevels\])?\s*[,;]", body)
+    assert [f for f, _ in fields] == [f for f, _ in common.Args._fields_]
+    arrays = [f for f, n in fields if n]
+    assert arrays == [f for f, t in common.Args._fields_ if hasattr(t, "_length_")]
+    assert all(getattr(common.Args, f).size == 4 * common.MAX_LEVELS for f in arrays)
+    assert int(re.search(r"kMaxLevels = (\d+);", src).group(1)) == common.MAX_LEVELS
 
 
 def test_unseedable_prev_raises(port):
@@ -124,3 +134,48 @@ def test_unseedable_prev_raises(port):
     cfg, tscene, tpos, tquat = port
     with pytest.raises(ValueError, match="cannot be seeded"):
         depth.depth_level(cfg, 2, tscene, tpos, tquat, torch.zeros(3, 3))
+
+
+def test_pyramid_plan_owns_every_pixel_once():
+    """K1's plan (ops/cuda/depth.pyramid_items), no launch, decoded as
+    csrc/conemarch.cu pyramid_kernel decodes a ticket: for the launches the
+    renderer makes (levels 0..N-2, 0..N-1, and one level), every pixel of
+    every level is owned by exactly one tile, and every pixel of a tile after
+    the first level has its parent [y/2, x/2] inside the one tile of the level
+    before that the tile waits for, which has a smaller ticket. The tile is
+    the kernel's block."""
+    src = (common.CSRC_DIR / "conemarch.cu").read_text()
+    assert (depth.TILE_W, depth.TILE_H) == tuple(
+        int(re.search(rf"constexpr int {n} = (\d+);", src).group(1)) for n in ("kTileX", "kTileY"))
+    launches = [(size, first, last) for size in ((1920, 1088), (1280, 720), (512, 512), (64, 64))
+                for n in [RenderConfig(*size).level_count]
+                for first, last in ((0, n - 2), (0, n - 1), (n - 1, n - 1), (n // 2, n // 2))]
+    for size, first, last in launches:
+        dims = RenderConfig(*size).level_dims
+        starts, items = depth.pyramid_items(dims, first, last)
+        t = np.arange(items)
+        lv = first + np.searchsorted(starts, t, side="right") - 1  # the kernel's level of ticket t
+        for k in range(first, last + 1):
+            w, h = dims[k]
+            by = (t[lv == k] - starts[k - first]) // -(-w // depth.TILE_W)
+            assert np.all(by * depth.TILE_H < h), (size, first, last, k)
+        for lv in range(first, last + 1):
+            w, h = dims[lv]
+            gx, gy = -(-w // depth.TILE_W), -(-h // depth.TILE_H)
+            ys, xs = np.mgrid[:h, :w]
+            bx, by = xs // depth.TILE_W, ys // depth.TILE_H
+            owners = np.zeros((h, w), np.int64)
+            np.add.at(owners, (ys, xs), 1)
+            assert np.all(owners == 1) and starts[lv - first] + gx * gy == (
+                starts[lv - first + 1] if lv < last else items)
+            if lv == first:
+                continue
+            pw, ph = dims[lv - 1]
+            pgx, pgy = -(-pw // depth.TILE_W), -(-ph // depth.TILE_H)
+            pbx, pby = bx >> 1, by >> 1
+            assert np.all((pbx < pgx) & (pby < pgy))
+            parent_ticket = starts[lv - first - 1] + pby * pgx + pbx
+            assert np.all(parent_ticket < starts[lv - first] + by * gx + bx)
+            px, py = xs >> 1, ys >> 1
+            assert np.all((px < pw) & (py < ph)), (size, lv)
+            assert np.all((px // depth.TILE_W == pbx) & (py // depth.TILE_H == pby)), (size, lv)
