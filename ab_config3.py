@@ -4,9 +4,10 @@
 A/B: for checkout A, B, B, A in turn, each in a process of its own, builds
 the checkout's kernels from its csrc/ (into its own build directory) and
 prints ptxas's registers, stack, spills and shared memory of pt_kernel (K4),
-pt_rebin_kernel (K5), instanced_kernel (K7), traverse_kernel (K8) and the
+pt_rebin_kernel (K5), instanced_kernel (K7), traverse_kernel (K8), the
 depth pyramid's kernel (K1: depth_kernel, one level a launch, or
-pyramid_kernel, every level in one launch); then times, by CUDA events
+pyramid_kernel, every level in one launch), fused_kernel (K2),
+shade_kernel (K3) and cluster_kernel (K6); then times, by CUDA events
 (best of 3 rounds of chained frames with distinct camera z, host enqueue
 beside):
 
@@ -28,13 +29,17 @@ states of one config-3 and one config-5 frame, and K7 on config 5's Phong
 camera rays at 1920x1088 (closest hit with normals) and on their hard-shadow
 rays (any hit); the cone march at 1920x1088 (the default scene, 24 orbit
 poses): the frame by CUDA events with its host enqueue, K1's device time a
-frame (every K1 launch of the frame summed) and the pyramid's levels; K8 on
-config 3's knot as a raw BVH (44,961 nodes): its camera, bounce-1 and
-NEE-style shadow rays at 512x512 (as chip_smoke.py phase 13 makes them),
-and render_pt_fast(bvh=BVH) 512x512 frames with K8's device time summed
-over a frame's six launches. Every output (K1, K4, K5, K7, K8 and the
-frames) is hashed; the parent process prints whether A's and B's hashes
-agree. The card's name and power limit go with every number.
+frame (every K1 launch of the frame summed), K2's device time a frame and
+the pyramid's levels; K8 on config 3's knot as a raw BVH (44,961 nodes):
+its camera, bounce-1 and NEE-style shadow rays at 512x512 (as
+chip_smoke.py phase 13 makes them), and render_pt_fast(bvh=BVH) 512x512
+frames with K8's device time summed over a frame's six launches; K6 on
+config 3's ClusterSet: the same three ray sets (closest-hit sweeps with the
+frame's visit orders, as chip_smoke.py phase 10 makes them), and
+render_pt_fast(bvh=cs) 512x512 frames with K6's device time summed over a
+frame's launches. Every output (K1, K4-K8 and the frames) is hashed; the
+parent process prints whether A's and B's hashes agree. The card's name
+and power limit go with every number.
 
 Tuning: --worker DIR NAME=VALUE ... runs a copy of DIR's package (in a
 temporary directory; DIR is not touched) with each named constant set:
@@ -43,11 +48,27 @@ ops/cuda/, which must occur exactly once (for example kTraverseBlock=128
 of csrc/bvh.cu, kPyramidMinBlocks=4 of csrc/conemarch.cu, or kBlockY=8
 TILE_H=8 for the cone march's blocks and K1's mirrored tile).
 
-Cone: the cone-march rows alone (ptxas, the 1920x1088 frame by events with
-its enqueue, K1's device time a frame, hashes), for PAIRS pairs of runs in
-the order A B B A A B B A ..., each run a process of its own; then each
-run's numbers side by side and in how many pairs B's frame, enqueue and K1
-time were below A's. --cone-worker DIR [NAME=VALUE ...] is one such run.
+Cone: the cone-march rows alone (ptxas of K1-K3, the 1920x1088 frame by
+events with its enqueue, K1's and K2's device time a frame, hashes), for
+PAIRS pairs of runs in the order A B B A A B B A ..., each run a process of
+its own; then each run's numbers side by side and in how many pairs B's
+frame, enqueue, K1 and K2 time were below A's. --cone-worker DIR
+[NAME=VALUE ...] is one such run. --k6-worker DIR [NAME=VALUE ...] runs
+K6's rows alone (ptxas, the three ray sets, the render_pt_fast(bvh=cs)
+frames), once.
+
+Trips: K2's trip-count model. An instrumented copy of DIR's plain march
+(ops/march.py, in a temporary directory; DIR is not touched) keeps each
+pixel's step count of the finest level's cone march and of each light's
+shadow march, over the orbit poses of the cone rows (at W x H and POSES if
+given; on the card if there is one, else on the CPU); from them, the share
+of a warp's lanes that do a useful step: in the primary march and in the
+shadow marches run in the pixel's lane, for warps of 32 x 1, 8 x 4 and
+4 x 8 pixels, and in the shadow marches run as jobs compacted per warp or
+per block of 128 or 256 pixels (each lit pixel's lights taken 32 at a
+time, light-major: a form of K2 that was measured and not kept, PERF.md
+§6), with each form's warp-steps a frame against the 32 x 1 warps that
+march the shadow rays in the pixel's lane.
 
 Spheres: the sphere rows alone, A B B A; they run on any checkout of the
 port, also one without clusters (commit cee9bc9, spheres only).
@@ -78,6 +99,8 @@ Usage: python3 ab_config3.py DIR_A DIR_B
        python3 ab_config3.py --worker DIR [NAME=VALUE ...]   (one checkout, once)
        python3 ab_config3.py --sphere-worker DIR   (its sphere rows, once)
        python3 ab_config3.py --cone-worker DIR [NAME=VALUE ...]   (its cone rows, once)
+       python3 ab_config3.py --k6-worker DIR [NAME=VALUE ...]   (its K6 rows, once)
+       python3 ab_config3.py --trips DIR [W H POSES]
 (each DIR holds a raytracing_engine_tpu_torch package, e.g. a `git archive`
 of a commit unpacked into a gitignored directory)
 """
@@ -98,8 +121,9 @@ C4_SPP, C4_CHUNK = 1024, 128
 BOUNCE_REPS, K7_REPS = 9, 10
 SPIN_CYCLES = 2_000_000  # about 1 ms on the H100: device_ms's event timing
 KERNELS = ("pt_kernel", "pt_rebin_kernel", "instanced_kernel", "traverse_kernel",
-           "depth_kernel", "pyramid_kernel")
+           "depth_kernel", "pyramid_kernel", "fused_kernel", "shade_kernel", "cluster_kernel")
 K1_NAMES = ("depth_kernel", "pyramid_kernel")  # K1 before and after it took every level
+CONE_NAMES = K1_NAMES + ("fused_kernel", "shade_kernel")
 CONE_SIZE, CONE_POSES, K8_REPS, RAW_FRAMES = (1920, 1088), 24, 20, 3
 C3_LIGHT = (6.0, 4.0, 6.0)
 # K4's instantiations by mesh kind (csrc/pt.cuh kMeshNone, kMeshClusters,
@@ -145,16 +169,14 @@ def ptxas_lines(log: str):
 
 def setup(device):
     """(config 3, config 5) as chip_smoke.py builds them."""
-    import numpy as np
-    import torch
+    return setup3(device), setup5(device)
 
-    from raytracing_engine_tpu_torch.accel import (
-        build_bvh,
-        build_clusters,
-        grid_instances,
-        make_instanced_clusters,
-        torus_knot,
-    )
+
+def setup3(device):
+    """Config 3 as chip_smoke.py builds it: cfg, scene, ClusterSet, mesh."""
+    import numpy as np
+
+    from raytracing_engine_tpu_torch.accel import build_clusters, torus_knot
     from raytracing_engine_tpu_torch.pathtracer import DIFFUSE, PTConfig, build_pt_scene
 
     mesh = torus_knot(segments=1100, sides=32, center=(0.0, 8.0, 0.0))
@@ -166,8 +188,23 @@ def setup(device):
         materials=[{"albedo": (0.7, 0.6, 0.4), "kind": DIFFUSE},
                    {"albedo": (0, 0, 0), "emission": (10.0,) * 3, "kind": DIFFUSE},
                    {"albedo": (0.5, 0.5, 0.6), "kind": DIFFUSE}])
-    c3 = dict(cfg=PTConfig(width=512, height=512, max_bounces=2, rng="pcg"), scene=scene, bvh=cs,
-              mesh=mesh)
+    return dict(cfg=PTConfig(width=512, height=512, max_bounces=2, rng="pcg"), scene=scene,
+                bvh=cs, mesh=mesh)
+
+
+def setup5(device):
+    """Config 5 as chip_smoke.py builds it."""
+    import numpy as np
+    import torch
+
+    from raytracing_engine_tpu_torch.accel import (
+        build_bvh,
+        build_clusters,
+        grid_instances,
+        make_instanced_clusters,
+        torus_knot,
+    )
+    from raytracing_engine_tpu_torch.pathtracer import DIFFUSE, PTConfig, build_pt_scene
 
     knot = torus_knot(segments=550, sides=32)
     base = build_clusters(knot, device=device)
@@ -182,9 +219,8 @@ def setup(device):
                    {"albedo": (0, 0, 0), "emission": (40.0, 38.0, 34.0), "kind": DIFFUSE},
                    {"albedo": (0.55, 0.55, 0.5), "kind": DIFFUSE}], device=device)
     ic = make_instanced_clusters(inst, base, scene=scene5, device=device)
-    c5 = dict(cfg=PTConfig(width=512, height=512, max_bounces=2, rng="pcg"), scene=scene5, bvh=ic,
-              cs=base, inst=inst, light=torch.tensor((6.0, 2.0, 8.0), device=device))
-    return c3, c5
+    return dict(cfg=PTConfig(width=512, height=512, max_bounces=2, rng="pcg"), scene=scene5,
+                bvh=ic, cs=base, inst=inst, light=torch.tensor((6.0, 2.0, 8.0), device=device))
 
 
 def digest(*tensors) -> str:
@@ -451,14 +487,15 @@ def cone_rows(root, card, device):
         if best is None or ms < best[0]:
             best = (ms, host)
     k1, places = device_sum_ms(render, CONE_POSES, K1_NAMES)
+    k2, _ = device_sum_ms(render, CONE_POSES, ("fused_kernel",))
     size = f"{cfg.width}x{cfg.height}"
     print(f"  {root}: cone march {size} frame: best {best[0]:.4f} ms/frame (host enqueue "
           f"{best[1]:.4f} ms), K1 {k1:.4f} ms a frame (device time; {len(places)} launches a "
-          f"frame: {' / '.join(f'{x:.4f}' for x in places)}), image {digest(img)} [{card}]",
-          flush=True)
+          f"frame: {' / '.join(f'{x:.4f}' for x in places)}), K2 {k2:.4f} ms a frame (device "
+          f"time), image {digest(img)} [{card}]", flush=True)
     print(f"  {root}: cone march {size} pyramid: {len(levels)} levels, outputs "
           f"{digest(*levels)} [{card}]", flush=True)
-    return best[0], best[1], k1
+    return best[0], best[1], k1, k2
 
 
 def k8_rows(root, card, device, c3, quat, seed):
@@ -506,6 +543,78 @@ def k8_rows(root, card, device, c3, quat, seed):
     frames(root, card, "config 3 512x512 render_pt_fast(bvh=BVH)", render_pt_fast,
            dict(cfg=cfg, scene=scene, bvh=bvh), quat, seed, RAW_FRAMES, kernel="traverse_kernel",
            summed=True)
+
+
+def k6_rows(root, card, device, c3, quat, seed):
+    """K6 on config 3's ClusterSet: the camera, bounce-1 and NEE-style shadow
+    rays of chip_smoke.py phase 10 (device time, outputs hashed; closest-hit
+    sweeps with the frame's visit orders, as render_pt_fast makes them), and
+    render_pt_fast(bvh=cs) frames with K6's device time summed a frame."""
+    import torch
+
+    from raytracing_engine_tpu_torch.ops.cuda import cluster as kcl
+    from raytracing_engine_tpu_torch.ops.cuda import pt
+    from raytracing_engine_tpu_torch.ops.rng_pcg import pass_seed, uniform_pcg
+    from raytracing_engine_tpu_torch.pathtracer.wavefront import _camera_rays, render_pt_fast
+
+    cfg, scene, cs = c3["cfg"], c3["scene"], c3["bvh"]
+    pos = torch.zeros(3, device=device)
+    fc = kcl.FrameClusters.at(cs, pos)
+    orders = dict(order=fc.orders[0], orders=fc.orders, refs=fc.refs)
+    u = uniform_pcg(pass_seed(seed, 0), 0, 2, cfg.height, cfg.width, device=device)
+    o0, d0 = (tuple(x.contiguous() for x in r) for r in _camera_rays(cfg, pos, quat, u[0], u[1]))
+    _, _, run = pt.rebin_bounce_launcher(cfg, scene, pos, quat, seed, cs)
+    state, _ = run(0, None, 0)
+    o1 = tuple(state[a].clone() for a in range(3))
+    d1 = tuple(state[3 + a].clone() for a in range(3))
+    light = torch.tensor(C3_LIGHT, device=device)
+    to_l = tuple(light[a] - o1[a] for a in range(3))
+    dist = torch.sqrt(to_l[0] * to_l[0] + to_l[1] * to_l[1] + to_l[2] * to_l[2])
+    wi = tuple(c / dist for c in to_l)
+    total = 0.0
+    for label, o, d, t_max, kw in (
+            ("camera rays, closest", o0, d0, float("inf"), orders),
+            ("bounce-1 rays, closest", o1, d1, float("inf"), orders),
+            ("bounce-1 NEE shadow rays, any hit", o1, wi, dist * 0.999,
+             dict(any_hit=True, order=fc.orders[0]))):
+        out = kcl.cluster_intersect(cs, o, d, t_max, **kw)
+        ms = device_ms(lambda _, o=o, d=d, t_max=t_max, kw=kw: kcl.cluster_intersect(
+            cs, o, d, t_max, **kw), K8_REPS, "cluster_kernel")
+        total += ms
+        print(f"  {root}: K6 config 3 ClusterSet {cfg.width}x{cfg.height} {label}: {ms:.4f} ms "
+              f"(device time), outputs {digest(*out)} [{card}]", flush=True)
+    print(f"  {root}: K6 config 3 ClusterSet: the three ray sets {total:.4f} ms [{card}]",
+          flush=True)
+    frames(root, card, "config 3 512x512 render_pt_fast(bvh=cs)", render_pt_fast,
+           dict(cfg=cfg, scene=scene, bvh=cs), quat, seed, RAW_FRAMES, kernel="cluster_kernel",
+           summed=True)
+
+
+def k6_worker(root: str, settings=()) -> int:
+    """K6's rows alone (ptxas, k6_rows), once."""
+    path = variant(root, settings) if settings else Path(root).resolve()
+    root = root + (f" [{' '.join(settings)}]" if settings else "")
+    sys.path.insert(0, str(path))
+    import torch
+
+    from raytracing_engine_tpu_torch.ops.cuda import common
+    from raytracing_engine_tpu_torch.ops.rng_pcg import seed_from_int
+
+    if not torch.cuda.is_available():
+        print("ab_config3: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+    device = torch.device("cuda", 0)
+    info = common.build()
+    for name, regs, stack, st, ld, smem in ptxas_lines(info["log"]):
+        if name == "cluster_kernel":
+            print(f"  {root}: ptxas {name}: {regs} registers, {stack} B stack, spill stores {st} "
+                  f"B / loads {ld} B, {smem} B static smem", flush=True)
+    k6_rows(root, card, device, setup3(device), torch.tensor([0.0, 0.0, 0.0, 1.0], device=device),
+            seed_from_int(1))
+    if settings:
+        shutil.rmtree(path, ignore_errors=True)
+    return 0
 
 
 def variant(root: str, settings) -> Path:
@@ -564,11 +673,11 @@ def cone_worker(root: str, settings=()) -> int:
     card = card_line()
     info = common.build()
     for name, regs, stack, st, ld, smem in ptxas_lines(info["log"]):
-        if name in K1_NAMES:
+        if name in CONE_NAMES:
             print(f"  {root}: ptxas {name}: {regs} registers, {stack} B stack, spill stores {st} "
                   f"B / loads {ld} B, {smem} B static smem", flush=True)
-    frame, host, k1 = cone_rows(root, card, torch.device("cuda", 0))
-    print(f"CONE {frame} {host} {k1}", flush=True)
+    frame, host, k1, k2 = cone_rows(root, card, torch.device("cuda", 0))
+    print(f"CONE {frame} {host} {k1} {k2}", flush=True)
     if settings:
         shutil.rmtree(path, ignore_errors=True)
     return 0
@@ -592,7 +701,8 @@ def cone_ab(a: str, b: str, pairs: int) -> int:
             runs[root].append(tuple(float(x) for x in line.split()[1:]))
             for m in re.finditer(r": (cone march .*?): .*(?:image|outputs) (\w{16})", proc.stdout):
                 hashes.setdefault(m.group(1), set()).add(m.group(2))
-    for label, i in (("frame ms (events)", 0), ("host enqueue ms", 1), ("K1 ms a frame", 2)):
+    for label, i in (("frame ms (events)", 0), ("host enqueue ms", 1), ("K1 ms a frame", 2),
+                     ("K2 ms a frame", 3)):
         below = sum(y[i] < x[i] for x, y in zip(runs[a], runs[b]))
         print(f"{label}: A {' '.join(f'{x[i]:.4f}' for x in runs[a])}; "
               f"B {' '.join(f'{y[i]:.4f}' for y in runs[b])}; B below A in {below} of {pairs} "
@@ -651,8 +761,170 @@ def worker(root: str, settings=()) -> int:
               f"outputs {digest(*out)} [{card}]", flush=True)
     cone_rows(root, card, device)
     k8_rows(root, card, device, c3, quat, seed)
+    k6_rows(root, card, device, c3, quat, seed)
     if settings:
         shutil.rmtree(path, ignore_errors=True)
+    return 0
+
+
+# --- K2's trip counts (--trips) ----------------------------------------------
+
+# ops/march.py of the copy keeps, per call of cone_march / shadow_march, each
+# pixel's step count (the plain loop's active lanes, summed per lane)
+TRIP_PATCHES = [
+    ('steps = {"march": 0, "shadow": 0}\n',
+     'steps = {"march": 0, "shadow": 0}\ntrips = []\n'),
+    ("    big = render_dist\n", "    big = render_dist\n    trips.append([\"march\", 0])\n"),
+    ('    """\n    cache = scene_sdf_all(origin, obj_pos, obj_radius)\n',
+     '    """\n    trips.append(["shadow", 0])\n'
+     '    cache = scene_sdf_all(origin, obj_pos, obj_radius)\n'),
+    ('        steps["march"] = steps["march"] + active.sum()\n',
+     '        steps["march"] = steps["march"] + active.sum()\n'
+     '        trips[-1][1] = trips[-1][1] + active.to(torch.int32)\n'),
+    ('        steps["shadow"] = steps["shadow"] + active.sum()\n',
+     '        steps["shadow"] = steps["shadow"] + active.sum()\n'
+     '        trips[-1][1] = trips[-1][1] + active.to(torch.int32)\n'),
+]
+# warp tiles (w x h) the model compares, and for each the blocks of warp
+# tiles (wx x wy) whose shadow jobs it compacts
+TRIP_WARPS = ((32, 1), (8, 4), (4, 8))
+TRIP_BLOCKS = {(32, 1): ((1, 4), (1, 8)), (8, 4): ((2, 2), (4, 2)), (4, 8): ((2, 2), (4, 2))}
+
+
+def tiles(a, tw: int, th: int):
+    """(..., H, W) -> (..., tiles, tw * th): row-major tiles of th x tw
+    pixels, each tile's pixels in row-major (lane) order."""
+    *lead, h, w = a.shape
+    a = a.reshape(*lead, h // th, th, w // tw, tw)
+    a = a.swapaxes(-3, -2)
+    return a.reshape(*lead, (h // th) * (w // tw), th * tw)
+
+
+def block_lanes(a, warp, blk):
+    """(..., H, W) -> (..., blocks, pixels): a block of blk[0] x blk[1] warp
+    tiles, its pixels in thread order (warp-major, each warp's lanes
+    row-major), as csrc/conemarch.cu lays out fused_kernel's block."""
+    (ww, wh), (bx, by) = warp, blk
+    *lead, h, w = a.shape
+    a = a.reshape(*lead, h // (wh * by), by, wh, w // (ww * bx), bx, ww)
+    n = len(lead)
+    a = a.transpose(*range(n), n, n + 3, n + 1, n + 4, n + 2, n + 5)
+    return a.reshape(*lead, (h // (wh * by)) * (w // (ww * bx)), by * bx * wh * ww)
+
+
+def warp_steps(steps):
+    """Warp-steps of lanes that run in lockstep: (..., groups, 32) -> the sum
+    over groups of 32 x the group's longest count."""
+    return 32 * int(steps.max(axis=-1).sum())
+
+
+def job_steps(shadow, lit):
+    """Warp-steps of the shadow marches run as jobs compacted per group (a
+    warp or a block): shadow (L, groups, P) counts, lit (groups, P); each
+    group's lit pixels in thread order post one job a light, light-major,
+    taken 32 at a time."""
+    import numpy as np
+
+    n_light, groups, p = shadow.shape
+    order = np.argsort(~lit, axis=1, kind="stable")  # lit pixels first, in order
+    s = np.take_along_axis(shadow, order[None], axis=2)  # (L, G, P)
+    n_lit = lit.sum(axis=1)
+    keep = np.broadcast_to(np.arange(p)[None, :] < n_lit[:, None], (n_light, groups, p))
+    jobs = s.transpose(1, 0, 2)[keep.transpose(1, 0, 2)]  # group-major, light-major
+    per = n_lit * n_light  # jobs of each group
+    rounds = (per + 31) // 32
+    if jobs.size == 0:
+        return 0, int(rounds.sum())
+    first = np.cumsum(per) - per
+    group = np.repeat(np.arange(groups), rounds)
+    within = np.arange(int(rounds.sum())) - np.repeat(np.cumsum(rounds) - rounds, rounds)
+    starts = first[group] + 32 * within
+    return 32 * int(np.maximum.reduceat(jobs, starts).sum()), int(rounds.sum())
+
+
+def trips(root: str, size=CONE_SIZE, poses=CONE_POSES) -> int:
+    """K2's trip-count model (see the module docstring)."""
+    tmp = Path(tempfile.mkdtemp(prefix="ab_trips_"))
+    pkg = tmp / "raytracing_engine_tpu_torch"
+    shutil.copytree(Path(root) / "raytracing_engine_tpu_torch", pkg,
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    path = pkg / "ops" / "march.py"
+    src = path.read_text()
+    for old, new in TRIP_PATCHES:
+        if src.count(old) != 1:
+            print(f"ab_config3 --trips: {root}: ops/march.py has no {old.strip()[:40]!r}",
+                  file=sys.stderr)
+            return 1
+        src = src.replace(old, new)
+    path.write_text(src)
+    sys.path.insert(0, str(tmp))
+    import numpy as np
+    import torch
+
+    import raytracing_engine_tpu_torch as rtt
+    from raytracing_engine_tpu_torch.camera import Camera, orbit_path
+    from raytracing_engine_tpu_torch.ops import march
+    from raytracing_engine_tpu_torch.ops.cuda import depth as kdepth
+    from raytracing_engine_tpu_torch.ops.cuda import shade as kshade
+
+    device = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    where = card_line() if device.type == "cuda" else "the plain march on the CPU"
+    cfg = rtt.RenderConfig(*size)
+    scene = rtt.default_scene(device)
+    n_light = int(scene.light_count)
+    positions, rotations = orbit_path(poses, radius=16.0)
+    quats = Camera(positions, rotations).quat().to(device)
+    positions = positions.to(device)
+    last = cfg.level_count - 1
+    prim, shad, lit = [], [], []
+    for k in range(poses):
+        pose = (positions[k], quats[k])
+        prev = kdepth.march_levels_reference(cfg, 0, last - 1, scene, *pose)[-1]
+        march.trips.clear()
+        dep = kdepth.depth_level_reference(cfg, last, scene, *pose, prev)
+        kshade.shade_reference(cfg, scene, *pose, dep)
+        kinds = [kind for kind, _ in march.trips]
+        if kinds != ["march"] + ["shadow"] * 8:
+            raise RuntimeError(f"ab_config3 --trips: unexpected march calls {kinds}")
+
+        def host(x):
+            return (x if isinstance(x, torch.Tensor) else torch.zeros_like(dep, dtype=torch.int32)
+                    ).cpu().numpy().astype(np.int64)
+
+        prim.append(host(march.trips[0][1]))
+        shad.append(np.stack([host(c) for _, c in march.trips[1:1 + n_light]]))
+        lit.append((dep < cfg.render_dist).cpu().numpy())
+    prim, shad, lit = np.stack(prim), np.stack(shad, axis=1), np.stack(lit)  # shad (L, F, H, W)
+    p_steps, s_steps = int(prim.sum()), int(shad.sum())
+    print(f"  {root}: K2 trips {cfg.width}x{cfg.height}, {poses} orbit poses, {n_light} lights: "
+          f"lit pixels {lit.mean():.4f}; steps a frame: primary {p_steps / poses:.0f} "
+          f"({prim.mean():.2f} a pixel, max {prim.max()}), shadow {s_steps / poses:.0f} "
+          f"({shad.sum(0)[lit].mean():.2f} a lit pixel over its lights, max "
+          f"{shad.max()}) [{where}]", flush=True)
+    base = None
+    for warp in TRIP_WARPS:
+        ww, wh = warp
+        p_warp = warp_steps(tiles(prim, ww, wh))
+        s_lane = warp_steps(tiles(shad, ww, wh))
+        s_jobs, _ = job_steps(tiles(shad, ww, wh).reshape(n_light, -1, 32),
+                              tiles(lit, ww, wh).reshape(-1, 32))
+        if base is None:
+            base = p_warp + s_lane
+        parts = [f"primary {p_steps / p_warp:.3f}", f"shadow in the pixel's lane "
+                 f"{s_steps / s_lane:.3f}", f"shadow jobs a warp {s_steps / max(s_jobs, 1):.3f}"]
+        model = [f"in-lane {(p_warp + s_lane) / base:.3f}", f"warp list "
+                 f"{(p_warp + s_jobs) / base:.3f}"]
+        for blk in TRIP_BLOCKS[warp]:
+            n_pix = 32 * blk[0] * blk[1]
+            b_jobs, _ = job_steps(block_lanes(shad, warp, blk).reshape(n_light, -1, n_pix),
+                                  block_lanes(lit, warp, blk).reshape(-1, n_pix))
+            parts.append(f"shadow jobs a {n_pix}-pixel block ({blk[0]} x {blk[1]} warps) "
+                         f"{s_steps / max(b_jobs, 1):.3f}")
+            model.append(f"{n_pix}-pixel list {(p_warp + b_jobs) / base:.3f}")
+        print(f"  {root}: K2 trips, {ww} x {wh} warps: share of lanes doing useful steps: "
+              f"{'; '.join(parts)}. Warp-steps a frame against 32 x 1 warps marching in the "
+              f"pixel's lane: {'; '.join(model)} [{where}]", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
     return 0
 
 
@@ -837,10 +1109,15 @@ def main() -> int:
         return worker(sys.argv[2], sys.argv[3:])
     if len(sys.argv) == 3 and sys.argv[1] == "--lanes":
         return lanes(sys.argv[2])
+    if len(sys.argv) in (3, 6) and sys.argv[1] == "--trips":
+        extra = [int(x) for x in sys.argv[3:]]
+        return trips(sys.argv[2], *((tuple(extra[:2]), extra[2]) if extra else ()))
     if len(sys.argv) == 3 and sys.argv[1] == "--bound5":
         return bound5(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--sphere-worker":
         return sphere_worker(sys.argv[2])
+    if len(sys.argv) >= 3 and sys.argv[1] == "--k6-worker":
+        return k6_worker(sys.argv[2], sys.argv[3:])
     if len(sys.argv) >= 3 and sys.argv[1] == "--cone-worker":
         return cone_worker(sys.argv[2], sys.argv[3:])
     if len(sys.argv) in (4, 5) and sys.argv[1] == "--cone":

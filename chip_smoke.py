@@ -7,14 +7,20 @@ Phases, each printing its own lines:
      1920x1088 configuration's shapes (atol 2e-5, rtol 1e-5, at most 1e-4 of
      the elements diverging); K1, the pyramid in one launch, bit for bit
      against the plain pyramid at every level, at 1920x1088 and 1280x720, for
-     levels 0..N-1 and 0..N-2 in one launch and for each level alone;
-  3. the fused renderer against the two-kernel renderer, bit for bit;
+     levels 0..N-1 and 0..N-2 in one launch and for each level alone; K2 bit
+     for bit;
+  3. the fused renderer against the two-kernel renderer, bit for bit; then
+     K2 against its plain version and fused == two-kernel, bit for bit, on
+     its hard cases: every object, material and light slot live (8 spheres,
+     8 lights), no light, 1280x720, and 1000x504 (a finest level that K2's
+     block tiles do not divide);
   4. a 64x64 render against tests/golden/golden_64.npz;
   5. the main path at 1920x1088 through its user entry points (FrameLoop,
      render_sequence) under the kernels' launch counters;
-  6. CUDA-event timings of each kernel and of the whole frame (host enqueue
-     beside), beside the plain versions and each kernel's least time
-     (utils/timing.bound_ms); K1's device time a frame by torch.profiler;
+  6. timings of each kernel (K1, K2 and K3 by torch.profiler's device
+     time, CUDA events beside) and of the whole frame by CUDA events (host
+     enqueue beside), beside the plain versions and each kernel's least
+     time (utils/timing.bound_ms);
   7. the path tracer's kernel K4 against its plain version on the card at
      BASELINE config 2 (material_spheres, 800x608, 4 bounces, 4 spp) and one
      config-4 chunk (cornell_box, 256x256, 4 bounces, 128 spp), held to the
@@ -41,7 +47,8 @@ Phases, each printing its own lines:
      512x512 camera rays and the bounce-1 rays of one pass (closest hit with
      attributes), NEE-style shadow rays (any hit, t_max = 0.999 of the
      light distance), and axis-parallel and parked rays against a padded
-     set; K6 timed by CUDA events;
+     set; K6 timed on the camera rays by torch.profiler's device time (CUDA
+     events beside);
  11. the config-3 path and its invariants at 512x512, 2 bounces, 1 spp,
      seed_from_int(1): render_pt_rebin (K5) == render_pt_mega(bvh=cs) (K4)
      bit for bit in every regroup mode; K5 and K4 against their plain
@@ -57,7 +64,10 @@ Phases, each printing its own lines:
      grazing its cluster boxes, a warp whose lanes pick different visit-order
      rows, and the duplicated icosphere of tests/test_torch_cluster.py (every
      hit an exact tie) hit at its vertices and by axis-parallel and parked
-     rays; every set ends in a ragged warp;
+     rays; every set ends in a ragged warp (n % 32 of 13, 7, 31, 5 and 1);
+     K6's warp sweep on the same rays against its plain version bit for
+     bit, closest hit with attributes and the frame's visit orders, and
+     any hit;
  12. the config-3 main path under the launch counters, timed by CUDA events:
      render_pt_rebin at 512x512 and 1920x1088 (chained frames with distinct
      camera z, best of 3 rounds, host enqueue beside), its torch.profiler
@@ -150,6 +160,10 @@ ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "golden_64.npz"
 SIZE = (1920, 1088)
 K1_SIZE = (1280, 720)  # a second pyramid whose levels are not exact doubles
+# K2's hard cases (phase 3): a finest level that K2's 16 x 8 block tile does
+# not divide (1000 = 16 x 62.5), and scenes with every object and light slot
+# live and with no light
+K2_RAGGED = (1000, 504)
 
 # compiled kernel vs plain version: the repo's compiled-vs-reference bound
 # (tests_tpu/test_compiled_kernels.py); isolated silhouette pixels may flip
@@ -345,21 +359,70 @@ def phase_kernels(cfg, scene, pos, quat):
     errs["shade"] = hold(
         "K3 shade", shade.shade(cfg, scene, pos, quat, plain[-1]),
         shade.shade_reference(cfg, scene, pos, quat, plain[-1]), KERNEL_TOL, KERNEL_FRAC)
-    errs["fused"] = hold(
-        "K2 fused", fused.depth_shade_fused(cfg, scene, pos, quat, plain[-2]),
-        fused.fused_reference(cfg, scene, pos, quat, plain[-2]), KERNEL_TOL, KERNEL_FRAC)
+    errs["fused"] = hold_k2("K2 fused", cfg, scene, pos, quat, plain[-2])
     return errs
 
 
-def phase_fused_bitwise(cfg, scene, pos, quat):
+def hold_k2(label, cfg, scene, pos, quat, prev) -> float:
+    """K2 from the plain level before the finest against its plain version,
+    bit for bit; -> the max abs error (0)."""
+    from raytracing_engine_tpu_torch.ops.cuda import fused
+
+    got = fused.depth_shade_fused(cfg, scene, pos, quat, prev)
+    want = fused.fused_reference(cfg, scene, pos, quat, prev)
+    err = hold(label, got, want, KERNEL_TOL, KERNEL_FRAC)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: K2 differs from its plain version on "
+                             f"{(got != want).double().mean().item():.6g} of elements")
+    return err
+
+
+def fused_equals_two_kernel(cfg, scene, pos, quat, label=""):
     from raytracing_engine_tpu_torch.models import cuda_renderer
 
     one = cuda_renderer.render(cfg, scene, pos, quat, fused=True)
     two = cuda_renderer.render(cfg, scene, pos, quat, fused=False)
     if not torch.equal(one, two):
-        raise AssertionError("fused != two-kernel: "
+        raise AssertionError(f"fused != two-kernel{label}: "
                              f"{(one != two).double().mean().item():.6g} of elements differ")
-    log(f"  fused == two-kernel bit for bit at {cfg.width}x{cfg.height}")
+    log(f"  fused == two-kernel bit for bit at {cfg.width}x{cfg.height}{label}")
+
+
+def k2_scenes(device):
+    """(label, scene) of K2's hard cases: every one of the 8 object, material
+    and light slots live (spheres around the orbit's target, lights around
+    them, from a seed), and the default objects with no light."""
+    from raytracing_engine_tpu_torch.scene import make_scene
+    from raytracing_engine_tpu_torch.scene.default import DEFAULT_MATERIALS, DEFAULT_OBJECTS
+
+    rng = np.random.default_rng(5)
+    target = np.array([2.0, 3.0, 1.0])
+    objects = [(tuple(target + rng.uniform(-5.0, 5.0, 3)), float(rng.uniform(0.5, 2.5)))
+               for _ in range(8)]
+    materials = [{"color": tuple(rng.uniform(0.1, 1.0, 3)), "shine": float(rng.uniform(1, 20)),
+                  "ambient": 0.05} for _ in range(8)]
+    lights = [(tuple(target + rng.uniform(-12.0, 12.0, 3)), tuple(rng.uniform(0.1, 1.0, 3)))
+              for _ in range(8)]
+    return [("8 spheres, 8 lights", make_scene(objects, materials, lights, device)),
+            ("no light", make_scene(DEFAULT_OBJECTS, DEFAULT_MATERIALS, (), device))]
+
+
+def phase_fused_bitwise(cfg, scene, pos, quat):
+    """Fused == two-kernel on the default scene; then K2 against its plain
+    version and fused == two-kernel on the hard cases: every slot live, no
+    light, 1280x720 and a finest level ragged against K2's tiles."""
+    import raytracing_engine_tpu_torch as rtt
+    from raytracing_engine_tpu_torch.models import conemarch
+
+    fused_equals_two_kernel(cfg, scene, pos, quat)
+    cases = [(f"{label}, {cfg.width}x{cfg.height}", cfg, sc)
+             for label, sc in k2_scenes(scene.device)]
+    for size in (K1_SIZE, K2_RAGGED):
+        cases.append((f"default scene, {size[0]}x{size[1]}", rtt.RenderConfig(*size), scene))
+    for label, c, sc in cases:
+        prev = conemarch.render_depth_pyramid(c, sc, pos, quat)[-2]
+        hold_k2(f"K2 {label}", c, sc, pos, quat, prev)
+        fused_equals_two_kernel(c, sc, pos, quat, f" ({label})")
 
 
 def phase_golden(device):
@@ -553,11 +616,11 @@ def phase_timing(cfg, scene, card):
     t["fused"] = timed("K2 fused finest level",
                        lambda k: fused.depth_shade_fused(cfg, scene, *poses[k], prevs[k]),
                        lambda k: fused.fused_reference(cfg, scene, *poses[k], prevs[k]),
-                       PLAIN_REPS, fused_work)
+                       PLAIN_REPS, fused_work, kernel="fused_kernel")
     t["shade"] = timed("K3 shade",
                        lambda k: shade.shade(cfg, scene, *poses[k], finest[k]),
                        lambda k: shade.shade_reference(cfg, scene, *poses[k], finest[k]),
-                       PLAIN_REPS, shade_work)
+                       PLAIN_REPS, shade_work, kernel="shade_kernel")
     frame = timed(
         f"frame {cfg.width}x{cfg.height}",
         lambda k: cuda_renderer.render(cfg, scene, *poses[k]),
@@ -1071,16 +1134,20 @@ def phase_cluster_kernel(c3, quat, seed, device, card):
     # K6 alone: the camera sweep of render_pt_fast(bvh=cs) (closest, no attrs)
     kw = dict(cases[0][5], attrs=False)
     cluster.cluster_intersect(cs, o0, d0, inf, **kw)  # warm-up
-    ms, host_ms = cuda_ms(lambda k: cluster.cluster_intersect(cs, o0, d0, inf, **kw), K6_REPS)
+    event_ms, host_ms = cuda_ms(lambda k: cluster.cluster_intersect(cs, o0, d0, inf, **kw),
+                                K6_REPS)
+    ms = device_ms(lambda _: cluster.cluster_intersect(cs, o0, d0, inf, **kw), K6_REPS,
+                   "cluster_kernel")
     tb = cluster.sweep_tables(cs)
     n = cfg.width * cfg.height
     n_bytes = k6_bytes(n, False, cluster_table_bytes(
         [tb.sbox, tb.crec, tb.trec, tb.tsmooth, fc.orders, fc.refs]))
     n_ops = sweep_ops(plain["slabs"], plain["tests"])
     bound = bound_ms(n_bytes, n_ops)
-    log(f"  K6 camera sweep 512x512 (closest): kernel {ms:.4f} ms (host enqueue {host_ms:.4f} "
-        f"ms), plain {plain['plain_ms']:.1f} ms; {plain['slabs']} box + {plain['tests']} "
-        f"triangle tests -> bound {bound[0]:.5f} ms by {bound[1]} ({n_bytes} B, {n_ops} ops), "
+    log(f"  K6 camera sweep 512x512 (closest): kernel {ms:.4f} ms device time, {event_ms:.4f} ms "
+        f"by CUDA events (host enqueue {host_ms:.4f} ms), plain {plain['plain_ms']:.1f} ms; "
+        f"{plain['slabs']} box + {plain['tests']} triangle tests -> bound {bound[0]:.5f} ms by "
+        f"{bound[1]} ({n_bytes} B, {n_ops} ops), "
         f"kernel at {bound[0] / ms:.2%} of it [{card}]")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain["plain_ms"],
             "bound_ms": bound[0], "bound_by": bound[1]}
@@ -1295,15 +1362,15 @@ def instance_world(inst_tab, pts):
             + tab[:, None, 9:12])
 
 
-def phase_c3_warp_rays(c3, quat, seed, device):
-    """K5's warp sweep (phase 11) on the rays where it can break, config 3's
-    set and the duplicated icosphere, against its plain version bit for
-    bit."""
+def c3_hard_rays(c3, device):
+    """The rays where the warp sweep can break, against config 3's set and
+    the duplicated icosphere: [(label, scene, ClusterSet, (o, d) (3, n)
+    numpy arrays)], every set ending in a ragged warp (n % 32 of 13, 7, 31,
+    5 and 1)."""
+    from raytracing_engine_tpu_torch.accel import build_clusters
     from raytracing_engine_tpu_torch.ops.cuda import cluster
 
     mesh, cs, scene, _, _ = c3
-    from raytracing_engine_tpu_torch.accel import build_clusters
-
     rng = np.random.default_rng(7)
     tris = dup_icosphere()
     dscene = dup_scene(device, tris)
@@ -1316,14 +1383,41 @@ def phase_c3_warp_rays(c3, quat, seed, device):
         ("config 3, grazing cluster boxes", scene, cs,
          grazing_rays(cs.boxes.cpu().numpy(), 32 * 24 + 7, rng)),
         (f"config 3, lanes by the {refs.shape[0]} order references in turn (mixed rows)", scene,
-         cs, mixed_row_rays(refs, knot_center, 32 * 24 + 19, rng)),
+         cs, mixed_row_rays(refs, knot_center, 32 * 24 + 31, rng)),
         ("duplicated icosphere (every hit a tie), vertices and edges", dscene, dcs,
          vertex_rays(dup_icosphere(), 32 * 12 + 5, rng)),
         ("duplicated icosphere, axis-parallel and parked", dscene, dcs,
          axis_parallel_np(np.array([0.0, 5.0, 0.0], np.float32), 32 * 12 + 1, rng)),
     ]
-    for label, sc, cset, (o, d) in sets:
-        hold_k5_rays(label, sc, cset, *np_rays(o, d, device), seed, quat)
+    return sets
+
+
+def phase_c3_warp_rays(c3, quat, seed, device):
+    """K5's warp sweep (phase 11) and K6's on the rays where they can break
+    (c3_hard_rays), against their plain versions bit for bit: K5 one bounce
+    on a state of them; K6 closest hit with attributes and the frame's
+    visit orders (config 3's FrameClusters at the origin; the icosphere's
+    own), then any hit (t_max 2.5, the first order row); -> K6's max abs
+    error."""
+    from raytracing_engine_tpu_torch.ops.cuda import cluster
+
+    err = 0.0
+    origin = torch.zeros(3, device=device)
+    for label, sc, cset, (o, d) in c3_hard_rays(c3, device):
+        o, d = np_rays(o, d, device)
+        hold_k5_rays(label, sc, cset, o, d, seed, quat)
+        fc = cluster.FrameClusters.at(cset, origin)
+        n = o[0].numel()
+        for what, t_max, kw in (
+                ("closest + attrs", float("inf"),
+                 dict(attrs=True, order=fc.orders[0], orders=fc.orders, refs=fc.refs)),
+                ("any hit", 2.5, dict(any_hit=True, order=fc.orders[0]))):
+            got = cluster.cluster_intersect(cset, o, d, t_max, **kw)
+            want = cluster.cluster_intersect_reference(cset, o, d, t_max, **kw)
+            torch.cuda.synchronize(device)
+            err = max(err, hold_sweep(f"K6 {label}, {n} rays (last warp {n % 32 or 32} "
+                                      f"lanes), {what}", got, want))
+    return err
 
 
 def phase_c5_warp_rays(c5, quat, seed, device):
@@ -2380,7 +2474,7 @@ def main() -> int:
     k6 = phase_cluster_kernel(c3, pt_quat, pt_seed, device, card)
     log("phase 11: config 3 through K4, K5 and K6, and its invariants")
     inv = phase_c3_invariants(c3, pt_quat, pt_seed, device)
-    phase_c3_warp_rays(c3, pt_quat, pt_seed, device)
+    k6["max_abs_err"] = max(k6["max_abs_err"], phase_c3_warp_rays(c3, pt_quat, pt_seed, device))
     log("phase 12: config-3 main path and timing (CUDA events)")
     c3_main = phase_c3_main(c3, pt_quat, pt_seed, device, card, inv)
     log("phase 13: config 3's raw BVH and K8 vs its plain version")

@@ -9,13 +9,19 @@
 // What bounds it on this card: FP32 ALU work and divergence, not bytes. A
 // ray reads 3 + 6 + 3 + 1 floats and writes 2 (7 with attributes), while it
 // runs tens of box tests (28 operations each) and hundreds of triangle tests
-// (30 each) against tables that stay in the L2. So: one thread per ray, the
-// hierarchy's gates decide per ray (a ray skips every box it misses, and a
-// warp runs the union of its rays' work), the tables are read through the
-// read-only path, nothing is staged in shared memory (the set is 9.7 MB at
-// BASELINE config 3).
+// (30 each) against tables that stay in the L2. So: one ray a lane, and the
+// warp sweeps its 32 rays together (cluster.cuh sweep_warp, as K4, K5 and
+// K7 do): each lane's gates decide for its own ray, and a sub-box that a few
+// lanes open is loaded once, coalesced, and tested by the whole warp, where
+// a lane sweeping alone would scan its 32 triangles serially while the other
+// lanes of the warp wait. The tables are read through the read-only path,
+// nothing is staged in shared memory (the set is 9.7 MB at BASELINE config
+// 3).
 //
-// Block: 128 threads over consecutive rays; the ragged end is masked.
+// Block: kClusterBlock threads over consecutive rays, in flat order (K6
+// takes ray planes of any shape); a lane past the last ray sweeps with
+// active false and writes nothing, so every warp reaches the sweep's
+// shuffles whole.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC
@@ -23,7 +29,9 @@
 
 namespace cl {
 
-constexpr int kBlock = 128;
+// Measured on the H100 against 128, with kCoopMax 8, 16 and 32 (PERF.md §6,
+// ab_config3.py --k6-worker).
+constexpr int kClusterBlock = 256;
 
 // Launch arguments, passed by value. Mirrored field for field by ClusterArgs
 // in ops/cuda/cluster.py.
@@ -45,13 +53,15 @@ struct Args {
   int device;        // CUDA ordinal the pointers and the stream belong to
 };
 
-__global__ void __launch_bounds__(kBlock) cluster_kernel(const Args a) {
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i >= a.n) return;
-  const float3 o = make_float3(__ldg(a.ox + i), __ldg(a.oy + i), __ldg(a.oz + i));
-  const float3 d = make_float3(__ldg(a.dx + i), __ldg(a.dy + i), __ldg(a.dz + i));
+__global__ void __launch_bounds__(kClusterBlock) cluster_kernel(const Args a) {
+  const int i = blockIdx.x * kClusterBlock + threadIdx.x;
+  const bool active = i < a.n;
+  const int j = active ? i : a.n - 1;  // a lane past the end sweeps the last ray, inactive
+  const float3 o = make_float3(__ldg(a.ox + j), __ldg(a.oy + j), __ldg(a.oz + j));
+  const float3 d = make_float3(__ldg(a.dx + j), __ldg(a.dy + j), __ldg(a.dz + j));
   SweepHit h;
-  sweep(a.tables, o, d, __ldg(a.tmax + i), a.t_min, a.any_hit != 0, h);
+  sweep_warp(a.tables, o, d, __ldg(a.tmax + j), a.t_min, a.any_hit != 0, active, h);
+  if (!active) return;
   a.out_t[i] = h.idx >= 0 ? h.t : __int_as_float(0x7f800000);
   a.out_idx[i] = h.idx;
   if (a.out_attr != nullptr) {
@@ -74,8 +84,8 @@ extern "C" int cluster_intersect(const cl::Args* a, void* stream) {
   cudaError_t err = cudaSetDevice(a->device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (a->n > 0) {
-    const dim3 grid((a->n + cl::kBlock - 1) / cl::kBlock);
-    cl::cluster_kernel<<<grid, cl::kBlock, 0, static_cast<cudaStream_t>(stream)>>>(*a);
+    const dim3 grid((a->n + cl::kClusterBlock - 1) / cl::kClusterBlock);
+    cl::cluster_kernel<<<grid, cl::kClusterBlock, 0, static_cast<cudaStream_t>(stream)>>>(*a);
   }
   return static_cast<int>(cudaGetLastError());
 }

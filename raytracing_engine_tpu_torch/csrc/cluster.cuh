@@ -1,5 +1,6 @@
-// The hierarchical cluster sweep, shared by kernel K6 (cluster.cu) and the
-// path tracer's kernels K4 and K5 (pt.cu).
+// The hierarchical cluster sweep, shared by kernel K6 (cluster.cu), the
+// path tracer's kernels K4 and K5 (pt.cu) and, inside each instance, K7
+// (instanced.cuh).
 //
 // Replaces the body of raytracing_engine_tpu/ops/pallas/cluster_intersect.py
 // (cluster_sweep, :136-436): for one ray, super boxes in a near-to-far visit
@@ -24,15 +25,14 @@
 // float4 loads per test), with the smooth-normal rows beside it in a
 // 12-float record [s0(3), s1-s0(3), s2-s0(3), 0 x3]; each cluster gets one
 // 36-float record [box(6), 0, 0, oc(3), 0, sub-box 0..3 (6 each)], so the
-// sub-boxes sit beside their cluster. `sweep` (K6) reads everything
-// through the read-only path from global memory: config 3's 9.7 MB fit in
-// the L2.
+// sub-boxes sit beside their cluster.
 //
-// `sweep_warp` (K4, K5, K7) is the same sweep run by the 32 lanes of a warp
-// together, one ray a lane. Each lane walks its own visit order and applies
-// its own gates with its own running t, so its gate decisions, and its
-// result, are those of `sweep`; the lanes step through the hierarchy in
-// lockstep, and a level is skipped when no lane's gate opens. What the warp
+// `sweep_warp` (K4, K5, K6, K7) is the sweep of one ray a lane, run by the
+// 32 lanes of a warp together. Each lane walks its own visit order and
+// applies its own gates with its own running t, so its gate decisions, and
+// its result, are those of the one-ray sweep of the plain version; the
+// lanes step through the hierarchy in lockstep, and a level is skipped when
+// no lane's gate opens. What the warp
 // shares is the sub-box test: when the gates of m <= kCoopMax lanes open on
 // a step, the warp loads each requested sub-box's 32 triangle records once,
 // coalesced (lane j record j), and lane j tests triangle j against each
@@ -42,13 +42,13 @@
 // tests/test_torch_cluster.py::test_batched_selection_equals_sequential_scan
 // holds on a set whose every triangle is duplicated, so every hit is a
 // tie). With more requests each requesting lane scans its 32 records in
-// order, as `sweep` does. Measured on the H100 before this design (PERF.md
-// §5, ab_config3.py --lanes): 1.5-2.3 lanes of a warp test a sub-box
-// together in K5 and 6 in K7, and m <= 8 covers 97-99% of K5's sub-box
-// tests. Both read every table through the read-only path, as `sweep` does:
-// staging the super boxes and cluster records in shared memory took 5-8%
-// off K5 at config 5 only, a frame bound by the host's regroup, and slowed
-// K7 (PERF.md §6).
+// order (test_sub). Measured on the H100 before this design (PERF.md §6,
+// ab_config3.py --lanes on a per-thread sweep): 1.5-2.3 lanes of a warp
+// test a sub-box together in K5 and 6 in K7, and m <= 8 covers 97-99% of
+// K5's sub-box tests. Every table is read through the read-only path from
+// global memory (config 3's 9.7 MB fit in the L2): staging the super boxes
+// and cluster records in shared memory took 5-8% off K5 at config 5 only, a
+// frame bound by the host's regroup, and slowed K7 (PERF.md §6).
 //
 // Arithmetic: NaN-propagating min/max (CUDA's fminf/fmaxf drop NaN, and the
 // padding boxes are all-NaN never-hit boxes), 1/d then products for the
@@ -133,7 +133,8 @@ __device__ __forceinline__ const int* ray_order(const Tables& tb, float3 o) {
 }
 
 // The 32 Baldwin–Weber tests of sub-box `sub` of cluster c, against the
-// cluster-local origin lo (cluster_intersect.mt_sub).
+// cluster-local origin lo (cluster_intersect.mt_sub), by one lane alone:
+// sweep_warp's scan above kCoopMax requests.
 __device__ __forceinline__ void test_sub(const Tables& tb, int c, int sub,
                                          float3 lo, float3 d, float t_min,
                                          SweepHit& h) {
@@ -162,40 +163,7 @@ __device__ __forceinline__ void test_sub(const Tables& tb, int c, int sub,
   }
 }
 
-// One ray against the whole set: closest hit (any_hit false) or the first
-// blocker before t0 (any_hit true). On return h.t is t0 when h.idx < 0.
-__device__ __forceinline__ void sweep(const Tables& tb, float3 o, float3 d, float t0,
-                                      float t_min, bool any_hit, SweepHit& h) {
-  h.t = t0;
-  h.idx = -1;
-  h.u = 0.0f;
-  h.v = 0.0f;
-  if (any_hit && fabsf(o.x) >= kParked) {
-    h.idx = 0;  // parked: its caller gates it by its own candidate mask
-    return;
-  }
-  const float3 inv = make_float3(1.0f / d.x, 1.0f / d.y, 1.0f / d.z);
-  const int* order = any_hit ? tb.order : ray_order(tb, o);
-  for (int si = 0; si < tb.n_super; ++si) {
-    const int s = __ldg(order + si);
-    if (!box_gate(tb.sbox + s * 8, o, inv, t_min, h.t)) continue;
-    for (int k = 0; k < kSuper; ++k) {
-      const int c = s * kSuper + k;
-      const float* cr = tb.crec + c * kClusterW;
-      if (!box_gate(cr, o, inv, t_min, h.t)) continue;
-      const float3 lo = make_float3(o.x - __ldg(cr + kOcOff), o.y - __ldg(cr + kOcOff + 1),
-                                    o.z - __ldg(cr + kOcOff + 2));
-      for (int sub = 0; sub < kSubs; ++sub) {
-        if (box_gate(cr + kSubOff + 6 * sub, o, inv, t_min, h.t)) {
-          test_sub(tb, c, sub, lo, d, t_min, h);
-        }
-      }
-      if (any_hit && h.idx >= 0) return;
-    }
-  }
-}
-
-// --- the warp sweep (K4, K5, K7) -----------------------------------------------
+// --- the warp sweep (K4, K5, K6, K7) -------------------------------------------
 
 constexpr unsigned kFullWarp = 0xFFFFFFFFu;
 // Most requests of one sub-box step that the warp tests together; above it
@@ -278,9 +246,13 @@ __device__ __forceinline__ void test_sub_warp(const Tables& tb, unsigned req, in
   }
 }
 
-// `sweep` for the ray of each lane whose `active` is set, called by all 32
-// lanes of the warp together (a lane without a ray passes active false and
-// its h is not to be read).
+// One ray a lane against the whole set, closest hit (any_hit false) or the
+// first blocker before t0 (any_hit true), for the ray of each lane whose
+// `active` is set, called by all 32 lanes of the warp together (a lane
+// without a ray passes active false and its h is not to be read). On return
+// h.t is t0 where h.idx < 0. Any hit stops a lane after the cluster that
+// holds its first blocker; a parked origin (|o.x| >= 1e17) counts as blocked
+// at once (:193-201).
 __device__ __forceinline__ void sweep_warp(const Tables& tb, float3 o, float3 d, float t0,
                                            float t_min, bool any_hit, bool active,
                                            SweepHit& h) {
@@ -319,7 +291,7 @@ __device__ __forceinline__ void sweep_warp(const Tables& tb, float3 o, float3 d,
           test_sub(tb, c, sub, lo, d, t_min, h);
         }
       }
-      if (any_hit && g_cluster && h.idx >= 0) live = false;  // sweep's return
+      if (any_hit && g_cluster && h.idx >= 0) live = false;  // the any-hit stop
     }
   }
 }

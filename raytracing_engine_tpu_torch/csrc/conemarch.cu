@@ -8,9 +8,11 @@
 // shared-memory staging have nothing to do here; the design keeps all ray
 // state in registers and lets each warp retire as soon as its rays are done.
 //
-// Blocks: the shade and fused kernels 32 x 4 threads, a warp along a row;
-// the pyramid kernel kTileX x kTileY threads, a tile of one level. The
-// ragged edge (level widths such as 120 and 240 at 1920x1088) is masked.
+// Blocks: the shade kernel 32 x 4 threads, a warp along a row; the fused
+// kernel kFusedWarpsX x kFusedWarpsY one-warp tiles of kFusedWarpX x
+// (32 / kFusedWarpX) pixels; the pyramid kernel kTileX x kTileY threads, a
+// tile of one level. The ragged edge (level widths such as 120 and 240 at
+// 1920x1088) is masked.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC   (see conemarch.cuh on why
@@ -136,9 +138,31 @@ __global__ void __launch_bounds__(kBlockX * kBlockY) shade_kernel(const Args a) 
 // Replaces raytracing_engine_tpu/ops/pallas/fused.py:_fused_kernel (K2):
 // the finest level's march, then the shading of K3 with the depth kept in a
 // register; (h, w, 3) out, equal bit for bit to pyramid_kernel + shade_kernel.
-__global__ void __launch_bounds__(kBlockX * kBlockY) fused_kernel(const Args a) {
-  const int x = blockIdx.x * kBlockX + threadIdx.x;
-  const int y = blockIdx.y * kBlockY + threadIdx.y;
+//
+// A warp is an 8 x 4 tile of the image, not a strip of a row: a march takes
+// as many steps as the warp's slowest lane, and the pixels of a square tile
+// are nearer alike (ab_config3.py --trips counts the lanes that step
+// uselessly at each tile shape: 60% of the primary march's lanes are busy
+// in 8 x 4 tiles, 44% in 32 x 1). Measured on the H100 (PERF.md §6): 8 x 4
+// tiles in blocks of 2 x 2 against 32 x 1, 16 x 2 and 4 x 8 tiles and
+// blocks of 1 to 8 warps; marching the shadow rays as jobs off the pixel's
+// lane (a list of (pixel, light) jobs a warp or a block) and shading the
+// finest level inside K1's launch both lost, and so did asking ptxas for a
+// number of resident blocks (its code for the same 55 registers ran 6.5%
+// slower).
+constexpr int kFusedWarpX = 8;   // a warp's tile: kFusedWarpX x (32 / kFusedWarpX) pixels
+constexpr int kFusedWarpsX = 2;  // a block: kFusedWarpsX x kFusedWarpsY warp tiles
+constexpr int kFusedWarpsY = 2;
+constexpr int kFusedWarpY = 32 / kFusedWarpX;
+constexpr int kFusedThreads = 32 * kFusedWarpsX * kFusedWarpsY;
+constexpr int kFusedW = kFusedWarpX * kFusedWarpsX;  // a block's tile, in pixels
+constexpr int kFusedH = kFusedWarpY * kFusedWarpsY;
+static_assert(kFusedWarpX * kFusedWarpY == 32, "a warp's tile is 32 pixels");
+
+__global__ void __launch_bounds__(kFusedThreads) fused_kernel(const Args a) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int x = blockIdx.x * kFusedW + (warp % kFusedWarpsX) * kFusedWarpX + lane % kFusedWarpX;
+  const int y = blockIdx.y * kFusedH + (warp / kFusedWarpsX) * kFusedWarpY + lane / kFusedWarpX;
   if (x >= a.w || y >= a.h) return;
   const size_t i = static_cast<size_t>(y) * a.w + x;
   const Spheres s = load_spheres(a);
@@ -185,7 +209,9 @@ extern "C" int conemarch_shade(const Args* a, void* stream) {
 extern "C" int conemarch_fused(const Args* a, void* stream) {
   const cudaError_t err = cudaSetDevice(a->device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  conemarch::fused_kernel<<<grid_for(a), dim3(kBlockX, kBlockY), 0,
+  const dim3 grid((a->w + conemarch::kFusedW - 1) / conemarch::kFusedW,
+                  (a->h + conemarch::kFusedH - 1) / conemarch::kFusedH);
+  conemarch::fused_kernel<<<grid, conemarch::kFusedThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }
