@@ -30,10 +30,11 @@ camera rays at 1920x1088 (closest hit with normals) and on their hard-shadow
 rays (any hit); the cone march at 1920x1088 (the default scene, 24 orbit
 poses): the frame by CUDA events with its host enqueue, K1's device time a
 frame (every K1 launch of the frame summed), K2's device time a frame and
-the pyramid's levels; K8 on config 3's knot as a raw BVH (44,961 nodes):
-its camera, bounce-1 and NEE-style shadow rays at 512x512 (as
-chip_smoke.py phase 13 makes them), and render_pt_fast(bvh=BVH) 512x512
-frames with K8's device time summed over a frame's six launches; K6 on
+the pyramid's levels, the two-kernel frame by events and K3's device time
+a frame (K3 on each pose's finished depth); K8 on config 3's knot as a raw
+BVH (44,961 nodes): its camera, bounce-1 and NEE-style shadow rays at
+512x512 (as chip_smoke.py phase 13 makes them), and render_pt_fast(bvh=BVH)
+512x512 frames with K8's device time summed over a frame's six launches; K6 on
 config 3's ClusterSet: the same three ray sets (closest-hit sweeps with the
 frame's visit orders, as chip_smoke.py phase 10 makes them), and
 render_pt_fast(bvh=cs) 512x512 frames with K6's device time summed over a
@@ -49,26 +50,28 @@ of csrc/bvh.cu, kPyramidMinBlocks=4 of csrc/conemarch.cu, or kBlockY=8
 TILE_H=8 for the cone march's blocks and K1's mirrored tile).
 
 Cone: the cone-march rows alone (ptxas of K1-K3, the 1920x1088 frame by
-events with its enqueue, K1's and K2's device time a frame, hashes), for
-PAIRS pairs of runs in the order A B B A A B B A ..., each run a process of
-its own; then each run's numbers side by side and in how many pairs B's
-frame, enqueue, K1 and K2 time were below A's. --cone-worker DIR
-[NAME=VALUE ...] is one such run. --k6-worker DIR [NAME=VALUE ...] runs
-K6's rows alone (ptxas, the three ray sets, the render_pt_fast(bvh=cs)
-frames), once.
+events with its enqueue, K1's and K2's device time a frame, the two-kernel
+frame by events and K3's device time a frame from the finished depths,
+hashes), for PAIRS pairs of runs in the order A B B A A B B A ..., each run
+a process of its own; then each run's numbers side by side and in how many
+pairs B's frame, enqueue, K1, K2, K3 and two-kernel frame time were below
+A's. --cone-worker DIR [NAME=VALUE ...] is one such run. --k6-worker DIR
+[NAME=VALUE ...] runs K6's rows alone (ptxas, the three ray sets, the
+render_pt_fast(bvh=cs) frames), once.
 
-Trips: K2's trip-count model. An instrumented copy of DIR's plain march
-(ops/march.py, in a temporary directory; DIR is not touched) keeps each
+Trips: K2's and K3's trip-count model. An instrumented copy of DIR's plain
+march (ops/march.py, in a temporary directory; DIR is not touched) keeps each
 pixel's step count of the finest level's cone march and of each light's
 shadow march, over the orbit poses of the cone rows (at W x H and POSES if
 given; on the card if there is one, else on the CPU); from them, the share
 of a warp's lanes that do a useful step: in the primary march and in the
-shadow marches run in the pixel's lane, for warps of 32 x 1, 8 x 4 and
-4 x 8 pixels, and in the shadow marches run as jobs compacted per warp or
-per block of 128 or 256 pixels (each lit pixel's lights taken 32 at a
+shadow marches run in the pixel's lane, for warps of 32 x 1, 8 x 4, 4 x 8
+and 16 x 2 pixels, and in the shadow marches run as jobs compacted per warp
+or per block of 128 or 256 pixels (each lit pixel's lights taken 32 at a
 time, light-major: a form of K2 that was measured and not kept, PERF.md
 §6), with each form's warp-steps a frame against the 32 x 1 warps that
-march the shadow rays in the pixel's lane.
+march the shadow rays in the pixel's lane; and K3's: the shadow marches
+alone, from the finished depth, against K3's parent's 32 x 1 warps.
 
 Spheres: the sphere rows alone, A B B A; they run on any checkout of the
 port, also one without clusters (commit cee9bc9, spheres only).
@@ -361,6 +364,28 @@ def device_sum_ms(launch, reps: int, names) -> tuple[float, list]:
     return ms, places
 
 
+def best_frames(render, n: int):
+    """(ms a frame by CUDA events, host enqueue ms a frame), best of ROUNDS
+    rounds of render(k), k = 0..n-1, chained."""
+    import torch
+
+    best = None
+    for _ in range(ROUNDS):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for k in range(n):
+            render(k)
+        host = (time.perf_counter() - t0) * 1e3 / n
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / n
+        if best is None or ms < best[0]:
+            best = (ms, host)
+    return best
+
+
 def frames(root, card, label, fn, c, quat, seed, n_frames, spp=1, kernel=None, summed=False):
     """Best ms/frame of ROUNDS rounds of n_frames chained frames with distinct
     camera z by CUDA events (host enqueue beside), the image's hash and,
@@ -372,20 +397,7 @@ def frames(root, card, label, fn, c, quat, seed, n_frames, spp=1, kernel=None, s
     kw = dict(seed=seed) if c.get("bvh") is None else dict(seed=seed, bvh=c["bvh"])
     zs = [torch.tensor([0.0, 0.0, 1e-4 * k], device=device) for k in range(n_frames)]
     img, _ = fn(c["cfg"], c["scene"], zs[0], quat, spp, **kw)
-    best = None
-    for _ in range(ROUNDS):
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        t0 = time.perf_counter()
-        for k in range(n_frames):
-            fn(c["cfg"], c["scene"], zs[k], quat, spp, **kw)
-        host = (time.perf_counter() - t0) * 1e3 / n_frames
-        end.record()
-        end.synchronize()
-        ms = start.elapsed_time(end) / n_frames
-        if best is None or ms < best[0]:
-            best = (ms, host)
+    best = best_frames(lambda k: fn(c["cfg"], c["scene"], zs[k], quat, spp, **kw), n_frames)
     dev = ""
     if kernel and summed:
         dev_ms, places = device_sum_ms(
@@ -452,42 +464,39 @@ def sphere_rows(root, card, device, quat, seed):
 
 
 def cone_rows(root, card, device):
-    """The cone march at CONE_SIZE: frames of the CONE_POSES orbit poses by
-    CUDA events (best of ROUNDS, host enqueue beside), K1's device time a
-    frame and by launch, the first frame's image and pyramid hashed."""
-    import torch
-
+    """The cone march at CONE_SIZE over the CONE_POSES orbit poses: the fused
+    frame by CUDA events (best of ROUNDS, host enqueue beside), K1's device
+    time a frame and by launch, K2's; the two-kernel frame
+    (render(fused=False)) by events, and K3's device time a frame, from each
+    pose's finished depth; the first pose's image, pyramid and K3 output
+    hashed."""
     import raytracing_engine_tpu_torch as rtt
     from raytracing_engine_tpu_torch.camera import Camera, orbit_path
     from raytracing_engine_tpu_torch.models import cuda_renderer
+    from raytracing_engine_tpu_torch.ops.cuda import shade
 
     cfg = rtt.RenderConfig(*CONE_SIZE)
     scene = rtt.default_scene(device)
     positions, rotations = orbit_path(CONE_POSES, radius=16.0)
     quats = Camera(positions, rotations).quat().to(device)
     positions = positions.to(device)
+    poses = [(positions[k], quats[k]) for k in range(CONE_POSES)]
 
-    def render(k):
-        return cuda_renderer.render(cfg, scene, positions[k % CONE_POSES], quats[k % CONE_POSES])
+    def render(k, fused=True):
+        return cuda_renderer.render(cfg, scene, *poses[k % CONE_POSES], fused=fused)
 
     img = render(0)
-    levels = cuda_renderer.render_depth_pyramid(cfg, scene, positions[0], quats[0])
-    best = None
-    for _ in range(ROUNDS):
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        t0 = time.perf_counter()
-        for k in range(CONE_POSES):
-            render(k)
-        host = (time.perf_counter() - t0) * 1e3 / CONE_POSES
-        end.record()
-        end.synchronize()
-        ms = start.elapsed_time(end) / CONE_POSES
-        if best is None or ms < best[0]:
-            best = (ms, host)
+    levels = cuda_renderer.render_depth_pyramid(cfg, scene, *poses[0])
+    depths = [cuda_renderer.render_depth_pyramid(cfg, scene, *pose)[-1] for pose in poses]
+
+    def k3(k):
+        return shade.shade(cfg, scene, *poses[k % CONE_POSES], depths[k % CONE_POSES])
+
+    best = best_frames(render, CONE_POSES)
+    two = best_frames(lambda k: render(k, fused=False), CONE_POSES)
     k1, places = device_sum_ms(render, CONE_POSES, K1_NAMES)
     k2, _ = device_sum_ms(render, CONE_POSES, ("fused_kernel",))
+    k3_ms, _ = device_sum_ms(k3, CONE_POSES, ("shade_kernel",))
     size = f"{cfg.width}x{cfg.height}"
     print(f"  {root}: cone march {size} frame: best {best[0]:.4f} ms/frame (host enqueue "
           f"{best[1]:.4f} ms), K1 {k1:.4f} ms a frame (device time; {len(places)} launches a "
@@ -495,7 +504,11 @@ def cone_rows(root, card, device):
           f"time), image {digest(img)} [{card}]", flush=True)
     print(f"  {root}: cone march {size} pyramid: {len(levels)} levels, outputs "
           f"{digest(*levels)} [{card}]", flush=True)
-    return best[0], best[1], k1, k2
+    print(f"  {root}: cone march {size} two-kernel frame: best {two[0]:.4f} ms/frame (host "
+          f"enqueue {two[1]:.4f} ms), K3 {k3_ms:.4f} ms a frame (device time, from the finished "
+          f"depth), image {digest(render(0, fused=False))}, K3 outputs "
+          f"{digest(*(k3(k) for k in range(CONE_POSES)))} [{card}]", flush=True)
+    return best[0], best[1], k1, k2, k3_ms, two[0]
 
 
 def k8_rows(root, card, device, c3, quat, seed):
@@ -676,8 +689,8 @@ def cone_worker(root: str, settings=()) -> int:
         if name in CONE_NAMES:
             print(f"  {root}: ptxas {name}: {regs} registers, {stack} B stack, spill stores {st} "
                   f"B / loads {ld} B, {smem} B static smem", flush=True)
-    frame, host, k1, k2 = cone_rows(root, card, torch.device("cuda", 0))
-    print(f"CONE {frame} {host} {k1} {k2}", flush=True)
+    print(f"CONE {' '.join(str(x) for x in cone_rows(root, card, torch.device('cuda', 0)))}",
+          flush=True)
     if settings:
         shutil.rmtree(path, ignore_errors=True)
     return 0
@@ -699,10 +712,12 @@ def cone_ab(a: str, b: str, pairs: int) -> int:
                 return proc.returncode
             line = next(x for x in proc.stdout.splitlines() if x.startswith("CONE "))
             runs[root].append(tuple(float(x) for x in line.split()[1:]))
-            for m in re.finditer(r": (cone march .*?): .*(?:image|outputs) (\w{16})", proc.stdout):
-                hashes.setdefault(m.group(1), set()).add(m.group(2))
+            for m in re.finditer(r": (cone march .*?): (.*)", proc.stdout):
+                for what, h in re.findall(r"(image|outputs) (\w{16})", m.group(2)):
+                    hashes.setdefault((m.group(1), what), set()).add(h)
     for label, i in (("frame ms (events)", 0), ("host enqueue ms", 1), ("K1 ms a frame", 2),
-                     ("K2 ms a frame", 3)):
+                     ("K2 ms a frame", 3), ("K3 ms a frame", 4),
+                     ("two-kernel frame ms (events)", 5)):
         below = sum(y[i] < x[i] for x, y in zip(runs[a], runs[b]))
         print(f"{label}: A {' '.join(f'{x[i]:.4f}' for x in runs[a])}; "
               f"B {' '.join(f'{y[i]:.4f}' for y in runs[b])}; B below A in {below} of {pairs} "
@@ -787,8 +802,9 @@ TRIP_PATCHES = [
 ]
 # warp tiles (w x h) the model compares, and for each the blocks of warp
 # tiles (wx x wy) whose shadow jobs it compacts
-TRIP_WARPS = ((32, 1), (8, 4), (4, 8))
-TRIP_BLOCKS = {(32, 1): ((1, 4), (1, 8)), (8, 4): ((2, 2), (4, 2)), (4, 8): ((2, 2), (4, 2))}
+TRIP_WARPS = ((32, 1), (8, 4), (4, 8), (16, 2))
+TRIP_BLOCKS = {(32, 1): ((1, 4), (1, 8)), (8, 4): ((2, 2), (4, 2)), (4, 8): ((2, 2), (4, 2)),
+               (16, 2): ((2, 2), (4, 2))}
 
 
 def tiles(a, tw: int, th: int):
@@ -901,7 +917,7 @@ def trips(root: str, size=CONE_SIZE, poses=CONE_POSES) -> int:
           f"({prim.mean():.2f} a pixel, max {prim.max()}), shadow {s_steps / poses:.0f} "
           f"({shad.sum(0)[lit].mean():.2f} a lit pixel over its lights, max "
           f"{shad.max()}) [{where}]", flush=True)
-    base = None
+    base = s_base = None
     for warp in TRIP_WARPS:
         ww, wh = warp
         p_warp = warp_steps(tiles(prim, ww, wh))
@@ -909,7 +925,7 @@ def trips(root: str, size=CONE_SIZE, poses=CONE_POSES) -> int:
         s_jobs, _ = job_steps(tiles(shad, ww, wh).reshape(n_light, -1, 32),
                               tiles(lit, ww, wh).reshape(-1, 32))
         if base is None:
-            base = p_warp + s_lane
+            base, s_base = p_warp + s_lane, s_lane
         parts = [f"primary {p_steps / p_warp:.3f}", f"shadow in the pixel's lane "
                  f"{s_steps / s_lane:.3f}", f"shadow jobs a warp {s_steps / max(s_jobs, 1):.3f}"]
         model = [f"in-lane {(p_warp + s_lane) / base:.3f}", f"warp list "
@@ -924,6 +940,10 @@ def trips(root: str, size=CONE_SIZE, poses=CONE_POSES) -> int:
         print(f"  {root}: K2 trips, {ww} x {wh} warps: share of lanes doing useful steps: "
               f"{'; '.join(parts)}. Warp-steps a frame against 32 x 1 warps marching in the "
               f"pixel's lane: {'; '.join(model)} [{where}]", flush=True)
+        print(f"  {root}: K3 trips, {ww} x {wh} warps (the shadow march alone, from the finished "
+              f"depth): share of lanes doing useful steps {s_steps / s_lane:.3f}; shadow "
+              f"warp-steps a frame {s_lane / poses:.0f}, {s_lane / s_base:.3f} of 32 x 1 warps' "
+              f"[{where}]", flush=True)
     shutil.rmtree(tmp, ignore_errors=True)
     return 0
 

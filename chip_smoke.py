@@ -7,16 +7,21 @@ Phases, each printing its own lines:
      1920x1088 configuration's shapes (atol 2e-5, rtol 1e-5, at most 1e-4 of
      the elements diverging); K1, the pyramid in one launch, bit for bit
      against the plain pyramid at every level, at 1920x1088 and 1280x720, for
-     levels 0..N-1 and 0..N-2 in one launch and for each level alone; K2 bit
-     for bit;
+     levels 0..N-1 and 0..N-2 in one launch and for each level alone; K2 and
+     K3 bit for bit;
   3. the fused renderer against the two-kernel renderer, bit for bit; then
-     K2 against its plain version and fused == two-kernel, bit for bit, on
-     its hard cases: every object, material and light slot live (8 spheres,
-     8 lights), no light, 1280x720, and 1000x504 (a finest level that K2's
-     block tiles do not divide);
-  4. a 64x64 render against tests/golden/golden_64.npz;
+     K2 and K3 against their plain versions and fused == two-kernel, bit
+     for bit, on their hard cases: every object, material and light slot
+     live (8 spheres, 8 lights), no light, 1280x720, and 1000x504 (a finest
+     level that K2's and K3's block tiles do not divide);
+  4. a 64x64 render against tests/golden/golden_64.npz; the port's own
+     numpy golden renderer (models/golden.py) renders that artifact bit for
+     bit;
   5. the main path at 1920x1088 through its user entry points (FrameLoop,
-     render_sequence) under the kernels' launch counters;
+     render_sequence) under the kernels' launch counters; the first frame
+     written through utils.image.write_png to smoke_out/ (gitignored) and
+     its pixel rows read back from the file equal to to_srgb_u8 of the
+     frame;
   6. timings of each kernel (K1, K2 and K3 by torch.profiler's device
      time, CUDA events beside) and of the whole frame by CUDA events (host
      enqueue beside), beside the plain versions and each kernel's least
@@ -131,7 +136,8 @@ Phases, each printing its own lines:
      (K8 and K9); K9 timed by CUDA events and by torch.profiler, beside its
      plain version, its least time and torch.rand (Philox, another stream,
      for scale only).
-Then one JSON line of per-kernel results, each number measured in this run
+Then a line that sums up phases 4 and 5's image output, one JSON line of
+per-kernel results, each number measured in this run
 but the bounds, computed from its inputs (K4 once per instantiation, on its
 main path's frames: without a mesh at config 2, with clusters at config 3
 and with instances at config 5, each 512x512 frame's bound from the work
@@ -158,6 +164,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "golden_64.npz"
+FRAME_PNG = ROOT / "smoke_out" / "chip_smoke_frame.png"  # gitignored
 SIZE = (1920, 1088)
 K1_SIZE = (1280, 720)  # a second pyramid whose levels are not exact doubles
 # K2's hard cases (phase 3): a finest level that K2's 16 x 8 block tile does
@@ -356,11 +363,23 @@ def phase_kernels(cfg, scene, pos, quat):
     plain = conemarch.render_depth_pyramid(cfg, scene, pos, quat)
     errs = {"depth": max(hold_k1(cfg, scene, pos, quat),
                          hold_k1(rtt.RenderConfig(*K1_SIZE), scene, pos, quat))}
-    errs["shade"] = hold(
-        "K3 shade", shade.shade(cfg, scene, pos, quat, plain[-1]),
-        shade.shade_reference(cfg, scene, pos, quat, plain[-1]), KERNEL_TOL, KERNEL_FRAC)
+    errs["shade"] = hold_k3("K3 shade", cfg, scene, pos, quat, plain[-1])
     errs["fused"] = hold_k2("K2 fused", cfg, scene, pos, quat, plain[-2])
     return errs
+
+
+def hold_k3(label, cfg, scene, pos, quat, depth) -> float:
+    """K3 on a finished depth against its plain version, bit for bit; -> the
+    max abs error (0)."""
+    from raytracing_engine_tpu_torch.ops.cuda import shade
+
+    got = shade.shade(cfg, scene, pos, quat, depth)
+    want = shade.shade_reference(cfg, scene, pos, quat, depth)
+    err = hold(label, got, want, KERNEL_TOL, KERNEL_FRAC)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: K3 differs from its plain version on "
+                             f"{(got != want).double().mean().item():.6g} of elements")
+    return err
 
 
 def hold_k2(label, cfg, scene, pos, quat, prev) -> float:
@@ -408,9 +427,10 @@ def k2_scenes(device):
 
 
 def phase_fused_bitwise(cfg, scene, pos, quat):
-    """Fused == two-kernel on the default scene; then K2 against its plain
-    version and fused == two-kernel on the hard cases: every slot live, no
-    light, 1280x720 and a finest level ragged against K2's tiles."""
+    """Fused == two-kernel on the default scene; then K2 and K3 against
+    their plain versions and fused == two-kernel on the hard cases: every
+    slot live, no light, 1280x720 and a finest level ragged against K2's and
+    K3's tiles."""
     import raytracing_engine_tpu_torch as rtt
     from raytracing_engine_tpu_torch.models import conemarch
 
@@ -420,14 +440,18 @@ def phase_fused_bitwise(cfg, scene, pos, quat):
     for size in (K1_SIZE, K2_RAGGED):
         cases.append((f"default scene, {size[0]}x{size[1]}", rtt.RenderConfig(*size), scene))
     for label, c, sc in cases:
-        prev = conemarch.render_depth_pyramid(c, sc, pos, quat)[-2]
-        hold_k2(f"K2 {label}", c, sc, pos, quat, prev)
+        levels = conemarch.render_depth_pyramid(c, sc, pos, quat)
+        hold_k2(f"K2 {label}", c, sc, pos, quat, levels[-2])
+        hold_k3(f"K3 {label}", c, sc, pos, quat, levels[-1])
         fused_equals_two_kernel(c, sc, pos, quat, f" ({label})")
 
 
-def phase_golden(device):
+def phase_golden(device) -> str:
+    """The kernels' 64x64 render against golden_64.npz, within the golden
+    tolerances; the port's numpy golden renderer against it, bit for bit;
+    -> a summary."""
     import raytracing_engine_tpu_torch as rtt
-    from raytracing_engine_tpu_torch.models import cuda_renderer
+    from raytracing_engine_tpu_torch.models import cuda_renderer, golden
 
     z = np.load(GOLDEN)
     cfg = rtt.RenderConfig(width=64, height=64)
@@ -440,6 +464,50 @@ def phase_golden(device):
         hold(f"golden level {i}", got, want, DEPTH_TOL, GOLDEN_FRAC)
     img = cuda_renderer.render(cfg, scene, pos, quat)
     hold("golden image", img, torch.from_numpy(z["image"]).to(device), IMAGE_TOL, GOLDEN_FRAC)
+    t0 = time.perf_counter()
+    levels = golden.render_depth_pyramid(cfg, scene, pos, quat)
+    img = golden.shade(cfg, scene, levels[-1], pos, quat)
+    seconds = time.perf_counter() - t0
+    for i, level in enumerate(levels):
+        if not np.array_equal(level, z[f"level_{i}"]):
+            raise AssertionError(f"models/golden.py level {i} differs from golden_64.npz")
+    if not np.array_equal(img, z["image"]):
+        raise AssertionError("models/golden.py's image differs from golden_64.npz on "
+                             f"{(img != z['image']).mean():.6g} of elements")
+    msg = (f"models/golden.py renders golden_64.npz bit for bit ({len(levels)} levels and the "
+           f"image, {seconds:.2f} s on the host)")
+    log(f"  {msg}")
+    return msg
+
+
+def write_frame(img) -> str:
+    """Write a host frame through utils.image.write_png to FRAME_PNG and
+    read its pixel rows back from the file (filter 0, as encode_png writes
+    them) against to_srgb_u8 of the frame; -> a summary."""
+    import struct
+    import zlib
+
+    from raytracing_engine_tpu_torch.utils import to_srgb_u8, write_png
+
+    FRAME_PNG.parent.mkdir(exist_ok=True)
+    write_png(str(FRAME_PNG), img)
+    data = FRAME_PNG.read_bytes()
+    w, h = struct.unpack(">II", data[16:24])
+    idat, pos = b"", 8
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        if data[pos + 4:pos + 8] == b"IDAT":
+            idat += data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    want = to_srgb_u8(img)
+    if (h, w) != want.shape[:2] or rows[:, 0].any() or not np.array_equal(
+            rows[:, 1:].reshape(h, w, 3), want):
+        raise AssertionError(f"{FRAME_PNG}: the PNG's pixels differ from to_srgb_u8 of the frame")
+    msg = (f"frame 0 of phase 5 written by utils.image.write_png to "
+           f"{FRAME_PNG.relative_to(ROOT)} ({w}x{h}, {len(data)} B), read back equal")
+    log(f"  {msg}")
+    return msg
 
 
 def nonzero_fraction(img_hwc) -> float:
@@ -481,6 +549,7 @@ def phase_main_path(cfg, scene):
         hold(f"FrameLoop frame {i} vs plain renderer", img, want_img, KERNEL_TOL, KERNEL_FRAC)
         fracs.append(nonzero_fraction(img))
     log(f"  FrameLoop nonzero-pixel fractions: {[round(f, 4) for f in fracs]}")
+    png = write_frame(frames[0][0])
     # frames 0-2 see the spheres; from y = 3.75 on the walk has passed them all
     if not 0.0 < fracs[0] < 1.0 or not all(f < 1.0 for f in fracs):
         raise AssertionError("FrameLoop frames are empty or saturated")
@@ -505,7 +574,7 @@ def phase_main_path(cfg, scene):
         f"two-kernel frame x {TWO_KERNEL})")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
-    return counts
+    return counts, png
 
 
 def cuda_ms(fn, reps: int) -> tuple[float, float]:
@@ -2455,9 +2524,9 @@ def main() -> int:
     log("phase 3: fused vs two-kernel")
     phase_fused_bitwise(cfg, scene, pos, quat)
     log("phase 4: 64x64 against tests/golden/golden_64.npz")
-    phase_golden(device)
+    golden_msg = phase_golden(device)
     log(f"phase 5: main path at {cfg.width}x{cfg.height} (FrameLoop, render_sequence)")
-    counts = phase_main_path(cfg, scene)
+    counts, png_msg = phase_main_path(cfg, scene)
     log("phase 6: timing (CUDA events)")
     times = phase_timing(cfg, scene, card)
 
@@ -2545,6 +2614,7 @@ def main() -> int:
         if bad:
             raise AssertionError(f"{k['name']}: {bad} not finite")
     log(f"total {time.perf_counter() - t0:.1f} s")
+    print(f"image output: {golden_msg}; {png_msg}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

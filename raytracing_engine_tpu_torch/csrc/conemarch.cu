@@ -8,11 +8,11 @@
 // shared-memory staging have nothing to do here; the design keeps all ray
 // state in registers and lets each warp retire as soon as its rays are done.
 //
-// Blocks: the shade kernel 32 x 4 threads, a warp along a row; the fused
-// kernel kFusedWarpsX x kFusedWarpsY one-warp tiles of kFusedWarpX x
-// (32 / kFusedWarpX) pixels; the pyramid kernel kTileX x kTileY threads, a
-// tile of one level. The ragged edge (level widths such as 120 and 240 at
-// 1920x1088) is masked.
+// Blocks: the fused and the shade kernel a few one-warp tiles of the image
+// each (WarpTiles in conemarch.cuh: kFusedWarp* and kShadeWarp* below); the
+// pyramid kernel kTileX x kTileY threads, a tile of one level. The ragged
+// edge (level widths such as 120 and 240 at 1920x1088, or a width of 1000)
+// is masked.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC   (see conemarch.cuh on why
@@ -20,9 +20,6 @@
 #include "conemarch.cuh"
 
 namespace conemarch {
-
-constexpr int kBlockX = 32;
-constexpr int kBlockY = 4;
 
 // Replaces raytracing_engine_tpu/ops/pallas/depth.py:_depth_kernel (K1):
 // the pyramid levels first..last in one launch. The TPU kernel marches one
@@ -120,21 +117,6 @@ __global__ void __launch_bounds__(kTileX * kTileY, kPyramidMinBlocks)
   }
 }
 
-// Replaces raytracing_engine_tpu/ops/pallas/shade.py:_shade_kernel (K3):
-// Phong shading and soft shadows from a finished depth image; (h, w, 3) out.
-__global__ void __launch_bounds__(kBlockX * kBlockY) shade_kernel(const Args a) {
-  const int x = blockIdx.x * kBlockX + threadIdx.x;
-  const int y = blockIdx.y * kBlockY + threadIdx.y;
-  if (x >= a.w || y >= a.h) return;
-  const size_t i = static_cast<size_t>(y) * a.w + x;
-  const Spheres s = load_spheres(a);
-  const float3 d = ray_dir(a, x, y);
-  const float3 c = shade_pixel(a, s, d, __ldg(a.src + i));
-  a.out[3 * i] = c.x;
-  a.out[3 * i + 1] = c.y;
-  a.out[3 * i + 2] = c.z;
-}
-
 // Replaces raytracing_engine_tpu/ops/pallas/fused.py:_fused_kernel (K2):
 // the finest level's march, then the shading of K3 with the depth kept in a
 // register; (h, w, 3) out, equal bit for bit to pyramid_kernel + shade_kernel.
@@ -153,36 +135,65 @@ __global__ void __launch_bounds__(kBlockX * kBlockY) shade_kernel(const Args a) 
 constexpr int kFusedWarpX = 8;   // a warp's tile: kFusedWarpX x (32 / kFusedWarpX) pixels
 constexpr int kFusedWarpsX = 2;  // a block: kFusedWarpsX x kFusedWarpsY warp tiles
 constexpr int kFusedWarpsY = 2;
-constexpr int kFusedWarpY = 32 / kFusedWarpX;
-constexpr int kFusedThreads = 32 * kFusedWarpsX * kFusedWarpsY;
-constexpr int kFusedW = kFusedWarpX * kFusedWarpsX;  // a block's tile, in pixels
-constexpr int kFusedH = kFusedWarpY * kFusedWarpsY;
-static_assert(kFusedWarpX * kFusedWarpY == 32, "a warp's tile is 32 pixels");
+using FusedTiles = WarpTiles<kFusedWarpX, kFusedWarpsX, kFusedWarpsY>;
 
-__global__ void __launch_bounds__(kFusedThreads) fused_kernel(const Args a) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int x = blockIdx.x * kFusedW + (warp % kFusedWarpsX) * kFusedWarpX + lane % kFusedWarpX;
-  const int y = blockIdx.y * kFusedH + (warp / kFusedWarpsX) * kFusedWarpY + lane / kFusedWarpX;
-  if (x >= a.w || y >= a.h) return;
-  const size_t i = static_cast<size_t>(y) * a.w + x;
+__global__ void __launch_bounds__(FusedTiles::kThreads) fused_kernel(const Args a) {
+  const int2 p = FusedTiles::pixel();
+  if (p.x >= a.w || p.y >= a.h) return;
+  const size_t i = static_cast<size_t>(p.y) * a.w + p.x;
   const Spheres s = load_spheres(a);
-  const float3 d = ray_dir(a, x, y);
-  const float3 c = shade_pixel(a, s, d, depth_from(a, s, d, src_seed(a, x, y), a.threshold));
+  const float3 d = ray_dir(a, p.x, p.y);
+  const float3 c = shade_pixel(a, s, d, depth_from(a, s, d, src_seed(a, p.x, p.y), a.threshold));
   a.out[3 * i] = c.x;
   a.out[3 * i + 1] = c.y;
   a.out[3 * i + 2] = c.z;
 }
 
-inline dim3 grid_for(const Args* a) {
-  return dim3((a->w + kBlockX - 1) / kBlockX, (a->h + kBlockY - 1) / kBlockY);
+// Replaces raytracing_engine_tpu/ops/pallas/shade.py:_shade_kernel (K3):
+// Phong shading and soft shadows from a finished depth image; (h, w, 3) out,
+// through K2's shade_pixel, so that K2's image equals K1 + K3 bit for bit.
+//
+// Its warps are one-warp 8 x 4 tiles of the image, in blocks of 2 x 2, as
+// K2's (WarpTiles): a warp marches as many shadow steps as its slowest lane,
+// and the lanes of a square tile are nearer alike (ab_config3.py --trips:
+// 15% fewer shadow warp-steps than rows of 32). A sky pixel, most of a
+// frame, reads its depth, writes black and leaves before it loads the scene
+// or makes its ray.
+//
+// Registers: K2's march reads the scene's 32 floats before any divergent
+// branch, and ptxas moves them into uniform registers there (55 a thread);
+// here their first use follows the sky test, and ptxas keeps them in vector
+// registers (90 a thread, 5 blocks an SM). A cap of 56 (__maxnreg__, which
+// nvcc takes only without __launch_bounds__) spills 132 B a thread to L1
+// and holds 9 blocks an SM: it is the fastest form measured on the H100
+// (PERF.md §6), against 8 x 4, 4 x 8, 16 x 2 and 32 x 1 tiles, blocks of 8
+// warps, caps from 40 to 72, the scene taken from lane 0 by __shfl_sync or
+// kept in shared memory, and the parent's order (the scene loaded first).
+constexpr int kShadeWarpX = 8;   // a warp's tile: kShadeWarpX x (32 / kShadeWarpX) pixels
+constexpr int kShadeWarpsX = 2;  // a block: kShadeWarpsX x kShadeWarpsY warp tiles
+constexpr int kShadeWarpsY = 2;
+using ShadeTiles = WarpTiles<kShadeWarpX, kShadeWarpsX, kShadeWarpsY>;
+
+__global__ void __maxnreg__(56) shade_kernel(const Args a) {
+  const int2 p = ShadeTiles::pixel();
+  if (p.x >= a.w || p.y >= a.h) return;
+  const size_t i = static_cast<size_t>(p.y) * a.w + p.x;
+  const float depth = __ldg(a.src + i);
+  float3 c;
+  if (!(depth < a.render_dist)) {  // the sky: shade_pixel's own first test
+    c = make_float3(0.0f, 0.0f, 0.0f);
+  } else {
+    const Spheres s = load_spheres(a);
+    c = shade_pixel(a, s, ray_dir(a, p.x, p.y), depth);
+  }
+  a.out[3 * i] = c.x;
+  a.out[3 * i + 1] = c.y;
+  a.out[3 * i + 2] = c.z;
 }
 
 }  // namespace conemarch
 
 using conemarch::Args;
-using conemarch::grid_for;
-using conemarch::kBlockX;
-using conemarch::kBlockY;
 
 // Each entry launches on `stream` (a cudaStream_t), does not synchronise, and
 // returns cudaGetLastError() as an int (0 = launched).
@@ -201,7 +212,8 @@ extern "C" int conemarch_pyramid(const Args* a, void* stream) {
 extern "C" int conemarch_shade(const Args* a, void* stream) {
   const cudaError_t err = cudaSetDevice(a->device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  conemarch::shade_kernel<<<grid_for(a), dim3(kBlockX, kBlockY), 0,
+  using Tiles = conemarch::ShadeTiles;
+  conemarch::shade_kernel<<<Tiles::grid(a->w, a->h), Tiles::kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -209,9 +221,8 @@ extern "C" int conemarch_shade(const Args* a, void* stream) {
 extern "C" int conemarch_fused(const Args* a, void* stream) {
   const cudaError_t err = cudaSetDevice(a->device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a->w + conemarch::kFusedW - 1) / conemarch::kFusedW,
-                  (a->h + conemarch::kFusedH - 1) / conemarch::kFusedH);
-  conemarch::fused_kernel<<<grid, conemarch::kFusedThreads, 0,
+  using Tiles = conemarch::FusedTiles;
+  conemarch::fused_kernel<<<Tiles::grid(a->w, a->h), Tiles::kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -230,6 +230,27 @@ __device__ __forceinline__ float src_seed(const Args& a, int x, int y) {
                           : 1.0f;
 }
 
+// The pixel (x, y) of this thread in a launch of one-warp tiles: each warp a
+// WarpX x (32 / WarpX) tile of the image, lanes row-major; a block WarpsX x
+// WarpsY such tiles (kW x kH pixels), warps row-major, threadIdx.x the
+// thread's index in the block. K2 and K3 both map their pixels through it.
+template <int WarpX, int WarpsX, int WarpsY>
+struct WarpTiles {
+  static_assert(WarpX > 0 && 32 % WarpX == 0, "a warp's tile is 32 pixels");
+  static constexpr int kWarpY = 32 / WarpX;
+  static constexpr int kThreads = 32 * WarpsX * WarpsY;
+  static constexpr int kW = WarpX * WarpsX;  // a block's tile, in pixels
+  static constexpr int kH = kWarpY * WarpsY;
+
+  __device__ __forceinline__ static int2 pixel() {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    return make_int2(blockIdx.x * kW + (warp % WarpsX) * WarpX + lane % WarpX,
+                     blockIdx.y * kH + (warp / WarpsX) * kWarpY + lane / WarpX);
+  }
+
+  static dim3 grid(int w, int h) { return dim3((w + kW - 1) / kW, (h + kH - 1) / kH); }
+};
+
 // Phong shading with soft shadows of one pixel at `depth` along d
 // (fragment.glsl:127-187). Shared by the shade and the fused kernel, which
 // are therefore equal bit for bit.

@@ -21,9 +21,15 @@ def render_depth_pyramid(cfg: RenderConfig, scene, cam_pos, cam_quat):
     return depth_pyramid(cfg, scene, cam_pos, cam_quat)
 
 
-def render(cfg: RenderConfig, scene, cam_pos, cam_quat, fused=True):
+def render(cfg: RenderConfig, scene, cam_pos, cam_quat, interpret=None, n_obj=None,
+           n_light=None, fused=True):
     """Full frame → (H, W, 3) float32. fused=True marches the finest level
-    and shades in one kernel, bit for bit the two-kernel image."""
+    and shades in one kernel, bit for bit the two-kernel image.
+
+    JAX's signature (models/pallas_renderer.render): interpret, n_obj and
+    n_light are TPU knobs, accepted and ignored (the kernels read the
+    scene's live counts; the image is the same)."""
+    del interpret, n_obj, n_light
     if not fused:
         depth = render_depth_pyramid(cfg, scene, cam_pos, cam_quat)[-1]
         return shade(cfg, scene, cam_pos, cam_quat, depth)

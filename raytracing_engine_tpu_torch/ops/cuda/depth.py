@@ -68,6 +68,28 @@ def level_table(cfg) -> tuple:
             [s[1] for s in size], [cfg.level_threshold(i) for i in range(cfg.level_count)])
 
 
+def check_prev_level(cfg, level: int, prev) -> None:
+    """Raise ValueError unless `prev` is None or exactly level - 1 of cfg's
+    pyramid, as an (h, w) tensor. In this place JAX's launchers
+    (depth_level_pallas, depth_shade_fused) take the level's full-resolution
+    seed, upsample_seed(prev, h, w): it is large enough to be read at
+    [y // 2, x // 2], so without this check it would seed every pixel from
+    its grandparent level and render another image without a word."""
+    if prev is None:
+        return
+    w, h = cfg.level_dims[level]
+    shape = tuple(prev.shape)
+    if level == 0:
+        raise ValueError(f"level 0 ({h}, {w}) cannot be seeded from {shape}: it has no "
+                         "previous level (pass None, seed 1); JAX's full-resolution `seed` is "
+                         "not this argument")
+    pw, ph = cfg.level_dims[level - 1]
+    if shape != (ph, pw):
+        raise ValueError(f"level {level} ({h}, {w}) cannot be seeded from {shape}: `prev` is the "
+                         f"previous level, shape ({ph}, {pw}), not JAX's full-resolution `seed` "
+                         f"({h}, {w}) = upsample_seed(prev, {h}, {w})")
+
+
 def depth_level_reference(cfg, level: int, scene, cam_pos, cam_quat, prev=None):
     """Plain PyTorch version: ray-gen, seed upsample and the whole-image cone
     march of models/conemarch.py → (h, w)."""
@@ -85,13 +107,14 @@ def march_levels_reference(cfg, first: int, last: int, scene, cam_pos, cam_quat,
 
 def march_levels(cfg, first: int, last: int, scene, cam_pos, cam_quat, prev=None):
     """Levels first..last in one launch → a tuple of (h, w) float32 tensors.
-    prev: the level before `first`, or None (seed 1, the near plane, as at
-    level 0)."""
+    prev: the level before `first`, exactly (check_prev_level), or None
+    (seed 1, the near plane, as at level 0)."""
     global launches
-    if scene.device.type == "cpu":
-        return march_levels_reference(cfg, first, last, scene, cam_pos, cam_quat, prev)
     if not 0 <= first <= last < cfg.level_count:
         raise ValueError(f"levels {first}..{last} of a {cfg.level_count}-level pyramid")
+    check_prev_level(cfg, first, prev)
+    if scene.device.type == "cpu":
+        return march_levels_reference(cfg, first, last, scene, cam_pos, cam_quat, prev)
     if cfg.level_count > common.MAX_LEVELS:
         raise ValueError(f"{cfg.level_count} levels: one launch marches at most "
                          f"{common.MAX_LEVELS}")
@@ -119,8 +142,10 @@ def march_levels(cfg, first: int, last: int, scene, cam_pos, cam_quat, prev=None
 
 
 def depth_level(cfg, level: int, scene, cam_pos, cam_quat, prev=None):
-    """One pyramid level → (h, w) float32. prev: the previous level (h', w'),
-    or None at level 0 (seed 1, the near plane)."""
+    """One pyramid level → (h, w) float32. prev: the previous level,
+    exactly cfg.level_dims[level - 1] as (h, w), or None (seed 1, the near
+    plane, as at level 0). JAX's depth_level_pallas takes the level's
+    full-resolution seed in this place; it is refused (check_prev_level)."""
     return march_levels(cfg, level, level, scene, cam_pos, cam_quat, prev)[0]
 
 

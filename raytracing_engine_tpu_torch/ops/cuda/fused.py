@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from raytracing_engine_tpu_torch.ops.cuda import common
-from raytracing_engine_tpu_torch.ops.cuda.depth import depth_level_reference
+from raytracing_engine_tpu_torch.ops.cuda.depth import check_prev_level, depth_level_reference
 from raytracing_engine_tpu_torch.ops.cuda.shade import shade_reference
 
 # kernel launches since the count was last set to 0 (plain-version calls
@@ -28,13 +28,23 @@ def fused_reference(cfg, scene, cam_pos, cam_quat, prev=None):
     return shade_reference(cfg, scene, cam_pos, cam_quat, depth)
 
 
-def depth_shade_fused(cfg, scene, cam_pos, cam_quat, prev=None):
+def depth_shade_fused(cfg, scene, cam_pos, cam_quat, prev=None, interpret=None, n_obj=None,
+                      n_light=None):
     """March the finest level from the previous level `prev` (None: seed 1)
-    and shade → (H, W, 3) float32."""
+    and shade → (H, W, 3) float32.
+
+    prev must be exactly the level before the finest, cfg.level_dims[-2] as
+    (h, w). JAX's depth_shade_fused takes the full-resolution seed,
+    upsample_seed(prev, H, W), in this place: it is refused with a
+    ValueError, on every device (ops/cuda/depth.check_prev_level).
+    interpret, n_obj and n_light are JAX's TPU knobs, accepted and ignored:
+    the kernel reads the scene's live counts, and the image is the same."""
     global launches
+    del interpret, n_obj, n_light
+    level = cfg.level_count - 1
+    check_prev_level(cfg, level, prev)
     if scene.device.type == "cpu":
         return fused_reference(cfg, scene, cam_pos, cam_quat, prev)
-    level = cfg.level_count - 1
     w, h = cfg.level_dims[level]
     args = common.scene_args(cfg, scene, cam_pos, cam_quat, level)
     common.set_seed_source(args, prev, h, w, scene.device)

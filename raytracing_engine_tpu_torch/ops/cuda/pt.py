@@ -193,9 +193,9 @@ def mesh_kind(frame) -> str:
     return "instances" if isinstance(frame, FrameInstances) else "clusters"
 
 
-def render_pt_mega_reference(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
-                             seed: int = 0, spp_offset: int = 0, row0: int = 0, band_h=None,
-                             bvh=None):
+def render_pt_mega_reference(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int, *,
+                             seed: int = 0, spp_offset: int = 0, bvh=None, row0: int = 0,
+                             band_h=None):
     """Plain PyTorch version: the wavefront core per pass (the attributes
     path with the camera's visit orders for a ClusterSet or an
     InstancedClusters), passes summed in pass order and then scaled by
@@ -266,15 +266,17 @@ def _kernel_args(cfg: PTConfig, scene_k: PTScene, cam_pos, cam_quat, h: int, row
 
 
 def render_pt_mega(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
-                   seed=None, spp_offset: int = 0, row0: int = 0, band_h=None,
-                   bvh=None, key=None, interpret=None, tile=(64, 256), stripes=None, groups=1,
-                   fast_math=False, adaptive_tol=0.0, adaptive_min=8, return_spp=False):
+                   key=None, spp_offset: int = 0, interpret=None, tile=(64, 256), bvh=None,
+                   row0: int = 0, band_h=None, stripes=None, groups=1, fast_math=False,
+                   adaptive_tol=0.0, adaptive_min=8, return_spp=False, *, seed=None):
     """Megakernel render: ((band_h or H, W, 3) image, nrays int64 0-dim).
+    JAX's signature (ops/pallas/pt_kernel.py render_pt_mega), position for
+    position; seed, the port's own, is keyword-only.
 
-    The pcg stream, whatever cfg.rng says, as in the JAX package. seed: the
-    int32 base seed (ops.rng_pcg.seed_from_int(1) matches
-    jax.random.PRNGKey(1)), or key: the PRNG key itself (ops/rng.py
-    key_words), not both; default PRNGKey(0). Pass s uses the global pass
+    The pcg stream, whatever cfg.rng says, as in the JAX package. key: the
+    PRNG key (ops/rng.py key_words), or seed: the int32 base seed in its
+    place (ops.rng_pcg.seed_from_int(1) matches jax.random.PRNGKey(1)), not
+    both; default PRNGKey(0). Pass s uses the global pass
     index spp_offset + s. row0/band_h: render only rows row0 .. row0 + band_h - 1
     of the cfg.height image; a band equals the same rows of the full render,
     since the camera and the stream are keyed on global pixel coordinates.
@@ -296,8 +298,9 @@ def render_pt_mega(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
                                   "ported yet (ROADMAP.md queue 1 item 4, K4 feature 14)")
     seed = pcg_base_seed(seed, key)
     if scene.device.type == "cpu":
-        return render_pt_mega_reference(cfg, scene, cam_pos, cam_quat, spp, seed,
-                                         spp_offset, row0, band_h, bvh)
+        return render_pt_mega_reference(cfg, scene, cam_pos, cam_quat, spp, seed=seed,
+                                         spp_offset=spp_offset, bvh=bvh, row0=row0,
+                                         band_h=band_h)
     cfg, h = _prepare(cfg, scene, row0, band_h, bvh)
     if spp < 1:
         raise ValueError(f"spp must be >= 1, got {spp}")
@@ -421,7 +424,7 @@ def _rebin(cfg: PTConfig, scene: PTScene, spp: int, spp_offset: int, row0: int, 
     return acc / torch.full((), float(spp), dtype=torch.float32, device=dev), nrays
 
 
-def render_pt_rebin_reference(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
+def render_pt_rebin_reference(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int, *,
                               seed: int = 0, bvh=None, spp_offset: int = 0, row0: int = 0,
                               band_h=None, rebin: str = "none,morton"):
     """Plain PyTorch version of render_pt_rebin: the staged wavefront core
@@ -476,12 +479,14 @@ def rebin_bounce_launcher(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed
 
 
 def render_pt_rebin(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
-                    seed=None, bvh=None, spp_offset: int = 0, tile=None, tile_b=None,
-                    row0: int = 0, band_h=None, stripes=None, rebin: str = "none,morton",
-                    key=None, interpret=None, fast_math=False, skip_dead=True):
+                    key=None, bvh=None, spp_offset: int = 0, interpret=None, tile=(32, 128),
+                    tile_b=None, row0: int = 0, band_h=None, stripes=None,
+                    rebin: str = "none,morton", fast_math=False, skip_dead=True, *, seed=None):
     """Rebin render: ((band_h or H, W, 3) image, nrays int64 0-dim), the
     estimator of render_pt_mega executed as one K5 launch per bounce with an
-    image-wide regroup between launches. bvh: a ClusterSet or an
+    image-wide regroup between launches. JAX's signature
+    (ops/pallas/pt_kernel.py render_pt_rebin), position for position; seed,
+    the port's own, is keyword-only. bvh: a ClusterSet or an
     InstancedClusters (required).
 
     rebin: the regroup key per gap, comma-joined; the last entry repeats for
@@ -495,8 +500,9 @@ def render_pt_rebin(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
     del tile, tile_b, stripes, interpret, fast_math, skip_dead
     seed = pcg_base_seed(seed, key)
     if scene.device.type == "cpu":
-        return render_pt_rebin_reference(cfg, scene, cam_pos, cam_quat, spp, seed, bvh,
-                                         spp_offset, row0, band_h, rebin)
+        return render_pt_rebin_reference(cfg, scene, cam_pos, cam_quat, spp, seed=seed, bvh=bvh,
+                                         spp_offset=spp_offset, row0=row0, band_h=band_h,
+                                         rebin=rebin)
     if spp < 1:
         raise ValueError(f"spp must be >= 1, got {spp}")
     cfg, h, run_bounce = rebin_bounce_launcher(cfg, scene, cam_pos, cam_quat, seed, bvh,

@@ -709,25 +709,37 @@ def trace_window_planes(*args, **kwargs):
     return _trace_core(*args, **kwargs)
 
 
-def trace_pass_soa(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed0=None,
-                   row0=0, band_h=None, col0=0, band_w=None, bvh=None, packet=None, key=None):
-    """One sample per pixel: ((h, w, 3) image, nrays). The pass's stream:
-    seed0, the int32 pcg seed (at rng="pcg"; else key_to_seed(key)), or key,
-    the pass key (see ops/rng.py; required at "threefry" and "pallas").
-    packet: JAX's choice between the packet kernel and the gather traversal
-    for a raw BVH; here a CUDA scene always launches K8 and a CPU one
-    traverses plainly, so it is accepted and ignored."""
+def trace_pass_soa(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, key=None,
+                   bvh=None, row0=0, band_h=None, packet=None, col0=0, band_w=None,
+                   seed0=None, sort=False, probe=None, mesh_light=None, gpass=None,
+                   seed_base=None):
+    """One sample per pixel: ((h, w, 3) image, nrays). JAX's signature
+    (pathtracer/wavefront.py trace_pass_soa), position for position. The
+    pass's stream: key, the pass key (see ops/rng.py; required at
+    "threefry" and "pallas"), or seed0, the int32 pcg seed in its place (at
+    rng="pcg"; else key_to_seed(key)). packet: JAX's choice between the
+    packet kernel and the gather traversal for a raw BVH; here a CUDA scene
+    always launches K8 and a CPU one traverses plainly, so it is accepted
+    and ignored. sort and probe (ROADMAP.md queue 1 item 7) and mesh_light,
+    gpass and seed_base (item 4, K4 feature 13) are not ported yet and
+    raise when set."""
     del packet
+    if probe is not None:
+        _not_yet("probe (the regroup probe)", _COMPACTION)
+    if mesh_light is not None or gpass is not None or seed_base is not None:
+        _not_yet("mesh_light / gpass / seed_base (mesh lights)")
     check_entry(scene, bvh)
     rad, nrays = _trace_core(cfg, scene, cam_pos, cam_quat, seed0, row0, band_h,
-                             col0, band_w, bvh=bvh, key=key)
+                             col0, band_w, bvh=bvh, sort=sort, key=key)
     return v3.stack(rad), nrays
 
 
 def render_pt_fast(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
-                   seed=None, spp_offset: int = 0, bvh=None, packet=None, sort=False,
-                   key=None):
-    """Average of spp passes: ((H, W, 3) image, nrays).
+                   key=None, bvh=None, spp_offset: int = 0, packet=None, sort=False, *,
+                   seed=None):
+    """Average of spp passes: ((H, W, 3) image, nrays). JAX's signature
+    (pathtracer/wavefront.py render_pt_fast), position for position; seed,
+    the port's own, is keyword-only.
 
     key: the render's PRNG key (ops/rng.py key_words: a JAX key's data or
     an int s for jax.random.PRNGKey(s); default PRNGKey(0)). Global pass g
@@ -753,7 +765,8 @@ def render_pt_fast(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
     for i in range(spp):
         g = int(spp_offset) + i
         if cfg.rng == "pcg":
-            img, nr = trace_pass_soa(cfg, scene, cam_pos, cam_quat, pass_seed(base, g), bvh=bvh)
+            img, nr = trace_pass_soa(cfg, scene, cam_pos, cam_quat, bvh=bvh,
+                                     seed0=pass_seed(base, g))
         else:
             img, nr = trace_pass_soa(cfg, scene, cam_pos, cam_quat, bvh=bvh,
                                      key=fold_in(words, g))

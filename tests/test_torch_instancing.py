@@ -586,7 +586,7 @@ def test_entry_points_refuse_in_kernel_views_on_a_cuda_scene(pt_port):
         with pytest.raises(TypeError, match="in-kernel view"):
             wavefront.render_pt_fast(cfg, cuda_scene, pos, quat, 1, bvh=view)
         with pytest.raises(TypeError, match="in-kernel view"):
-            wavefront.trace_pass_soa(cfg, cuda_scene, pos, quat, 0, bvh=view)
+            wavefront.trace_pass_soa(cfg, cuda_scene, pos, quat, seed0=0, bvh=view)
     img, _ = wavefront.render_pt_fast(dataclasses.replace(cfg, max_bounces=0), scene, pos, quat,
                                       1, bvh=views[1])
     assert torch.isfinite(img).all()

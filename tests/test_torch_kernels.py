@@ -9,15 +9,23 @@ depth rtol 1e-4 / atol 1e-3, image rtol 1e-3 / atol 2e-3.
 
 The CUDA kernels themselves need the card: chip_smoke.py holds each to its
 plain version there.
+
+The entry points that keep a JAX name keep JAX's positional parameters, in
+JAX's order, or refuse JAX's argument loudly: the previous level `prev`
+that K1 and K2 take where JAX's launchers take the full-resolution seed is
+held to its exact shape.
 """
 
 import dataclasses
+import importlib
+import inspect
 import re
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from raytracing_engine_tpu.ops.pallas.depth import depth_level_pallas, upsample_seed
@@ -25,7 +33,9 @@ from raytracing_engine_tpu.ops.pallas.fused import depth_shade_fused as jax_fuse
 from raytracing_engine_tpu.ops.pallas.shade import shade_pallas
 
 from raytracing_engine_tpu_torch.config import RenderConfig
-from raytracing_engine_tpu_torch.ops.cuda import common, depth, fused, shade
+from raytracing_engine_tpu_torch.models import cuda_renderer
+from raytracing_engine_tpu_torch.ops.cuda import common, depth, fused, pt, shade
+from raytracing_engine_tpu_torch.pathtracer import PTConfig, scenes, wavefront
 from raytracing_engine_tpu_torch.scene import scene_from_numpy
 
 torch.set_num_threads(1)
@@ -129,11 +139,73 @@ def test_launch_args_mirror_the_cuda_struct():
     assert int(re.search(r"kMaxLevels = (\d+);", src).group(1)) == common.MAX_LEVELS
 
 
-def test_unseedable_prev_raises(port):
-    """A previous level too small to seed the next one is refused."""
+@pytest.mark.parametrize("case", ["too small", "jax seed to depth_level",
+                                  "jax seed to depth_shade_fused"])
+def test_unseedable_prev_raises(case, golden_levels, port):
+    """A previous level too small to seed the next one is refused; so is
+    JAX's full-resolution seed (upsample_seed of the level before, as JAX's
+    launchers take it in this place), on the CPU as on the card: it is
+    large enough to read at [y // 2, x // 2] and would seed every pixel from
+    its grandparent level."""
     cfg, tscene, tpos, tquat = port
-    with pytest.raises(ValueError, match="cannot be seeded"):
-        depth.depth_level(cfg, 2, tscene, tpos, tquat, torch.zeros(3, 3))
+    if case == "too small":
+        with pytest.raises(ValueError, match="cannot be seeded"):
+            depth.depth_level(cfg, 2, tscene, tpos, tquat, torch.zeros(3, 3))
+        return
+    if case == "jax seed to depth_level":
+        w, h = cfg.level_dims[1]
+        seed = torch.from_numpy(np.array(upsample_seed(jnp.asarray(golden_levels[0]), h, w)))
+        with pytest.raises(ValueError, match="full-resolution `seed`"):
+            depth.depth_level(cfg, 1, tscene, tpos, tquat, seed)
+        return
+    seed = torch.from_numpy(np.array(upsample_seed(jnp.asarray(golden_levels[-2]), 64, 64)))
+    with pytest.raises(ValueError, match="full-resolution `seed`"):
+        fused.depth_shade_fused(cfg, tscene, tpos, tquat, seed)
+    assert fused.launches == 0
+
+
+# port entry point, its JAX counterpart (module:name), and the one slot the
+# port renames: `prev` where JAX takes the full-resolution `seed`, refused by
+# shape (test_unseedable_prev_raises)
+ENTRY_POINTS = {
+    "depth_shade_fused": (fused.depth_shade_fused,
+                          "raytracing_engine_tpu.ops.pallas.fused:depth_shade_fused",
+                          {"seed": "prev"}),
+    "render": (cuda_renderer.render, "raytracing_engine_tpu.models.pallas_renderer:render", {}),
+    "render_pt_fast": (wavefront.render_pt_fast,
+                       "raytracing_engine_tpu.pathtracer.wavefront:render_pt_fast", {}),
+    "trace_pass_soa": (wavefront.trace_pass_soa,
+                       "raytracing_engine_tpu.pathtracer.wavefront:trace_pass_soa", {}),
+    "render_pt_mega": (pt.render_pt_mega,
+                       "raytracing_engine_tpu.ops.pallas.pt_kernel:render_pt_mega", {}),
+    "render_pt_rebin": (pt.render_pt_rebin,
+                        "raytracing_engine_tpu.ops.pallas.pt_kernel:render_pt_rebin", {}),
+}
+
+
+@pytest.mark.parametrize("name", [*ENTRY_POINTS, "render_pt_fast with a positional key"])
+def test_entry_points_keep_jax_positional_order(name):
+    """Each port function that keeps a JAX name takes JAX's parameters as
+    positional ones, in JAX's order, through the last one JAX has (TPU knobs
+    accepted as no-ops); the port's own (the pcg `seed`) come after them or
+    are keyword-only. And a JAX-style call with the key in 6th place renders
+    what the key= call renders, bit for bit."""
+    if name == "render_pt_fast with a positional key":
+        cfg = PTConfig(width=8, height=4, max_bounces=2)
+        scene = scenes.cornell_box(device="cpu")
+        pos, quat = torch.tensor([0.0, 0.2, 0.0]), torch.tensor([0.0, 0.0, 0.0, 1.0])
+        key = np.asarray(jax.random.key_data(jax.random.PRNGKey(5)))
+        a = wavefront.render_pt_fast(cfg, scene, pos, quat, 1, key)
+        b = wavefront.render_pt_fast(cfg, scene, pos, quat, 1, key=key)
+        assert torch.equal(a[0], b[0]) and int(a[1]) == int(b[1])
+        return
+    port_fn, where, renamed = ENTRY_POINTS[name]
+    module, attr = where.split(":")
+    want = [renamed.get(n, n)
+            for n in inspect.signature(getattr(importlib.import_module(module), attr)).parameters]
+    got = [p.name for p in inspect.signature(port_fn).parameters.values()
+           if p.kind is inspect.Parameter.POSITIONAL_OR_KEYWORD]
+    assert got[:len(want)] == want
 
 
 def test_pyramid_plan_owns_every_pixel_once():

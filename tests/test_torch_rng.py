@@ -160,7 +160,7 @@ def test_key_equals_the_matching_seed():
         assert torch.equal(a[0], b[0]) and int(a[1]) == int(b[1])
         with pytest.raises(ValueError, match="not both"):
             fn(cfg, sc, POS, QUAT, 1, seed=1, key=key, **kw)
-    a = wavefront.trace_pass_soa(cfg, scene, POS, QUAT, seed_from_int(5))
+    a = wavefront.trace_pass_soa(cfg, scene, POS, QUAT, seed0=seed_from_int(5))
     b = wavefront.trace_pass_soa(cfg, scene, POS, QUAT, key=torch.tensor([0, 5]))
     assert torch.equal(a[0], b[0])
     with pytest.raises(ValueError, match="key="):
