@@ -16,9 +16,11 @@ mirrors its module names:
     native/        the C++ BVH builder (g++ at first use, numpy fallback)
     models/        cone-march renderers: conemarch (plain), cuda_renderer
     pathtracer/    the path tracer: PTConfig, scenes, the plain wavefront
-                   (the oracle of K4 and K5)
-    runtime/       frame loop, sequence serving, progressive checkpoints
-    utils/         timing metrics
+                   (the oracle of K4 and K5); AOVs, the denoiser, temporal
+                   accumulation
+    runtime/       frame loop, sequence serving, progressive checkpoints,
+                   input replay
+    utils/         image and video output, timing metrics, profiling
 
 Constructors put their tensors on the CUDA card unless the caller passes
 ``device="cpu"``; without CUDA they raise instead of falling back.

@@ -20,3 +20,18 @@ def resolve(device=None) -> torch.device:
             "no CUDA device: the port's constructors default to the card; "
             "pass device='cpu' to build on the CPU")
     return dev
+
+
+def common(*values, device=None) -> torch.device:
+    """The one device of the tensors among ``values`` (numpy arrays and
+    numbers have none, and go to it); without a tensor, ``resolve(device)``.
+    ValueError for tensors on two devices, or on another device than an
+    explicit ``device``."""
+    found = {v.device for v in values if isinstance(v, torch.Tensor)}
+    if device is not None:
+        found.add(resolve(device))
+    if len(found) > 1:
+        raise ValueError(f"inputs on more than one device: {sorted(map(str, found))}; "
+                         "move them to one device first")
+    return found.pop() if found else resolve(device)
+

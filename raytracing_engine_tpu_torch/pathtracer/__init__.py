@@ -7,6 +7,9 @@ spheres, unrolled triangles and meshes as ClusterSets.
     scenes.py      furnace_scene, cornell_box, material_spheres
     wavefront.py   the plain PyTorch path tracer (render_pt_fast, the staged
                    per-bounce state), the oracle of K4 and K5
+    aov.py         render_aovs: first-hit albedo, normal, depth (and AO)
+    denoise.py     the AOV-guided à-trous denoiser
+    temporal.py    temporal reprojection accumulation
 
 ``render_pt_mega`` (kernel K4) and ``render_pt_rebin`` (K5) live in
 ops/cuda/pt.py; ``render_pt_mega`` is re-exported here lazily, as the JAX
@@ -24,6 +27,14 @@ from raytracing_engine_tpu_torch.pathtracer.scene import (  # noqa: F401
 )
 from raytracing_engine_tpu_torch.pathtracer.integrator import PTConfig  # noqa: F401
 from raytracing_engine_tpu_torch.pathtracer.wavefront import render_pt_fast  # noqa: F401
+from raytracing_engine_tpu_torch.pathtracer.aov import render_aovs  # noqa: F401
+from raytracing_engine_tpu_torch.pathtracer.denoise import denoise  # noqa: F401
+from raytracing_engine_tpu_torch.pathtracer.temporal import (  # noqa: F401
+    TemporalState,
+    temporal_init,
+    temporal_noise,
+    temporal_step,
+)
 
 
 def render_pt_mega(*args, **kwargs):

@@ -121,14 +121,19 @@ def check_supported(cfg: PTConfig, bvh=None, sort=False):
         _not_yet("light_sampling='tree' (the light tree)")
     if cfg.tex_filter != "nearest":
         _not_yet(f"tex_filter={cfg.tex_filter!r}")
-    if bvh is not None and not isinstance(bvh, _MESHES):
-        raise TypeError(f"bvh must be a BVH (accel.bvh.build_bvh), a ClusterSet "
-                        f"(accel.clusters.build_clusters) or an InstancedClusters "
-                        f"(accel.instancing.make_instanced_clusters), got {type(bvh).__name__}")
+    check_mesh(bvh)
     if sort and cfg.rng != "pcg":
         raise ValueError("sort=True requires rng='pcg'")
     if sort:
         _not_yet("sort (the regrouped single-call wavefront)", _COMPACTION)
+
+
+def check_mesh(bvh):
+    """TypeError unless bvh is None or one of the mesh containers."""
+    if bvh is not None and not isinstance(bvh, _MESHES):
+        raise TypeError(f"bvh must be a BVH (accel.bvh.build_bvh), a ClusterSet "
+                        f"(accel.clusters.build_clusters) or an InstancedClusters "
+                        f"(accel.instancing.make_instanced_clusters), got {type(bvh).__name__}")
 
 
 def check_entry(scene: PTScene, bvh):

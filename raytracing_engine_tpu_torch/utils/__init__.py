@@ -1,5 +1,12 @@
-"""Host utilities: image output, timing metrics."""
+"""Host utilities: image and video output, timing metrics, profiling."""
 
 from raytracing_engine_tpu_torch.utils.image import (  # noqa: F401
     bloom, tonemap, to_srgb_u8, write_png)
-from raytracing_engine_tpu_torch.utils.timing import FrameStats, conemarch_ray_count  # noqa: F401
+from raytracing_engine_tpu_torch.utils.timing import (  # noqa: F401
+    FrameStats, Timer, conemarch_ray_count)
+from raytracing_engine_tpu_torch.utils.video import (  # noqa: F401
+    ApngWriter,
+    VideoWriter,
+    read_apng,
+    read_y4m,
+)

@@ -1,4 +1,4 @@
-"""Frame throughput metrics and the kernels' least times.
+"""Frame throughput metrics, a stage timer and the kernels' least times.
 
 Rays traced per frame (primary = every pyramid-level pixel; secondary = one
 shadow ray per live light per output pixel) and the derived Mrays/s.
@@ -18,6 +18,8 @@ do, so the bound stays a lower one.
 from __future__ import annotations
 
 import dataclasses
+import time
+from collections import defaultdict
 
 H100_FP32_OPS_PER_S = 67e12
 H100_INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -163,6 +165,32 @@ def k5_bytes(n_rays: int, bounces: int, table_bytes: int) -> int:
     17-plane state, every later launch reads and writes it; each launch
     reads the tables."""
     return 4 * 17 * n_rays * (1 + 2 * bounces) + (bounces + 1) * table_bytes
+
+
+class Timer:
+    """Wall-clock stage timer (raytracing_engine_tpu/utils/timing.py Timer).
+    CUDA launches return before the card has run them: when timing device
+    work, call torch.cuda.synchronize() before stop."""
+
+    def __init__(self):
+        self.totals = defaultdict(float)
+        self.counts = defaultdict(int)
+        self._start = {}
+
+    def start(self, name: str):
+        self._start[name] = time.perf_counter()
+
+    def stop(self, name: str) -> float:
+        dt = time.perf_counter() - self._start.pop(name)
+        self.totals[name] += dt
+        self.counts[name] += 1
+        return dt
+
+    def mean(self, name: str) -> float:
+        return self.totals[name] / max(self.counts[name], 1)
+
+    def summary(self) -> dict:
+        return {k: self.mean(k) for k in self.totals}
 
 
 @dataclasses.dataclass
