@@ -94,11 +94,20 @@ Bound5: K5's least time for a config-5 frame (utils/timing.bound_ms),
 from the work the plain rebin renderer counts on the whole frame, which it
 holds to K4's frame bit for bit (about two minutes).
 
+Sass: K4's and K5's instantiations without the material features at two
+checkouts, instruction for instruction. Each checkout's libpt.so is built
+by its own ops/cuda/common.build (a process each) and read by cuobjdump
+-sass; each instantiation of DIR_B's pt_kernel<kind, false> and
+pt_rebin_kernel<false> is compared with DIR_A's of the same mesh kind
+(pt_kernel<kind>, pt_rebin_kernel, where DIR_A has no material one), with
+the addresses and encodings dropped.
+
 Usage: python3 ab_config3.py DIR_A DIR_B
        python3 ab_config3.py --spheres DIR_A DIR_B
        python3 ab_config3.py --cone DIR_A DIR_B [PAIRS]   (default 10)
        python3 ab_config3.py --lanes DIR
        python3 ab_config3.py --bound5 DIR
+       python3 ab_config3.py --sass DIR_A DIR_B
        python3 ab_config3.py --worker DIR [NAME=VALUE ...]   (one checkout, once)
        python3 ab_config3.py --sphere-worker DIR   (its sphere rows, once)
        python3 ab_config3.py --cone-worker DIR [NAME=VALUE ...]   (its cone rows, once)
@@ -110,7 +119,9 @@ of a commit unpacked into a gitignored directory)
 
 from __future__ import annotations
 
+import difflib
 import hashlib
+import os
 import re
 import shutil
 import subprocess
@@ -143,15 +154,20 @@ def card_line() -> str:
 def ptxas_lines(log: str):
     """(kernel, registers, stack B, spill stores B, spill loads B, smem B) of
     each entry of KERNELS in nvcc's -Xptxas -v log; an instantiation of K4 on
-    a mesh kind is named pt_kernel<kind>."""
+    a mesh kind is named pt_kernel<kind>, its material instantiation
+    pt_kernel<kind, material> (K5's pt_rebin_kernel<material>)."""
     out, entry, stack = [], None, None
     for line in log.splitlines():
         m = re.search(r"entry function '(\w+)'", line)
         if m:
             name = next((k for k in KERNELS if re.search(rf"\d{k}[EI]", m.group(1))), None)
             kind = re.search(r"\dpt_kernelILi(\d+)E", m.group(1))
+            material = re.search(r"\dpt(?:_rebin)?_kernelI(?:Li\d+E)?Lb1E", m.group(1))
             if name and kind:
-                name = f"{name}<{MESH_KINDS.get(int(kind.group(1)), kind.group(1))}>"
+                name = f"{name}<{MESH_KINDS.get(int(kind.group(1)), kind.group(1))}"
+                name += ", material>" if material else ">"
+            elif name and material:
+                name = f"{name}<material>"
             entry, stack = name, None
             continue
         if entry is None:
@@ -991,14 +1007,24 @@ def bound5(root: str) -> int:
     tables += 4 * sum(t.numel() for t in pt.pack_pt_scene(pt.kernel_scene(scene, ic))[:4])
     ops = instanced_ops(kinst.work["gates"], kinst.work["transforms"], cluster.work["slabs"],
                         cluster.work["tests"]) + pt_ops(int(n), int(scene.sph_count), 0)
-    n_bytes = k5_bytes(cfg.width * cfg.height, cfg.max_bounces, tables)
+    # K5's bytes from the live rays of each bounce's state, as chip_smoke.py
+    # counts them (k5_states, live_rays)
+    _, _, run = pt.rebin_bounce_launcher(cfg, scene, cam, quat, seed, ic)
+    modes = pt._gap_modes("none,morton")
+    live = []
+    st, _ = run(0, None, 0)
+    for b in range(1, cfg.max_bounces + 1):
+        st = pt.regroup(st, modes[min(b - 1, len(modes) - 1)])
+        live.append(int((st[0].abs() < cluster.PARKED).sum()))
+        st, _ = run(b, st, 0)
+    n_bytes = k5_bytes(cfg.width * cfg.height, live, tables)
     bound = bound_ms(n_bytes, ops)
     print(f"  {root}: K5 config 5 {cfg.width}x{cfg.height} frame: the plain rebin render of the "
           f"whole frame == K4's bit for bit: {same} (plain {plain_s:.1f} s); work "
           f"{kinst.work['gates']} instance gates, {kinst.work['transforms']} transforms, "
           f"{cluster.work['slabs']} box + {cluster.work['tests']} triangle tests, {int(n)} rays "
           f"x {int(scene.sph_count)} spheres -> bound {bound[0]:.5f} ms by {bound[1]} "
-          f"({n_bytes} B, {ops} ops) [{card}]", flush=True)
+          f"({n_bytes} B: live rays by bounce {live}; {ops} ops) [{card}]", flush=True)
     return 0 if same else 1
 
 
@@ -1124,6 +1150,65 @@ def lanes(root: str) -> int:
     return 0
 
 
+# --- the SASS of K4 and K5 (--sass) -------------------------------------------
+
+BUILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
+         "from raytracing_engine_tpu_torch.ops.cuda import common; common.build()")
+
+
+def sass_functions(lib: Path) -> dict:
+    """{(kernel, mesh kind or None, material 0/1): [instruction, ...]} of
+    K4's and K5's functions in lib, from cuobjdump -sass, without the
+    addresses and encodings."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    dump = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    out, key = {}, None
+    for line in dump.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = re.search(r"\d(pt_kernel|pt_rebin_kernel)(?:I(?:Li(\d+)E)?(?:Lb(\d)E)?E)?",
+                          m.group(1))
+            key = (k.group(1), k.group(2), k.group(3) or "0") if k else None
+            if key is not None:
+                out[key] = []
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if key is not None and ins:
+            out[key].append(" ".join(ins.group(1).split()))
+    return out
+
+
+def sass(a: str, b: str) -> int:
+    card = card_line()
+    funcs = {}
+    for root in (a, b):
+        path = Path(root).resolve()
+        subprocess.run([sys.executable, "-c", BUILD, str(path)], check=True, timeout=900)
+        funcs[root] = sass_functions(path / "raytracing_engine_tpu_torch" / "build" / "libpt.so")
+        print(f"  {root}: {sorted(funcs[root])}", flush=True)
+    same = {}
+    for key in sorted(k for k in funcs[b] if k[2] == "0"):
+        ia, ib = funcs[a].get(key), funcs[b][key]
+        if ia is None:
+            continue
+        diff = [d for d in difflib.unified_diff(ia, ib, lineterm="", n=0)
+                if d[:1] in "+-" and d[:3] not in ("+++", "---")]
+        name = key[0] + (f"<{MESH_KINDS.get(int(key[1]), key[1])}>" if key[1] else "")
+        same[name] = not diff
+        if diff:  # the whole diff, with context, beside the log
+            Path("smoke_out").mkdir(exist_ok=True)
+            Path(f"smoke_out/sass_{key[0]}_{key[1]}.diff").write_text("\n".join(
+                difflib.unified_diff(ia, ib, "A", "B", lineterm="", n=6)))
+        print(f"  {name} without the material features: {len(ia)} instructions at A, {len(ib)} "
+              f"at B, {len(diff)} lines differ{': ' + ' | '.join(diff[:12]) if diff else ''} "
+              f"[{card}]", flush=True)
+    print(f"the instantiations without the material features are the same SASS at A and B: "
+          f"{all(same.values()) and bool(same)} {same}", flush=True)
+    return 0 if same and all(same.values()) else 1
+
+
 def main() -> int:
     if len(sys.argv) >= 3 and sys.argv[1] == "--worker":
         return worker(sys.argv[2], sys.argv[3:])
@@ -1132,6 +1217,8 @@ def main() -> int:
     if len(sys.argv) in (3, 6) and sys.argv[1] == "--trips":
         extra = [int(x) for x in sys.argv[3:]]
         return trips(sys.argv[2], *((tuple(extra[:2]), extra[2]) if extra else ()))
+    if len(sys.argv) == 4 and sys.argv[1] == "--sass":
+        return sass(sys.argv[2], sys.argv[3])
     if len(sys.argv) == 3 and sys.argv[1] == "--bound5":
         return bound5(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--sphere-worker":

@@ -162,13 +162,27 @@ Phases, each printing its own lines:
      render_pt_mega, render_aovs, temporal_step,
      denoise(noise=temporal_noise(state)), tonemap and ApngWriter for 8
      poses under the launch counters, each stage timed by CUDA events, one
-     frame again under the profiler for its device time by stage.
+     frame again under the profiler for its device time by stage;
+ 19. the showcase scene, examples/showcase.json (JAX cli.py:312-336),
+     loaded onto the card by load_scene_json with its 320-triangle smooth
+     icosphere as a ClusterSet: K4's material instantiation against its
+     plain version bit for bit on rows 536..551 at 1920 columns (1 spp;
+     the replay's work, scaled to the frame, gives the bound) and on a
+     ragged band, K5 == K4 there (the 18-plane state); the 1920x1088,
+     4-spp, 4-bounce frame through render_pt_mega, render_pt_rebin,
+     render_pt_fast(bvh=cs) and progressive_render under the launch
+     counters, K4 and K5 by the profiler's device time; the card against
+     the plain version on the CPU at 64x36 (the CPU's sqrt made correctly
+     rounded; the pixels its own sqrt moves logged); dispersion 0 and a
+     checker of scale 0 bit for bit the scene without them, also with the
+     column present and zero, at 256x144; a tonemapped PNG.
 Then a line that sums up phases 4 and 5's image output, one JSON line of
 per-kernel results, each number measured in this run
 but the bounds, computed from its inputs (K4 once per instantiation, on its
 main path's frames: without a mesh at config 2, with clusters at config 3
 and with instances at config 5, each 512x512 frame's bound from the work
-its plain version counts); the card line, and as the last
+its plain version counts; the material instantiations of K4 and K5 on the
+showcase, plain_ms their band's); the card line, and as the last
 line {"ok": true, "device": {...}}. Any failure exits
 non-zero before the last line; so does a machine without CUDA or a
 directory without the repo.
@@ -350,6 +364,20 @@ RAGGED_SPP = 3
 RAGGED_RR_START = 1
 RAGGED_ROWS = 5
 K4_REPS = 9
+
+# phase 19: the showcase scene (examples/showcase.json) as the JAX package's
+# cli.py pt --scene ... --bvh --engine mega renders it (cli.py:312-336):
+# loaded onto the card, its 320-triangle smooth icosphere as a ClusterSet,
+# 1920x1088, 4 bounces, 4 spp, pcg, seed_from_int(1), the file's camera
+SHOWCASE = ROOT / "examples" / "showcase.json"
+SHOW = dict(width=1920, height=1088, max_bounces=4)
+SHOW_SPP = 4
+SHOW_BAND = (536, 16)       # rows held to the plain megakernel at 1 spp
+SHOW_FRAMES = 3             # chained whole frames per K4 / K5 timing
+SHOW_CHUNK = 2              # progressive_render's chunk (passes)
+SHOW_CPU = dict(width=64, height=36, max_bounces=4)   # card vs CPU
+SHOW_INV = dict(width=256, height=144, max_bounces=4)  # the zero-feature invariants
+SHOW_PNG = SMOKE_OUT / "showcase.png"
 
 
 def log(msg: str):
@@ -888,11 +916,13 @@ def hold_k4_frame(what, cfg, scene, bvh, pos, quat, seed, k4, n4, device) -> dic
 
 
 def reset_k4():
-    """K4's launch counts, in all and by mesh kind, to 0."""
+    """K4's launch counts, in all, by mesh kind and of the material
+    instantiation by mesh kind, to 0."""
     from raytracing_engine_tpu_torch.ops.cuda import pt
 
     pt.launches = 0
     pt.mesh_launches.update(dict.fromkeys(pt.mesh_launches, 0))
+    pt.material_launches.update(dict.fromkeys(pt.material_launches, 0))
 
 
 def pt_setup(device):
@@ -1780,7 +1810,7 @@ def phase_c3_main(c3, quat, seed, device, card, inv):
 
     # K5 alone, bounce by bounce, on the states of the phase-11 frame: the
     # profiler's device time per launch
-    k5_ms = k5_bounce_ms(cfg, scene, cs, pos, quat, seed)
+    k5_ms, k5_live = k5_bounce_ms(cfg, scene, cs, pos, quat, seed)
     fc = cluster.FrameClusters.at(cs, pos)
     tb = cluster.sweep_tables(cs)
     tables = cluster_table_bytes([tb.sbox, tb.crec, tb.trec, tb.tsmooth, fc.orders, fc.refs])
@@ -1788,7 +1818,8 @@ def phase_c3_main(c3, quat, seed, device, card, inv):
     n = cfg.width * cfg.height
     ops = sweep_ops(inv["work"]["slabs"], inv["work"]["tests"]) + pt_ops(
         inv["nrays"], int(scene.sph_count), 0)
-    k5_bound = bound_ms(k5_bytes(n, cfg.max_bounces, tables), ops)
+    k5_n_bytes = k5_bytes(n, k5_live, tables)
+    k5_bound = bound_ms(k5_n_bytes, ops)
     k4 = inv["k4"]
     # K4 on the frame whose plain replay gave its bound (zs[0] == pos)
     k4_ms = device_ms(lambda _: pt.render_pt_mega(cfg, scene, pos, quat, 1, seed=seed, bvh=cs),
@@ -1796,7 +1827,8 @@ def phase_c3_main(c3, quat, seed, device, card, inv):
     log(f"  K5 alone per bounce (device time) {[round(x, 4) for x in k5_ms]} ms = "
         f"{sum(k5_ms):.4f} ms/frame; "
         f"bound {k5_bound[0]:.5f} ms by {k5_bound[1]} ({ops} ops: sweeps + "
-        f"{int(scene.sph_count)} spheres x {inv['nrays']} rays); K5 at "
+        f"{int(scene.sph_count)} spheres x {inv['nrays']} rays; {k5_n_bytes} B: {n} rays' "
+        f"state written, then {k5_live} live rays read and written); K5 at "
         f"{k5_bound[0] / sum(k5_ms):.2%} of it [{card}]")
     log(f"  config 3 512x512: rebin {c3_ms:.4f} ms/frame = {c3_rays / c3_ms / 1e3:.2f} Mrays/s; "
         f"mega {mega_ms:.4f} ms/frame; 1920x1088 rebin {hd_ms:.4f} ms/frame = "
@@ -1850,23 +1882,43 @@ def device_ms(launch, reps: int, name: str, setup=lambda k: None) -> float:
     return ms
 
 
-def k5_bounce_ms(cfg, scene, bvh, pos, quat, seed) -> list:
-    """K5's device time per bounce on the states of one frame (render_pt_rebin's
-    default regroup between bounces); each timed launch gets a fresh copy of
-    its bounce's state (K5 updates the state in place)."""
+def k5_states(run, cfg, gpass: int = 0) -> list:
+    """The state each K5 launch of pass gpass reads, as render_pt_rebin hands
+    them on (its default regroup between bounces): None for bounce 0, which
+    makes a new one, then copies (K5 updates the state in place). run: a
+    rebin_bounce_launcher's."""
     from raytracing_engine_tpu_torch.ops.cuda import pt
 
-    _, _, run = pt.rebin_bounce_launcher(cfg, scene, pos, quat, seed, bvh)
     modes = pt._gap_modes("none,morton")
     inputs = [None]
-    st, _ = run(0, None, 0)
+    st, _ = run(0, None, gpass)
     for b in range(1, cfg.max_bounces + 1):
         st = pt.regroup(st, modes[min(b - 1, len(modes) - 1)])
         inputs.append(st.clone())
-        st, _ = run(b, st, 0)
-    return [device_ms(lambda y, b=b: run(b, y, 0), 9, "pt_rebin_kernel",
-                      setup=lambda k, x=x: None if x is None else x.clone())
-            for b, x in enumerate(inputs)]
+        st, _ = run(b, st, gpass)
+    return inputs
+
+
+def live_rays(states) -> list:
+    """The rays K5 finds not parked (|o.x| < 1e17) in each state after
+    bounce 0's (utils/timing.k5_bytes's live)."""
+    from raytracing_engine_tpu_torch.ops.cuda import cluster
+
+    return [int((x[0].abs() < cluster.PARKED).sum()) for x in states[1:]]
+
+
+def k5_bounce_ms(cfg, scene, bvh, pos, quat, seed) -> tuple[list, list]:
+    """K5's device time per bounce on the states of one frame (render_pt_rebin's
+    default regroup between bounces), each timed launch on a fresh copy of
+    its bounce's state; and the live rays of those states."""
+    from raytracing_engine_tpu_torch.ops.cuda import pt
+
+    _, _, run = pt.rebin_bounce_launcher(cfg, scene, pos, quat, seed, bvh)
+    inputs = k5_states(run, cfg)
+    ms = [device_ms(lambda y, b=b: run(b, y, 0), 9, "pt_rebin_kernel",
+                    setup=lambda k, x=x: None if x is None else x.clone())
+          for b, x in enumerate(inputs)]
+    return ms, live_rays(inputs)
 
 
 def phase_bvh_kernel(c3, quat, seed, device, card):
@@ -3117,6 +3169,314 @@ def phase_postprocess(c3, bvh3, device, card):
     return launches, k4_err
 
 
+# --- phase 19: the showcase scene ---------------------------------------------
+
+def showcase_spec_variant(name: str, edit) -> Path:
+    """examples/showcase.json with edit(spec) applied, written to smoke_out/."""
+    spec = json.loads(SHOWCASE.read_text())
+    edit(spec)
+    SMOKE_OUT.mkdir(exist_ok=True)
+    path = SMOKE_OUT / f"showcase_{name}.json"
+    path.write_text(json.dumps(spec))
+    return path
+
+
+def profiled_device_ms(fn, name: str) -> float | None:
+    """Device ms of the kernels whose name holds `name` over one call of fn
+    (torch.profiler); None where the profiler records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    return sum(us) / 1e3 if us else None
+
+
+@contextlib.contextmanager
+def correctly_rounded_sqrt():
+    """torch.sqrt through float64 (correctly rounded for float32 inputs)."""
+    sqrt = torch.sqrt
+    torch.sqrt = lambda x: sqrt(x.double()).to(x.dtype)
+    try:
+        yield
+    finally:
+        torch.sqrt = sqrt
+
+
+def phase_showcase(device, card):
+    """examples/showcase.json on the card through load_scene_json and a
+    smooth ClusterSet (JAX cli.py:312-336): K4's material instantiation
+    against its plain version on a band, K5 == K4 there, the whole frame
+    timed through render_pt_mega, render_pt_rebin, render_pt_fast and
+    progressive_render under the launch counters, the card against the CPU,
+    the zero-feature invariants bit for bit, and a PNG; -> the kernels-line
+    numbers of the new instantiations and the K6 launches."""
+    import dataclasses
+
+    from raytracing_engine_tpu_torch.accel import build_clusters
+    from raytracing_engine_tpu_torch.ops.cuda import cluster, pt
+    from raytracing_engine_tpu_torch.ops.rng_pcg import seed_from_int
+    from raytracing_engine_tpu_torch.pathtracer import PTConfig, load_scene_json
+    from raytracing_engine_tpu_torch.pathtracer.wavefront import render_pt_fast, state_plane_count
+    from raytracing_engine_tpu_torch.runtime import ProgressiveState, progressive_render
+    from raytracing_engine_tpu_torch.utils.image import read_png, to_srgb_u8, tonemap, write_png
+    from raytracing_engine_tpu_torch.utils.timing import bound_ms, instanced_ops, k5_bytes, pt_ops
+
+    t0 = time.perf_counter()
+    b = load_scene_json(str(SHOWCASE))  # the card: the device rule's default
+    scene = b.scene
+    cs = build_clusters(b.tris, tri_mats=b.tri_mats, vertex_normals=b.tri_normals)
+    pos, quat = torch.from_numpy(b.cam_pos).to(device), torch.from_numpy(b.cam_quat).to(device)
+    cfg = PTConfig(**SHOW, rng="pcg")
+    seed = seed_from_int(1)
+    flags = {k: getattr(scene, k) for k in ("has_metal", "has_aniso", "has_texture",
+                                            "has_dispersion", "has_env")}
+    log(f"  showcase: {int(scene.sph_count)} spheres, {b.tris.shape[0]} triangles (smooth: "
+        f"{cs.smooth}, builder {cs.builder}), {scene.mat_albedo.shape[0]} materials, flags "
+        f"{flags}, scene on {scene.device}, material table "
+        f"{tuple(pt.pack_pt_scene(scene)[2].shape)}, {state_plane_count(scene)} state planes; "
+        f"loaded in {time.perf_counter() - t0:.2f} s")
+    if (scene.device.type != "cuda" or not scene.has_material_features
+            or state_plane_count(scene) != 18):
+        raise AssertionError("the showcase did not load onto the card with its material features")
+
+    # K4 on the band against its plain version; its work gives the bound
+    row0, bh = SHOW_BAND
+    kw = dict(seed=seed, bvh=cs, row0=row0, band_h=bh)
+    reset_k4()
+    band, n_band = pt.render_pt_mega(cfg, scene, pos, quat, 1, **kw)
+    if pt.material_launches["clusters"] != 1 or pt.mesh_launches["clusters"] != 1:
+        raise AssertionError(f"the band took another K4 instantiation: {pt.mesh_launches}, "
+                             f"{pt.material_launches}")
+    cluster.work.update(slabs=0, tests=0)
+    torch.cuda.synchronize(device)
+    t1 = time.perf_counter()
+    want, n_want = pt.render_pt_mega_reference(cfg, scene, pos, quat, 1, **kw)
+    torch.cuda.synchronize(device)
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    band_work = dict(cluster.work)  # the band's mesh work: K4's bound, below
+    err = hold_pt(f"K4<clusters, material> showcase rows {row0}..{row0 + bh} at {cfg.width} "
+                  f"columns, 1 spp, vs its plain version (plain {plain_ms / 1e3:.1f} s)",
+                  band, n_band, want, n_want)
+
+    # the material instantiation on a band ragged in both directions, bit for bit
+    err = max(err, hold_k4_ragged("the showcase", cfg, scene, cs, pos, quat, seed,
+                                  cfg.height // 2 - 3, RAGGED_ROWS))
+
+    # K5 == K4 on the band, bit for bit (the 18-plane state), and K5 against
+    # its own plain version there
+    before = pt.rebin_material_launches
+    rb, n_rb = pt.render_pt_rebin(cfg, scene, pos, quat, 1, **kw)
+    same = torch.equal(rb, band) and int(n_rb) == int(n_band)
+    log(f"  K5<material> == K4<clusters, material> on the band bit for bit: {same}; rays "
+        f"{int(n_rb)} == {int(n_band)}; K5 material launches {pt.rebin_material_launches - before}")
+    if not same or pt.rebin_material_launches - before != cfg.max_bounces + 1:
+        raise AssertionError("K5 differs from K4 on the showcase band")
+    torch.cuda.synchronize(device)
+    t1 = time.perf_counter()
+    want_rb, n_want_rb = pt.render_pt_rebin_reference(cfg, scene, pos, quat, 1, **kw)
+    torch.cuda.synchronize(device)
+    plain_rb_ms = (time.perf_counter() - t1) * 1e3
+    k5_err = hold_pt(f"K5<material> showcase rows {row0}..{row0 + bh}, 1 spp, vs its plain "
+                     f"version (plain {plain_rb_ms / 1e3:.1f} s)", rb, n_rb, want_rb, n_want_rb)
+    log(f"  the plain rebin route == the plain megakernel on the band bit for bit: "
+        f"{torch.equal(want_rb, want) and int(n_want_rb) == int(n_want)}")
+
+    # the main path, counted from 0: whole frames through the four entry points
+    reset_k4()
+    pt.rebin_launches = pt.rebin_material_launches = cluster.launches = 0
+    zs = [pos + torch.tensor([0.0, 0.0, 1e-4 * k], device=device) for k in range(SHOW_FRAMES + 1)]
+    frame, n_frame = pt.render_pt_mega(cfg, scene, pos, quat, SHOW_SPP, seed=seed, bvh=cs)
+    rays = []
+    k4_ev, k4_host = cuda_ms(lambda k: rays.append(pt.render_pt_mega(
+        cfg, scene, zs[k + 1], quat, SHOW_SPP, seed=seed, bvh=cs)[1]), SHOW_FRAMES)
+    n_rays = int(torch.stack(rays).sum()) // SHOW_FRAMES
+    rb_rays = []
+    pt.render_pt_rebin(cfg, scene, zs[0], quat, SHOW_SPP, seed=seed, bvh=cs)  # warm-up
+    k5_ev, k5_host = cuda_ms(lambda k: rb_rays.append(pt.render_pt_rebin(
+        cfg, scene, zs[k + 1], quat, SHOW_SPP, seed=seed, bvh=cs)[1]), SHOW_FRAMES)
+    n_rb_rays = int(torch.stack(rb_rays).sum()) // SHOW_FRAMES
+    torch.cuda.synchronize(device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t2 = time.perf_counter()
+    start.record()
+    fast, n_fast = render_pt_fast(cfg, scene, pos, quat, SHOW_SPP, seed=seed, bvh=cs)
+    end.record()
+    end.synchronize()
+    fast_ms, fast_host = start.elapsed_time(end), (time.perf_counter() - t2) * 1e3
+    state = ProgressiveState.start(cfg, pos, quat, key=1, device=device)
+    for state in progressive_render(cfg, scene, state, SHOW_SPP, passes_per_chunk=SHOW_CHUNK,
+                                    bvh=cs, render_fn=pt.render_pt_mega):
+        pass
+    torch.cuda.synchronize(device)
+    counts = {"K4": pt.launches, "K4 material": pt.material_launches["clusters"],
+              "K5": pt.rebin_launches, "K5 material": pt.rebin_material_launches,
+              "K6": cluster.launches}
+    k4_want = 1 + SHOW_FRAMES + SHOW_SPP // SHOW_CHUNK
+    k5_want = (1 + SHOW_FRAMES) * SHOW_SPP * (cfg.max_bounces + 1)
+    want_counts = {"K4": k4_want, "K4 material": k4_want, "K5": k5_want, "K5 material": k5_want,
+                   "K6": 2 * SHOW_SPP * (cfg.max_bounces + 1)}
+    log(f"  launches on the showcase's main path {counts} (expected {want_counts}: K4 a "
+        f"megakernel frame and a progressive chunk, K5 one a bounce a pass, K6 a closest and a "
+        f"shadow sweep a bounce a pass of render_pt_fast)")
+    if counts != want_counts:
+        raise AssertionError("the showcase's main path took other launches")
+
+    # K4's bound: the band's work at 1 spp scaled to the frame by the rays
+    # traced (the frame's rays over the band's), not by rows x spp: the band
+    # crosses the spheres and the mesh, where paths are longer than in the
+    # sky rows
+    scale = n_rays / int(n_want)
+    ops = int((pt_ops(int(n_want), int(scene.sph_count), 0)
+               + instanced_ops(0, 0, band_work["slabs"], band_work["tests"])) * scale)
+    n_bytes = 12 * cfg.width * cfg.height + k4_table_bytes(scene, cs, pos)
+    bound = bound_ms(n_bytes, ops)
+    log(f"  K4 showcase frame bound {bound[0]:.5f} ms by {bound[1]} ({n_bytes} B; {ops} ops: the "
+        f"band's {int(n_want)} rays x {int(scene.sph_count)} spheres, {band_work['slabs']} box "
+        f"+ {band_work['tests']} triangle tests, x {scale:.6g} = the frame's {n_rays} rays over "
+        f"the band's)")
+    k4_ms = device_ms(lambda k: pt.render_pt_mega(cfg, scene, zs[k % (SHOW_FRAMES + 1)], quat,
+                                                  SHOW_SPP, seed=seed, bvh=cs),
+                      SHOW_FRAMES, "pt_kernel", setup=lambda k: k)
+    log(f"  K4 showcase {cfg.width}x{cfg.height} {SHOW_SPP} spp {cfg.max_bounces} bounces: "
+        f"{k4_ev:.4f} ms/frame by CUDA events (host enqueue {k4_host:.4f} ms), {k4_ms:.4f} ms of "
+        f"device time (the profiler's) = {n_rays / k4_ms / 1e3:.2f} Mrays/s, {n_rays} rays/frame; "
+        f"at {bound[0] / k4_ms:.2%} of its bound {bound[0]:.5f} ms [{card}]")
+    k5_dev = profiled_device_ms(lambda: pt.render_pt_rebin(cfg, scene, pos, quat, SHOW_SPP,
+                                                           seed=seed, bvh=cs), "pt_rebin_kernel")
+    if k5_dev is None:
+        raise AssertionError("the profiler recorded no pt_rebin_kernel in a showcase frame")
+    # K5's bytes from the live rays of each bounce of the same frame's passes
+    _, _, run = pt.rebin_bounce_launcher(cfg, scene, pos, quat, seed, cs)
+    planes, n_px = state_plane_count(scene), cfg.width * cfg.height
+    live = [live_rays(k5_states(run, cfg, s)) for s in range(SHOW_SPP)]
+    k5_bytes_frame = sum(k5_bytes(n_px, lv, k4_table_bytes(scene, cs, pos), planes)
+                         for lv in live)
+    k5_bound = bound_ms(k5_bytes_frame, ops)
+    log(f"  render_pt_rebin showcase {cfg.width}x{cfg.height} {SHOW_SPP} spp: {k5_ev:.4f} "
+        f"ms/frame by CUDA events (host enqueue {k5_host:.4f} ms) = "
+        f"{n_rb_rays / k5_ev / 1e3:.2f} Mrays/s; K5 device time {k5_dev:.4f} ms a frame over "
+        f"{SHOW_SPP * (cfg.max_bounces + 1)} launches (the profiler's); K5 bound "
+        f"{k5_bound[0]:.5f} ms by {k5_bound[1]} ({k5_bytes_frame} B: {n_px} rays' {planes}-plane "
+        f"state written a pass, then the live rays of bounces 1..{cfg.max_bounces} read and "
+        f"written, by pass {live}, and the tables; {ops} ops, K4's), at "
+        f"{k5_bound[0] / k5_dev:.2%} of it [{card}]")
+    log(f"  render_pt_fast(bvh=cs) showcase {cfg.width}x{cfg.height} {SHOW_SPP} spp: "
+        f"{fast_ms:.1f} ms/frame by CUDA events ({fast_host:.1f} ms host) = "
+        f"{int(n_fast) / fast_ms / 1e3:.2f} Mrays/s [{card}]")
+    fast_err = hold_pt(f"render_pt_fast(bvh=cs) rows {row0}..{row0 + bh} of the {SHOW_SPP}-spp "
+                       f"frame vs K4's (rays: whole frames)", fast[row0:row0 + bh],
+                       n_fast, frame[row0:row0 + bh], n_frame)
+    summed = frame * float(SHOW_SPP)
+    prog_ok = torch.allclose(state.accum, summed, rtol=2 * SHOW_SPP * 2.0 ** -24, atol=0.0)
+    log(f"  progressive_render(bvh=cs, render_fn=render_pt_mega) {SHOW_SPP // SHOW_CHUNK} "
+        f"chunks of {SHOW_CHUNK}: within the summation bound of one {SHOW_SPP}-spp render "
+        f"{prog_ok} (max_abs_err {(state.accum - summed).abs().max().item():.6g})")
+    if state.spp_done != SHOW_SPP or not prog_ok:
+        raise AssertionError("progressive_render of the showcase depends on the chunking")
+
+    # the card against the CPU at 64x36
+    small = PTConfig(**SHOW_CPU, rng="pcg")
+    b_cpu = load_scene_json(str(SHOWCASE), device="cpu")
+    cs_cpu = build_clusters(b_cpu.tris, tri_mats=b_cpu.tri_mats, vertex_normals=b_cpu.tri_normals,
+                            device="cpu")
+    card_img, n_card = pt.render_pt_mega(small, scene, pos, quat, 2, seed=seed, bvh=cs)
+    card_img = card_img.cpu()
+    args = (small, b_cpu.scene, pos.cpu(), quat.cpu(), 2)
+    native, n_native = pt.render_pt_mega(*args, seed=seed, bvh=cs_cpu)
+    # PyTorch's float32 sqrt on the CPU is not correctly rounded (about 0.6%
+    # of inputs off by one bit); the card's, the kernel's and XLA's are. The
+    # check replays the CPU's plain version with a correctly rounded sqrt;
+    # where the CPU's own sqrt moves a path, the card must differ from the
+    # native CPU render on exactly those pixels
+    with correctly_rounded_sqrt():
+        cpu_img, n_cpu = pt.render_pt_mega(*args, seed=seed, bvh=cs_cpu)
+    cpu_err = hold_pt(f"K4 showcase {small.width}x{small.height} 2 spp on the card vs the plain "
+                      f"version on the CPU (correctly rounded sqrt)", card_img, n_card, cpu_img,
+                      n_cpu)
+    off_card = (card_img - native).abs().amax(-1) > 1e-3
+    off_sqrt = (cpu_img - native).abs().amax(-1) > 1e-3
+    log(f"  against the CPU's own sqrt: {int(off_card.sum())} pixels off by more than 1e-3 (max "
+        f"{(card_img - native).abs().max().item():.6g}), rays {int(n_native)}; the CPU's sqrt "
+        f"alone "
+        f"moves {int(off_sqrt.sum())} pixels, the same ones: {torch.equal(off_card, off_sqrt)}")
+    if not torch.equal(off_card, off_sqrt):
+        raise AssertionError("the card differs from the CPU beyond the CPU's sqrt rounding")
+
+    # the zero-feature invariants through K4 (and K5 for the chan plane), bit for bit
+    inv = PTConfig(**SHOW_INV, rng="pcg")
+
+    def set_disp(value):
+        def edit(spec):
+            for m in spec["materials"]:
+                if "dispersion" in m:
+                    if value is None:
+                        del m["dispersion"]
+                    else:
+                        m["dispersion"] = value
+        return edit
+
+    def set_checker(value):
+        def edit(spec):
+            for m in spec["materials"]:
+                if "checker" in m:
+                    if value is None:
+                        del m["checker"]
+                    else:
+                        m["checker"]["scale"] = value
+        return edit
+
+    checks = []
+    for what, zero, none, column in (
+            ("dispersion 0", set_disp(0.0), set_disp(None),
+             lambda sc: dict(mat_dispersion=torch.zeros_like(sc.mat_ior))),
+            ("checker scale 0", set_checker(0.0), set_checker(None),
+             lambda sc: dict(mat_albedo2=torch.full_like(sc.mat_albedo, 0.5),
+                             mat_tex_scale=torch.zeros_like(sc.mat_ior)))):
+        s0 = load_scene_json(str(showcase_spec_variant(what.replace(" ", "_"), zero))).scene
+        sn = load_scene_json(str(showcase_spec_variant(what.replace(" ", "_") + "_none",
+                                                       none))).scene
+        sz = dataclasses.replace(s0, **column(s0))  # the column present and all zero
+        imgs = [pt.render_pt_mega(inv, sc, pos, quat, 2, seed=seed, bvh=cs) for sc in (s0, sn, sz)]
+        rbs = [pt.render_pt_rebin(inv, sc, pos, quat, 1, seed=seed, bvh=cs)[0] for sc in (s0, sz)]
+        ok = (all(torch.equal(i[0], imgs[0][0]) and int(i[1]) == int(imgs[0][1]) for i in imgs)
+              and torch.equal(rbs[0], rbs[1]))
+        log(f"  invariant {what}: K4 {inv.width}x{inv.height} 2 spp equal bit for bit with the "
+            f"key removed and with the column present and zero ({state_plane_count(sz)} state "
+            f"planes through K5 too): {ok}")
+        checks.append(ok)
+    if not all(checks):
+        raise AssertionError("a zero feature changed the showcase's render")
+
+    # the picture
+    img = frame.cpu().numpy()
+    means = img.reshape(-1, 3).mean(0)
+    if not np.isfinite(img).all() or not means.min() > 0.0:
+        raise AssertionError(f"the showcase frame is non-finite or black: means {means}")
+    srgb = tonemap(img, "aces", gamma=2.2)
+    write_png(str(SHOW_PNG), srgb)
+    back = read_png(str(SHOW_PNG))
+    if not np.array_equal(back, to_srgb_u8(srgb)):
+        raise AssertionError("the showcase PNG does not read back")
+    log(f"  showcase {cfg.width}x{cfg.height} {SHOW_SPP} spp written to {SHOW_PNG.name} (ACES, "
+        f"gamma 2.2): finite, channel means {[round(float(m), 5) for m in means]}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"  phase 19 errors: K4 vs plain {err:.6g}, K5 vs plain {k5_err:.6g}, render_pt_fast vs K4 "
+        f"{fast_err:.6g}, card vs CPU {cpu_err:.6g}")
+    return {
+        # plain_ms: each kernel's plain version on the band (SHOW_BAND rows,
+        # 1 spp), the part of the frame it replays in this run
+        "k4": {"launches": counts["K4 material"], "max_abs_err": err, "ms": k4_ms,
+               "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1]},
+        "k5": {"launches": counts["K5 material"], "max_abs_err": k5_err, "ms": k5_dev,
+               "plain_ms": plain_rb_ms, "bound_ms": k5_bound[0], "bound_by": k5_bound[1]},
+        "K6": counts["K6"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -3185,6 +3545,8 @@ def main() -> int:
     orbit, orbit_k4_err = phase_postprocess(c3, bvh3, device, card)
     log(f"phases 17 and 18: {t18 - t17:.1f} s and {time.perf_counter() - t18:.1f} s; launches "
         f"on their main paths: replay {replay}, orbit {orbit}")
+    log("phase 19: the showcase scene (examples/showcase.json) through K4, K5 and K6")
+    show = phase_showcase(device, card)
 
     # no single PyTorch call computes any of these kernels (torch.rand draws
     # Philox, not threefry): library_ms null
@@ -3217,15 +3579,24 @@ def main() -> int:
          "source": "raytracing_engine_tpu_torch/csrc/pt.cu",
          "replaces": "raytracing_engine_tpu/ops/pallas/pt_kernel.py:194",
          "launches": c5_main["launches"]["K4"], **c5_main["k4"], "library_ms": None},
+        {"name": "pt_kernel<clusters, material> (K4)", "route": "cuda",
+         "source": "raytracing_engine_tpu_torch/csrc/pt.cu",
+         "replaces": "raytracing_engine_tpu/ops/pallas/pt_kernel.py:194", **show["k4"],
+         "library_ms": None},
         {"name": "pt_rebin_kernel (K5)", "route": "cuda",
          "source": "raytracing_engine_tpu_torch/csrc/pt.cu",
          "replaces": "raytracing_engine_tpu/ops/pallas/pt_kernel.py:699",
          "launches": c3_main["launches"]["K5"], "max_abs_err": inv["max_abs_err"],
          **c3_main["k5"], "library_ms": None},
+        {"name": "pt_rebin_kernel<material> (K5)", "route": "cuda",
+         "source": "raytracing_engine_tpu_torch/csrc/pt.cu",
+         "replaces": "raytracing_engine_tpu/ops/pallas/pt_kernel.py:699", **show["k5"],
+         "library_ms": None},
         {"name": "cluster_kernel (K6)", "route": "cuda",
          "source": "raytracing_engine_tpu_torch/csrc/cluster.cu",
          "replaces": "raytracing_engine_tpu/ops/pallas/cluster_intersect.py:439",
-         "launches": c3_main["launches"]["K6"] + orbit["K6"], **k6, "library_ms": None},
+         "launches": c3_main["launches"]["K6"] + orbit["K6"] + show["K6"], **k6,
+         "library_ms": None},
         {"name": "instanced_kernel (K7)", "route": "cuda",
          "source": "raytracing_engine_tpu_torch/csrc/instanced.cu",
          "replaces": "raytracing_engine_tpu/ops/pallas/instanced_intersect.py:225",

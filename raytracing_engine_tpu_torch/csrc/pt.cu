@@ -11,8 +11,14 @@
 // loop, bounce loop, NEE + MIS, the PCG4D stream keyed on global pixel
 // coordinates) runs in one thread, in registers.
 //
+// Each kernel has a second instantiation for the material features (pt.cuh
+// kMat: GGX metal, anisotropy, the world checker, dispersion, the gradient
+// sky; the branches of JAX's static flags, pt_kernel.py:200-206 and
+// :707-713): a scene with none of them launches the instantiation it
+// launched before, so configs 2-5 pay no registers for GGX.
+//
 // K5 replaces pt_kernel.py:_pt_rebin_kernel (render_pt_rebin): one launch
-// per bounce over a packed 17-plane ray state. Thread i owns the ray at
+// per bounce over a packed 17-plane ray state (18 with dispersion's chan). Thread i owns the ray at
 // sorted rank i: bounce 0 makes the camera ray of pixel i of the band,
 // later launches read the state at rank i and write it back in place. A dead
 // ray (|o.x| >= 1e17) leaves its state unchanged: the per-thread form of the
@@ -74,23 +80,48 @@ constexpr int kRebinThreads = 256;  // K5's block
 
 // Stage the scene tables in shared memory (call from every thread, then
 // __syncthreads) and describe them; the live counts come from a.counts.
-template <int kBlock>
+// kMat: the material table a.mat_w wide and the sky's table after the
+// lights, and the features' flags and column offsets.
+template <int kBlock, bool kMat>
 __device__ __forceinline__ Scene stage_scene(const Args& a, float* tables, int tid) {
+  const int mat_w = kMat ? a.mat_w : kMatW;
   const int n_sph_f = a.S * kSphW, n_tri_f = a.T * kTriW;
-  const int n_mat_f = a.M * kMatW, n_light_f = a.L * kLightW;
+  const int n_mat_f = a.M * mat_w, n_light_f = a.L * kLightW;
+  const int n_env_f = kMat && a.sky ? kEnvW : 0;
   float* s_sph = tables;
   float* s_tri = s_sph + n_sph_f;
   float* s_mat = s_tri + n_tri_f;
   float* s_light = s_mat + n_mat_f;
+  float* s_env = s_light + n_light_f;
   for (int i = tid; i < n_sph_f; i += kBlock) s_sph[i] = __ldg(a.sph + i);
   for (int i = tid; i < n_tri_f; i += kBlock) s_tri[i] = __ldg(a.tri + i);
   for (int i = tid; i < n_mat_f; i += kBlock) s_mat[i] = __ldg(a.mat + i);
   for (int i = tid; i < n_light_f; i += kBlock) s_light[i] = __ldg(a.light + i);
+  // (a loop over nothing is not dropped: the compiler cannot tell tid >= 0)
+  if constexpr (kMat) {
+    for (int i = tid; i < n_env_f; i += kBlock) s_env[i] = __ldg(a.env + i);
+  }
   Scene sc;
   sc.sph = s_sph;
   sc.tri = s_tri;
   sc.mat = s_mat;
   sc.light = s_light;
+  sc.env = s_env;
+  sc.mat_w = mat_w;
+  sc.metal = kMat && a.metal;
+  sc.aniso = kMat && a.aniso;
+  sc.texture = kMat && a.texture;
+  sc.dispersion = kMat && a.dispersion;
+  sc.sky = kMat && a.sky;
+  // the optional columns in pack_pt_scene's fixed order
+  int col = kMatW;
+  sc.c_tex = col;
+  col += sc.texture ? 4 : 0;
+  sc.c_rough = col;
+  col += sc.metal ? 1 : 0;
+  sc.c_rough2 = col;
+  col += sc.aniso ? 1 : 0;
+  sc.c_disp = col;
   sc.S = a.S;
   sc.T = a.T;
   sc.M = a.M;
@@ -121,13 +152,13 @@ __device__ __forceinline__ uint32_t pass_seed(const Args& a, int s) {
   return static_cast<uint32_t>(a.seed) + static_cast<uint32_t>(a.spp_offset + s) * kPassPrime;
 }
 
-template <int kMesh>
+template <int kMesh, bool kMat>
 __global__ void __launch_bounds__(K4<kMesh>::kThreads) pt_kernel(const Args a) {
   using B = K4<kMesh>;
   extern __shared__ float tables[];
   __shared__ unsigned block_rays;
   const int tid = threadIdx.y * B::kBlockX + threadIdx.x;
-  const Scene sc = stage_scene<B::kThreads>(a, tables, tid);
+  const Scene sc = stage_scene<B::kThreads, kMat>(a, tables, tid);
   if (tid == 0) block_rays = 0u;
   __syncthreads();
 
@@ -153,11 +184,11 @@ __global__ void __launch_bounds__(K4<kMesh>::kThreads) pt_kernel(const Args a) {
         for (int b = 0; b <= a.max_bounces; ++b) {
           const bool live = in_image && r.alive;
           if (!__any_sync(cl::kFullWarp, live)) break;
-          bounce<kMesh, true>(a, sc, r, b, seed, nrays, live);
+          bounce<kMesh, true, kMat>(a, sc, r, b, seed, nrays, live);
         }
       } else {
         for (int b = 0; b <= a.max_bounces && r.alive; ++b) {
-          bounce<kMesh, false>(a, sc, r, b, seed, nrays);
+          bounce<kMesh, false, kMat>(a, sc, r, b, seed, nrays);
         }
       }
       acc = add3(acc, r.rad);
@@ -173,11 +204,12 @@ __global__ void __launch_bounds__(K4<kMesh>::kThreads) pt_kernel(const Args a) {
   count_rays(a, &block_rays, tid, nrays);
 }
 
+template <bool kMat>
 __global__ void __launch_bounds__(kRebinThreads) pt_rebin_kernel(const Args a) {
   extern __shared__ float tables[];
   __shared__ unsigned block_rays;
   const int tid = threadIdx.x;
-  const Scene sc = stage_scene<kRebinThreads>(a, tables, tid);
+  const Scene sc = stage_scene<kRebinThreads, kMat>(a, tables, tid);
   if (tid == 0) block_rays = 0u;
   __syncthreads();
 
@@ -194,6 +226,7 @@ __global__ void __launch_bounds__(kRebinThreads) pt_rebin_kernel(const Args a) {
   r.rad = make_float3(0.0f, 0.0f, 0.0f);
   r.px = 0u;
   r.py = 0u;
+  r.chan = -1.0f;
   bool live = i < a.n_state;
   float* st = a.state + (live ? i : 0);
   if (live) {
@@ -216,10 +249,11 @@ __global__ void __launch_bounds__(kRebinThreads) pt_rebin_kernel(const Args a) {
         r.prev_pdf = st[14 * n];
         r.px = static_cast<uint32_t>(st[15 * n]);
         r.py = static_cast<uint32_t>(st[16 * n]);
+        if (sc.dispersion) r.chan = st[17 * n];
       }
     }
   }
-  bounce<kMeshAny, true>(a, sc, r, a.bounce, seed, nrays, live);
+  bounce<kMeshAny, true, kMat>(a, sc, r, a.bounce, seed, nrays, live);
   if (live) {
     const float planes[kStatePlanes] = {
         r.o.x, r.o.y, r.o.z, r.d.x, r.d.y, r.d.z, r.thr.x, r.thr.y, r.thr.z,
@@ -227,20 +261,32 @@ __global__ void __launch_bounds__(kRebinThreads) pt_rebin_kernel(const Args a) {
         r.prev_pdf, static_cast<float>(r.px), static_cast<float>(r.py)};
 #pragma unroll
     for (int k = 0; k < kStatePlanes; ++k) st[k * n] = planes[k];
+    if (sc.dispersion) st[kStatePlanes * n] = r.chan;
   }
   count_rays(a, &block_rays, tid, nrays);
 }
 
 size_t table_bytes(const Args* a) {
+  const bool mat = a->material != 0;
+  const size_t mat_w = mat ? static_cast<size_t>(a->mat_w) : kMatW;
+  const size_t env = mat && a->sky ? kEnvW : 0;
   return sizeof(float) * (static_cast<size_t>(a->S) * kSphW + static_cast<size_t>(a->T) * kTriW +
-                          static_cast<size_t>(a->M) * kMatW + static_cast<size_t>(a->L) * kLightW);
+                          static_cast<size_t>(a->M) * mat_w + static_cast<size_t>(a->L) * kLightW +
+                          env);
 }
 
+// K4 at mesh kind kMesh, its material instantiation where the scene has
+// any of the features.
 template <int kMesh>
 cudaError_t launch_pt(const Args* a, cudaStream_t stream) {
   using B = K4<kMesh>;
   const dim3 grid((a->w + B::kBlockX - 1) / B::kBlockX, (a->h + B::kBlockY - 1) / B::kBlockY);
-  pt_kernel<kMesh><<<grid, dim3(B::kBlockX, B::kBlockY), table_bytes(a), stream>>>(*a);
+  const dim3 block(B::kBlockX, B::kBlockY);
+  if (a->material) {
+    pt_kernel<kMesh, true><<<grid, block, table_bytes(a), stream>>>(*a);
+  } else {
+    pt_kernel<kMesh, false><<<grid, block, table_bytes(a), stream>>>(*a);
+  }
   return cudaGetLastError();
 }
 
@@ -264,8 +310,12 @@ extern "C" int pt_rebin(const pt::Args* a, void* stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   if (a->n_state > 0) {
     const dim3 grid((a->n_state + pt::kRebinThreads - 1) / pt::kRebinThreads);
-    pt::pt_rebin_kernel<<<grid, pt::kRebinThreads, pt::table_bytes(a),
-                          static_cast<cudaStream_t>(stream)>>>(*a);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (a->material) {
+      pt::pt_rebin_kernel<true><<<grid, pt::kRebinThreads, pt::table_bytes(a), s>>>(*a);
+    } else {
+      pt::pt_rebin_kernel<false><<<grid, pt::kRebinThreads, pt::table_bytes(a), s>>>(*a);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

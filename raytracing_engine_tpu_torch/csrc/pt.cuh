@@ -8,13 +8,17 @@
 // wavefront.py:397-488), NEE toward the light table with
 // power-heuristic MIS, DIFFUSE / MIRROR / smooth DIELECTRIC scattering,
 // Russian roulette, and the PCG4D stream keyed on global pixel coordinates
-// (ops/rng_pcg.py).
+// (ops/rng_pcg.py); and, in the material instantiation (kMat), the optional
+// material features of JAX's static flags (pt_kernel.py:200-206, :707-713):
+// the GGX METAL branch (isotropic, or anisotropic in the per-normal frame),
+// the world-space checker, spectral dispersion (the `chan` state) and the
+// gradient sky read by escaped rays.
 //
 // One thread follows one ray. The body of one bounce is one function,
 // `bounce`, over a per-ray state (`Ray`, the 17 planes of
-// wavefront.pack_state): K4 loops it over the bounces of every pass in
-// registers, K5 runs one bounce per launch on the state it reads back, so
-// K5 equals K4 by construction. `bounce`, `intersect` and `occluded` are
+// wavefront.pack_state, 18 with a dispersive scene's chan): K4 loops it
+// over the bounces of every pass in registers, K5 runs one bounce per launch
+// on the state it reads back, so K5 equals K4 by construction. `bounce`, `intersect` and `occluded` are
 // templates on the mesh kind (kMesh*: a constant in each of K4's
 // instantiations, so each holds only its own sweep; kMeshAny in K5, whose
 // tables pick it at run time) and on the form: one thread alone (kWarp
@@ -25,7 +29,13 @@
 // false, and the body reaches both sweeps on every lane (a lane that missed
 // or casts no shadow ray enters them inactive) and parks a miss only after
 // the shadow sweep. The warp sweeps equal the plain sweep bit for bit per
-// ray, so K5 equals K4.
+// ray, so K5 equals K4. `bounce` is also a template on kMat: false, the
+// program of the scenes without the material features, unchanged; true,
+// the same body with the features' branches, each taken at run time from
+// the scene's flags (uniform across a launch) exactly where the plain
+// version's static gate puts it, so a scene with none of them renders the
+// same in both. The material instantiation keeps the metal-free NEE form
+// when the scene has no metal, as the JAX package does.
 //
 // Every expression keeps the operation order of the plain PyTorch version
 // (pathtracer/wavefront.py), and the library builds with --fmad=false and
@@ -54,25 +64,32 @@ constexpr float kBig = 3.4e38f;
 constexpr float kPi = 3.1415927410125732f;
 constexpr float kTwoPi = 6.2831854820251465f;
 constexpr float kFourPi = 12.566370964050293f;
+constexpr float kInvPi = 0.31830987334251404f;  // f32(1 / pi)
 constexpr int kDiffuse = 0;
 constexpr int kMirror = 1;
 constexpr int kDielectric = 3;
+constexpr int kMetal = 4;
 constexpr int kLightTri = 1;
 constexpr uint32_t kPassPrime = 0x9E3779B9u;  // int32 -1640531527
 
 // Packed scene table widths (ops/cuda/pt.py pack_pt_scene):
 //   sphere   [pos(3), radius, mat, 0, 0, 0]
 //   triangle [v0(3), e1(3), e2(3), mat, 0, 0]
-//   material [albedo(3), emission(3), kind, ior]
+//   material [albedo(3), emission(3), kind, ior] and, in the material
+//            instantiation, the optional columns in JAX's fixed order:
+//            [albedo2(3), checker scale] | rough | rough2 | dispersion,
+//            zero-padded to a multiple of 4 (Args.mat_w: 8, 12 or 16)
 //   light    [kind, prim, area, le(3), pick, cdf, total_power, 0, 0, 0]
+//   env      [bottom(3), 0, top(3), 0] (the gradient sky; Args.sky)
 constexpr int kSphW = 8;
 constexpr int kTriW = 12;
 constexpr int kMatW = 8;
 constexpr int kLightW = 12;
+constexpr int kEnvW = 8;
 constexpr int kTriUnrollMax = 32;
 constexpr float kDeadO = 1e18f;                    // parked-ray origin
 constexpr float kInvSqrt3 = 0.57735025882720947f;  // its direction components
-constexpr int kStatePlanes = 17;
+constexpr int kStatePlanes = 17;  // 18 with the chan plane of a dispersive scene
 
 // Mesh kinds, one instantiation of K4 each (pt_render picks it from the
 // tables, as stage_scene reads them: cl.trec, then inst.tab, null or not;
@@ -103,9 +120,16 @@ struct Args {
   float ratio_x, ratio_y, t_min, eps;
   cl::Tables cl;           // a mesh as a ClusterSet (cl.trec null: none)
   ins::Instances inst;     // instances of cl's mesh (inst.tab null: none)
-  float* state;            // K5: (17, n_state) ray state, updated in place
+  float* state;            // K5: (17 or 18, n_state) ray state, updated in place
   int n_state, bounce;     // K5: rays in the state, the bounce this launch runs
   int device;              // CUDA ordinal the pointers and the stream belong to
+  // The material features, after every field the instantiations without them
+  // read, so those keep their parameter offsets. material (0 / 1) picks the
+  // instantiation: ops/cuda/pt.py sets it from PTScene.has_material_features.
+  const float* env;        // (2, 4) gradient sky (sky != 0), else null
+  int mat_w;               // material table width: 8, 12 or 16
+  int material;
+  int metal, aniso, texture, dispersion, sky;  // the features (0 / 1)
 };
 
 // The scene tables, in shared memory, the live counts and the mesh.
@@ -114,9 +138,14 @@ struct Scene {
   const float* tri;
   const float* mat;
   const float* light;
+  const float* env;  // the sky's 8 floats (sky), else unused
   int S, T, M, L;
   int n_sph, n_tri, n_light;
   float total_power;
+  // the material features and their columns in the material table (kMat)
+  int mat_w;
+  bool metal, aniso, texture, dispersion, sky;
+  int c_tex, c_rough, c_rough2, c_disp;
   cl::Tables cl;
   ins::Instances inst;
   bool mesh;       // kMeshAny: intersect cl instead of the unrolled triangle slots
@@ -427,6 +456,15 @@ __device__ __forceinline__ float power_heuristic(float a, float b) {
   return a2 / vmax(a2 + b * b, 1e-24f);
 }
 
+// sampler.build_onb (Duff et al. 2017): t, s around unit n.
+__device__ __forceinline__ void build_onb(float3 n, float3& t, float3& s) {
+  const float sign = n.z >= 0.0f ? 1.0f : -1.0f;
+  const float a = -1.0f / (sign + n.z);
+  const float b = n.x * n.y * a;
+  t = make_float3(1.0f + sign * n.x * n.x * a, sign * b, -sign * n.x);
+  s = make_float3(b, sign + n.y * n.y * a, -n.y);
+}
+
 // sampler.cosine_hemisphere about unit n; pdf = z / π.
 __device__ __forceinline__ float3 cosine_hemisphere(float u1, float u2, float3 n,
                                                     float& pdf) {
@@ -435,23 +473,140 @@ __device__ __forceinline__ float3 cosine_hemisphere(float u1, float u2, float3 n
   const float x = r * cosf(phi);
   const float y = r * sinf(phi);
   const float z = sqrtf(vmax(1.0f - u1, 0.0f));
-  // sampler.build_onb (Duff et al. 2017)
-  const float sign = n.z >= 0.0f ? 1.0f : -1.0f;
-  const float a = -1.0f / (sign + n.z);
-  const float b = n.x * n.y * a;
-  const float3 t = make_float3(1.0f + sign * n.x * n.x * a, sign * b, -sign * n.x);
-  const float3 s = make_float3(b, sign + n.y * n.y * a, -n.y);
+  float3 t, s;
+  build_onb(n, t, s);
   pdf = z / kPi;
   return add3(add3(scale3(t, x), scale3(s, y)), scale3(n, z));
 }
 
+// --- GGX microfacet (sampler.py: ggx_d .. ggx_eval), the plain version's
+// operation order; Schlick's x^5 as XLA's x * ((x * x) * (x * x)) --------
+__device__ __forceinline__ float clamp01(float x) { return vmin(vmax(x, 0.0f), 1.0f); }
+
+__device__ __forceinline__ float schlick5(float x) {
+  const float x2 = x * x;
+  return x * (x2 * x2);
+}
+
+__device__ __forceinline__ float ggx_d(float cos_h, float alpha) {
+  const float a2 = alpha * alpha;
+  const float c2 = cos_h * cos_h;
+  const float denom = c2 * (a2 - 1.0f) + 1.0f;
+  return a2 / vmax(kPi * denom * denom, 1e-12f);
+}
+
+__device__ __forceinline__ float ggx_smith_g1(float cos_v, float alpha) {
+  const float a2 = alpha * alpha;
+  const float c = vmax(cos_v, 1e-6f);
+  return 2.0f * c / vmax(c + sqrtf(a2 + (1.0f - a2) * c * c), 1e-12f);
+}
+
+__device__ __forceinline__ float3 sample_ggx_h(float u1, float u2, float3 n, float alpha) {
+  const float a2 = alpha * alpha;
+  const float cos_h = sqrtf(clamp01((1.0f - u1) / (1.0f + (a2 - 1.0f) * u1)));
+  const float sin_h = sqrtf(vmax(1.0f - cos_h * cos_h, 0.0f));
+  const float phi = kTwoPi * u2;
+  float3 t, s;
+  build_onb(n, t, s);
+  return add3(add3(scale3(t, sin_h * cosf(phi)), scale3(s, sin_h * sinf(phi))),
+              scale3(n, cos_h));
+}
+
+__device__ __forceinline__ float ggx_d_aniso(float hx, float hy, float hz, float ax, float ay) {
+  const float qx = hx / ax;
+  const float qy = hy / ay;
+  const float e = qx * qx + qy * qy + hz * hz;
+  return 1.0f / vmax(kPi * ax * ay * e * e, 1e-12f);
+}
+
+__device__ __forceinline__ float ggx_smith_g1_aniso(float vx, float vy, float vz, float ax,
+                                                    float ay) {
+  const float vz2 = vmax(vz * vz, 1e-12f);
+  const float lam = 0.5f * (sqrtf(1.0f + (ax * ax * vx * vx + ay * ay * vy * vy) / vz2) - 1.0f);
+  return vz > 1e-6f ? 1.0f / (1.0f + lam) : 0.0f;
+}
+
+__device__ __forceinline__ float3 sample_ggx_h_aniso(float u1, float u2, float3 t, float3 s,
+                                                     float3 n, float ax, float ay) {
+  const float r = sqrtf(vmin(vmax(u1 / vmax(1.0f - u1, 1e-12f), 0.0f), 1e12f));
+  const float phi = kTwoPi * u2;
+  const float sx = ax * r * cosf(phi);
+  const float sy = ay * r * sinf(phi);
+  const float inv = 1.0f / sqrtf(1.0f + sx * sx + sy * sy);
+  return add3(add3(scale3(t, sx * inv), scale3(s, sy * inv)), scale3(n, inv));
+}
+
+// The normalized half-vector of wo and wi (sampler.ggx_eval's first lines).
+__device__ __forceinline__ float3 half_vector(float3 wo, float3 wi) {
+  const float3 h_raw = add3(wo, wi);
+  const float hl = vmax(sqrtf(dot3(h_raw, h_raw)), 1e-12f);
+  return scale3(h_raw, 1.0f / hl);
+}
+
+// Schlick Fresnel times spec: f = (f0 + (1 - f0) p5) * spec, per channel.
+__device__ __forceinline__ float3 fresnel_spec(float3 f0, float oh, float spec) {
+  const float p5 = schlick5(1.0f - clamp01(oh));
+  return make_float3((f0.x + (1.0f - f0.x) * p5) * spec, (f0.y + (1.0f - f0.y) * p5) * spec,
+                     (f0.z + (1.0f - f0.z) * p5) * spec);
+}
+
+// sampler.ggx_eval: the GGX conductor BRDF f and the pdf of its sampling.
+__device__ __forceinline__ float3 ggx_eval(float3 n, float3 wo, float3 wi, float3 f0,
+                                           float alpha, float& pdf) {
+  const float3 h = half_vector(wo, wi);
+  const float cos_h = dot3(n, h);
+  const float cos_o = dot3(n, wo);
+  const float cos_i = dot3(n, wi);
+  const float oh = dot3(wo, h);
+  const float d = ggx_d(cos_h, alpha);
+  const float g = ggx_smith_g1(cos_o, alpha) * ggx_smith_g1(cos_i, alpha);
+  const float denom = vmax(4.0f * cos_o * cos_i, 1e-6f);
+  const bool valid = cos_i > 0.0f && cos_o > 0.0f && oh > 0.0f;
+  pdf = valid ? d * vmax(cos_h, 0.0f) / vmax(4.0f * oh, 1e-6f) : 0.0f;
+  return fresnel_spec(f0, oh, valid ? d * g / denom : 0.0f);
+}
+
+// sampler.ggx_eval_aniso, in the frame (t, s, n).
+__device__ __forceinline__ float3 ggx_eval_aniso(float3 n, float3 t, float3 s, float3 wo,
+                                                 float3 wi, float3 f0, float ax, float ay,
+                                                 float& pdf) {
+  const float3 h = half_vector(wo, wi);
+  const float hx = dot3(h, t), hy = dot3(h, s), hz = dot3(h, n);
+  const float ox = dot3(wo, t), oy = dot3(wo, s), oz = dot3(wo, n);
+  const float ix = dot3(wi, t), iy = dot3(wi, s), iz = dot3(wi, n);
+  const float oh = dot3(wo, h);
+  const float d = ggx_d_aniso(hx, hy, hz, ax, ay);
+  const float g = ggx_smith_g1_aniso(ox, oy, oz, ax, ay) * ggx_smith_g1_aniso(ix, iy, iz, ax, ay);
+  const float denom = vmax(4.0f * oz * iz, 1e-6f);
+  const bool valid = iz > 0.0f && oz > 0.0f && oh > 0.0f;
+  pdf = valid ? d * vmax(hz, 0.0f) / vmax(4.0f * oh, 1e-6f) : 0.0f;
+  return fresnel_spec(f0, oh, valid ? d * g / denom : 0.0f);
+}
+
+// A hit's GGX parameters (kMat, metal scenes): alpha = max(r², 1e-4) of the
+// roughness, alpha_y of roughness_y with anisotropy, and the per-normal frame
+// the anisotropy axes live in.
+struct Ggx {
+  float alpha, alpha_y;
+  float3 t, s;
+};
+
+// sampler.ggx_eval or ggx_eval_aniso, by the scene's flag.
+__device__ __forceinline__ float3 ggx_brdf(const Scene& sc, const Ggx& g, float3 n, float3 wo,
+                                           float3 wi, float3 f0, float& pdf) {
+  if (sc.aniso) return ggx_eval_aniso(n, g.t, g.s, wo, wi, f0, g.alpha, g.alpha_y, pdf);
+  return ggx_eval(n, wo, wi, f0, g.alpha, pdf);
+}
+
 // --- one ray's state and one bounce (wavefront._bounce) -------------------
-// The 17 planes of wavefront.pack_state, in registers.
+// The 17 planes of wavefront.pack_state, in registers, and chan, the 18th of
+// a dispersive scene (the committed color channel, -1: none yet).
 struct Ray {
   float3 o, d, thr, rad;
   bool alive, prev_did_nee;
   float prev_pdf;
   uint32_t px, py;  // global pixel coordinates: every draw is keyed on them
+  float chan;
 };
 
 // The camera ray of pixel (px, py) for the pass of `seed` (ctr 0).
@@ -471,12 +626,13 @@ __device__ __forceinline__ Ray camera_ray(const Args& a, uint32_t px, uint32_t p
   r.prev_pdf = 0.0f;
   r.px = px;
   r.py = py;
+  r.chan = -1.0f;
   return r;
 }
 
 // A ray that missed or died: parked as the plain version parks it (origin
 // 1e18, direction (1, 1, 1)/sqrt(3), throughput 0), so every later sweep
-// and the regroup keys treat it as dead. Its radiance stays.
+// and the regroup keys treat it as dead. Its radiance and chan stay.
 __device__ __forceinline__ void park(Ray& r) {
   r.o = make_float3(kDeadO, kDeadO, kDeadO);
   r.d = make_float3(kInvSqrt3, kInvSqrt3, kInvSqrt3);
@@ -484,6 +640,16 @@ __device__ __forceinline__ void park(Ray& r) {
   r.alive = false;
   r.prev_did_nee = false;
   r.prev_pdf = 0.0f;
+}
+
+// The gradient sky an escaped ray reads at full weight, added to r.rad
+// (wavefront._bounce, scene.has_env: thr * (sky * 1)).
+__device__ __forceinline__ void add_sky(const Scene& sc, Ray& r, float3 thr, float3 d) {
+  const float tz = 0.5f * (d.z + 1.0f);
+  const float* e = sc.env;
+  r.rad.x = r.rad.x + thr.x * (e[0] + (e[4] - e[0]) * tz);
+  r.rad.y = r.rad.y + thr.y * (e[1] + (e[5] - e[1]) * tz);
+  r.rad.z = r.rad.z + thr.z * (e[2] + (e[6] - e[2]) * tz);
 }
 
 // The NEE shadow ray of a diffuse hit at p (normal n) toward a light sample
@@ -514,12 +680,35 @@ __device__ __forceinline__ void nee_add(Ray& r, float3 thr, float3 albedo, const
   r.rad.z = r.rad.z + thr.z * albedo.z * (e.ls.le.z * s);
 }
 
-// Bounce b of a live ray for the pass of `seed`: adds its emission and NEE
-// to r.rad, scatters or parks it, and counts its rays (one segment, one
+// nee_add's general form, taken in scenes with metal (JAX
+// wavefront.py:1904-1915): f = albedo/π on a diffuse hit, the GGX BRDF on a
+// metal one, and the MIS counter-pdf of the same BSDF.
+__device__ __forceinline__ void nee_add_brdf(const Scene& sc, Ray& r, float3 thr, float3 albedo,
+                                             bool is_metal, const Ggx& g, float3 n, float3 d,
+                                             const Nee& e) {
+  const float pdf_w = e.ls.pdf_area * (e.dist * e.dist) / vmax(e.cos_ll, 1e-6f);
+  float pdf_b;
+  float3 f;
+  if (is_metal) {
+    f = ggx_brdf(sc, g, n, make_float3(-d.x, -d.y, -d.z), e.wi, albedo, pdf_b);
+  } else {
+    pdf_b = e.cos_s / kPi;
+    f = scale3(albedo, kInvPi);
+  }
+  const float w_nee = power_heuristic(pdf_w, pdf_b);
+  const float s = e.cos_s / vmax(pdf_w, 1e-20f) * w_nee;
+  r.rad.x = r.rad.x + thr.x * f.x * (e.ls.le.x * s);
+  r.rad.y = r.rad.y + thr.y * f.y * (e.ls.le.y * s);
+  r.rad.z = r.rad.z + thr.z * f.z * (e.ls.le.z * s);
+}
+
+// Bounce b of a live ray for the pass of `seed`: adds its emission, sky and
+// NEE to r.rad, scatters or parks it, and counts its rays (one segment, one
 // shadow-ray candidate) into nrays. With kWarp every lane of the warp calls
 // it together, a lane without a live ray with live false (it parks the ray,
-// keeps its radiance and counts no ray).
-template <int kMesh, bool kWarp>
+// keeps its radiance and counts no ray). kMat adds the material features'
+// branches, each under its scene flag.
+template <int kMesh, bool kWarp, bool kMat>
 __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, int b,
                                        uint32_t seed, unsigned& nrays, bool live = true) {
   const bool uniform = a.uniform_lights != 0;
@@ -541,17 +730,36 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
   }
   const bool hit = intersect<kMesh, kWarp>(sc, r.o, d, a.t_min, h, live);
   if (!kWarp && !hit) {
+    if (kMat && sc.sky) add_sky(sc, r, r.thr, d);
     park(r);
     return;
   }
   const float3 n = h.n, p = h.p;
   const float3 thr = r.thr;
   const bool mat_ok = h.mat >= 0 && h.mat < sc.M;
-  const float* mrow = sc.mat + h.mat * kMatW;
-  const float3 albedo = mat_ok ? row3(mrow) : make_float3(0.0f, 0.0f, 0.0f);
+  const float* mrow = sc.mat + h.mat * (kMat ? sc.mat_w : kMatW);
+  float3 albedo = mat_ok ? row3(mrow) : make_float3(0.0f, 0.0f, 0.0f);
   const float3 emission = mat_ok ? row3(mrow + 3) : make_float3(0.0f, 0.0f, 0.0f);
   const int kind = mat_ok ? static_cast<int>(mrow[6]) : 0;
   const float ior = mat_ok ? mrow[7] : 0.0f;
+  const bool is_metal = kMat && sc.metal && kind == kMetal;
+  Ggx g;
+  if (is_metal) {
+    const float rough = mrow[sc.c_rough];
+    g.alpha = vmax(rough * rough, 1e-4f);
+    if (sc.aniso) {
+      const float rough2 = mrow[sc.c_rough2];
+      g.alpha_y = vmax(rough2 * rough2, 1e-4f);
+      build_onb(n, g.t, g.s);
+    }
+  }
+  if (kMat && sc.texture && mat_ok) {
+    // the world-space checker: the parity of the summed cells is a floored
+    // modulo, cells - 2 floor(cells / 2) (exact: cells are whole numbers)
+    const float s = mrow[sc.c_tex + 3];
+    const float cells = floorf(p.x * s) + floorf(p.y * s) + floorf(p.z * s);
+    if (s > 0.0f && cells - 2.0f * floorf(cells * 0.5f) >= 1.0f) albedo = row3(mrow + sc.c_tex);
+  }
 
   // --- emission (MIS vs NEE of the previous vertex) -----------------------
   if (emission.x > 0.0f || emission.y > 0.0f || emission.z > 0.0f) {
@@ -569,9 +777,12 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
     r.rad.y = r.rad.y + thr.y * (emission.y * gate);
     r.rad.z = r.rad.z + thr.z * (emission.z * gate);
   }
+  // the warp form's miss reads the sky here, once, before it parks below
+  if (kWarp && kMat && sc.sky && live && !hit) add_sky(sc, r, thr, d);
 
   // --- NEE ------------------------------------------------------------------
-  const bool nee = hit && a.use_nee && kind == kDiffuse && sc.n_light > 0;
+  const bool nee_kind = kind == kDiffuse || is_metal;
+  const bool nee = hit && a.use_nee && nee_kind && sc.n_light > 0;
   if (kWarp) {  // every lane reaches the shadow sweep; those without one inactive
     Nee e;
     e.wi = make_float3(1.0f, 0.0f, 0.0f);
@@ -580,7 +791,13 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
     if (cast) nrays += 1;
     const float3 sh_o = add3(p, scale3(n, a.eps));
     const bool blocked = occluded<kMesh, kWarp>(sc, sh_o, e.wi, e.dist * 0.999f, a.t_min, cast);
-    if (cast && !blocked) nee_add(r, thr, albedo, e);
+    if (cast && !blocked) {
+      if (kMat && sc.metal) {
+        nee_add_brdf(sc, r, thr, albedo, is_metal, g, n, d, e);
+      } else {
+        nee_add(r, thr, albedo, e);
+      }
+    }
     if (!hit) {
       park(r);
       return;
@@ -591,20 +808,40 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
       nrays += 1;
       const float3 sh_o = add3(p, scale3(n, a.eps));
       if (!occluded<kMesh, kWarp>(sc, sh_o, e.wi, e.dist * 0.999f, a.t_min)) {
-        nee_add(r, thr, albedo, e);
+        if (kMat && sc.metal) {
+          nee_add_brdf(sc, r, thr, albedo, is_metal, g, n, d, e);
+        } else {
+          nee_add(r, thr, albedo, e);
+        }
       }
     }
   }
 
   // --- scatter --------------------------------------------------------------
   float3 new_d, new_o;
-  float pdf_cos = 0.0f;
+  float3 w_mat = albedo;  // the throughput weight: albedo, or f cos / pdf on metal
+  float3 thr_s = thr;     // thr after a dispersive glass hit's channel pick
+  float pdf_bsdf = 0.0f;
   if (kind == kMirror) {
     new_d = sub3(d, scale3(n, 2.0f * dot3(d, n)));
     new_o = add3(p, scale3(n, a.eps));
   } else if (kind == kDielectric) {
+    float ior_c = ior;
+    if (kMat && sc.dispersion) {
+      // the first dispersive glass hit commits the lane to one channel (3x
+      // one-hot throughput) and shifts its ior; u[1] is free on glass lanes
+      const float dispm = mrow[sc.c_disp];
+      if (dispm > 0.0f && r.chan < 0.0f) {
+        r.chan = vmin(vmax(floorf(u[1] * 3.0f), 0.0f), 2.0f);
+        thr_s = make_float3(thr.x * (3.0f * (r.chan == 0.0f ? 1.0f : 0.0f)),
+                            thr.y * (3.0f * (r.chan == 1.0f ? 1.0f : 0.0f)),
+                            thr.z * (3.0f * (r.chan == 2.0f ? 1.0f : 0.0f)));
+      }
+      const float shift = r.chan >= 0.0f ? (r.chan - 1.0f) * 0.5f : 0.0f;
+      ior_c = ior + dispm * shift;
+    }
     // exact unpolarized Fresnel split; u[0] is the R/T coin
-    const float eta = h.front ? 1.0f / ior : ior;
+    const float eta = h.front ? 1.0f / ior_c : ior_c;
     const float cosi = -dot3(d, n);
     const float kk = 1.0f - eta * eta * (1.0f - cosi * cosi);
     const float cost = sqrtf(vmax(kk, 0.0f));
@@ -618,11 +855,20 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
       new_d = add3(scale3(d, eta), scale3(n, eta * cosi - cost));
       new_o = add3(p, scale3(n, -a.eps));
     }
+  } else if (is_metal) {
+    // GGX conductor: an NDF half-vector from u[0], u[1], reflect, weight
+    // f cos / pdf (an under-surface sample: f = pdf = 0, it dies below)
+    const float3 hv = sc.aniso ? sample_ggx_h_aniso(u[0], u[1], g.t, g.s, n, g.alpha, g.alpha_y)
+                               : sample_ggx_h(u[0], u[1], n, g.alpha);
+    new_d = sub3(d, scale3(hv, 2.0f * dot3(d, hv)));
+    new_o = add3(p, scale3(n, a.eps));
+    const float3 f = ggx_brdf(sc, g, n, make_float3(-d.x, -d.y, -d.z), new_d, albedo, pdf_bsdf);
+    w_mat = scale3(f, pdf_bsdf > 0.0f ? dot3(n, new_d) / vmax(pdf_bsdf, 1e-12f) : 0.0f);
   } else {
-    new_d = cosine_hemisphere(u[0], u[1], n, pdf_cos);
+    new_d = cosine_hemisphere(u[0], u[1], n, pdf_bsdf);
     new_o = add3(p, scale3(n, a.eps));
   }
-  float3 new_thr = make_float3(thr.x * albedo.x, thr.y * albedo.y, thr.z * albedo.z);
+  float3 new_thr = make_float3(thr_s.x * w_mat.x, thr_s.y * w_mat.y, thr_s.z * w_mat.z);
   const float thr_max = vmax(new_thr.x, vmax(new_thr.y, new_thr.z));
   if (!(thr_max > 0.0f)) {
     park(r);
@@ -640,8 +886,8 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
   r.thr = new_thr;
   r.o = new_o;
   r.d = new_d;
-  r.prev_did_nee = kind == kDiffuse && sc.n_light > 0 && a.use_nee;
-  r.prev_pdf = pdf_cos;
+  r.prev_did_nee = nee_kind && sc.n_light > 0 && a.use_nee;
+  r.prev_pdf = pdf_bsdf;
 }
 
 }  // namespace pt

@@ -11,12 +11,20 @@
   32 lanes of a warp together.
 - ``render_pt_rebin`` launches ``pt_rebin_kernel`` (K5), which replaces
   ``_pt_rebin_kernel``: one launch per bounce over a packed 17-plane ray
-  state, with an image-wide regroup between launches (``rebin_keys``, a
-  stable ``torch.sort``, then ``index_select`` of every plane) and a final
+  state (18 with a dispersive scene's chan plane), with an image-wide
+  regroup between launches (``rebin_keys``, a stable ``torch.sort``, then
+  ``index_select`` of every plane) and a final
   scatter of the radiance to pixel order. K5 sweeps the mesh with the 32
   lanes of a warp together (csrc/cluster.cuh sweep_warp). The regroup only
   changes which thread runs a ray: every draw is keyed on the pixel
   coordinates the state carries, so the image equals K4's bit for bit.
+
+Both kernels come in a second, material instantiation for scenes with any
+of the optional material features (GGX metal, anisotropic metal, the world
+checker, dispersion, the gradient sky: ``PTScene.has_material_features``);
+a scene without them launches the instantiations it launched before.
+``_kernel_args`` makes that choice once, as ``PTArgs.material``: the launch
+picks the instantiation by it, and the counts below read it.
 
 A scene on the CPU takes the plain versions, ``render_pt_mega_reference``
 and ``render_pt_rebin_reference``; a scene on a CUDA device launches the
@@ -43,10 +51,10 @@ from raytracing_engine_tpu_torch.ops.rng_pcg import pass_seed, to_int32
 from raytracing_engine_tpu_torch.pathtracer.integrator import PTConfig
 from raytracing_engine_tpu_torch.pathtracer.scene import TRI_UNROLL_MAX, PTScene
 from raytracing_engine_tpu_torch.pathtracer.wavefront import (
-    STATE_PLANES,
     _trace_core,
     check_supported,
     pack_state,
+    state_plane_count,
     unpack_state,
 )
 
@@ -55,12 +63,16 @@ from raytracing_engine_tpu_torch.pathtracer.wavefront import (
 MESH_KINDS = ("none", "clusters", "instances")
 
 # kernel launches since the counts were last set to 0 (plain-version calls
-# do not count): K4 (in all, and by mesh kind) and K5
+# do not count): K4 (in all, by mesh kind, and those of the material
+# instantiation by mesh kind) and K5 (in all, and of its material one)
 launches = 0
 mesh_launches = dict.fromkeys(MESH_KINDS, 0)
+material_launches = dict.fromkeys(MESH_KINDS, 0)
 rebin_launches = 0
+rebin_material_launches = 0
 
-# the kernels stage the scene tables in shared memory
+# the kernels stage the scene tables in shared memory (the material table at
+# most 16 columns wide and the sky's 2 x 4 floats included)
 _MAX_TABLE_BYTES = 48 * 1024
 # K5's block (csrc/pt.cu kRebinThreads): the "tile" of the tile_oct regroup key
 REBIN_TILE = 256
@@ -105,15 +117,27 @@ class PTArgs(ctypes.Structure):
         ("n_state", ctypes.c_int),
         ("bounce", ctypes.c_int),
         ("device", ctypes.c_int),
+        ("env", ctypes.c_void_p),
+        ("mat_w", ctypes.c_int),
+        ("material", ctypes.c_int),
+        ("metal", ctypes.c_int),
+        ("aniso", ctypes.c_int),
+        ("texture", ctypes.c_int),
+        ("dispersion", ctypes.c_int),
+        ("sky", ctypes.c_int),
     ]
 
 
 def pack_pt_scene(scene: PTScene):
     """The scene as kernel tables (ops/pallas/pt_kernel.py pack_pt_scene, the
     slice's columns): sph (S, 8) [pos, radius, mat, 0 x3]; tri (T, 12) [v0,
-    e1, e2, mat, 0 x2]; mat (M, 8) [albedo, emission, kind, ior]; light
-    (L, 12) [kind, prim, area, le, pick, cdf, total_power, 0 x3]; counts
-    int32 (4,) [spheres, triangles, materials, lights]."""
+    e1, e2, mat, 0 x2]; mat (M, 8, 12 or 16) [albedo, emission, kind, ior],
+    then the optional columns in JAX's fixed order (pt_kernel.py:59-81):
+    albedo2 and the checker scale, rough, rough2, dispersion, zero-padded to
+    a multiple of 4; light (L, 12) [kind, prim, area, le, pick, cdf,
+    total_power, 0 x3]; counts int32 (4,) [spheres, triangles, materials,
+    lights]; env (2, 4) [bottom, 0; top, 0] of the gradient sky, (0, 4)
+    without one."""
     f32 = torch.float32
     S, T = scene.sph_pos.shape[0], scene.tri_v0.shape[0]
     M, L = scene.mat_albedo.shape[0], scene.light_kind.shape[0]
@@ -122,8 +146,20 @@ def pack_pt_scene(scene: PTScene):
                      scene.sph_mat[:, None].to(f32), torch.zeros((S, 3), dtype=f32, device=dev)], 1)
     tri = torch.cat([scene.tri_v0, scene.tri_e1, scene.tri_e2, scene.tri_mat[:, None].to(f32),
                      torch.zeros((T, 2), dtype=f32, device=dev)], 1)
-    mat = torch.cat([scene.mat_albedo, scene.mat_emission, scene.mat_kind[:, None].to(f32),
-                     scene.mat_ior[:, None]], 1)
+    mat_cols = [scene.mat_albedo, scene.mat_emission, scene.mat_kind[:, None].to(f32),
+                scene.mat_ior[:, None]]
+    if scene.has_texture:
+        mat_cols += [scene.mat_albedo2, scene.mat_tex_scale[:, None]]
+    if scene.has_metal:
+        mat_cols += [scene.mat_rough[:, None]]
+    if scene.has_aniso:
+        mat_cols += [scene.mat_rough2[:, None]]
+    if scene.has_dispersion:
+        mat_cols += [scene.mat_dispersion[:, None]]
+    width = sum(c.shape[1] for c in mat_cols)
+    if width % 4:
+        mat_cols.append(torch.zeros((M, 4 - width % 4), dtype=f32, device=dev))
+    mat = torch.cat(mat_cols, 1)
     light = torch.cat([scene.light_kind[:, None].to(f32), scene.light_prim[:, None].to(f32),
                        scene.light_area[:, None], scene.light_le, scene.light_pick[:, None],
                        scene.light_cdf[:, None], scene.light_total_power.expand(L, 1),
@@ -132,7 +168,12 @@ def pack_pt_scene(scene: PTScene):
     # host until the stream drains, every call
     counts = torch.stack([scene.sph_count, scene.tri_count,
                           torch.full((), M, dtype=torch.int32, device=dev), scene.light_count])
-    return sph.contiguous(), tri.contiguous(), mat.contiguous(), light.contiguous(), counts
+    if scene.has_env:
+        env = torch.cat([scene.env, torch.zeros((2, 1), dtype=f32, device=dev)], 1)
+    else:
+        env = torch.zeros((0, 4), dtype=f32, device=dev)
+    return (sph.contiguous(), tri.contiguous(), mat.contiguous(), light.contiguous(), counts,
+            env.contiguous())
 
 
 def kernel_scene(scene: PTScene, bvh) -> PTScene:
@@ -225,8 +266,8 @@ def _kernel_args(cfg: PTConfig, scene_k: PTScene, cam_pos, cam_quat, h: int, row
     common.check(cam_pos, "cam_pos", (3,), f32, device)
     common.check(cam_quat, "cam_quat", (4,), f32, device)
     tables = pack_pt_scene(scene_k)
-    sph, tri, mat, light, counts = tables
-    table_bytes = 4 * (sph.numel() + tri.numel() + mat.numel() + light.numel())
+    sph, tri, mat, light, counts, env = tables
+    table_bytes = 4 * (sph.numel() + tri.numel() + mat.numel() + light.numel() + env.numel())
     if table_bytes > _MAX_TABLE_BYTES:
         raise ValueError(f"scene tables of {table_bytes} B exceed the kernel's "
                          f"{_MAX_TABLE_BYTES} B of shared memory")
@@ -261,6 +302,11 @@ def _kernel_args(cfg: PTConfig, scene_k: PTScene, cam_pos, cam_quat, h: int, row
         ratio_x=cfg.ratio[0], ratio_y=cfg.ratio[1], t_min=cfg.t_min, eps=cfg.eps, cl=cl,
         inst=inst,
         device=device.index if device.index is not None else torch.cuda.current_device(),
+        env=env.data_ptr() if scene_k.has_env else None, mat_w=mat.shape[1],
+        material=int(scene_k.has_material_features),
+        metal=int(scene_k.has_metal), aniso=int(scene_k.has_aniso),
+        texture=int(scene_k.has_texture), dispersion=int(scene_k.has_dispersion),
+        sky=int(scene_k.has_env),
     )
     return args, keep
 
@@ -313,6 +359,7 @@ def render_pt_mega(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
     common.launch("pt_render", args, name="pt")
     launches += 1
     mesh_launches[mesh_kind(frame)] += 1
+    material_launches[mesh_kind(frame)] += args.material
     del keep
     return out, nrays[0]
 
@@ -320,7 +367,7 @@ def render_pt_mega(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
 # --- the rebin renderer (K5) --------------------------------------------------
 
 def rebin_keys(state, mode: str, lo=None, hi=None, tile_ids=None):
-    """int32 regroup sort key per ray of a (17, n) packed state
+    """int32 regroup sort key per ray of a (17 or 18, n) packed state
     (pt_kernel.py:847-892). Every mode puts parked/dead rays (|o.x| >= 1e17)
     last; the live sub-order:
 
@@ -434,6 +481,7 @@ def render_pt_rebin_reference(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, 
     scene_k = kernel_scene(scene, bvh)
     frame = frame_view(bvh, cam_pos)
     n = h * cfg.width
+    planes = state_plane_count(scene)
 
     def run_bounce(b, state, gpass):
         kw = dict(bvh=frame, bounce_lo=b, bounce_hi=b, emit_state=True)
@@ -442,8 +490,8 @@ def render_pt_rebin_reference(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, 
             st = _trace_core(cfg, scene_k, cam_pos, cam_quat, seed0, row0=row0, band_h=h, **kw)
         else:
             st = _trace_core(cfg, scene_k, cam_pos, cam_quat, seed0,
-                             state_in=unpack_state(state), **kw)
-        return pack_state(st).reshape(STATE_PLANES, n), st["nrays"]
+                             state_in=unpack_state(state, has_chan=scene.has_dispersion), **kw)
+        return pack_state(st).reshape(planes, n), st["nrays"]
 
     return _rebin(cfg, scene, spp, spp_offset, row0, h, rebin, run_bounce)
 
@@ -451,8 +499,9 @@ def render_pt_rebin_reference(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, 
 def rebin_bounce_launcher(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed: int,
                           bvh, row0: int = 0, band_h=None):
     """(cfg, band height, run_bounce): run_bounce(b, state, gpass) launches
-    K5 for bounce b of global pass gpass on the (17, n) state (None for
-    b = 0: a new one), updates it in place and returns (state, nrays).
+    K5 for bounce b of global pass gpass on the (17 or 18, n) state
+    (state_plane_count; None for b = 0: a new one), updates it in place and
+    returns (state, nrays).
     Arguments after the checks of render_pt_rebin; the tables are packed
     once here."""
     cfg, h = _prepare(cfg, scene, row0, band_h, bvh, need_bvh=True)
@@ -461,17 +510,19 @@ def rebin_bounce_launcher(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed
                               seed, 0, frame_view(bvh, cam_pos))
     n = h * cfg.width
     args.n_state, args.spp = n, 1
+    planes = state_plane_count(scene)
 
     def run_bounce(b, state, gpass):
-        global rebin_launches
+        global rebin_launches, rebin_material_launches
         if state is None:
-            state = torch.empty((STATE_PLANES, n), dtype=torch.float32, device=dev)
-        common.check(state, "state", (STATE_PLANES, n), torch.float32, dev)
+            state = torch.empty((planes, n), dtype=torch.float32, device=dev)
+        common.check(state, "state", (planes, n), torch.float32, dev)
         nr = torch.zeros((1,), dtype=torch.int64, device=dev)
         args.state, args.nrays, args.bounce = state.data_ptr(), nr.data_ptr(), b
         args.spp_offset = to_int32(gpass)
         common.launch("pt_rebin", args, name="pt")
         rebin_launches += 1
+        rebin_material_launches += args.material
         return state, nr[0]
 
     run_bounce.keep = keep  # the packed tables live as long as the launcher

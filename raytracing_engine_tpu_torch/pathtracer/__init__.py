@@ -2,8 +2,11 @@
 spheres, unrolled triangles and meshes as ClusterSets.
 
     integrator.py  PTConfig (every field of the JAX config)
-    sampler.py     ONB, cosine hemisphere, sphere/triangle area samples, MIS
-    scene.py       PTScene, build_pt_scene, pt_scene_from_numpy
+    sampler.py     ONB, cosine hemisphere, sphere/triangle area samples, MIS,
+                   the GGX microfacet functions (isotropic and anisotropic)
+    scene.py       PTScene (with the METAL, checker, dispersion and sky
+                   columns), build_pt_scene, pt_scene_from_numpy
+    sceneio.py     JSON scene files: load_scene_json, SceneBundle
     scenes.py      furnace_scene, cornell_box, material_spheres
     wavefront.py   the plain PyTorch path tracer (render_pt_fast, the staged
                    per-bounce state), the oracle of K4 and K5
@@ -20,6 +23,7 @@ from raytracing_engine_tpu_torch.pathtracer.scene import (  # noqa: F401
     DIELECTRIC,
     DIFFUSE,
     EMISSIVE,
+    METAL,
     MIRROR,
     PTScene,
     build_pt_scene,
@@ -27,6 +31,10 @@ from raytracing_engine_tpu_torch.pathtracer.scene import (  # noqa: F401
 )
 from raytracing_engine_tpu_torch.pathtracer.integrator import PTConfig  # noqa: F401
 from raytracing_engine_tpu_torch.pathtracer.wavefront import render_pt_fast  # noqa: F401
+from raytracing_engine_tpu_torch.pathtracer.sceneio import (  # noqa: F401
+    SceneBundle,
+    load_scene_json,
+)
 from raytracing_engine_tpu_torch.pathtracer.aov import render_aovs  # noqa: F401
 from raytracing_engine_tpu_torch.pathtracer.denoise import denoise  # noqa: F401
 from raytracing_engine_tpu_torch.pathtracer.temporal import (  # noqa: F401

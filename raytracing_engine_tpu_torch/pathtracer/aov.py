@@ -14,9 +14,10 @@ per-triangle materials. On a CUDA scene the jitter is drawn by kernel K9
 versions run.
 
 Misses write zeros into every plane (depth 0 is the conventional "sky"
-sentinel: a real hit has depth >= t_min > 0). The port's scenes carry no
-textures or normal maps (pathtracer/scene.py refuses them), so the albedo
-is the material's and the normal the geometric one.
+sentinel: a real hit has depth >= t_min > 0). The albedo follows a world
+checker, as the JAX package's does (the denoiser demodulates by it); the
+port's scenes carry no image textures or normal maps (pathtracer/scene.py
+refuses them), so the normal is the geometric one.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from raytracing_engine_tpu_torch.pathtracer.wavefront import (
     _intersect,
     _mat_lookup,
     _occluded,
+    _textured_albedo,
     check_entry,
     check_mesh,
 )
@@ -75,6 +77,8 @@ def render_aovs(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
         hit = isect["hit"]
         gate = torch.where(hit, 1.0, 0.0)
         albedo = _mat_lookup(scene, isect["mat_id"])[0]
+        if scene.has_texture:  # textured albedo: the denoiser demodulates by it
+            albedo = _textured_albedo(scene, isect["mat_id"], albedo, isect["p"])
         alb = v3.add(alb, v3.scale(albedo, gate))
         nrm = v3.add(nrm, v3.scale(isect["n"], gate))
         dep = dep + torch.where(hit, isect["t"], 0.0)

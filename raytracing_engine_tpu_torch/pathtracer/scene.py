@@ -6,12 +6,20 @@ what the port renders: spheres, triangle slots (all of them stay in the
 scene; a mesh of more than ``TRI_UNROLL_MAX`` slots is intersected through
 a ClusterSet, and only the first ``TRI_UNROLL_MAX`` slots are unrolled, for
 NEE, so an emissive slot at or past it is refused as the JAX package
-refuses it), DIFFUSE / MIRROR / smooth DIELECTRIC / emissive materials, and
-the sphere and triangle light slots with their power CDF. Every other input
-raises NotImplementedError naming the ROADMAP item that brings it. ``pt_scene_from_numpy`` carries a JAX
-``PTScene``'s arrays across, so both packages render the same data.
+refuses it), DIFFUSE / MIRROR / smooth DIELECTRIC / METAL (GGX, isotropic
+or anisotropic) / emissive materials, world-space checkers, spectral
+dispersion, a constant or gradient sky (``env``), and the sphere and
+triangle light slots with their power CDF. Every other input raises
+NotImplementedError naming the ROADMAP item that brings it.
+``pt_scene_from_numpy`` carries a JAX ``PTScene``'s arrays across, so both
+packages render the same data.
 
-Material kinds: 0 DIFFUSE, 1 MIRROR, 3 DIELECTRIC, 4 METAL (not yet).
+The optional material columns are None where no material uses them, as in
+the JAX package: a scene without them renders the program it rendered
+before they existed (the static gates ``has_metal``, ``has_aniso``,
+``has_texture``, ``has_dispersion``, ``has_env``).
+
+Material kinds: 0 DIFFUSE, 1 MIRROR, 3 DIELECTRIC, 4 METAL.
 """
 
 from __future__ import annotations
@@ -37,11 +45,11 @@ LIGHT_TRI = 1
 # Rec.709 luminance weights: the "power" of power-weighted light selection
 _LUM = np.array([0.2126, 0.7152, 0.0722], np.float64)
 
-_LATER = "ROADMAP.md queue 1 item 4, K4 features still to port"
+_LATER = "ROADMAP.md queue 1 item 4, K4 feature"
 
 
-def _not_yet(what: str):
-    raise NotImplementedError(f"{what} is not ported yet ({_LATER})")
+def _not_yet(what: str, feature: int):
+    raise NotImplementedError(f"{what} is not ported yet ({_LATER} {feature})")
 
 
 def _pad(a, n, fill=0.0):
@@ -83,6 +91,16 @@ class PTScene:
     light_pick: torch.Tensor   # (L,) power-weighted selection probability
     light_cdf: torch.Tensor    # (L,) its inclusive CDF; padding pinned to 1
     light_total_power: torch.Tensor  # () sum(area * lum(Le))
+    # optional material columns (None: no material uses them; static gates)
+    mat_albedo2: torch.Tensor | None = None     # (M, 3) world checker's second color
+    mat_tex_scale: torch.Tensor | None = None   # (M,) checker cells per unit; 0 = flat
+    mat_rough: torch.Tensor | None = None       # (M,) METAL roughness (alpha = r²)
+    mat_rough2: torch.Tensor | None = None      # (M,) METAL roughness_y (anisotropic)
+    mat_dispersion: torch.Tensor | None = None  # (M,) DIELECTRIC ior spread, 0 = none
+    # gradient sky: (2, 3) [bottom, top] radiance, lerped on the ray's z at
+    # 0.5 (d.z + 1); equal rows = a constant sky. Escaped rays read it at
+    # full weight (never NEE-sampled)
+    env: torch.Tensor | None = None
     # static: any DIELECTRIC material (the scatter step's glass branch)
     has_dielectric: bool = False
     # static: number of triangle light slots
@@ -91,6 +109,33 @@ class PTScene:
     @property
     def device(self) -> torch.device:
         return self.sph_pos.device
+
+    @property
+    def has_metal(self) -> bool:
+        return self.mat_rough is not None
+
+    @property
+    def has_aniso(self) -> bool:
+        return self.mat_rough2 is not None
+
+    @property
+    def has_texture(self) -> bool:
+        return self.mat_tex_scale is not None
+
+    @property
+    def has_dispersion(self) -> bool:
+        return self.mat_dispersion is not None
+
+    @property
+    def has_env(self) -> bool:
+        return self.env is not None
+
+    @property
+    def has_material_features(self) -> bool:
+        """Any of the five optional features: the kernels then launch their
+        material instantiation."""
+        return (self.has_metal or self.has_aniso or self.has_texture or self.has_dispersion
+                or self.has_env)
 
     def tensors(self) -> dict:
         return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
@@ -101,14 +146,19 @@ class PTScene:
         return dataclasses.replace(self, **moved)
 
 
+OPTIONAL_FIELDS = ("mat_albedo2", "mat_tex_scale", "mat_rough", "mat_rough2", "mat_dispersion",
+                   "env")
 TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(PTScene)
-                      if f.name not in ("has_dielectric", "n_tri_slot_lights"))
+                      if f.name not in ("has_dielectric", "n_tri_slot_lights")
+                      and f.name not in OPTIONAL_FIELDS)
 
 
 def _scene(arrays: dict, device) -> PTScene:
     device = resolve(device)
     out = {}
-    for name in TENSOR_FIELDS:
+    for name in TENSOR_FIELDS + OPTIONAL_FIELDS:
+        if arrays.get(name) is None:
+            continue
         dtype = torch.int32 if name in _INT_FIELDS else torch.float32
         out[name] = torch.as_tensor(np.array(arrays[name]), dtype=dtype).to(device).contiguous()
     kinds = np.asarray(arrays["mat_kind"])
@@ -117,29 +167,45 @@ def _scene(arrays: dict, device) -> PTScene:
                    n_tri_slot_lights=int((lk == LIGHT_TRI).sum()))
 
 
-# JAX PTScene fields this slice does not carry; a non-None value raises
-_UNPORTED_FIELDS = (
-    "mesh_light_tri", "mesh_light_cdf", "mesh_light_area", "mesh_light_pick",
-    "mlt_rows", "mlt_smp", "mat_albedo2", "mat_tex_scale", "mat_rough",
-    "mat_rough2", "mat_tex_space", "tex_atlas", "mat_tex_rect", "mat_tex_mips",
-    "mat_nrm_rect", "mat_nrm_scale", "tri_uv", "mat_dispersion", "lt_center",
-    "lt_radius", "lt_power", "lt_cluster", "lt_cdf_intra", "lt_pick_intra",
-    "env", "env_img", "env_smp", "env_pick",
-)
+# JAX PTScene fields this slice does not carry, by the K4 feature of
+# ROADMAP.md queue 1 item 4 that brings them; a non-None value raises
+_UNPORTED_FIELDS = {
+    "mesh_light_tri": 13, "mesh_light_cdf": 13, "mesh_light_area": 13, "mesh_light_pick": 13,
+    "mlt_rows": 13, "mlt_smp": 13, "mat_tex_space": 5, "tex_atlas": 5, "mat_tex_rect": 5,
+    "mat_tex_mips": 7, "mat_nrm_rect": 6, "mat_nrm_scale": 6, "tri_uv": 5, "lt_center": 12,
+    "lt_radius": 12, "lt_power": 12, "lt_cluster": 12, "lt_cdf_intra": 12, "lt_pick_intra": 12,
+    "env_img": 8, "env_smp": 8, "env_pick": 8,
+}
 
 
 def pt_scene_from_numpy(fields: dict, device=None) -> PTScene:
     """PTScene from arrays by field name, e.g. the JAX PTScene's fields
-    through ``np.asarray``. device=None is the CUDA card (device.resolve)."""
+    through ``np.asarray`` (its optional columns where they are not None).
+    device=None is the CUDA card (device.resolve)."""
     missing = set(TENSOR_FIELDS) - set(fields)
     if missing:
         raise ValueError(f"PTScene fields missing: {sorted(missing)}")
-    for name in _UNPORTED_FIELDS:
+    for name, feature in _UNPORTED_FIELDS.items():
         if fields.get(name) is not None:
-            _not_yet(f"PTScene.{name}")
-    if fields.get("has_rough_dielectric"):
-        _not_yet("rough dielectric")
+            _not_yet(f"PTScene.{name}", feature)
+    rough = fields.get("mat_rough")
+    if fields.get("has_rough_dielectric") or (
+            rough is not None and bool(((np.asarray(fields["mat_kind"]) == DIELECTRIC)
+                                        & (np.asarray(rough) > 0)).any())):
+        _not_yet("rough dielectric", 3)
     return _scene(fields, device)
+
+
+def _env_rows(env):
+    """The env argument as (2, 3) [bottom, top] rows (or None)."""
+    if env is None:
+        return None
+    e = np.asarray(env, np.float32)
+    if e.shape == (3,):
+        e = np.stack([e, e])
+    if e.shape != (2, 3):
+        raise ValueError(f"env must be (3,) or (2, 3) [bottom, top]: shape {e.shape}")
+    return e
 
 
 def build_pt_scene(
@@ -152,7 +218,7 @@ def build_pt_scene(
     light_pad: int | None = None,
     mesh_lights=False,
     allow_many_tri_lights: bool = False,
-    env=None,
+    env=None,            # (3,) constant sky or ((3,), (3,)) = (bottom, top) gradient
     tri_uvs=None,
     light_tree: int = 0,
     env_pick=None,
@@ -161,18 +227,21 @@ def build_pt_scene(
     device=None,
 ) -> PTScene:
     """Host-side scene assembly: pads the tables and derives the light table
-    (JAX build_pt_scene, the slice's inputs). device=None is the CUDA card."""
+    (JAX build_pt_scene, the slice's inputs). Material keys: albedo,
+    emission, kind, ior, roughness (METAL, default 0.3), roughness_y
+    (anisotropic METAL), checker ({"color", "scale", "space": "world"}) and
+    dispersion (DIELECTRIC). device=None is the CUDA card."""
     if mesh_lights:
-        _not_yet("mesh_lights")
-    if env is not None:
-        _not_yet("env (gradient sky or env map)")
+        _not_yet("mesh_lights", 13)
+    if env is not None and np.asarray(env, object).ndim == 3:
+        _not_yet("env as an (H, W, 3) image (the env map, with env_pick / env_rows)", 8)
     if tri_uvs is not None:
-        _not_yet("tri_uvs")
+        _not_yet("tri_uvs", 5)
     if light_tree:
-        _not_yet("light_tree")
+        _not_yet("light_tree", 12)
     if tex_mips:
-        _not_yet("tex_mips")
-    del env_pick, env_rows  # meaningful only with an env map
+        _not_yet("tex_mips", 7)
+    del env_pick, env_rows  # meaningful only with an env map, as in the JAX package
     device = resolve(device)
 
     S = len(spheres)
@@ -203,22 +272,33 @@ def build_pt_scene(
     mat_emission = np.zeros((M, 3), np.float32)
     mat_kind = np.zeros((M,), np.int32)
     mat_ior = np.ones((M,), np.float32)
+    mat_rough = np.zeros((M,), np.float32)
+    mat_rough2 = np.zeros((M,), np.float32)
+    mat_albedo2 = np.zeros((M, 3), np.float32)
+    mat_tex_scale = np.zeros((M,), np.float32)
+    mat_dispersion = np.zeros((M,), np.float32)
     for i, m in enumerate(materials):
-        for key in ("checker", "image", "normal"):
-            if key in m:
-                _not_yet(f'material "{key}"')
+        if "image" in m:
+            _not_yet('material "image" (atlas image textures)', 5)
+        if "normal" in m:
+            _not_yet('material "normal" (normal maps)', 6)
         mat_kind[i] = m.get("kind", DIFFUSE)
-        if mat_kind[i] == METAL:
-            _not_yet("METAL (GGX) materials")
-        if m.get("dispersion", 0.0) > 0:
-            _not_yet('material "dispersion"')
         if mat_kind[i] == DIELECTRIC and m.get("roughness", 0.0) > 0:
-            _not_yet('"roughness" on a dielectric')
+            _not_yet('"roughness" on a dielectric (rough dielectric)', 3)
         # a clear dielectric tints nothing: albedo defaults to 1 there
         default_albedo = (1.0,) * 3 if mat_kind[i] == DIELECTRIC else (0.0,) * 3
         mat_albedo[i] = m.get("albedo", default_albedo)
         mat_emission[i] = m.get("emission", (0.0, 0.0, 0.0))
         mat_ior[i] = m.get("ior", 1.5)
+        mat_rough[i] = m.get("roughness", 0.3 if mat_kind[i] == METAL else 0.0)
+        mat_rough2[i] = m.get("roughness_y", mat_rough[i])
+        if "checker" in m:  # {"color": (3,), "scale", "space": "world" | "uv"}
+            if m["checker"].get("space", "world") == "uv":
+                _not_yet('checker "space": "uv" (UV-space checkers)', 5)
+            mat_albedo2[i] = m["checker"].get("color", (0.0, 0.0, 0.0))
+            mat_tex_scale[i] = m["checker"].get("scale", 1.0)
+        mat_dispersion[i] = m.get("dispersion", 0.0)
+    metal = mat_kind == METAL
 
     # --- light table: all primitives whose material emits -----------------
     lk, lp, la, le = [], [], [], []
@@ -271,4 +351,11 @@ def build_pt_scene(
         light_area=light_area, light_le=light_le, light_count=L,
         light_pick=light_pick, light_cdf=light_cdf,
         light_total_power=np.float32(total_power),
+        # the optional columns, present only where a material uses them
+        mat_rough=mat_rough if metal.any() else None,
+        mat_rough2=mat_rough2 if (metal & (mat_rough2 != mat_rough)).any() else None,
+        mat_albedo2=mat_albedo2 if (mat_tex_scale > 0).any() else None,
+        mat_tex_scale=mat_tex_scale if (mat_tex_scale > 0).any() else None,
+        mat_dispersion=mat_dispersion if (mat_dispersion > 0).any() else None,
+        env=_env_rows(env),
     ), device)

@@ -3,10 +3,12 @@ CPU renderer (raytracing_engine_tpu/pathtracer/wavefront.py).
 
 Same estimator and the same sample streams as the JAX wavefront: NEE
 toward power- or uniform-selected sphere and triangle lights with
-power-heuristic MIS, DIFFUSE / MIRROR / smooth DIELECTRIC / emissive
-materials, optional Russian roulette. Per-ray state is component planes of
-any shape, and every expression keeps the JAX operation order, because
-csrc/pt.cuh is held to this code on the card.
+power-heuristic MIS, DIFFUSE / MIRROR / smooth DIELECTRIC (with spectral
+dispersion) / METAL (GGX, isotropic or anisotropic) / emissive materials,
+world-space checkers, a constant or gradient sky, optional Russian
+roulette. Per-ray state is component planes of any shape, and every
+expression keeps the JAX operation order, because csrc/pt.cuh is held to
+this code on the card.
 
 Streams (``PTConfig.rng``): ``"pcg"``, the counter-based PCG4D hash keyed on
 pixel coordinates (ops/rng_pcg.py; the megakernels' stream); ``"threefry"``
@@ -43,14 +45,16 @@ package:
 
 Staged launches (``state_in`` / ``bounce_lo`` / ``bounce_hi`` /
 ``emit_state``, kernel K5's oracle): a call runs bounces [bounce_lo,
-bounce_hi] and returns the 17-plane ray state (``pack_state``), which
-carries each ray's pixel coordinates so that any regrouping of rays between
-calls draws the same numbers.
+bounce_hi] and returns the 17-plane ray state (``pack_state``; 18 planes
+with a dispersive scene's chan), which carries each ray's pixel
+coordinates so that any regrouping of rays between calls draws the same
+numbers.
 
 Not in this slice (each raises NotImplementedError; ROADMAP queue 1 lists
 them in order): thin-lens DOF, fog and media, the R_d sampler, the light
-tree, textures other than nearest, the sorted wavefront (``sort``, with
-pathtracer/compaction.py).
+tree, texture filters other than nearest, the sorted wavefront (``sort``,
+with pathtracer/compaction.py); the scene features pathtracer/scene.py
+refuses never reach this code.
 """
 
 from __future__ import annotations
@@ -86,6 +90,7 @@ from raytracing_engine_tpu_torch.pathtracer.integrator import PTConfig
 from raytracing_engine_tpu_torch.pathtracer.scene import (
     DIELECTRIC,
     DIFFUSE,
+    METAL,
     MIRROR,
     TRI_UNROLL_MAX,
     PTScene,
@@ -470,21 +475,57 @@ def _mat_lookup(scene: PTScene, mat_id):
     return albedo, emission, _sel(mat_id, scene.mat_kind, M), _sel(mat_id, scene.mat_ior, M)
 
 
+def _alphas(scene: PTScene, mat_id):
+    """GGX alpha = max(r², 1e-4) of the METAL roughness (Disney remap), and
+    alpha_y of roughness_y where the scene has anisotropic metal (else None)
+    (JAX wavefront.py:1689-1695)."""
+    M = scene.mat_albedo.shape[0]
+    rough = _sel(mat_id, scene.mat_rough, M)
+    alpha = torch.clamp_min(rough * rough, 1e-4)
+    if not scene.has_aniso:
+        return alpha, None
+    rough2 = _sel(mat_id, scene.mat_rough2, M)
+    return alpha, torch.clamp_min(rough2 * rough2, 1e-4)
+
+
+def _textured_albedo(scene: PTScene, mat_id, albedo, p):
+    """The world-space checker (JAX wavefront.py:1193-1214, its world half):
+    cells of size 1/scale alternate the albedo and mat_albedo2; scale 0 is
+    flat. The parity is a floored modulo (negative cells included)."""
+    M = scene.mat_albedo.shape[0]
+    s = _sel(mat_id, scene.mat_tex_scale, M)
+    a2 = tuple(_sel(mat_id, scene.mat_albedo2[:, c], M) for c in range(3))
+    cells = torch.floor(p[0] * s) + torch.floor(p[1] * s) + torch.floor(p[2] * s)
+    odd = torch.remainder(cells, 2.0) >= 1.0
+    return v3.where((s > 0.0) & odd, a2, albedo)
+
+
+def _sky(scene: PTScene, d):
+    """The gradient sky in direction d: bottom + (top - bottom) * 0.5 (d.z + 1)."""
+    tz = 0.5 * (d[2] + 1.0)
+    env = scene.env
+    return tuple(env[0, c] + (env[1, c] - env[0, c]) * tz for c in range(3))
+
+
 # --- the staged ray state (JAX wavefront.py:1321-1370) ----------------------
 _STATE_V3 = ("o", "d", "thr", "rad")
 _STATE_SCALAR = ("alive", "prev_did_nee", "prev_pdf")
-STATE_PLANES = 17  # o, d, thr, rad (3 each), alive, prev_did_nee, prev_pdf, px, py
+# o, d, thr, rad (3 each), alive, prev_did_nee, prev_pdf, px, py; a
+# dispersive scene adds chan, the committed color channel (-1: none yet)
+STATE_PLANES = 17
 
 
 def state_plane_count(scene: PTScene | None = None, cfg: PTConfig | None = None) -> int:
-    """Number of f32 planes in a packed inter-launch ray state (the JAX
-    count without the dispersion and mip planes, which this slice lacks)."""
-    return STATE_PLANES
+    """Number of f32 planes in a packed inter-launch ray state: 17, and 18
+    with the chan plane of a dispersive scene (the JAX count without the
+    mip plane, which this slice lacks)."""
+    return STATE_PLANES + (1 if scene is not None and scene.has_dispersion else 0)
 
 
 def pack_state(st) -> torch.Tensor:
-    """A state dict as one (17, ...) f32 tensor: the transport format between
-    per-bounce launches. Masks ride as 0/1, px/py as f32 (exact below 2^24)."""
+    """A state dict as one (17 or 18, ...) f32 tensor: the transport format
+    between per-bounce launches. Masks ride as 0/1, px/py as f32 (exact
+    below 2^24), then chan where the state has it."""
     planes = []
     for k in _STATE_V3:
         planes.extend(st[k])
@@ -492,10 +533,12 @@ def pack_state(st) -> torch.Tensor:
         planes.append(st[k].to(torch.float32))
     planes.append(st["px"].to(torch.float32))
     planes.append(st["py"].to(torch.float32))
+    if "chan" in st:
+        planes.append(st["chan"])
     return torch.stack(planes)
 
 
-def unpack_state(arr):
+def unpack_state(arr, has_chan: bool = False):
     """Inverse of pack_state."""
     st = {}
     i = 0
@@ -507,11 +550,15 @@ def unpack_state(arr):
     st["prev_pdf"] = arr[i + 2]
     st["px"] = arr[i + 3].to(torch.int64)
     st["py"] = arr[i + 4].to(torch.int64)
+    if has_chan:
+        st["chan"] = arr[i + 5]
     return st
 
 
 def _bounce(cfg: PTConfig, scene: PTScene, st, b: int, draw, counts, bvh):
-    """Bounce b of every ray of the state dict: returns the next state."""
+    """Bounce b of every ray of the state dict: returns the next state. The
+    material features (metal, anisotropy, checker, dispersion, sky) are
+    static gates: a scene without one runs the program it ran before."""
     n_light = counts[2]
     st = dict(st)
     thr, rad = st["thr"], st["rad"]
@@ -525,6 +572,14 @@ def _bounce(cfg: PTConfig, scene: PTScene, st, b: int, draw, counts, bvh):
     hit = isect["hit"] & alive
     albedo, emission, kind, ior = _mat_lookup(scene, isect["mat_id"])
     n, p = isect["n"], isect["p"]
+    metal = scene.has_metal
+    if metal:
+        alpha, alpha_y = _alphas(scene, isect["mat_id"])
+    if scene.has_texture:
+        albedo = _textured_albedo(scene, isect["mat_id"], albedo, p)
+    if metal and scene.has_aniso:
+        # the anisotropy axes live in the per-normal frame
+        onb_t, onb_s = sampler.build_onb(n)
 
     # --- emission (MIS vs NEE of the previous vertex) ------------------
     emissive = (emission[0] > 0.0) | (emission[1] > 0.0) | (emission[2] > 0.0)
@@ -540,6 +595,12 @@ def _bounce(cfg: PTConfig, scene: PTScene, st, b: int, draw, counts, bvh):
     gate = torch.where(hit & emissive, w_b, 0.0)
     rad = v3.add(rad, v3.mul(thr, v3.scale(emission, gate)))
 
+    if scene.has_env:
+        # escaped rays read the sky at full weight (JAX wavefront.py:1822-1832);
+        # the lane then dies at the cont gate, so this adds once
+        esc = torch.where(alive & ~isect["hit"], 1.0, 0.0)
+        rad = v3.add(rad, v3.mul(thr, v3.scale(_sky(scene, d), esc)))
+
     # --- NEE ------------------------------------------------------------
     if cfg.use_nee:
         lp, ln, le, pdf_area = _sample_light(scene, u[2], u[3], u[4], n_light,
@@ -550,7 +611,10 @@ def _bounce(cfg: PTConfig, scene: PTScene, st, b: int, draw, counts, bvh):
         cos_ll = torch.abs(v3.dot(ln, wi))
         light_ok = (cos_ll > 1e-6) & (dist > cfg.eps) & (n_light > 0)
         cos_s = v3.dot(n, wi)
-        cand = hit & (kind == DIFFUSE) & light_ok & (cos_s > 0.0)
+        nee_kind = kind == DIFFUSE
+        if metal:  # GGX surfaces are NEE-sampled too
+            nee_kind = nee_kind | (kind == METAL)
+        cand = hit & nee_kind & light_ok & (cos_s > 0.0)
         nrays = nrays + cand.sum()
         # park non-candidate shadow rays far away; `vis` is cand-gated
         dead_o = (zero + DEAD_O,) * 3
@@ -560,10 +624,25 @@ def _bounce(cfg: PTConfig, scene: PTScene, st, b: int, draw, counts, bvh):
         max_t = dist * (1.0 - 1e-3)
         vis = cand & ~_occluded(scene, sh_o, sh_d, max_t, cfg.t_min, counts, bvh)
         pdf_w = pdf_area * (dist * dist) / torch.clamp_min(cos_ll, 1e-6)
-        w_nee = sampler.power_heuristic(pdf_w, v3.div(cos_s, PI))
-        scale = torch.where(
-            vis, v3.div(cos_s / torch.clamp_min(pdf_w, 1e-20) * w_nee, PI), 0.0)
-        rad = v3.add(rad, v3.mul(v3.mul(thr, albedo), v3.scale(le, scale)))
+        if metal:
+            # f = albedo/π (diffuse) or the GGX BRDF (metal); the MIS
+            # counter-pdf follows (JAX wavefront.py:1904-1915)
+            if scene.has_aniso:
+                f_m, pdf_m = sampler.ggx_eval_aniso(n, onb_t, onb_s, v3.neg(d), wi, albedo,
+                                                    alpha, alpha_y)
+            else:
+                f_m, pdf_m = sampler.ggx_eval(n, v3.neg(d), wi, albedo, alpha)
+            is_met = kind == METAL
+            pdf_b = torch.where(is_met, pdf_m, v3.div(cos_s, PI))
+            f_nee = v3.where(is_met, f_m, v3.scale(albedo, 1.0 / PI))
+            w_nee = sampler.power_heuristic(pdf_w, pdf_b)
+            scale = torch.where(vis, cos_s / torch.clamp_min(pdf_w, 1e-20) * w_nee, 0.0)
+            rad = v3.add(rad, v3.mul(v3.mul(thr, f_nee), v3.scale(le, scale)))
+        else:
+            w_nee = sampler.power_heuristic(pdf_w, v3.div(cos_s, PI))
+            scale = torch.where(
+                vis, v3.div(cos_s / torch.clamp_min(pdf_w, 1e-20) * w_nee, PI), 0.0)
+            rad = v3.add(rad, v3.mul(v3.mul(thr, albedo), v3.scale(le, scale)))
 
     # --- scatter --------------------------------------------------------
     diff_d, pdf_cos = sampler.cosine_hemisphere(u[0], u[1], n)
@@ -571,6 +650,19 @@ def _bounce(cfg: PTConfig, scene: PTScene, st, b: int, draw, counts, bvh):
     new_d = v3.where(kind == MIRROR, mirr_d, diff_d)
     new_o = v3.add(p, v3.scale(n, cfg.eps))
     if scene.has_dielectric:
+        if scene.has_dispersion:
+            # the first dispersive glass hit commits the lane to one channel
+            # (3x one-hot throughput) and shifts its ior; u[1] is free on
+            # glass lanes (JAX wavefront.py:1948-1965)
+            dispm = _sel(isect["mat_id"], scene.mat_dispersion, scene.mat_albedo.shape[0])
+            pick = hit & (kind == DIELECTRIC) & (dispm > 0.0) & (st["chan"] < 0.0)
+            c = torch.clamp(torch.floor(u[1] * 3.0), 0.0, 2.0)
+            chan = torch.where(pick, c, st["chan"])
+            thr = tuple(thr[k] * torch.where(pick, 3.0 * (chan == float(k)).to(torch.float32),
+                                             1.0) for k in range(3))
+            st["chan"] = chan
+            shift = torch.where(chan >= 0.0, (chan - 1.0) * 0.5, 0.0)
+            ior = ior + dispm * shift
         # exact unpolarized Fresnel split between reflection and Snell
         # refraction; u[0] is the R/T coin (glass lanes draw no
         # hemisphere sample)
@@ -588,7 +680,28 @@ def _bounce(cfg: PTConfig, scene: PTScene, st, b: int, draw, counts, bvh):
         # refracted rays continue THROUGH the surface: offset inward
         off = torch.where(is_diel & ~reflect, -cfg.eps, cfg.eps)
         new_o = v3.add(p, v3.scale(n, off))
-    new_thr = v3.mul(thr, albedo)
+    if metal:
+        # GGX conductor: an NDF half-vector from u[0], u[1] (free on metal
+        # lanes), reflect, weight f·cos/pdf; an under-surface sample gets
+        # f = pdf = 0 and dies at the cont gate (JAX wavefront.py:2035-2065)
+        if scene.has_aniso:
+            h_vec = sampler.sample_ggx_h_aniso(u[0], u[1], onb_t, onb_s, n, alpha, alpha_y)
+            met_d = sampler.reflect(d, h_vec)
+            f_s, pdf_s = sampler.ggx_eval_aniso(n, onb_t, onb_s, v3.neg(d), met_d, albedo,
+                                                alpha, alpha_y)
+        else:
+            h_vec, _ = sampler.sample_ggx_h(u[0], u[1], n, alpha)
+            met_d = sampler.reflect(d, h_vec)
+            f_s, pdf_s = sampler.ggx_eval(n, v3.neg(d), met_d, albedo, alpha)
+        w_met = v3.scale(f_s, torch.where(
+            pdf_s > 0.0, v3.dot(n, met_d) / torch.clamp_min(pdf_s, 1e-12), 0.0))
+        is_metal = kind == METAL
+        new_d = v3.where(is_metal, met_d, new_d)
+        new_thr = v3.mul(thr, v3.where(is_metal, w_met, albedo))
+        pdf_bsdf = torch.where(is_metal, pdf_s, pdf_cos)
+    else:
+        new_thr = v3.mul(thr, albedo)
+        pdf_bsdf = pdf_cos
     thr_max = torch.maximum(new_thr[0], torch.maximum(new_thr[1], new_thr[2]))
     cont = hit & (thr_max > 0.0)
     if cfg.rr_start > 0 and b >= cfg.rr_start:
@@ -602,8 +715,11 @@ def _bounce(cfg: PTConfig, scene: PTScene, st, b: int, draw, counts, bvh):
     st["o"] = v3.where(cont, new_o, (zero + DEAD_O,) * 3)
     st["d"] = v3.where(cont, new_d, (zero + INV_SQRT3,) * 3)
     st["alive"] = cont
-    st["prev_did_nee"] = hit & (kind == DIFFUSE) & (n_light > 0) & cfg.use_nee
-    st["prev_pdf"] = pdf_cos
+    nee_kinds = kind == DIFFUSE
+    if metal:
+        nee_kinds = nee_kinds | (kind == METAL)
+    st["prev_did_nee"] = hit & nee_kinds & (n_light > 0) & cfg.use_nee
+    st["prev_pdf"] = pdf_bsdf
     st["rad"] = rad
     st["nrays"] = nrays
     return st
@@ -689,6 +805,8 @@ def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed0=None,
                   alive=torch.ones_like(zero, dtype=torch.bool),
                   prev_did_nee=torch.zeros_like(zero, dtype=torch.bool), prev_pdf=zero,
                   nrays=torch.zeros((), dtype=torch.int64, device=device))
+        if scene.has_dispersion:  # no channel committed yet
+            st["chan"] = zero - 1.0
         if pix is not None:
             st["py"], st["px"] = pix[0].to(torch.int64), pix[1].to(torch.int64)
         elif staged:

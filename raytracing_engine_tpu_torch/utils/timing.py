@@ -160,11 +160,15 @@ def k7_bytes(n_rays: int, attrs: bool, table_bytes: int, tmax_plane: bool = Fals
     return 4 * n_rays * (6 + int(tmax_plane) + (5 if attrs else 2)) + table_bytes
 
 
-def k5_bytes(n_rays: int, bounces: int, table_bytes: int) -> int:
-    """One frame of K5 launches (bounces 0..bounces): bounce 0 writes the
-    17-plane state, every later launch reads and writes it; each launch
-    reads the tables."""
-    return 4 * 17 * n_rays * (1 + 2 * bounces) + (bounces + 1) * table_bytes
+def k5_bytes(n_rays: int, live: list, table_bytes: int, planes: int = 17) -> int:
+    """One pass of K5 launches (bounces 0..len(live)) over a state of n_rays
+    rays with `planes` planes (17, 18 with a dispersive scene's chan):
+    bounce 0 writes the whole state; each later launch reads every ray's
+    o.x (the parked test) and, for the live[b - 1] rays it finds not parked,
+    the rest of the state, and writes those back; each launch reads the
+    tables. live: this run's rays not parked before each later launch."""
+    later = sum(4 * n_rays + 4 * (2 * planes - 1) * k for k in live)
+    return 4 * planes * n_rays + later + (1 + len(live)) * table_bytes
 
 
 class Timer:
