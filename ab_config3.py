@@ -94,13 +94,14 @@ Bound5: K5's least time for a config-5 frame (utils/timing.bound_ms),
 from the work the plain rebin renderer counts on the whole frame, which it
 holds to K4's frame bit for bit (about two minutes).
 
-Sass: K4's and K5's instantiations without the material features at two
-checkouts, instruction for instruction. Each checkout's libpt.so is built
-by its own ops/cuda/common.build (a process each) and read by cuobjdump
--sass; each instantiation of DIR_B's pt_kernel<kind, false> and
-pt_rebin_kernel<false> is compared with DIR_A's of the same mesh kind
-(pt_kernel<kind>, pt_rebin_kernel, where DIR_A has no material one), with
-the addresses and encodings dropped.
+Sass: K4's and K5's instantiations without the material features, and
+K6's without UV planes, at two checkouts, instruction for instruction.
+Each checkout's libpt.so and libcluster.so are built by its own
+ops/cuda/common.build (a process each) and read by cuobjdump -sass; each
+instantiation of DIR_B's pt_kernel<kind, false>, pt_rebin_kernel<false>
+and cluster_kernel<false> is compared with DIR_A's of the same mesh kind
+(pt_kernel<kind>, pt_rebin_kernel, cluster_kernel, where DIR_A has no
+material or UV one), with the addresses and encodings dropped.
 
 Usage: python3 ab_config3.py DIR_A DIR_B
        python3 ab_config3.py --spheres DIR_A DIR_B
@@ -1156,10 +1157,10 @@ BUILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
          "from raytracing_engine_tpu_torch.ops.cuda import common; common.build()")
 
 
-def sass_functions(lib: Path) -> dict:
-    """{(kernel, mesh kind or None, material 0/1): [instruction, ...]} of
-    K4's and K5's functions in lib, from cuobjdump -sass, without the
-    addresses and encodings."""
+def sass_functions(lib: Path, kernels=("pt_kernel", "pt_rebin_kernel")) -> dict:
+    """{(kernel, mesh kind or None, material or UV 0/1): [instruction, ...]}
+    of the functions named `kernels` in lib, from cuobjdump -sass, without
+    the addresses and encodings."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     dump = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(lib)],
@@ -1168,7 +1169,7 @@ def sass_functions(lib: Path) -> dict:
     for line in dump.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            k = re.search(r"\d(pt_kernel|pt_rebin_kernel)(?:I(?:Li(\d+)E)?(?:Lb(\d)E)?E)?",
+            k = re.search(r"\d(" + "|".join(kernels) + r")(?:I(?:Li(\d+)E)?(?:Lb(\d)E)?E)?",
                           m.group(1))
             key = (k.group(1), k.group(2), k.group(3) or "0") if k else None
             if key is not None:
@@ -1186,7 +1187,9 @@ def sass(a: str, b: str) -> int:
     for root in (a, b):
         path = Path(root).resolve()
         subprocess.run([sys.executable, "-c", BUILD, str(path)], check=True, timeout=900)
-        funcs[root] = sass_functions(path / "raytracing_engine_tpu_torch" / "build" / "libpt.so")
+        build = path / "raytracing_engine_tpu_torch" / "build"
+        funcs[root] = {**sass_functions(build / "libpt.so"),
+                       **sass_functions(build / "libcluster.so", ("cluster_kernel",))}
         print(f"  {root}: {sorted(funcs[root])}", flush=True)
     same = {}
     for key in sorted(k for k in funcs[b] if k[2] == "0"):
@@ -1204,7 +1207,8 @@ def sass(a: str, b: str) -> int:
         print(f"  {name} without the material features: {len(ia)} instructions at A, {len(ib)} "
               f"at B, {len(diff)} lines differ{': ' + ' | '.join(diff[:12]) if diff else ''} "
               f"[{card}]", flush=True)
-    print(f"the instantiations without the material features are the same SASS at A and B: "
+    print(f"the instantiations without the material features (K4, K5) and without UVs (K6) "
+          f"are the same SASS at A and B: "
           f"{all(same.values()) and bool(same)} {same}", flush=True)
     return 0 if same and all(same.values()) else 1
 

@@ -176,6 +176,27 @@ Phases, each printing its own lines:
      rounded; the pixels its own sqrt moves logged); dispersion 0 and a
      checker of scale 0 bit for bit the scene without them, also with the
      column present and zero, at 256x144; a tonemapped PNG.
+ 20. the showcase with the rest of the material features, written to a
+     temporary directory from examples/showcase.json's dict (the file
+     unchanged): the gradient sky replaced by a 64x128 equirect HDR map
+     made with numpy (a gradient and a sun disc of radiance 200 at 35
+     degrees' elevation, .npy, "rows": 32), a rough-glass sphere (ior 1.5,
+     roughness 0.25), a diffuse sphere with a UV-space checker (scale 8),
+     and the icosphere as an OBJ with spherical vt ("uvs": true) under a
+     32x64 numpy-made PNG texture (the atlas holds 32 rows): K4's material instantiation bit for bit
+     with its plain version on rows 536..551 at 1 spp, nearest and
+     bilinear, K5 == K4 there and K5 against its plain version; K6's nine
+     planes (the UV pair) on the frame's camera rays bit for bit with the
+     plain sweep, K6 timed there; the 1920x1088, 4-spp, 4-bounce bilinear
+     frame through render_pt_mega, render_pt_rebin and
+     render_pt_fast(bvh=cs) under the launch counters, K4 and K5 by the
+     profiler's device time, bounds from the band's replay scaled by the
+     frame's rays; the card against the plain version on the CPU at 64x36
+     within the megakernel bounds; K4<none, material> on unrolled slots
+     with tri_uvs bit for bit with its plain version; roughness 0 bit for
+     bit the glass without the key (also with the rough-glass branch
+     forced on), and unused UV and image materials bit for bit the
+     showcase without them, at 256x144; a tonemapped PNG.
 Then a line that sums up phases 4 and 5's image output, one JSON line of
 per-kernel results, each number measured in this run
 but the bounds, computed from its inputs (K4 once per instantiation, on its
@@ -378,6 +399,13 @@ SHOW_CHUNK = 2              # progressive_render's chunk (passes)
 SHOW_CPU = dict(width=64, height=36, max_bounces=4)   # card vs CPU
 SHOW_INV = dict(width=256, height=144, max_bounces=4)  # the zero-feature invariants
 SHOW_PNG = SMOKE_OUT / "showcase.png"
+# phase 20: the showcase with the env map, rough glass and UV textures
+REST_SKY = (64, 128)          # the equirect map's texels (rows, columns), "rows": 32
+REST_SUN = (35.0, 200.0, 3.0)  # its sun: elevation and disc radius in degrees, radiance
+# the icosphere's PNG texture, texels (rows, columns): 32 rows, the atlas's
+# budget (scene.ATLAS_MAX_ROWS, JAX's), refuses a 64 x 64 image
+REST_TEX = (32, 64)
+REST_PNG = SMOKE_OUT / "showcase_rest.png"
 
 
 def log(msg: str):
@@ -3477,6 +3505,356 @@ def phase_showcase(device, card):
     }
 
 
+# --- phase 20: the showcase with the rest of the features ----------------------
+
+def showcase_rest_spec(out_dir: Path, unused_only: bool = False) -> Path:
+    """examples/showcase.json's dict with the rest of the material features,
+    written with its files to out_dir (the example unchanged): the equirect
+    HDR sky, a rough-glass sphere, a UV-checkered sphere, the icosphere as an
+    OBJ with spherical vt under a PNG texture. unused_only: the showcase
+    with a UV-checker and an image material that nothing uses instead."""
+    from raytracing_engine_tpu_torch.accel import icosphere, save_obj
+    from raytracing_engine_tpu_torch.utils.image import write_png
+
+    spec = json.loads(SHOWCASE.read_text())
+    rng = np.random.default_rng(20)
+    th, tw = REST_TEX
+    tex = np.zeros((th, tw, 3), np.float32)
+    tex[...] = (np.arange(th) // 4 % 2)[:, None, None] * np.float32([0.8, 0.3, 0.1])
+    tex += (np.arange(tw) // 8 % 2)[None, :, None] * np.float32([0.1, 0.5, 0.8])
+    tex = np.clip(tex + rng.uniform(0.0, 0.15, tex.shape), 0.0, 1.0).astype(np.float32)
+    write_png(str(out_dir / "tex.png"), tex)
+    uv_mat = {"albedo": [0.85, 0.2, 0.15],
+              "checker": {"color": [0.1, 0.5, 0.8], "scale": 8, "space": "uv"}}
+    if unused_only:
+        spec["materials"] += [uv_mat, {"albedo": [0.5, 0.5, 0.5], "image": {"png": "tex.png"}}]
+        path = out_dir / "showcase_unused.json"
+        path.write_text(json.dumps(spec))
+        return path
+    H, W = REST_SKY
+    theta = (np.arange(H) + 0.5) / H * np.pi  # polar angle from +z, row by row
+    phi = ((np.arange(W) + 0.5) / W - 0.5) * 2.0 * np.pi  # u = 0.5 at +x
+    bottom, top = (np.float32(spec["env"][k]) for k in ("bottom", "top"))
+    t = 0.5 * (np.cos(theta) + 1.0)
+    sky = np.broadcast_to((bottom + (top - bottom) * t[:, None])[:, None, :], (H, W, 3)).copy()
+    el, radiance, radius = np.radians(REST_SUN[0]), REST_SUN[1], np.radians(REST_SUN[2])
+    az = np.radians(60.0)
+    sun = np.array([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az), np.sin(el)])
+    dirs = np.stack([np.sin(theta)[:, None] * np.cos(phi)[None, :],
+                     np.sin(theta)[:, None] * np.sin(phi)[None, :],
+                     np.broadcast_to(np.cos(theta)[:, None], (H, W))], -1)
+    sky[np.arccos(np.clip(dirs @ sun, -1.0, 1.0)) < radius] = radiance
+    np.save(str(out_dir / "sky.npy"), sky.astype(np.float32))
+    spec["env"] = {"image": "sky.npy", "rows": 32}
+    spec["materials"] += [{"kind": "dielectric", "ior": 1.5, "roughness": 0.25}, uv_mat]
+    n = len(spec["materials"])
+    spec["spheres"] += [{"center": [1.1, 4.3, -0.45], "radius": 0.55, "mat": n - 2},
+                        {"center": [-1.3, 4.6, -0.5], "radius": 0.5, "mat": n - 1}]
+    ico = spec["meshes"][0]
+    ball = icosphere(**ico["icosphere"])
+    p = ball / np.linalg.norm(ball, axis=-1, keepdims=True)
+    uvs = np.stack([np.arctan2(p[..., 1], p[..., 0]) / (2.0 * np.pi) + 0.5,
+                    np.arccos(np.clip(p[..., 2], -1.0, 1.0)) / np.pi], -1).astype(np.float32)
+    save_obj(str(out_dir / "ico_uv.obj"), ball, uvs=uvs)
+    spec["meshes"] = [{"obj": "ico_uv.obj", "uvs": True, "smooth": True, "mat": ico["mat"],
+                       "translate": ico["translate"]}]
+    spec["materials"][ico["mat"]]["image"] = {"png": "tex.png"}
+    path = out_dir / "showcase_rest.json"
+    path.write_text(json.dumps(spec))
+    return path
+
+
+def hold_bitwise(label, got, n_got, want, n_want) -> float:
+    """A kernel's render against its plain version, bit for bit; -> the max
+    abs error (0)."""
+    err = hold_pt(label, got, n_got, want, n_want)
+    if not (torch.equal(got, want) and int(n_got) == int(n_want)):
+        raise AssertionError(f"{label}: not bit for bit")
+    return err
+
+
+def phase_showcase_rest(device, card):
+    """The showcase with the env map, rough glass and UV textures (see the
+    module docstring, phase 20); -> the kernels-line numbers of K4's and
+    K5's material instantiations on this frame and the K6 launches."""
+    import dataclasses
+    import tempfile
+
+    from raytracing_engine_tpu_torch.accel import build_clusters
+    from raytracing_engine_tpu_torch.ops.cuda import cluster, pt
+    from raytracing_engine_tpu_torch.ops.rng_pcg import seed_from_int
+    from raytracing_engine_tpu_torch.pathtracer import PTConfig, build_pt_scene, load_scene_json
+    from raytracing_engine_tpu_torch.pathtracer.wavefront import (
+        _camera_rays,
+        render_pt_fast,
+        state_plane_count,
+    )
+    from raytracing_engine_tpu_torch.utils.image import to_srgb_u8, tonemap, write_png
+    from raytracing_engine_tpu_torch.utils.timing import (
+        bound_ms,
+        cluster_table_bytes,
+        instanced_ops,
+        k5_bytes,
+        k6_bytes,
+        pt_ops,
+        sweep_ops,
+    )
+
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    out_dir = Path(tmp.name)
+    b = load_scene_json(str(showcase_rest_spec(out_dir)))  # the card: the default
+    scene = b.scene
+    cs = build_clusters(b.tris, tri_mats=b.tri_mats, vertex_normals=b.tri_normals,
+                        vertex_uvs=b.tri_uvs)
+    pos, quat = torch.from_numpy(b.cam_pos).to(device), torch.from_numpy(b.cam_quat).to(device)
+    seed = seed_from_int(1)
+    flags = {k: bool(getattr(scene, k)) for k in (
+        "has_env_map", "has_rough_dielectric", "needs_uv", "has_image", "has_tri_uv",
+        "has_metal", "has_texture", "has_dispersion", "has_env")}
+    log(f"  showcase with the rest: {int(scene.sph_count)} spheres, {b.tris.shape[0]} triangles "
+        f"(UV table {cs.has_uv}, smooth {cs.smooth}), {scene.mat_albedo.shape[0]} materials, "
+        f"material table {tuple(pt.pack_pt_scene(scene)[2].shape)}, env map "
+        f"{tuple(scene.env_img.shape)} pick {float(scene.env_pick):.6g}, atlas "
+        f"{tuple(scene.tex_atlas.shape)}, flags {flags}; loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if (scene.device.type != device.type or not cs.has_uv
+            or flags != {k: k != "has_env" for k in flags}):
+        raise AssertionError("the scene did not load onto the card with its features")
+
+    # K4 and K5 on the band, nearest and bilinear, bit for bit with the plain versions
+    row0, bh = SHOW_BAND
+    kw = dict(seed=seed, bvh=cs, row0=row0, band_h=bh)
+    errs, k5_errs = [], []
+    for filt in ("nearest", "bilinear"):
+        cfg = PTConfig(**SHOW, rng="pcg", tex_filter=filt)
+        reset_k4()
+        band, n_band = pt.render_pt_mega(cfg, scene, pos, quat, 1, **kw)
+        if pt.material_launches["clusters"] != 1:
+            raise AssertionError(f"the band took another K4 instantiation: {pt.mesh_launches}")
+        cluster.work.update(slabs=0, tests=0)
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        want, n_want = pt.render_pt_mega_reference(cfg, scene, pos, quat, 1, **kw)
+        torch.cuda.synchronize(device)
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        band_work, band_rays = dict(cluster.work), int(n_want)
+        errs.append(hold_bitwise(f"K4<clusters, material> rows {row0}..{row0 + bh}, 1 spp, "
+                                 f"{filt}, vs its plain version (plain {plain_ms / 1e3:.2f} s)",
+                                 band, n_band, want, n_want))
+        before = pt.rebin_material_launches
+        rb, n_rb = pt.render_pt_rebin(cfg, scene, pos, quat, 1, **kw)
+        same = torch.equal(rb, band) and int(n_rb) == int(n_band)
+        log(f"  K5<material> == K4<clusters, material> on the band ({filt}) bit for bit: "
+            f"{same}; K5 material launches {pt.rebin_material_launches - before}")
+        if not same or pt.rebin_material_launches - before != cfg.max_bounces + 1:
+            raise AssertionError("K5 differs from K4 on the band")
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        want_rb, n_want_rb = pt.render_pt_rebin_reference(cfg, scene, pos, quat, 1, **kw)
+        torch.cuda.synchronize(device)
+        plain_rb_ms = (time.perf_counter() - t1) * 1e3
+        k5_errs.append(hold_bitwise(f"K5<material> rows {row0}..{row0 + bh}, 1 spp, {filt}, vs "
+                                    f"its plain version (plain {plain_rb_ms / 1e3:.2f} s)",
+                                    rb, n_rb, want_rb, n_want_rb))
+    cfg = PTConfig(**SHOW, rng="pcg", tex_filter="bilinear")
+
+    # K6's UV planes on the frame's camera rays, bit for bit with the plain sweep
+    half = torch.full((cfg.height, cfg.width), 0.5, device=device)
+    o, d = _camera_rays(cfg, pos, quat, half, half)
+    o, d = tuple(x.contiguous() for x in o), tuple(x.contiguous() for x in d)
+    fc = pt.frame_view(cs, pos)
+    okw = dict(attrs=True, order=fc.orders[0], orders=fc.orders, refs=fc.refs)
+    got = cluster.cluster_intersect(cs, o, d, float("inf"), **okw)
+    cluster.work.update(slabs=0, tests=0)
+    torch.cuda.synchronize(device)
+    t1 = time.perf_counter()
+    want = cluster.cluster_intersect_reference(cs, o, d, float("inf"), **okw)
+    torch.cuda.synchronize(device)
+    k6_plain_ms = (time.perf_counter() - t1) * 1e3
+    k6_work = dict(cluster.work)
+    same = len(got) == len(want) == 9 and all(torch.equal(g, w) for g, w in zip(got, want))
+    hits = int((want[1] >= 0).sum())
+    log(f"  K6 on the frame's {o[0].numel()} camera rays, closest + attributes on the UV table: "
+        f"nine planes bit for bit with the plain sweep {same} ({hits} hits; u in "
+        f"[{want[7][want[1] >= 0].min().item():.4f}, {want[7][want[1] >= 0].max().item():.4f}]; "
+        f"plain {k6_plain_ms:.1f} ms)")
+    if not same or hits == 0:
+        raise AssertionError("K6's UV planes differ from the plain sweep")
+    k6_ms = device_ms(lambda k: cluster.cluster_intersect(cs, o, d, float("inf"), **okw), 8,
+                      "cluster_kernel")
+    tb = cluster.sweep_tables(cs)
+    k6_tables = cluster_table_bytes([tb.sbox, tb.crec, tb.trec, tb.tsmooth, tb.tuv, fc.orders,
+                                     fc.refs])
+    k6_bound = bound_ms(k6_bytes(o[0].numel(), True, k6_tables) + 8 * o[0].numel(),
+                        sweep_ops(k6_work["slabs"], k6_work["tests"]))
+    log(f"  K6<uv> frame camera rays: {k6_ms:.4f} ms of device time (the profiler's); bound "
+        f"{k6_bound[0]:.5f} ms by {k6_bound[1]} ({k6_work['slabs']} box + {k6_work['tests']} "
+        f"triangle tests; 9 planes out) = {k6_bound[0] / k6_ms:.2%} [{card}]")
+
+    # the main path, counted from 0: whole frames through the three entry points
+    reset_k4()
+    pt.rebin_launches = pt.rebin_material_launches = cluster.launches = 0
+    zs = [pos + torch.tensor([0.0, 0.0, 1e-4 * k], device=device) for k in range(SHOW_FRAMES + 1)]
+    frame, n_frame = pt.render_pt_mega(cfg, scene, pos, quat, SHOW_SPP, seed=seed, bvh=cs)
+    rays = []
+    k4_ev, k4_host = cuda_ms(lambda k: rays.append(pt.render_pt_mega(
+        cfg, scene, zs[k + 1], quat, SHOW_SPP, seed=seed, bvh=cs)[1]), SHOW_FRAMES)
+    n_rays = int(torch.stack(rays).sum()) // SHOW_FRAMES
+    rb_frame, n_rb_frame = pt.render_pt_rebin(cfg, scene, pos, quat, SHOW_SPP, seed=seed, bvh=cs)
+    fast, n_fast = render_pt_fast(cfg, scene, pos, quat, SHOW_SPP, seed=seed, bvh=cs)
+    torch.cuda.synchronize(device)
+    counts = {"K4": pt.launches, "K4 material": pt.material_launches["clusters"],
+              "K5": pt.rebin_launches, "K5 material": pt.rebin_material_launches,
+              "K6": cluster.launches}
+    want_counts = {"K4": 1 + SHOW_FRAMES, "K4 material": 1 + SHOW_FRAMES,
+                   "K5": SHOW_SPP * (cfg.max_bounces + 1),
+                   "K5 material": SHOW_SPP * (cfg.max_bounces + 1),
+                   "K6": 2 * SHOW_SPP * (cfg.max_bounces + 1)}
+    log(f"  launches on the main path {counts} (expected {want_counts}: K4 a frame, K5 one a "
+        f"bounce a pass, K6 a closest and a shadow sweep a bounce a pass of render_pt_fast)")
+    if counts != want_counts:
+        raise AssertionError("the main path took other launches")
+    same = torch.equal(rb_frame, frame) and int(n_rb_frame) == int(n_frame)
+    log(f"  render_pt_rebin == render_pt_mega on the whole {SHOW_SPP}-spp frame bit for bit: "
+        f"{same}")
+    if not same:
+        raise AssertionError("K5 differs from K4 on the frame")
+    fast_err = hold_pt(f"render_pt_fast(bvh=cs) rows {row0}..{row0 + bh} of the frame vs K4's "
+                       "(rays: whole frames)", fast[row0:row0 + bh], n_fast,
+                       frame[row0:row0 + bh], n_frame)
+
+    # times and bounds: the band's work at 1 spp scaled to the frame by the rays
+    scale = n_rays / band_rays
+    ops = int((pt_ops(band_rays, int(scene.sph_count), 0)
+               + instanced_ops(0, 0, band_work["slabs"], band_work["tests"])) * scale)
+    feats = sum(4 * t.numel() for t in pt.feature_tables(pt.kernel_scene(scene, cs)).values()
+                if t is not None)
+    tables = k4_table_bytes(scene, cs, pos) + 4 * tb.tuv.numel() + feats
+    n_bytes = 12 * cfg.width * cfg.height + tables
+    bound = bound_ms(n_bytes, ops)
+    k4_ms = device_ms(lambda k: pt.render_pt_mega(cfg, scene, zs[k % (SHOW_FRAMES + 1)], quat,
+                                                  SHOW_SPP, seed=seed, bvh=cs),
+                      SHOW_FRAMES, "pt_kernel", setup=lambda k: k)
+    log(f"  K4<clusters, material> {cfg.width}x{cfg.height} {SHOW_SPP} spp {cfg.max_bounces} "
+        f"bounces, bilinear: {k4_ev:.4f} ms/frame by CUDA events (host enqueue {k4_host:.4f} "
+        f"ms), {k4_ms:.4f} ms of device time (the profiler's) = {n_rays / k4_ms / 1e3:.2f} "
+        f"Mrays/s, {n_rays} rays/frame; bound {bound[0]:.5f} ms by {bound[1]} ({n_bytes} B; "
+        f"{ops} ops: the band's {band_rays} rays x {int(scene.sph_count)} spheres, "
+        f"{band_work['slabs']} box + {band_work['tests']} triangle tests, x {scale:.6g}) = "
+        f"{bound[0] / k4_ms:.2%} [{card}]")
+    k5_dev = profiled_device_ms(lambda: pt.render_pt_rebin(cfg, scene, pos, quat, SHOW_SPP,
+                                                           seed=seed, bvh=cs), "pt_rebin_kernel")
+    if k5_dev is None:
+        raise AssertionError("the profiler recorded no pt_rebin_kernel in a frame")
+    _, _, run = pt.rebin_bounce_launcher(cfg, scene, pos, quat, seed, cs)
+    planes, n_px = state_plane_count(scene), cfg.width * cfg.height
+    live = [live_rays(k5_states(run, cfg, s)) for s in range(SHOW_SPP)]
+    k5_bytes_frame = sum(k5_bytes(n_px, lv, tables, planes) for lv in live)
+    k5_bound = bound_ms(k5_bytes_frame, ops)
+    log(f"  K5<material> frame: {k5_dev:.4f} ms of device time over "
+        f"{SHOW_SPP * (cfg.max_bounces + 1)} launches (the profiler's); bound "
+        f"{k5_bound[0]:.5f} ms by {k5_bound[1]} ({k5_bytes_frame} B: the {planes}-plane state "
+        f"of the live rays {live} and the tables) = {k5_bound[0] / k5_dev:.2%} [{card}]")
+
+    # the card against the CPU at 64x36, within the megakernel bounds
+    small = PTConfig(**SHOW_CPU, rng="pcg", tex_filter="bilinear")
+    b_cpu = load_scene_json(str(out_dir / "showcase_rest.json"), device="cpu")
+    cs_cpu = build_clusters(b_cpu.tris, tri_mats=b_cpu.tri_mats, vertex_normals=b_cpu.tri_normals,
+                            vertex_uvs=b_cpu.tri_uvs, device="cpu")
+    card_img, n_card = pt.render_pt_mega(small, scene, pos, quat, 2, seed=seed, bvh=cs)
+    with correctly_rounded_sqrt():
+        cpu_img, n_cpu = pt.render_pt_mega(small, b_cpu.scene, pos.cpu(), quat.cpu(), 2,
+                                           seed=seed, bvh=cs_cpu)
+    cpu_err = hold_pt(f"K4 {small.width}x{small.height} 2 spp on the card vs the plain version on "
+                      "the CPU (correctly rounded sqrt)", card_img.cpu(), n_card, cpu_img, n_cpu)
+
+    # K4<none, material> on unrolled slots with tri_uvs, bit for bit
+    rng = np.random.default_rng(21)
+    inv = PTConfig(**SHOW_INV, rng="pcg")
+    slots = build_pt_scene(
+        spheres=[((0.0, 8.0, -1001.0), 1000.0, 0), ((-1.5, 6.0, 0.0), 1.0, 1),
+                 ((3.0, 4.0, 3.0), 0.5, 3)],
+        materials=[{"albedo": (0.7, 0.7, 0.65)},
+                   {"albedo": (0.8, 0.2, 0.2),
+                    "checker": {"color": (0.1, 0.6, 0.2), "scale": 8.0, "space": "uv"}},
+                   {"image": {"pixels": rng.uniform(0.0, 1.0, (6, 10, 3)), "scale": 2.0}},
+                   {"albedo": (0.0, 0.0, 0.0), "emission": (20.0, 18.0, 15.0)}],
+        triangles=np.float32([[[-1, 9, -1], [1, 9, -1], [1, 9, 1]],
+                              [[-1, 9, -1], [1, 9, 1], [-1, 9, 1]]]),
+        tri_mats=np.int32([2, 2]), tri_uvs=np.float32([[[0, 0], [1, 0], [1, 1]],
+                                                       [[0, 0], [1, 1], [0, 1]]]),
+        device=device)
+    for filt in ("nearest", "bilinear"):
+        c = dataclasses.replace(inv, tex_filter=filt)
+        reset_k4()
+        got_s, n_s = pt.render_pt_mega(c, slots, pos, quat, 2, seed=seed)
+        if pt.material_launches["none"] != 1:
+            raise AssertionError("the slots scene took another K4 instantiation")
+        errs.append(hold_bitwise(f"K4<none, material> unrolled slots with tri_uvs "
+                                 f"{c.width}x{c.height} 2 spp, {filt}, vs its plain version",
+                                 got_s, n_s, *pt.render_pt_mega_reference(c, slots, pos, quat,
+                                                                          2, seed=seed)))
+
+    # the zero invariants through K4 (and K5), bit for bit
+    spec = json.loads((out_dir / "showcase_rest.json").read_text())
+    for m in spec["materials"]:
+        if m.get("roughness") == 0.25:
+            m["roughness"] = 0.0
+    (out_dir / "rough0.json").write_text(json.dumps(spec))
+    for m in spec["materials"]:
+        if m.get("kind") == "dielectric" and "roughness" in m:
+            del m["roughness"]
+    (out_dir / "nokey.json").write_text(json.dumps(spec))
+    s0 = load_scene_json(str(out_dir / "rough0.json")).scene
+    sn = load_scene_json(str(out_dir / "nokey.json")).scene
+    sf = dataclasses.replace(s0, has_rough_dielectric=True)  # the branch on, every roughness 0
+    imgs = [pt.render_pt_mega(inv, sc, pos, quat, 2, seed=seed, bvh=cs) for sc in (s0, sn, sf)]
+    rbs = [pt.render_pt_rebin(inv, sc, pos, quat, 1, seed=seed, bvh=cs)[0] for sc in (s0, sf)]
+    ok_rough = (not s0.has_rough_dielectric and all(
+        torch.equal(i[0], imgs[0][0]) and int(i[1]) == int(imgs[0][1]) for i in imgs)
+        and torch.equal(rbs[0], rbs[1]))
+    show = load_scene_json(str(SHOWCASE))
+    unused = load_scene_json(str(showcase_rest_spec(out_dir, unused_only=True))).scene
+    kw_mesh = dict(tri_mats=show.tri_mats, vertex_normals=show.tri_normals)
+    cs_show = build_clusters(show.tris, **kw_mesh)
+    cs_uv = build_clusters(show.tris, vertex_uvs=np.zeros((len(show.tris), 3, 2), np.float32),
+                           **kw_mesh)  # the same sweeps, with UV rows
+    a, na = pt.render_pt_mega(inv, show.scene, pos, quat, 2, seed=seed, bvh=cs_show)
+    u, nu = pt.render_pt_mega(inv, unused, pos, quat, 2, seed=seed, bvh=cs_uv)
+    ok_unused = unused.needs_uv and unused.has_image and torch.equal(a, u) and int(na) == int(nu)
+    log(f"  invariants at {inv.width}x{inv.height}: roughness 0 == the glass without the key == "
+        f"the rough-glass branch forced on (K4 2 spp, K5 1 spp) bit for bit {ok_rough}; unused "
+        f"UV-checker and image materials (UV table, atlas) == the showcase bit for bit "
+        f"{ok_unused}")
+    if not (ok_rough and ok_unused):
+        raise AssertionError("a zero or unused feature changed the render")
+
+    # the picture
+    img = frame.cpu().numpy()
+    means = img.reshape(-1, 3).mean(0)
+    if not np.isfinite(img).all() or not means.min() > 0.0:
+        raise AssertionError(f"the frame is non-finite or black: means {means}")
+    srgb = tonemap(img, "aces", gamma=2.2)
+    SMOKE_OUT.mkdir(exist_ok=True)
+    write_png(str(REST_PNG), srgb)
+    tmp.cleanup()
+    log(f"  frame {cfg.width}x{cfg.height} {SHOW_SPP} spp written to {REST_PNG.name}: finite, "
+        f"channel means {[round(float(m), 5) for m in means]}; bytes {to_srgb_u8(srgb).nbytes}; "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    log(f"  phase 20 errors: K4 vs plain {max(errs):.6g}, K5 vs plain {max(k5_errs):.6g}, "
+        f"render_pt_fast vs K4 {fast_err:.6g}, card vs CPU {cpu_err:.6g}")
+    return {
+        # plain_ms: each kernel's plain version on the band (SHOW_BAND rows,
+        # 1 spp, bilinear), the part of the frame it replays in this run
+        "k4": {"launches": counts["K4 material"], "max_abs_err": max(errs), "ms": k4_ms,
+               "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1]},
+        "k5": {"launches": counts["K5 material"], "max_abs_err": max(k5_errs), "ms": k5_dev,
+               "plain_ms": plain_rb_ms, "bound_ms": k5_bound[0], "bound_by": k5_bound[1]},
+        "K6": counts["K6"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -3547,6 +3925,8 @@ def main() -> int:
         f"on their main paths: replay {replay}, orbit {orbit}")
     log("phase 19: the showcase scene (examples/showcase.json) through K4, K5 and K6")
     show = phase_showcase(device, card)
+    log("phase 20: the showcase with the env map, rough glass and UV textures")
+    rest = phase_showcase_rest(device, card)
 
     # no single PyTorch call computes any of these kernels (torch.rand draws
     # Philox, not threefry): library_ms null
@@ -3588,14 +3968,22 @@ def main() -> int:
          "replaces": "raytracing_engine_tpu/ops/pallas/pt_kernel.py:699",
          "launches": c3_main["launches"]["K5"], "max_abs_err": inv["max_abs_err"],
          **c3_main["k5"], "library_ms": None},
+        {"name": "pt_kernel<clusters, material> (K4, env map, rough glass, UV textures)",
+         "route": "cuda", "source": "raytracing_engine_tpu_torch/csrc/pt.cu",
+         "replaces": "raytracing_engine_tpu/ops/pallas/pt_kernel.py:194", **rest["k4"],
+         "library_ms": None},
         {"name": "pt_rebin_kernel<material> (K5)", "route": "cuda",
          "source": "raytracing_engine_tpu_torch/csrc/pt.cu",
          "replaces": "raytracing_engine_tpu/ops/pallas/pt_kernel.py:699", **show["k5"],
          "library_ms": None},
+        {"name": "pt_rebin_kernel<material> (K5, env map, rough glass, UV textures)",
+         "route": "cuda", "source": "raytracing_engine_tpu_torch/csrc/pt.cu",
+         "replaces": "raytracing_engine_tpu/ops/pallas/pt_kernel.py:699", **rest["k5"],
+         "library_ms": None},
         {"name": "cluster_kernel (K6)", "route": "cuda",
          "source": "raytracing_engine_tpu_torch/csrc/cluster.cu",
          "replaces": "raytracing_engine_tpu/ops/pallas/cluster_intersect.py:439",
-         "launches": c3_main["launches"]["K6"] + orbit["K6"] + show["K6"], **k6,
+         "launches": c3_main["launches"]["K6"] + orbit["K6"] + show["K6"] + rest["K6"], **k6,
          "library_ms": None},
         {"name": "instanced_kernel (K7)", "route": "cuda",
          "source": "raytracing_engine_tpu_torch/csrc/instanced.cu",

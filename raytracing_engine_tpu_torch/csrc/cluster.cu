@@ -4,7 +4,9 @@
 // Replaces raytracing_engine_tpu/ops/pallas/cluster_intersect.py:
 // _cluster_kernel (K6, launched by cluster_intersect): closest or any hit of
 // a grid of rays against a ClusterSet, with the closest hit's attributes
-// (normal, material, area) on request. The sweep itself is cluster.cuh.
+// (normal, material, area, and on a UV table the texture UV) on request.
+// The sweep itself is cluster.cuh. The UV planes come from a second
+// instantiation (kUV), so a table without UVs runs the kernel it ran before.
 //
 // What bounds it on this card: FP32 ALU work and divergence, not bytes. A
 // ray reads 3 + 6 + 3 + 1 floats and writes 2 (7 with attributes), while it
@@ -46,13 +48,15 @@ struct Args {
   const float* tmax;  // (n,) initial t (the any-hit cutoff)
   float* out_t;       // (n,) t of the hit, +inf on a miss
   int* out_idx;       // (n,) padded slot, -1 on a miss
-  float* out_attr;    // (5, n) nx, ny, nz, mat, area, or null
+  float* out_attr;    // (5, n) nx, ny, nz, mat, area (7 with u, v: kUV), or null
   int n;
   float t_min;
   int any_hit;
   int device;        // CUDA ordinal the pointers and the stream belong to
+  const float* tuv;  // (T_pad, 8) UV records of a UV table, or null
 };
 
+template <bool kUV>
 __global__ void __launch_bounds__(kClusterBlock) cluster_kernel(const Args a) {
   const int i = blockIdx.x * kClusterBlock + threadIdx.x;
   const bool active = i < a.n;
@@ -73,6 +77,11 @@ __global__ void __launch_bounds__(kClusterBlock) cluster_kernel(const Args a) {
     a.out_attr[2 * a.n + i] = nrm.z;
     a.out_attr[3 * a.n + i] = mat;
     a.out_attr[4 * a.n + i] = area2 * 0.5f;  // |cross| / 2 = triangle area
+    if constexpr (kUV) {
+      const float2 uv = h.idx >= 0 ? hit_uv(a.tuv, h) : make_float2(0.0f, 0.0f);
+      a.out_attr[5 * a.n + i] = uv.x;
+      a.out_attr[6 * a.n + i] = uv.y;
+    }
   }
 }
 
@@ -85,7 +94,12 @@ extern "C" int cluster_intersect(const cl::Args* a, void* stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   if (a->n > 0) {
     const dim3 grid((a->n + cl::kClusterBlock - 1) / cl::kClusterBlock);
-    cl::cluster_kernel<<<grid, cl::kClusterBlock, 0, static_cast<cudaStream_t>(stream)>>>(*a);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (a->tuv != nullptr && a->out_attr != nullptr) {
+      cl::cluster_kernel<true><<<grid, cl::kClusterBlock, 0, s>>>(*a);
+    } else {
+      cl::cluster_kernel<false><<<grid, cl::kClusterBlock, 0, s>>>(*a);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

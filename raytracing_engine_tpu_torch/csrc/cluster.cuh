@@ -25,7 +25,10 @@
 // float4 loads per test), with the smooth-normal rows beside it in a
 // 12-float record [s0(3), s1-s0(3), s2-s0(3), 0 x3]; each cluster gets one
 // 36-float record [box(6), 0, 0, oc(3), 0, sub-box 0..3 (6 each)], so the
-// sub-boxes sit beside their cluster.
+// sub-boxes sit beside their cluster. A UV table (ROWS_UV) adds an 8-float
+// record per slot, [uv0(2), uv1-uv0(2), uv2-uv0(2), 0, 0] (rows 32-37),
+// read after the sweep from the hit's slot and barycentrics (`hit_uv`):
+// the sweep itself is the same for every table.
 //
 // `sweep_warp` (K4, K5, K6, K7) is the sweep of one ray a lane, run by the
 // 32 lanes of a warp together. Each lane walks its own visit order and
@@ -311,6 +314,15 @@ __device__ __forceinline__ void hit_attrs(const Tables& tb, const SweepHit& h,
   }
   mat = __ldg(rec + 12);
   area2 = __ldg(rec + 13);
+}
+
+// The texture UV of a closest hit on a UV table, from its 8-float UV record
+// (T_pad, 8): uv0 + u (uv1 - uv0) + v (uv2 - uv0) at the hit's barycentrics
+// (cluster_intersect.py:290-295, after the sweep: the accepted test's u, v).
+__device__ __forceinline__ float2 hit_uv(const float* tuv, const SweepHit& h) {
+  const float* r = tuv + h.idx * 8;
+  return make_float2(__ldg(r) + h.u * __ldg(r + 2) + h.v * __ldg(r + 4),
+                     __ldg(r + 1) + h.u * __ldg(r + 3) + h.v * __ldg(r + 5));
 }
 
 }  // namespace cl

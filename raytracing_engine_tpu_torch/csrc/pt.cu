@@ -12,10 +12,11 @@
 // coordinates) runs in one thread, in registers.
 //
 // Each kernel has a second instantiation for the material features (pt.cuh
-// kMat: GGX metal, anisotropy, the world checker, dispersion, the gradient
-// sky; the branches of JAX's static flags, pt_kernel.py:200-206 and
-// :707-713): a scene with none of them launches the instantiation it
-// launched before, so configs 2-5 pay no registers for GGX.
+// kMat: GGX metal, anisotropy, rough glass, checkers in world or UV space,
+// image textures, dispersion, the gradient sky, the env map; the branches of
+// JAX's static flags, pt_kernel.py:200-206 and :707-713): a scene with none
+// of them launches the instantiation it launched before, so configs 2-5 pay
+// no registers for GGX.
 //
 // K5 replaces pt_kernel.py:_pt_rebin_kernel (render_pt_rebin): one launch
 // per bounce over a packed 17-plane ray state (18 with dispersion's chan). Thread i owns the ray at
@@ -113,10 +114,31 @@ __device__ __forceinline__ Scene stage_scene(const Args& a, float* tables, int t
   sc.texture = kMat && a.texture;
   sc.dispersion = kMat && a.dispersion;
   sc.sky = kMat && a.sky;
+  sc.rough_diel = kMat && a.rough_diel;
+  sc.env_map = kMat && a.env_map;
+  sc.uv_space = kMat && a.uv_space;
+  sc.image = kMat && a.image;
+  sc.tri_uv = kMat && a.tri_uv;
+  sc.bilinear = kMat && a.bilinear;
+  sc.needs_uv = sc.uv_space || sc.image;
+  if constexpr (kMat) {  // the tables of the features added last
+    sc.env_img = a.env_img;
+    sc.env_smp = a.env_smp;
+    sc.env_pick = sc.env_map ? __ldg(a.env_pick) : 0.0f;
+    sc.env_k = a.env_k;
+    sc.atlas = a.atlas;
+    sc.atlas_k = a.atlas_k;
+    sc.tri_uvs = a.tri_uvs;
+    sc.cl_uv = a.cl_uv;
+  }
   // the optional columns in pack_pt_scene's fixed order
   int col = kMatW;
   sc.c_tex = col;
   col += sc.texture ? 4 : 0;
+  sc.c_space = col;
+  col += sc.uv_space ? 1 : 0;
+  sc.c_rect = col;
+  col += sc.image ? 4 : 0;
   sc.c_rough = col;
   col += sc.metal ? 1 : 0;
   sc.c_rough2 = col;

@@ -11,8 +11,14 @@
 // (ops/rng_pcg.py); and, in the material instantiation (kMat), the optional
 // material features of JAX's static flags (pt_kernel.py:200-206, :707-713):
 // the GGX METAL branch (isotropic, or anisotropic in the per-normal frame),
-// the world-space checker, spectral dispersion (the `chan` state) and the
-// gradient sky read by escaped rays.
+// GGX rough glass (Walter 2007), checkers in world or UV space, image
+// textures from the atlas (nearest or bilinear) at the hit's UV (spheres'
+// analytic UVs, the unrolled slots' tri_uv, a UV ClusterSet's rows), spectral
+// dispersion (the `chan` state), the gradient sky read by escaped rays, and
+// the equirect env map: read by escaped rays under MIS and alias-sampled by
+// NEE against the light table with one coin. The atlas and the env map's
+// tables (at most 3 x 32 x 128 floats each) are read from global memory
+// through the read-only path.
 //
 // One thread follows one ray. The body of one bounce is one function,
 // `bounce`, over a per-ray state (`Ray`, the 17 planes of
@@ -65,6 +71,11 @@ constexpr float kPi = 3.1415927410125732f;
 constexpr float kTwoPi = 6.2831854820251465f;
 constexpr float kFourPi = 12.566370964050293f;
 constexpr float kInvPi = 0.31830987334251404f;  // f32(1 / pi)
+constexpr float kHalfPi = 0x1.921fb6p+0f;       // f32(0.5 * pi)
+constexpr float kHalfInvPi = 0x1.45f306p-3f;    // f32(0.5 / pi)
+constexpr float kTwoPiPi = 0x1.3bd3ccp+4f;      // f32(2 pi pi)
+constexpr float kBelowOne = 0x1.fffffcp-1f;     // f32(1 - 1e-7)
+constexpr int kTexW = 128;                      // texels per atlas / env-map row
 constexpr int kDiffuse = 0;
 constexpr int kMirror = 1;
 constexpr int kDielectric = 3;
@@ -79,8 +90,15 @@ constexpr uint32_t kPassPrime = 0x9E3779B9u;  // int32 -1640531527
 //            instantiation, the optional columns in JAX's fixed order:
 //            [albedo2(3), checker scale] | rough | rough2 | dispersion,
 //            zero-padded to a multiple of 4 (Args.mat_w: 8, 12 or 16)
+//            (the material instantiation's full order: [albedo2(3), scale]
+//            | tex_space | tex_rect(4) | rough | rough2 | dispersion, width
+//            8 to 20)
 //   light    [kind, prim, area, le(3), pick, cdf, total_power, 0, 0, 0]
 //   env      [bottom(3), 0, top(3), 0] (the gradient sky; Args.sky)
+//   tri uv   [u0, v0, u1, v1, u2, v2, 0, 0] per unrolled slot (Args.tri_uvs)
+//   atlas, env map: (3K, 128) channel-major rows, row c K + k (Args.atlas,
+//            Args.env_img; env_smp's three blocks are p_sel, alias
+//            probability and alias index)
 constexpr int kSphW = 8;
 constexpr int kTriW = 12;
 constexpr int kMatW = 8;
@@ -127,9 +145,21 @@ struct Args {
   // read, so those keep their parameter offsets. material (0 / 1) picks the
   // instantiation: ops/cuda/pt.py sets it from PTScene.has_material_features.
   const float* env;        // (2, 4) gradient sky (sky != 0), else null
-  int mat_w;               // material table width: 8, 12 or 16
+  int mat_w;               // material table width: 8 to 20
   int material;
   int metal, aniso, texture, dispersion, sky;  // the features (0 / 1)
+  // The features added after them (0 / 1), then their tables: rough glass,
+  // the env map, UV-space checkers, image textures, the unrolled slots' UVs,
+  // bilinear filtering (PTConfig.tex_filter)
+  int rough_diel, env_map, uv_space, image, tri_uv, bilinear;
+  const float* env_img;    // (3 env_k, 128) radiance rows (env_map)
+  const float* env_smp;    // (3 env_k, 128) [p_sel; alias prob; alias index] rows
+  const float* env_pick;   // (1,) the probability that NEE samples the map
+  int env_k;
+  const float* atlas;      // (3 atlas_k, 128) texture atlas (image)
+  int atlas_k;
+  const float* tri_uvs;    // (T, 8) the unrolled slots' UVs (tri_uv)
+  const float* cl_uv;      // (T_pad, 8) the UV records of a UV ClusterSet, or null
 };
 
 // The scene tables, in shared memory, the live counts and the mesh.
@@ -145,7 +175,17 @@ struct Scene {
   // the material features and their columns in the material table (kMat)
   int mat_w;
   bool metal, aniso, texture, dispersion, sky;
-  int c_tex, c_rough, c_rough2, c_disp;
+  bool rough_diel, env_map, uv_space, image, tri_uv, bilinear;
+  bool needs_uv;  // shading reads hit UVs: UV-space checkers or images
+  int c_tex, c_space, c_rect, c_rough, c_rough2, c_disp;
+  const float* env_img;
+  const float* env_smp;
+  float env_pick;
+  int env_k;
+  const float* atlas;
+  int atlas_k;
+  const float* tri_uvs;
+  const float* cl_uv;
   cl::Tables cl;
   ins::Instances inst;
   bool mesh;       // kMeshAny: intersect cl instead of the unrolled triangle slots
@@ -284,18 +324,69 @@ __device__ __forceinline__ bool tri_hit(const float* tr, float3 o, float3 d,
          t > t_min && t < best_t;
 }
 
+// --- hit UVs (wavefront._poly_atan2 .. _tri_uv_gather) ----------------------
+// The JAX package's polynomial inverse trig, in its order of operations
+// (no atan2f / acosf: their roundings differ from the plain version's).
+__device__ __forceinline__ float poly_atan2(float y, float x) {
+  const float ax = fabsf(x);
+  const float ay = fabsf(y);
+  const float hi = vmax(ax, ay);
+  const float a = vmin(ax, ay) / vmax(hi, 1e-30f);
+  const float s = a * a;
+  float r = a * (0x1.ffee7p-1f +
+                 s * (-0x1.523a08p-2f +
+                      s * (0x1.70edc4p-3f + s * (-0x1.5cb46cp-4f + s * 0x1.555cbep-6f))));
+  r = ay > ax ? kHalfPi - r : r;
+  r = x < 0.0f ? kPi - r : r;
+  return y < 0.0f ? -r : r;
+}
+
+__device__ __forceinline__ float poly_acos(float x) {
+  const float ax = vmin(vmax(fabsf(x), 0.0f), 1.0f);
+  const float r =
+      sqrtf(1.0f - ax) *
+      (0x1.921b48p+0f + ax * (-0x1.b26908p-3f + ax * (0x1.302c4ep-4f - ax * 0x1.32dc6p-6f)));
+  return x < 0.0f ? kPi - r : r;
+}
+
+// The spheres' analytic UVs from the unnormalized outward normal p - c.
+__device__ __forceinline__ float2 sphere_uv(float3 n) {
+  const float ln = vmax(sqrtf(dot3(n, n)), 1e-20f);
+  return make_float2(poly_atan2(n.y, n.x) * kHalfInvPi + 0.5f,
+                     poly_acos(vmin(vmax(n.z / ln, -1.0f), 1.0f)) * kInvPi);
+}
+
+// An unrolled slot's UV at p (triangle row tr, UV row q): the barycentrics
+// recomputed from the triangle, then the corners interpolated.
+__device__ __forceinline__ float2 tri_uv_at(const float* tr, const float* q, float3 p) {
+  const float3 e1 = row3(tr + 3), e2 = row3(tr + 6);
+  const float3 ng = cross3(e1, e2);
+  const float nn = vmax(dot3(ng, ng), 1e-30f);
+  const float3 rel = sub3(p, row3(tr));
+  const float inv = 1.0f / nn;
+  const float ub = dot3(scale3(cross3(e2, ng), inv), rel);
+  const float vb = dot3(scale3(cross3(ng, e1), inv), rel);
+  const float u0 = __ldg(q), v0 = __ldg(q + 1);
+  const float du1 = __ldg(q + 2) - u0, du2 = __ldg(q + 4) - u0;
+  return make_float2(u0 + ub * du1 + vb * du2,
+                     v0 + ub * (__ldg(q + 3) - v0) + vb * (__ldg(q + 5) - v0));
+}
+
 struct Hit {
   float t;
   float3 p, n;  // n: unit, facing the ray
   int mat;
   float light_area;
   bool front;
+  float2 uv;  // texture UV (kMat scenes whose shading reads UVs)
 };
 
 // wavefront._intersect (unrolled slots), wavefront._intersect_clusters (a
 // mesh, the attributes path) or wavefront._intersect_instanced (instances);
-// returns false on a miss (t = BIG) and for an inactive lane.
-template <int kMesh, bool kWarp>
+// returns false on a miss (t = BIG) and for an inactive lane. kMat: the hit's
+// UV too, where the scene's shading reads it (0 on instances, and on a
+// ClusterSet or slots without UVs).
+template <int kMesh, bool kWarp, bool kMat = false>
 __device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
                                           float t_min, Hit& h, bool active = true) {
   static_assert(kWarp || kMesh == kMeshNone, "a mesh is swept by the warp's lanes together");
@@ -336,6 +427,7 @@ __device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
   h.p = make_float3(o.x + d.x * t, o.y + d.y * t, o.z + d.z * t);
   float3 n;
   float light_area;
+  if constexpr (kMat) h.uv = make_float2(0.0f, 0.0f);
   if (use_tri && instanced) {
     n = ih.n;
     light_area = 1.0f;
@@ -345,16 +437,25 @@ __device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
     cl::hit_attrs(sc.cl, ch, n, mat, area2);
     light_area = area2 * 0.5f;
     h.mat = static_cast<int>(mat);
+    if constexpr (kMat) {
+      if (sc.needs_uv && sc.cl_uv != nullptr) h.uv = cl::hit_uv(sc.cl_uv, ch);
+    }
   } else if (use_tri) {
     const float* tr = sc.tri + i_t * kTriW;
     n = cross3(row3(tr + 3), row3(tr + 6));
     light_area = 0.5f * sqrtf(dot3(n, n));
     h.mat = static_cast<int>(tr[9]);
+    if constexpr (kMat) {
+      if (sc.needs_uv && sc.tri_uv) h.uv = tri_uv_at(tr, sc.tri_uvs + i_t * 8, h.p);
+    }
   } else {
     const float* s = sc.sph + i_s * kSphW;
     n = sub3(h.p, row3(s));
     light_area = kFourPi * s[3] * s[3];
     h.mat = static_cast<int>(s[4]);
+    if constexpr (kMat) {
+      if (sc.needs_uv) h.uv = sphere_uv(n);
+    }
   }
   const float nlen = vmax(sqrtf(dot3(n, n)), 1e-20f);
   n = scale3(n, 1.0f / nlen);
@@ -501,9 +602,10 @@ __device__ __forceinline__ float ggx_smith_g1(float cos_v, float alpha) {
   return 2.0f * c / vmax(c + sqrtf(a2 + (1.0f - a2) * c * c), 1e-12f);
 }
 
-__device__ __forceinline__ float3 sample_ggx_h(float u1, float u2, float3 n, float alpha) {
+__device__ __forceinline__ float3 sample_ggx_h(float u1, float u2, float3 n, float alpha,
+                                              float& cos_h) {
   const float a2 = alpha * alpha;
-  const float cos_h = sqrtf(clamp01((1.0f - u1) / (1.0f + (a2 - 1.0f) * u1)));
+  cos_h = sqrtf(clamp01((1.0f - u1) / (1.0f + (a2 - 1.0f) * u1)));
   const float sin_h = sqrtf(vmax(1.0f - cos_h * cos_h, 0.0f));
   const float phi = kTwoPi * u2;
   float3 t, s;
@@ -598,6 +700,95 @@ __device__ __forceinline__ float3 ggx_brdf(const Scene& sc, const Ggx& g, float3
   return ggx_eval(n, wo, wi, f0, g.alpha, pdf);
 }
 
+// --- the atlas and the env map (wavefront._atlas_fetch .. _sample_rect) -----
+// Texel (ty, tx) of channel c of a (3K, 128) channel-major table; a row
+// outside 0..K-1 reads 0. ty, tx: whole numbers >= 0 on every lane that
+// reaches here (tx is clamped to the row as the plain version clamps it).
+__device__ __forceinline__ float tab_fetch(const float* tab, int K, float ty, float tx, int c) {
+  const int y = static_cast<int>(ty);
+  const int x = min(max(static_cast<int>(tx), 0), kTexW - 1);
+  return y >= 0 && y < K ? __ldg(tab + (c * K + y) * kTexW + x) : 0.0f;
+}
+
+__device__ __forceinline__ float3 tab_fetch3(const float* tab, int K, float ty, float tx) {
+  return make_float3(tab_fetch(tab, K, ty, tx, 0), tab_fetch(tab, K, ty, tx, 1),
+                     tab_fetch(tab, K, ty, tx, 2));
+}
+
+// The atlas rect [x0, y0, tw, th] at the scale-tiled UV: one texel, or the
+// four rect-clamped corners lerped at the texel centres (bilinear).
+__device__ __forceinline__ float3 sample_rect(const Scene& sc, const float* rect, float2 uv,
+                                              float s) {
+  const float x0 = rect[0], y0 = rect[1], tw = rect[2], th = rect[3];
+  float fu = uv.x * s;
+  float fv = uv.y * s;
+  fu = fu - floorf(fu);  // wrap (tile) addressing
+  fv = fv - floorf(fv);
+  if (!sc.bilinear) {
+    const float tx = vmax(x0 + vmin(vmax(floorf(fu * tw), 0.0f), tw - 1.0f), 0.0f);
+    const float ty = vmax(y0 + vmin(vmax(floorf(fv * th), 0.0f), th - 1.0f), 0.0f);
+    return tab_fetch3(sc.atlas, sc.atlas_k, ty, tx);
+  }
+  const float fx = fu * tw - 0.5f;
+  const float fy = fv * th - 0.5f;
+  const float xf = floorf(fx);
+  const float yf = floorf(fy);
+  const float wx = fx - xf;
+  const float wy = fy - yf;
+  const float xa = vmax(x0 + vmin(vmax(xf, 0.0f), tw - 1.0f), 0.0f);
+  const float xb = vmax(x0 + vmin(vmax(xf + 1.0f, 0.0f), tw - 1.0f), 0.0f);
+  const float ya = vmax(y0 + vmin(vmax(yf, 0.0f), th - 1.0f), 0.0f);
+  const float yb = vmax(y0 + vmin(vmax(yf + 1.0f, 0.0f), th - 1.0f), 0.0f);
+  const float3 c00 = tab_fetch3(sc.atlas, sc.atlas_k, ya, xa);
+  const float3 c10 = tab_fetch3(sc.atlas, sc.atlas_k, ya, xb);
+  const float3 c01 = tab_fetch3(sc.atlas, sc.atlas_k, yb, xa);
+  const float3 c11 = tab_fetch3(sc.atlas, sc.atlas_k, yb, xb);
+  const float ux = 1.0f - wx, uy = 1.0f - wy;
+  return make_float3((c00.x * ux + c10.x * wx) * uy + (c01.x * ux + c11.x * wx) * wy,
+                     (c00.y * ux + c10.y * wx) * uy + (c01.y * ux + c11.y * wx) * wy,
+                     (c00.z * ux + c10.z * wx) * uy + (c01.z * ux + c11.z * wx) * wy);
+}
+
+// The env map's texel (ty, tx) of direction d (wavefront._env_texel_of).
+__device__ __forceinline__ void env_texel_of(const Scene& sc, float3 d, float& ty, float& tx) {
+  const float u = poly_atan2(d.y, d.x) * kHalfInvPi + 0.5f;
+  const float v = poly_acos(vmin(vmax(d.z, -1.0f), 1.0f)) * kInvPi;
+  tx = vmin(vmax(floorf(u * 128.0f), 0.0f), 127.0f);
+  ty = vmin(vmax(floorf(v * static_cast<float>(sc.env_k)), 0.0f),
+            static_cast<float>(sc.env_k - 1));
+}
+
+// The env NEE sampler's solid-angle pdf in texel (ty, tx): p_sel N / (2π² sinθ).
+__device__ __forceinline__ float env_pdf_w(const Scene& sc, float ty, float tx, float sin_t) {
+  const float psel = tab_fetch(sc.env_smp, sc.env_k, ty, tx, 0);
+  return psel * static_cast<float>(sc.env_k * kTexW) / vmax(kTwoPiPi * sin_t, 1e-8f);
+}
+
+// Alias-sample an env texel with the selection uniform s and jitter inside
+// it by (j1, j2) (wavefront._sample_env): the direction, its pdf and Le.
+__device__ __forceinline__ float3 sample_env(const Scene& sc, float s, float j1, float j2,
+                                             float& pdf, float3& le) {
+  const int K = sc.env_k;
+  const float N = static_cast<float>(K * kTexW);
+  const float x = s * N;
+  const float j = vmin(vmax(floorf(x), 0.0f), N - 1.0f);
+  const float f = x - j;
+  const float ty0 = floorf(j / 128.0f);
+  const float tx0 = j - ty0 * 128.0f;
+  const float ap = tab_fetch(sc.env_smp, K, ty0, tx0, 1);  // the alias table's accept prob
+  const float t = f < ap ? j : tab_fetch(sc.env_smp, K, ty0, tx0, 2);
+  const float ty = floorf(t / 128.0f);
+  const float tx = t - ty * 128.0f;
+  const float u = (tx + j1) / 128.0f;
+  const float v = (ty + j2) / static_cast<float>(K);
+  const float theta = v * kPi;
+  const float phi = (u - 0.5f) * kTwoPi;
+  const float sin_t = sinf(theta);
+  le = tab_fetch3(sc.env_img, K, ty, tx);
+  pdf = tab_fetch(sc.env_smp, K, ty, tx, 0) * N / vmax(kTwoPiPi * sin_t, 1e-8f);
+  return make_float3(sin_t * cosf(phi), sin_t * sinf(phi), cosf(theta));
+}
+
 // --- one ray's state and one bounce (wavefront._bounce) -------------------
 // The 17 planes of wavefront.pack_state, in registers, and chan, the 18th of
 // a dispersive scene (the committed color channel, -1: none yet).
@@ -652,12 +843,30 @@ __device__ __forceinline__ void add_sky(const Scene& sc, Ray& r, float3 thr, flo
   r.rad.z = r.rad.z + thr.z * (e[2] + (e[6] - e[2]) * tz);
 }
 
+// An escaped ray's env-map texel, MIS-weighted against the env NEE of the
+// previous vertex (its pick times the env pdf of this direction), added to
+// r.rad (wavefront._bounce, scene.has_env_map).
+__device__ __forceinline__ void add_env_map(const Args& a, const Scene& sc, Ray& r, float3 thr,
+                                            float3 d) {
+  float ty, tx;
+  env_texel_of(sc, d, ty, tx);
+  const float3 e_rad = tab_fetch3(sc.env_img, sc.env_k, ty, tx);
+  const float sin_t = sqrtf(vmax(1.0f - d.z * d.z, 1e-12f));
+  const float w = r.prev_did_nee && a.use_nee
+                      ? power_heuristic(r.prev_pdf, sc.env_pick * env_pdf_w(sc, ty, tx, sin_t))
+                      : 1.0f;
+  r.rad.x = r.rad.x + thr.x * (e_rad.x * w);
+  r.rad.y = r.rad.y + thr.y * (e_rad.y * w);
+  r.rad.z = r.rad.z + thr.z * (e_rad.z * w);
+}
+
 // The NEE shadow ray of a diffuse hit at p (normal n) toward a light sample
 // (wavefront._bounce's NEE): false when the sample casts none.
 struct Nee {
   LightSample ls;
   float3 wi;
   float dist, cos_ll, cos_s;
+  float pdf_w, max_t;  // with an env map: the pdf with its branch's pick, the shadow ray's reach
 };
 __device__ __forceinline__ bool nee_sample(const Args& a, const Scene& sc, float3 p, float3 n,
                                            const float* u, bool uniform, Nee& e) {
@@ -670,9 +879,72 @@ __device__ __forceinline__ bool nee_sample(const Args& a, const Scene& sc, float
   return e.cos_ll > 1e-6f && e.dist > a.eps && e.cos_s > 0.0f;
 }
 
+// With an env map, NEE flips one coin between the map and the light table,
+// and rescales the selection uniform into the branch it took (wavefront.py
+// _bounce, JAX :1838-1846): the map's alias-sampled texel (unbounded shadow
+// ray) or a light sample; each pdf carries its branch's pick.
+__device__ __forceinline__ bool nee_sample_env(const Args& a, const Scene& sc, float3 p,
+                                               float3 n, const float* u, bool uniform, Nee& e) {
+  const float pick = sc.env_pick;
+  bool ok;
+  if (u[2] < pick) {
+    float pdf;
+    e.wi = sample_env(sc, vmin(vmax(u[2] / vmax(pick, 1e-6f), 0.0f), kBelowOne), u[3], u[4],
+                      pdf, e.ls.le);
+    e.pdf_w = pick * pdf;
+    e.dist = 1e4f;
+    e.max_t = kBig;
+    ok = true;
+  } else {
+    const float u_sel = vmin(vmax((u[2] - pick) / vmax(1.0f - pick, 1e-6f), 0.0f), kBelowOne);
+    e.ls = sample_light(sc, u_sel, u[3], u[4], uniform);
+    const float3 to_l = sub3(e.ls.p, p);
+    e.dist = sqrtf(dot3(to_l, to_l));
+    e.wi = scale3(to_l, 1.0f / vmax(e.dist, 1e-20f));
+    e.cos_ll = fabsf(dot3(e.ls.n, e.wi));
+    e.pdf_w = (1.0f - pick) * (e.ls.pdf_area * (e.dist * e.dist) / vmax(e.cos_ll, 1e-6f));
+    e.max_t = e.dist * 0.999f;
+    ok = e.cos_ll > 1e-6f && e.dist > a.eps && sc.n_light > 0;
+  }
+  e.cos_s = dot3(n, e.wi);
+  return ok && e.cos_s > 0.0f;
+}
+
+// NEE with the env map where the material instantiation has one, else
+// toward the light table alone, as the other instantiations always do:
+// whether a vertex has an NEE target, the shadow ray, its reach and the
+// sample's solid-angle pdf.
+template <bool kMat>
+__device__ __forceinline__ bool nee_target(const Scene& sc) {
+  if constexpr (kMat) return sc.n_light > 0 || sc.env_map;
+  return sc.n_light > 0;
+}
+template <bool kMat>
+__device__ __forceinline__ bool nee_cast(const Args& a, const Scene& sc, float3 p, float3 n,
+                                         const float* u, bool uniform, Nee& e) {
+  if constexpr (kMat) {
+    if (sc.env_map) return nee_sample_env(a, sc, p, n, u, uniform, e);
+  }
+  return nee_sample(a, sc, p, n, u, uniform, e);
+}
+template <bool kMat>
+__device__ __forceinline__ float nee_reach(const Scene& sc, const Nee& e) {
+  if constexpr (kMat) {
+    if (sc.env_map) return e.max_t;
+  }
+  return e.dist * 0.999f;
+}
+template <bool kMat>
+__device__ __forceinline__ float nee_pdf_w(const Scene& sc, const Nee& e) {
+  if constexpr (kMat) {
+    if (sc.env_map) return e.pdf_w;
+  }
+  return e.ls.pdf_area * (e.dist * e.dist) / vmax(e.cos_ll, 1e-6f);
+}
+
 // The light an unoccluded shadow ray brings, MIS-weighted, added to r.rad.
-__device__ __forceinline__ void nee_add(Ray& r, float3 thr, float3 albedo, const Nee& e) {
-  const float pdf_w = e.ls.pdf_area * (e.dist * e.dist) / vmax(e.cos_ll, 1e-6f);
+__device__ __forceinline__ void nee_add(Ray& r, float3 thr, float3 albedo, const Nee& e,
+                                        float pdf_w) {
   const float w_nee = power_heuristic(pdf_w, e.cos_s / kPi);
   const float s = e.cos_s / vmax(pdf_w, 1e-20f) * w_nee / kPi;
   r.rad.x = r.rad.x + thr.x * albedo.x * (e.ls.le.x * s);
@@ -685,8 +957,7 @@ __device__ __forceinline__ void nee_add(Ray& r, float3 thr, float3 albedo, const
 // metal one, and the MIS counter-pdf of the same BSDF.
 __device__ __forceinline__ void nee_add_brdf(const Scene& sc, Ray& r, float3 thr, float3 albedo,
                                              bool is_metal, const Ggx& g, float3 n, float3 d,
-                                             const Nee& e) {
-  const float pdf_w = e.ls.pdf_area * (e.dist * e.dist) / vmax(e.cos_ll, 1e-6f);
+                                             const Nee& e, float pdf_w) {
   float pdf_b;
   float3 f;
   if (is_metal) {
@@ -728,9 +999,10 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
     h.light_area = 0.0f;
     h.front = true;
   }
-  const bool hit = intersect<kMesh, kWarp>(sc, r.o, d, a.t_min, h, live);
+  const bool hit = intersect<kMesh, kWarp, kMat>(sc, r.o, d, a.t_min, h, live);
   if (!kWarp && !hit) {
     if (kMat && sc.sky) add_sky(sc, r, r.thr, d);
+    if (kMat && sc.env_map) add_env_map(a, sc, r, r.thr, d);
     park(r);
     return;
   }
@@ -754,11 +1026,14 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
     }
   }
   if (kMat && sc.texture && mat_ok) {
-    // the world-space checker: the parity of the summed cells is a floored
-    // modulo, cells - 2 floor(cells / 2) (exact: cells are whole numbers)
+    // the checker, in world space or (tex_space 1) in UV space: the parity of
+    // the summed cells is a floored modulo, cells - 2 floor(cells / 2) (exact:
+    // cells are whole numbers); then an image texture (rect w > 0) at the UV
     const float s = mrow[sc.c_tex + 3];
-    const float cells = floorf(p.x * s) + floorf(p.y * s) + floorf(p.z * s);
+    float cells = floorf(p.x * s) + floorf(p.y * s) + floorf(p.z * s);
+    if (sc.uv_space && mrow[sc.c_space] > 0.5f) cells = floorf(h.uv.x * s) + floorf(h.uv.y * s);
     if (s > 0.0f && cells - 2.0f * floorf(cells * 0.5f) >= 1.0f) albedo = row3(mrow + sc.c_tex);
+    if (sc.image && mrow[sc.c_rect + 2] > 0.0f) albedo = sample_rect(sc, mrow + sc.c_rect, h.uv, s);
   }
 
   // --- emission (MIS vs NEE of the previous vertex) -----------------------
@@ -771,31 +1046,39 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
       const float lum_e = 0.2126f * emission.x + 0.7152f * emission.y + 0.0722f * emission.z;
       sel_density = lum_e / vmax(sc.total_power, 1e-20f);
     }
+    // the light table's NEE branch runs with probability 1 - env_pick
+    if (kMat && sc.env_map && a.use_nee) sel_density = sel_density * (1.0f - sc.env_pick);
     const float pdf_light_w = sel_density * (h.t * h.t) / vmax(cos_l, 1e-6f);
     const float gate = r.prev_did_nee ? power_heuristic(r.prev_pdf, pdf_light_w) : 1.0f;
     r.rad.x = r.rad.x + thr.x * (emission.x * gate);
     r.rad.y = r.rad.y + thr.y * (emission.y * gate);
     r.rad.z = r.rad.z + thr.z * (emission.z * gate);
   }
-  // the warp form's miss reads the sky here, once, before it parks below
+  // the warp form's miss reads the sky (or the env map) here, once, before it
+  // parks below
   if (kWarp && kMat && sc.sky && live && !hit) add_sky(sc, r, thr, d);
+  if (kWarp && kMat && sc.env_map && live && !hit) add_env_map(a, sc, r, thr, d);
 
   // --- NEE ------------------------------------------------------------------
+  // (with an env map a vertex does NEE without slot lights too)
   const bool nee_kind = kind == kDiffuse || is_metal;
-  const bool nee = hit && a.use_nee && nee_kind && sc.n_light > 0;
+  const bool nee = hit && a.use_nee && nee_kind && nee_target<kMat>(sc);
   if (kWarp) {  // every lane reaches the shadow sweep; those without one inactive
     Nee e;
     e.wi = make_float3(1.0f, 0.0f, 0.0f);
     e.dist = 0.0f;
-    const bool cast = nee && nee_sample(a, sc, p, n, u, uniform, e);
+    if constexpr (kMat) e.max_t = 0.0f;
+    const bool cast = nee && nee_cast<kMat>(a, sc, p, n, u, uniform, e);
     if (cast) nrays += 1;
     const float3 sh_o = add3(p, scale3(n, a.eps));
-    const bool blocked = occluded<kMesh, kWarp>(sc, sh_o, e.wi, e.dist * 0.999f, a.t_min, cast);
+    const bool blocked =
+        occluded<kMesh, kWarp>(sc, sh_o, e.wi, nee_reach<kMat>(sc, e), a.t_min, cast);
     if (cast && !blocked) {
+      const float pdf_w = nee_pdf_w<kMat>(sc, e);
       if (kMat && sc.metal) {
-        nee_add_brdf(sc, r, thr, albedo, is_metal, g, n, d, e);
+        nee_add_brdf(sc, r, thr, albedo, is_metal, g, n, d, e, pdf_w);
       } else {
-        nee_add(r, thr, albedo, e);
+        nee_add(r, thr, albedo, e, pdf_w);
       }
     }
     if (!hit) {
@@ -804,14 +1087,15 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
     }
   } else if (nee) {
     Nee e;
-    if (nee_sample(a, sc, p, n, u, uniform, e)) {
+    if (nee_cast<kMat>(a, sc, p, n, u, uniform, e)) {
       nrays += 1;
       const float3 sh_o = add3(p, scale3(n, a.eps));
-      if (!occluded<kMesh, kWarp>(sc, sh_o, e.wi, e.dist * 0.999f, a.t_min)) {
+      if (!occluded<kMesh, kWarp>(sc, sh_o, e.wi, nee_reach<kMat>(sc, e), a.t_min)) {
+        const float pdf_w = nee_pdf_w<kMat>(sc, e);
         if (kMat && sc.metal) {
-          nee_add_brdf(sc, r, thr, albedo, is_metal, g, n, d, e);
+          nee_add_brdf(sc, r, thr, albedo, is_metal, g, n, d, e, pdf_w);
         } else {
-          nee_add(r, thr, albedo, e);
+          nee_add(r, thr, albedo, e, pdf_w);
         }
       }
     }
@@ -821,6 +1105,7 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
   float3 new_d, new_o;
   float3 w_mat = albedo;  // the throughput weight: albedo, or f cos / pdf on metal
   float3 thr_s = thr;     // thr after a dispersive glass hit's channel pick
+  float w_rough = 1.0f;   // the Walter weight of a rough-glass hit (kMat)
   float pdf_bsdf = 0.0f;
   if (kind == kMirror) {
     new_d = sub3(d, scale3(n, 2.0f * dot3(d, n)));
@@ -848,18 +1133,49 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
     const float rs = (eta * cosi - cost) / vmax(eta * cosi + cost, 1e-20f);
     const float rp = (eta * cost - cosi) / vmax(eta * cost + cosi, 1e-20f);
     const float refl_p = kk <= 0.0f ? 1.0f : 0.5f * (rs * rs + rp * rp);
-    if (u[0] < refl_p) {
-      new_d = sub3(d, scale3(n, 2.0f * dot3(d, n)));
-      new_o = add3(p, scale3(n, a.eps));
-    } else {  // refracted rays continue THROUGH the surface
-      new_d = add3(scale3(d, eta), scale3(n, eta * cosi - cost));
-      new_o = add3(p, scale3(n, -a.eps));
+    bool rough = false;
+    if constexpr (kMat) {
+      if (sc.rough_diel && mrow[sc.c_rough] > 0.0f) {
+        // GGX rough glass (Walter 2007): a half-vector from u[3], u[4] (free
+        // on glass lanes), the same Fresnel coin about it, and the weight
+        // |d·h| G / (cos_o cos_h); a sample on its branch's wrong side (or h
+        // facing away) weighs 0 and the path dies below
+        rough = true;
+        const float rough_d = mrow[sc.c_rough];
+        const float alpha = vmax(rough_d * rough_d, 1e-4f);
+        float cos_hd;
+        const float3 hd = sample_ggx_h(u[3], u[4], n, alpha, cos_hd);
+        const float cosi_h = -dot3(d, hd);
+        const float kk_h = 1.0f - eta * eta * (1.0f - cosi_h * cosi_h);
+        const float cost_h = sqrtf(vmax(kk_h, 0.0f));
+        const float rs_h = (eta * cosi_h - cost_h) / vmax(eta * cosi_h + cost_h, 1e-20f);
+        const float rp_h = (eta * cost_h - cosi_h) / vmax(eta * cost_h + cosi_h, 1e-20f);
+        const float reflp_h = kk_h <= 0.0f ? 1.0f : 0.5f * (rs_h * rs_h + rp_h * rp_h);
+        const bool refl_h = u[0] < reflp_h;
+        new_d = refl_h ? sub3(d, scale3(hd, 2.0f * dot3(d, hd)))
+                       : add3(scale3(d, eta), scale3(hd, eta * cosi_h - cost_h));
+        new_o = add3(p, scale3(n, refl_h ? a.eps : -a.eps));
+        const float cos_i_r = dot3(new_d, n);
+        const float g_r = ggx_smith_g1(cosi, alpha) * ggx_smith_g1(fabsf(cos_i_r), alpha);
+        const bool ok_r = cosi_h > 0.0f && (refl_h ? cos_i_r > 0.0f : cos_i_r < 0.0f);
+        w_rough = ok_r ? fabsf(cosi_h) * g_r / vmax(cosi * vmax(cos_hd, 1e-6f), 1e-6f) : 0.0f;
+      }
+    }
+    if (!rough) {
+      if (u[0] < refl_p) {
+        new_d = sub3(d, scale3(n, 2.0f * dot3(d, n)));
+        new_o = add3(p, scale3(n, a.eps));
+      } else {  // refracted rays continue THROUGH the surface
+        new_d = add3(scale3(d, eta), scale3(n, eta * cosi - cost));
+        new_o = add3(p, scale3(n, -a.eps));
+      }
     }
   } else if (is_metal) {
     // GGX conductor: an NDF half-vector from u[0], u[1], reflect, weight
     // f cos / pdf (an under-surface sample: f = pdf = 0, it dies below)
+    float cos_h;
     const float3 hv = sc.aniso ? sample_ggx_h_aniso(u[0], u[1], g.t, g.s, n, g.alpha, g.alpha_y)
-                               : sample_ggx_h(u[0], u[1], n, g.alpha);
+                               : sample_ggx_h(u[0], u[1], n, g.alpha, cos_h);
     new_d = sub3(d, scale3(hv, 2.0f * dot3(d, hv)));
     new_o = add3(p, scale3(n, a.eps));
     const float3 f = ggx_brdf(sc, g, n, make_float3(-d.x, -d.y, -d.z), new_d, albedo, pdf_bsdf);
@@ -869,6 +1185,7 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
     new_o = add3(p, scale3(n, a.eps));
   }
   float3 new_thr = make_float3(thr_s.x * w_mat.x, thr_s.y * w_mat.y, thr_s.z * w_mat.z);
+  if (kMat && sc.rough_diel && kind == kDielectric) new_thr = scale3(new_thr, w_rough);
   const float thr_max = vmax(new_thr.x, vmax(new_thr.y, new_thr.z));
   if (!(thr_max > 0.0f)) {
     park(r);
@@ -886,7 +1203,7 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
   r.thr = new_thr;
   r.o = new_o;
   r.d = new_d;
-  r.prev_did_nee = nee_kind && sc.n_light > 0 && a.use_nee;
+  r.prev_did_nee = nee_kind && nee_target<kMat>(sc) && a.use_nee;
   r.prev_pdf = pdf_bsdf;
 }
 

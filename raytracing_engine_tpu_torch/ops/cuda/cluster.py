@@ -4,7 +4,9 @@ raytracing_engine_tpu/ops/pallas/cluster_intersect.py ``_cluster_kernel``.
 
 ``cluster_intersect`` keeps the JAX signature and results: t (+inf on a
 miss) and the padded-reordered slot (-1 on a miss; ``cs.perm`` maps it back),
-plus (nx, ny, nz, mat, area) with ``attrs=True``. Rays on the CPU take the
+plus (nx, ny, nz, mat, area) with ``attrs=True``, and on a UV table
+(``cs.has_uv``, rows 32-37) the hit's interpolated texture (u, v) after
+them. Rays on the CPU take the
 plain version, ``cluster_intersect_reference``; rays on a CUDA device launch
 the kernel or raise.
 
@@ -18,7 +20,8 @@ visited wins).
 
 ``sweep_tables`` transposes a ClusterSet's (ROWS, T_pad) lane table once
 into the per-triangle and per-cluster records the kernel reads
-(csrc/cluster.cuh); the plain version reads the same records. ``work``
+(csrc/cluster.cuh), and a UV table's rows 32-37 into an 8-float record per
+slot; the plain version reads the same records. ``work``
 counts the box and triangle tests the plain version performed, for the
 kernels' bounds (utils/timing.py).
 """
@@ -43,8 +46,8 @@ from raytracing_engine_tpu_torch.ops.cuda import common
 SUB_TRIS = CLUSTER // SUBS
 PARKED = 1e17
 _INF = float("inf")
-_TEXTURES = ("UV and tangent attributes of ClusterSet UV tables (ROWS_UV) are not ported "
-             "yet (ROADMAP.md queue 1 item 4, the texture features)")
+_TANGENTS = ("the texture-u tangent planes of UV tables (tan=True: normal maps and mip LOD) "
+             "are not ported yet (ROADMAP.md queue 1 item 4, K4 features 6 and 7)")
 
 # kernel launches since the count was last set to 0 (plain-version calls
 # do not count)
@@ -89,6 +92,7 @@ class ClusterArgs(ctypes.Structure):
         ("t_min", ctypes.c_float),
         ("any_hit", ctypes.c_int),
         ("device", ctypes.c_int),
+        ("tuv", ctypes.c_void_p),
     ]
 
 
@@ -100,6 +104,7 @@ class SweepTables:
     crec: torch.Tensor     # (C, 36) [box(6), 0, 0, oc(3), 0, sub-boxes 4 x 6]
     trec: torch.Tensor     # (T_pad, 16) [n, nd, r1, c1, r2, c2, mat, |n|, 0, 0]
     tsmooth: torch.Tensor | None  # (T_pad, 12) [s0, s1-s0, s2-s0, 0 x3] or None
+    tuv: torch.Tensor | None = None  # (T_pad, 8) [uv0, uv1-uv0, uv2-uv0, 0 x2] or None
 
     @property
     def n_super(self) -> int:
@@ -112,21 +117,23 @@ def sweep_tables(cs: ClusterSet) -> SweepTables:
     cached = cs.__dict__.get("_sweep_tables")
     if cached is not None:
         return cached
-    if cs.has_uv:
-        raise NotImplementedError(_TEXTURES)
     f32, dev = torch.float32, cs.device
     T_pad, C = cs.padded_tris, cs.num_clusters
     trec = torch.cat([cs.tri[0:14].T, torch.zeros((T_pad, 2), dtype=f32, device=dev)], 1)
     tsmooth = None
     if cs.smooth:
         tsmooth = torch.cat([cs.tri[21:30].T, torch.zeros((T_pad, 3), dtype=f32, device=dev)], 1)
+    tuv = None
+    if cs.has_uv:
+        tuv = torch.cat([cs.tri[32:38].T, torch.zeros((T_pad, 2), dtype=f32, device=dev)], 1)
     sub = cs.tri[14:20].reshape(6, C, CLUSTER)[:, :, :SUBS].permute(1, 2, 0).reshape(C, 6 * SUBS)
     oc = cs.tri[20].reshape(C, CLUSTER)[:, :3]
     z = lambda k: torch.zeros((C, k), dtype=f32, device=dev)  # noqa: E731
     crec = torch.cat([cs.boxes[:, :6], z(2), oc, z(1), sub], 1)
     tables = SweepTables(sbox=cs.super_boxes.contiguous(), crec=crec.contiguous(),
                          trec=trec.contiguous(),
-                         tsmooth=None if tsmooth is None else tsmooth.contiguous())
+                         tsmooth=None if tsmooth is None else tsmooth.contiguous(),
+                         tuv=None if tuv is None else tuv.contiguous())
     cs.__dict__["_sweep_tables"] = tables
     return tables
 
@@ -269,8 +276,9 @@ def _sweep(tb: SweepTables, o, d, t0, t_min: float, any_hit: bool, order, orders
 
 
 def _attrs(tb: SweepTables, idx, u, v):
-    """(nx, ny, nz, mat, area) of each hit; 0 where idx < 0 (cluster.cuh
-    hit_attrs and the kernel's output)."""
+    """(nx, ny, nz, mat, area) of each hit, and (u, v) of its texture
+    coordinates on a UV table; 0 where idx < 0 (cluster.cuh hit_attrs /
+    hit_uv and the kernel's output)."""
     safe = idx.clamp_min(0)
     rec = tb.trec[safe]
     if tb.tsmooth is not None:
@@ -278,10 +286,14 @@ def _attrs(tb: SweepTables, idx, u, v):
         n = tuple(sm[:, a] + u * sm[:, 3 + a] + v * sm[:, 6 + a] for a in range(3))
     else:
         n = (rec[:, 0], rec[:, 1], rec[:, 2])
+    cols = (*n, rec[:, 12], rec[:, 13])
+    if tb.tuv is not None:  # cluster_intersect.py:290-295
+        uv = tb.tuv[safe]
+        cols += tuple(uv[:, a] + u * uv[:, 2 + a] + v * uv[:, 4 + a] for a in range(2))
     hit = idx >= 0
     zero = torch.zeros((), dtype=torch.float32, device=idx.device)
-    out = tuple(torch.where(hit, x, zero) for x in (*n, rec[:, 12], rec[:, 13]))
-    return out[:4] + (out[4] * 0.5,)
+    out = tuple(torch.where(hit, x, zero) for x in cols)
+    return out[:4] + (out[4] * 0.5,) + out[5:]
 
 
 def _flat_inputs(cs, o_planes, d_planes, t_max, order):
@@ -292,9 +304,12 @@ def _flat_inputs(cs, o_planes, d_planes, t_max, order):
 
 
 def cluster_intersect_reference(cs: ClusterSet, o_planes, d_planes, t_max, t_min=1e-3,
-                                any_hit=False, attrs=False, order=None, orders=None, refs=None):
+                                any_hit=False, attrs=False, order=None, orders=None, refs=None,
+                                tan=False):
     """Plain PyTorch version of cluster_intersect (same arguments and
     results); it counts its tests in ``work``."""
+    if tan:
+        raise NotImplementedError(_TANGENTS)
     shape, o, d, t0, order = _flat_inputs(cs, o_planes, d_planes, t_max, order)
     tb = sweep_tables(cs)
     refs = None if refs is None else refs[:, :3]
@@ -334,7 +349,7 @@ def check_orders(cs: ClusterSet, order, orders, refs):
 
 
 def cluster_intersect(cs: ClusterSet, o_planes, d_planes, t_max, t_min=1e-3, any_hit=False,
-                      attrs=False, order=None, orders=None, refs=None):
+                      attrs=False, order=None, orders=None, refs=None, tan=False):
     """Intersect a grid of rays (planes of any shape) with a ClusterSet:
     (t, idx int32) — t = +inf and idx = -1 on a miss; idx is the
     padded-reordered slot (cs.perm maps it to the original triangle).
@@ -344,9 +359,13 @@ def cluster_intersect(cs: ClusterSet, o_planes, d_planes, t_max, t_min=1e-3, any
     plane, the initial t (the any-hit cutoff). order: (S,) int32 visit order
     (default 0..S-1); orders/refs: (K, S) int32 orders and their (K, 3|4)
     reference origins, from which each closest-hit ray takes the row
-    nearest its origin. UV tables raise NotImplementedError (their UV and
-    tangent attributes come with the texture features)."""
+    nearest its origin. On a UV table attrs=True appends (u, v), the hit's
+    texture coordinates (0 on a miss); tan=True, the texture-u tangent
+    planes, raises NotImplementedError (normal maps and mips are not
+    ported)."""
     global launches
+    if tan:
+        raise NotImplementedError(_TANGENTS)
     if o_planes[0].device.type == "cpu":
         return cluster_intersect_reference(cs, o_planes, d_planes, t_max, t_min, any_hit,
                                            attrs=attrs, order=order, orders=orders, refs=refs)
@@ -362,7 +381,8 @@ def cluster_intersect(cs: ClusterSet, o_planes, d_planes, t_max, t_min=1e-3, any
     n = t0.numel()
     out_t = torch.empty(n, dtype=torch.float32, device=dev)
     out_idx = torch.empty(n, dtype=torch.int32, device=dev)
-    out_attr = torch.empty((5, n), dtype=torch.float32, device=dev) if attrs else None
+    n_attr = 7 if tb.tuv is not None else 5
+    out_attr = torch.empty((n_attr, n), dtype=torch.float32, device=dev) if attrs else None
     args = ClusterArgs(
         tables=tables_struct(tb, order, orders, refs),
         ox=o[0].data_ptr(), oy=o[1].data_ptr(), oz=o[2].data_ptr(),
@@ -370,10 +390,11 @@ def cluster_intersect(cs: ClusterSet, o_planes, d_planes, t_max, t_min=1e-3, any
         out_t=out_t.data_ptr(), out_idx=out_idx.data_ptr(),
         out_attr=0 if out_attr is None else out_attr.data_ptr(),
         n=n, t_min=float(np.float32(t_min)), any_hit=int(any_hit),
-        device=dev.index if dev.index is not None else torch.cuda.current_device())
+        device=dev.index if dev.index is not None else torch.cuda.current_device(),
+        tuv=0 if tb.tuv is None else tb.tuv.data_ptr())
     common.launch("cluster_intersect", args, name="cluster")
     launches += 1
     out = (out_t.reshape(shape), out_idx.reshape(shape))
     if attrs:
-        out += tuple(out_attr[a].reshape(shape) for a in range(5))
+        out += tuple(out_attr[a].reshape(shape) for a in range(n_attr))
     return out

@@ -11,8 +11,9 @@ gives each instance the super order of that origin moved into its object
 space (``instance_orders``); without it the orders are the identity.
 Either way the kernel and the plain version take the same orders, and agree
 bit for bit. ``tile`` and ``interpret`` are TPU knobs, accepted and ignored;
-``tan`` asks for the texture tangents of UV tables, which raise
-NotImplementedError (ops/cuda/cluster.py). Rays on the CPU take the plain
+a base ClusterSet with UV rows (a UV table under instances) raises
+NotImplementedError: its UV planes are not ported (``check_base``). Rays on
+the CPU take the plain
 version, ``instanced_cluster_intersect_reference``; rays on a CUDA device
 launch the kernel or raise.
 
@@ -154,6 +155,17 @@ class FrameInstances:
         return cls(ic, *instance_orders(ic.inst_tab, ic.cs, origin))
 
 
+_UV_BASE = ("UV tables under instances (K7 and K4 <instances, material>) are not ported yet "
+            "(ROADMAP.md queue 1 item 4, K4 feature 5, the texture features under instances)")
+
+
+def check_base(cs: ClusterSet):
+    """NotImplementedError for a base ClusterSet with UV rows (the
+    instanced UV tables are not ported)."""
+    if cs.has_uv:
+        raise NotImplementedError(_UV_BASE)
+
+
 def _sweep(tab, iorder, iorders, tb, t_pad: int, o, d, t0, t_min: float, any_hit: bool,
            attrs: bool):
     """The plain two-level sweep over flat (n,) planes (csrc/instanced.cuh
@@ -197,7 +209,7 @@ def _sweep(tab, iorder, iorders, tb, t_pad: int, o, d, t0, t_min: float, any_hit
         t_w[a] = torch.where(upd, t_obj * s, t_w[a])
         code[a] = torch.where(upd, k * t_pad + sidx, code[a])
         if attrs:
-            nx, ny, nz, _, _ = kcluster._attrs(tb, sidx, uu, vv)
+            nx, ny, nz = kcluster._attrs(tb, sidx, uu, vv)[:3]
             for c in range(3):  # object normal -> world: n_w = R n
                 w = r[c] * nx + r[3 + c] * ny + r[6 + c] * nz
                 nrm[c][a] = torch.where(upd, w, nrm[c][a])
@@ -213,6 +225,7 @@ def instanced_cluster_intersect_reference(inst_tab, cs: ClusterSet, o_planes, d_
     those of `origin`); it counts its work in ``work`` and
     ops/cuda/cluster.work."""
     del tile, interpret, tan
+    check_base(cs)
     shape, o, d, t0 = common.flat_rays(o_planes, d_planes, t_max)
     if iorder is None or iorders is None:
         iorder, iorders = instance_orders(inst_tab, cs, origin)
@@ -250,6 +263,7 @@ def instanced_cluster_intersect(inst_tab, cs: ClusterSet, o_planes, d_planes, t_
     (instance_orders); None: the identity orders. iorder / iorders: orders
     already made by instance_orders, which replace those of `origin`."""
     global launches
+    check_base(cs)
     if o_planes[0].device.type == "cpu":
         return instanced_cluster_intersect_reference(
             inst_tab, cs, o_planes, d_planes, t_min, tile, interpret, any_hit, attrs, t_max,

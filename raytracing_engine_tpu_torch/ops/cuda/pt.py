@@ -20,9 +20,14 @@
   coordinates the state carries, so the image equals K4's bit for bit.
 
 Both kernels come in a second, material instantiation for scenes with any
-of the optional material features (GGX metal, anisotropic metal, the world
-checker, dispersion, the gradient sky: ``PTScene.has_material_features``);
-a scene without them launches the instantiations it launched before.
+of the optional material features (GGX metal, anisotropic metal, rough
+glass, checkers in world or UV space, image textures, the unrolled slots'
+UVs, dispersion, the gradient sky, the env map:
+``PTScene.has_material_features``); a scene without them launches the
+instantiations it launched before. The atlas, the env map's tables and the
+UV records go to the kernels as tables of their own, read from global
+memory; a UV ClusterSet under instances raises NotImplementedError before
+any launch (ops/cuda/instanced.check_base).
 ``_kernel_args`` makes that choice once, as ``PTArgs.material``: the launch
 picks the instantiation by it, and the counts below read it.
 
@@ -72,7 +77,7 @@ rebin_launches = 0
 rebin_material_launches = 0
 
 # the kernels stage the scene tables in shared memory (the material table at
-# most 16 columns wide and the sky's 2 x 4 floats included)
+# most 20 columns wide and the sky's 2 x 4 floats included)
 _MAX_TABLE_BYTES = 48 * 1024
 # K5's block (csrc/pt.cu kRebinThreads): the "tile" of the tile_oct regroup key
 REBIN_TILE = 256
@@ -125,19 +130,34 @@ class PTArgs(ctypes.Structure):
         ("texture", ctypes.c_int),
         ("dispersion", ctypes.c_int),
         ("sky", ctypes.c_int),
+        ("rough_diel", ctypes.c_int),
+        ("env_map", ctypes.c_int),
+        ("uv_space", ctypes.c_int),
+        ("image", ctypes.c_int),
+        ("tri_uv", ctypes.c_int),
+        ("bilinear", ctypes.c_int),
+        ("env_img", ctypes.c_void_p),
+        ("env_smp", ctypes.c_void_p),
+        ("env_pick", ctypes.c_void_p),
+        ("env_k", ctypes.c_int),
+        ("atlas", ctypes.c_void_p),
+        ("atlas_k", ctypes.c_int),
+        ("tri_uvs", ctypes.c_void_p),
+        ("cl_uv", ctypes.c_void_p),
     ]
 
 
 def pack_pt_scene(scene: PTScene):
     """The scene as kernel tables (ops/pallas/pt_kernel.py pack_pt_scene, the
     slice's columns): sph (S, 8) [pos, radius, mat, 0 x3]; tri (T, 12) [v0,
-    e1, e2, mat, 0 x2]; mat (M, 8, 12 or 16) [albedo, emission, kind, ior],
+    e1, e2, mat, 0 x2]; mat (M, 8 to 20) [albedo, emission, kind, ior],
     then the optional columns in JAX's fixed order (pt_kernel.py:59-81):
-    albedo2 and the checker scale, rough, rough2, dispersion, zero-padded to
-    a multiple of 4; light (L, 12) [kind, prim, area, le, pick, cdf,
-    total_power, 0 x3]; counts int32 (4,) [spheres, triangles, materials,
-    lights]; env (2, 4) [bottom, 0; top, 0] of the gradient sky, (0, 4)
-    without one."""
+    albedo2 and the checker scale, tex_space, tex_rect, rough, rough2,
+    dispersion, zero-padded to a multiple of 4; light (L, 12) [kind, prim,
+    area, le, pick, cdf, total_power, 0 x3]; counts int32 (4,) [spheres,
+    triangles, materials, lights]; env (2, 4) [bottom, 0; top, 0] of the
+    gradient sky, (0, 4) without one. The features' other tables:
+    feature_tables."""
     f32 = torch.float32
     S, T = scene.sph_pos.shape[0], scene.tri_v0.shape[0]
     M, L = scene.mat_albedo.shape[0], scene.light_kind.shape[0]
@@ -150,6 +170,10 @@ def pack_pt_scene(scene: PTScene):
                 scene.mat_ior[:, None]]
     if scene.has_texture:
         mat_cols += [scene.mat_albedo2, scene.mat_tex_scale[:, None]]
+    if scene.mat_tex_space is not None:
+        mat_cols += [scene.mat_tex_space[:, None]]
+    if scene.has_image:
+        mat_cols += [scene.mat_tex_rect]
     if scene.has_metal:
         mat_cols += [scene.mat_rough[:, None]]
     if scene.has_aniso:
@@ -187,6 +211,7 @@ def kernel_scene(scene: PTScene, bvh) -> PTScene:
     return dataclasses.replace(
         scene, tri_v0=scene.tri_v0[:n].contiguous(), tri_e1=scene.tri_e1[:n].contiguous(),
         tri_e2=scene.tri_e2[:n].contiguous(), tri_mat=scene.tri_mat[:n].contiguous(),
+        tri_uv=None if scene.tri_uv is None else scene.tri_uv[:n].contiguous(),
         tri_count=torch.clamp_max(scene.tri_count, n))
 
 
@@ -256,6 +281,26 @@ def render_pt_mega_reference(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, s
     return acc * inv, nrays
 
 
+def feature_tables(scene: PTScene):
+    """The tables of the features the kernels read from global memory, each
+    None where the scene lacks it: env_img and env_smp (3K, 128) and
+    env_pick (1,) of the env map, the atlas (3K, 128), and the unrolled
+    slots' UVs (T, 8) [u0, v0, u1, v1, u2, v2, 0, 0]."""
+    f32 = torch.float32
+    tri_uvs = None
+    if scene.has_tri_uv:
+        T = scene.tri_uv.shape[0]
+        tri_uvs = torch.cat([scene.tri_uv, torch.zeros((T, 2), dtype=f32, device=scene.device)],
+                            1).contiguous()
+    env = (None,) * 3
+    if scene.has_env_map:
+        env = (scene.env_img.contiguous(), scene.env_smp.contiguous(),
+               scene.env_pick.reshape(1).contiguous())
+    return dict(env_img=env[0], env_smp=env[1], env_pick=env[2],
+                atlas=None if scene.tex_atlas is None else scene.tex_atlas.contiguous(),
+                tri_uvs=tri_uvs)
+
+
 def _kernel_args(cfg: PTConfig, scene_k: PTScene, cam_pos, cam_quat, h: int, row0: int,
                  seed: int, spp_offset: int, frame):
     """(PTArgs without out / nrays / state, the tensors it points into)."""
@@ -271,12 +316,15 @@ def _kernel_args(cfg: PTConfig, scene_k: PTScene, cam_pos, cam_quat, h: int, row
     if table_bytes > _MAX_TABLE_BYTES:
         raise ValueError(f"scene tables of {table_bytes} B exceed the kernel's "
                          f"{_MAX_TABLE_BYTES} B of shared memory")
-    keep = list(tables)
+    feats = feature_tables(scene_k)
+    keep = list(tables) + [t for t in feats.values() if t is not None]
     cl, inst = ClusterTables(), InstanceTables()
+    cl_uv = None
     if isinstance(frame, FrameInstances):
         cs = frame.ic.cs
         if cs.device != device:
             raise ValueError(f"InstancedClusters on {cs.device}, scene on {device}")
+        kinst.check_base(cs)
         tb = kcluster.sweep_tables(cs)
         order = torch.arange(cs.num_super, dtype=torch.int32, device=device)
         cl = kcluster.tables_struct(tb, order)
@@ -289,6 +337,7 @@ def _kernel_args(cfg: PTConfig, scene_k: PTScene, cam_pos, cam_quat, h: int, row
         order, orders, refs = kcluster.check_orders(frame.cs, frame.orders[0], frame.orders,
                                                     frame.refs)
         cl = kcluster.tables_struct(tb, order, orders, refs)
+        cl_uv = tb.tuv
         keep += [tb, order, orders, refs]
     args = PTArgs(
         cam_pos=cam_pos.data_ptr(), cam_quat=cam_quat.data_ptr(),
@@ -307,6 +356,13 @@ def _kernel_args(cfg: PTConfig, scene_k: PTScene, cam_pos, cam_quat, h: int, row
         metal=int(scene_k.has_metal), aniso=int(scene_k.has_aniso),
         texture=int(scene_k.has_texture), dispersion=int(scene_k.has_dispersion),
         sky=int(scene_k.has_env),
+        rough_diel=int(scene_k.has_rough_dielectric), env_map=int(scene_k.has_env_map),
+        uv_space=int(scene_k.mat_tex_space is not None), image=int(scene_k.has_image),
+        tri_uv=int(scene_k.has_tri_uv), bilinear=int(cfg.tex_filter == "bilinear"),
+        env_k=0 if feats["env_img"] is None else feats["env_img"].shape[0] // 3,
+        atlas_k=0 if feats["atlas"] is None else feats["atlas"].shape[0] // 3,
+        cl_uv=None if cl_uv is None else cl_uv.data_ptr(),
+        **{k: None if t is None else t.data_ptr() for k, t in feats.items()},
     )
     return args, keep
 

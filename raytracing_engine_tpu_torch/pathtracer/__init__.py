@@ -4,8 +4,10 @@ spheres, unrolled triangles and meshes as ClusterSets.
     integrator.py  PTConfig (every field of the JAX config)
     sampler.py     ONB, cosine hemisphere, sphere/triangle area samples, MIS,
                    the GGX microfacet functions (isotropic and anisotropic)
-    scene.py       PTScene (with the METAL, checker, dispersion and sky
-                   columns), build_pt_scene, pt_scene_from_numpy
+    scene.py       PTScene (with the METAL, rough-glass, checker, image,
+                   UV, dispersion, sky and env-map columns and tables),
+                   build_pt_scene, pt_scene_from_numpy, pack_texture_atlas,
+                   build_env_map
     sceneio.py     JSON scene files: load_scene_json, SceneBundle
     scenes.py      furnace_scene, cornell_box, material_spheres
     wavefront.py   the plain PyTorch path tracer (render_pt_fast, the staged

@@ -14,10 +14,12 @@ per-triangle materials. On a CUDA scene the jitter is drawn by kernel K9
 versions run.
 
 Misses write zeros into every plane (depth 0 is the conventional "sky"
-sentinel: a real hit has depth >= t_min > 0). The albedo follows a world
-checker, as the JAX package's does (the denoiser demodulates by it); the
-port's scenes carry no image textures or normal maps (pathtracer/scene.py
-refuses them), so the normal is the geometric one.
+sentinel: a real hit has depth >= t_min > 0). The albedo follows checkers
+(world or UV space) and image textures at the hit's UV, as the JAX
+package's does (the denoiser demodulates by it; bilinear where
+cfg.tex_filter says "bilinear", else nearest, as in JAX aov.py:64-68); the
+port's scenes carry no normal maps (pathtracer/scene.py refuses them), so
+the normal is the geometric one.
 """
 
 from __future__ import annotations
@@ -78,7 +80,9 @@ def render_aovs(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
         gate = torch.where(hit, 1.0, 0.0)
         albedo = _mat_lookup(scene, isect["mat_id"])[0]
         if scene.has_texture:  # textured albedo: the denoiser demodulates by it
-            albedo = _textured_albedo(scene, isect["mat_id"], albedo, isect["p"])
+            albedo = _textured_albedo(scene, isect["mat_id"], albedo, isect["p"],
+                                      uv=isect.get("uv"),
+                                      bilinear=cfg.tex_filter == "bilinear")
         alb = v3.add(alb, v3.scale(albedo, gate))
         nrm = v3.add(nrm, v3.scale(isect["n"], gate))
         dep = dep + torch.where(hit, isect["t"], 0.0)

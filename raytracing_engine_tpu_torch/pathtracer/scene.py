@@ -6,18 +6,24 @@ what the port renders: spheres, triangle slots (all of them stay in the
 scene; a mesh of more than ``TRI_UNROLL_MAX`` slots is intersected through
 a ClusterSet, and only the first ``TRI_UNROLL_MAX`` slots are unrolled, for
 NEE, so an emissive slot at or past it is refused as the JAX package
-refuses it), DIFFUSE / MIRROR / smooth DIELECTRIC / METAL (GGX, isotropic
-or anisotropic) / emissive materials, world-space checkers, spectral
-dispersion, a constant or gradient sky (``env``), and the sphere and
-triangle light slots with their power CDF. Every other input raises
-NotImplementedError naming the ROADMAP item that brings it.
-``pt_scene_from_numpy`` carries a JAX ``PTScene``'s arrays across, so both
-packages render the same data.
+refuses it), DIFFUSE / MIRROR / DIELECTRIC (smooth or rough: GGX, Walter
+2007) / METAL (GGX, isotropic or anisotropic) / emissive materials,
+checkers in world or UV space, image textures in the shared atlas
+(``pack_texture_atlas``), per-corner UVs of the unrolled slots
+(``tri_uvs``), spectral dispersion, a constant or gradient sky (``env``) or
+an importance-sampled equirect env map (``env`` of shape (H, W, 3):
+``build_env_map``), and the sphere and triangle light slots with their
+power CDF. Every other input raises NotImplementedError naming the ROADMAP
+item that brings it. ``pt_scene_from_numpy`` carries a JAX ``PTScene``'s
+arrays across, so both packages render the same data.
 
-The optional material columns are None where no material uses them, as in
+The optional columns and tables are None where nothing uses them, as in
 the JAX package: a scene without them renders the program it rendered
 before they existed (the static gates ``has_metal``, ``has_aniso``,
-``has_texture``, ``has_dispersion``, ``has_env``).
+``has_texture``, ``has_dispersion``, ``has_env``, ``has_rough_dielectric``,
+``has_image``, ``has_tri_uv``, ``needs_uv``, ``has_env_map``). The atlas
+and the env map stay JAX's tables, 128 texels wide with at most 32 rows:
+their resampling is part of the image, not a layout of the TPU.
 
 Material kinds: 0 DIFFUSE, 1 MIRROR, 3 DIELECTRIC, 4 METAL.
 """
@@ -39,6 +45,11 @@ METAL = 4
 
 TRI_UNROLL_MAX = 32
 
+ATLAS_W = 128        # texels per atlas row
+ATLAS_MAX_ROWS = 32  # atlas budget: 32 * 128 = 4096 texels
+ENV_W = 128          # env-map texels per row
+ENV_MAX_ROWS = 32    # env-map polar rows budget
+
 LIGHT_SPHERE = 0
 LIGHT_TRI = 1
 
@@ -50,6 +61,42 @@ _LATER = "ROADMAP.md queue 1 item 4, K4 feature"
 
 def _not_yet(what: str, feature: int):
     raise NotImplementedError(f"{what} is not ported yet ({_LATER} {feature})")
+
+
+def pack_texture_atlas(images):
+    """Shelf-pack RGB images into the shared texture atlas (JAX
+    scene.pack_texture_atlas). images: sequence of (h, w, 3) float arrays,
+    each w <= ATLAS_W. -> (atlas (3K, ATLAS_W) f32, channel-major rows, row
+    c*K + k; rects (N, 4) f32 [x0, y0, w, h] texel rectangles), K at most
+    ATLAS_MAX_ROWS."""
+    rects = np.zeros((len(images), 4), np.float32)
+    x = y = shelf_h = 0
+    placed = []
+    for n, img in enumerate(images):
+        img = np.asarray(img, np.float32)
+        if img.ndim != 3 or img.shape[2] != 3:
+            raise ValueError(f"texture {n} must be (h, w, 3); got {img.shape}")
+        h, w = img.shape[:2]
+        if w > ATLAS_W:
+            raise ValueError(f"texture {n} is {w} texels wide > atlas width {ATLAS_W}")
+        if x + w > ATLAS_W:  # new shelf
+            y += shelf_h
+            x = shelf_h = 0
+        rects[n] = (x, y, w, h)
+        placed.append((x, y, img))
+        shelf_h = max(shelf_h, h)
+        x += w
+    K = y + shelf_h
+    if K > ATLAS_MAX_ROWS:
+        raise ValueError(f"textures need {K} atlas rows > budget {ATLAS_MAX_ROWS} "
+                         f"({ATLAS_MAX_ROWS * ATLAS_W} texels) — shrink or share textures")
+    K = max(K, 1)
+    atlas = np.zeros((3 * K, ATLAS_W), np.float32)
+    for x0, y0, img in placed:
+        h, w = img.shape[:2]
+        for c in range(3):
+            atlas[c * K + y0:c * K + y0 + h, x0:x0 + w] = img[:, :, c]
+    return atlas, rects
 
 
 def _pad(a, n, fill=0.0):
@@ -97,12 +144,29 @@ class PTScene:
     mat_rough: torch.Tensor | None = None       # (M,) METAL roughness (alpha = r²)
     mat_rough2: torch.Tensor | None = None      # (M,) METAL roughness_y (anisotropic)
     mat_dispersion: torch.Tensor | None = None  # (M,) DIELECTRIC ior spread, 0 = none
+    # UV texturing: per-corner UVs of the unrolled slots (ClusterSets carry
+    # theirs in table rows 32-37), spheres the analytic parametrization;
+    # checkers in UV space (mat_tex_space 1) and image textures in the
+    # shared atlas, (3K, 128) channel-major rows
+    mat_tex_space: torch.Tensor | None = None   # (M,) 1 = UV-space checker
+    tex_atlas: torch.Tensor | None = None       # (3K, 128) atlas rows
+    mat_tex_rect: torch.Tensor | None = None    # (M, 4) x0, y0, w, h texels; w 0 = none
+    tri_uv: torch.Tensor | None = None          # (T, 6) u0, v0, u1, v1, u2, v2
     # gradient sky: (2, 3) [bottom, top] radiance, lerped on the ray's z at
     # 0.5 (d.z + 1); equal rows = a constant sky. Escaped rays read it at
     # full weight (never NEE-sampled)
     env: torch.Tensor | None = None
+    # the equirect env map with NEE importance sampling (build_env_map):
+    # radiance rows, [p_sel; alias prob; alias index] rows, and the
+    # probability that NEE samples the map rather than the light table
+    env_img: torch.Tensor | None = None   # (3K, 128)
+    env_smp: torch.Tensor | None = None   # (3K, 128)
+    env_pick: torch.Tensor | None = None  # () f32
     # static: any DIELECTRIC material (the scatter step's glass branch)
     has_dielectric: bool = False
+    # static: any DIELECTRIC with roughness > 0 (the Walter 2007 branch;
+    # mat_rough is then present)
+    has_rough_dielectric: bool = False
     # static: number of triangle light slots
     n_tri_slot_lights: int = 0
 
@@ -131,11 +195,33 @@ class PTScene:
         return self.env is not None
 
     @property
+    def has_image(self) -> bool:
+        return self.mat_tex_rect is not None
+
+    @property
+    def has_atlas(self) -> bool:
+        return self.tex_atlas is not None
+
+    @property
+    def has_tri_uv(self) -> bool:
+        return self.tri_uv is not None
+
+    @property
+    def needs_uv(self) -> bool:
+        """Shading reads hit UVs (image textures or UV-space checkers)."""
+        return self.tex_atlas is not None or self.mat_tex_space is not None
+
+    @property
+    def has_env_map(self) -> bool:
+        return self.env_img is not None
+
+    @property
     def has_material_features(self) -> bool:
-        """Any of the five optional features: the kernels then launch their
+        """Any of the optional features: the kernels then launch their
         material instantiation."""
         return (self.has_metal or self.has_aniso or self.has_texture or self.has_dispersion
-                or self.has_env)
+                or self.has_env or self.has_rough_dielectric or self.has_env_map
+                or self.mat_tex_space is not None or self.has_image or self.has_tri_uv)
 
     def tensors(self) -> dict:
         return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
@@ -147,10 +233,11 @@ class PTScene:
 
 
 OPTIONAL_FIELDS = ("mat_albedo2", "mat_tex_scale", "mat_rough", "mat_rough2", "mat_dispersion",
-                   "env")
+                   "mat_tex_space", "tex_atlas", "mat_tex_rect", "tri_uv", "env", "env_img",
+                   "env_smp", "env_pick")
+_STATIC_FIELDS = ("has_dielectric", "has_rough_dielectric", "n_tri_slot_lights")
 TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(PTScene)
-                      if f.name not in ("has_dielectric", "n_tri_slot_lights")
-                      and f.name not in OPTIONAL_FIELDS)
+                      if f.name not in _STATIC_FIELDS and f.name not in OPTIONAL_FIELDS)
 
 
 def _scene(arrays: dict, device) -> PTScene:
@@ -162,8 +249,11 @@ def _scene(arrays: dict, device) -> PTScene:
         dtype = torch.int32 if name in _INT_FIELDS else torch.float32
         out[name] = torch.as_tensor(np.array(arrays[name]), dtype=dtype).to(device).contiguous()
     kinds = np.asarray(arrays["mat_kind"])
+    rough = arrays.get("mat_rough")
     lk = np.asarray(arrays["light_kind"])[:int(arrays["light_count"])]
     return PTScene(**out, has_dielectric=bool((kinds == DIELECTRIC).any()),
+                   has_rough_dielectric=rough is not None and bool(
+                       ((kinds == DIELECTRIC) & (np.asarray(rough) > 0)).any()),
                    n_tri_slot_lights=int((lk == LIGHT_TRI).sum()))
 
 
@@ -171,10 +261,9 @@ def _scene(arrays: dict, device) -> PTScene:
 # ROADMAP.md queue 1 item 4 that brings them; a non-None value raises
 _UNPORTED_FIELDS = {
     "mesh_light_tri": 13, "mesh_light_cdf": 13, "mesh_light_area": 13, "mesh_light_pick": 13,
-    "mlt_rows": 13, "mlt_smp": 13, "mat_tex_space": 5, "tex_atlas": 5, "mat_tex_rect": 5,
-    "mat_tex_mips": 7, "mat_nrm_rect": 6, "mat_nrm_scale": 6, "tri_uv": 5, "lt_center": 12,
-    "lt_radius": 12, "lt_power": 12, "lt_cluster": 12, "lt_cdf_intra": 12, "lt_pick_intra": 12,
-    "env_img": 8, "env_smp": 8, "env_pick": 8,
+    "mlt_rows": 13, "mlt_smp": 13, "mat_tex_mips": 7, "mat_nrm_rect": 6, "mat_nrm_scale": 6,
+    "lt_center": 12, "lt_radius": 12, "lt_power": 12, "lt_cluster": 12, "lt_cdf_intra": 12,
+    "lt_pick_intra": 12,
 }
 
 
@@ -188,11 +277,6 @@ def pt_scene_from_numpy(fields: dict, device=None) -> PTScene:
     for name, feature in _UNPORTED_FIELDS.items():
         if fields.get(name) is not None:
             _not_yet(f"PTScene.{name}", feature)
-    rough = fields.get("mat_rough")
-    if fields.get("has_rough_dielectric") or (
-            rough is not None and bool(((np.asarray(fields["mat_kind"]) == DIELECTRIC)
-                                        & (np.asarray(rough) > 0)).any())):
-        _not_yet("rough dielectric", 3)
     return _scene(fields, device)
 
 
@@ -218,30 +302,28 @@ def build_pt_scene(
     light_pad: int | None = None,
     mesh_lights=False,
     allow_many_tri_lights: bool = False,
-    env=None,            # (3,) constant sky or ((3,), (3,)) = (bottom, top) gradient
-    tri_uvs=None,
+    env=None,            # (3,) constant sky, ((3,), (3,)) = (bottom, top) gradient,
+    #                      or an (H, W, 3) equirect HDR image -> the env map
+    tri_uvs=None,        # (T, 3, 2) per-corner UVs of the unrolled slots
     light_tree: int = 0,
-    env_pick=None,
-    env_rows=None,
+    env_pick=None,       # NEE env-vs-lights probability override (env map)
+    env_rows=None,       # env-map polar resolution override (<= 32)
     tex_mips: bool = False,
     device=None,
 ) -> PTScene:
     """Host-side scene assembly: pads the tables and derives the light table
     (JAX build_pt_scene, the slice's inputs). Material keys: albedo,
-    emission, kind, ior, roughness (METAL, default 0.3), roughness_y
-    (anisotropic METAL), checker ({"color", "scale", "space": "world"}) and
-    dispersion (DIELECTRIC). device=None is the CUDA card."""
+    emission, kind, ior, roughness (METAL, default 0.3; a DIELECTRIC's > 0
+    makes it rough glass), roughness_y (anisotropic METAL), checker
+    ({"color", "scale", "space": "world" | "uv"}), image ({"pixels": (h, w,
+    3), "scale": UV tiling} or the pixels alone) and dispersion
+    (DIELECTRIC). device=None is the CUDA card."""
     if mesh_lights:
         _not_yet("mesh_lights", 13)
-    if env is not None and np.asarray(env, object).ndim == 3:
-        _not_yet("env as an (H, W, 3) image (the env map, with env_pick / env_rows)", 8)
-    if tri_uvs is not None:
-        _not_yet("tri_uvs", 5)
     if light_tree:
         _not_yet("light_tree", 12)
     if tex_mips:
         _not_yet("tex_mips", 7)
-    del env_pick, env_rows  # meaningful only with an env map, as in the JAX package
     device = resolve(device)
 
     S = len(spheres)
@@ -276,15 +358,13 @@ def build_pt_scene(
     mat_rough2 = np.zeros((M,), np.float32)
     mat_albedo2 = np.zeros((M, 3), np.float32)
     mat_tex_scale = np.zeros((M,), np.float32)
+    mat_tex_space = np.zeros((M,), np.float32)
     mat_dispersion = np.zeros((M,), np.float32)
+    images = []  # (material index, (h, w, 3) pixels) for the atlas
     for i, m in enumerate(materials):
-        if "image" in m:
-            _not_yet('material "image" (atlas image textures)', 5)
         if "normal" in m:
             _not_yet('material "normal" (normal maps)', 6)
         mat_kind[i] = m.get("kind", DIFFUSE)
-        if mat_kind[i] == DIELECTRIC and m.get("roughness", 0.0) > 0:
-            _not_yet('"roughness" on a dielectric (rough dielectric)', 3)
         # a clear dielectric tints nothing: albedo defaults to 1 there
         default_albedo = (1.0,) * 3 if mat_kind[i] == DIELECTRIC else (0.0,) * 3
         mat_albedo[i] = m.get("albedo", default_albedo)
@@ -293,12 +373,34 @@ def build_pt_scene(
         mat_rough[i] = m.get("roughness", 0.3 if mat_kind[i] == METAL else 0.0)
         mat_rough2[i] = m.get("roughness_y", mat_rough[i])
         if "checker" in m:  # {"color": (3,), "scale", "space": "world" | "uv"}
-            if m["checker"].get("space", "world") == "uv":
-                _not_yet('checker "space": "uv" (UV-space checkers)', 5)
             mat_albedo2[i] = m["checker"].get("color", (0.0, 0.0, 0.0))
             mat_tex_scale[i] = m["checker"].get("scale", 1.0)
+            mat_tex_space[i] = 1.0 if m["checker"].get("space", "world") == "uv" else 0.0
+        if "image" in m:  # {"pixels": (h, w, 3), "scale": uv tiling} | array
+            spec = m["image"]
+            if isinstance(spec, dict):
+                pixels, scale = spec["pixels"], spec.get("scale", 1.0)
+            else:
+                pixels, scale = spec, 1.0
+            images.append((i, np.asarray(pixels, np.float32)))
+            mat_tex_scale[i] = scale
         mat_dispersion[i] = m.get("dispersion", 0.0)
-    metal = mat_kind == METAL
+    textured = bool((mat_tex_scale > 0).any())
+    uv_space = bool((mat_tex_space > 0).any())
+    rough_diel = (mat_kind == DIELECTRIC) & (mat_rough > 0)
+    tex_atlas = mat_rect = None
+    if images:
+        tex_atlas, rects = pack_texture_atlas([img for _, img in images])
+        mat_rect = np.zeros((M, 4), np.float32)  # w = 0: no image texture
+        for (i, _), r in zip(images, rects):
+            mat_rect[i] = r
+    tri_uv6 = None
+    if tri_uvs is not None:
+        uv_arr = np.asarray(tri_uvs, np.float32)
+        if uv_arr.shape != (T, 3, 2):
+            raise ValueError(f"tri_uvs must be (T, 3, 2) matching triangles; got "
+                             f"{uv_arr.shape} for T={T}")
+        tri_uv6 = _pad(uv_arr.reshape(T, 6), tri_pad)
 
     # --- light table: all primitives whose material emits -----------------
     lk, lp, la, le = [], [], [], []
@@ -343,6 +445,17 @@ def build_pt_scene(
     light_cdf = np.minimum(np.cumsum(light_pick), 1.0).astype(np.float32)
     light_cdf[max(L - 1, 0):] = 1.0  # padded slots are never selected
 
+    env_img = env_smp = env_pick_v = None
+    if env is not None and np.asarray(env, object).ndim == 3:
+        env_img, env_smp, env_power = build_env_map(env, rows=env_rows)
+        if env_pick is None:
+            # default: power-proportional split between the env and the
+            # light table (any value in (0, 1] is unbiased)
+            env_pick = (1.0 if total_power <= 0
+                        else env_power / (env_power + total_power))
+        env_pick_v = np.float32(np.clip(env_pick, 1e-3 if L else 1.0, 1.0))
+        env = None  # the gradient env and the map are mutually exclusive
+
     return _scene(dict(
         sph_pos=sph_pos, sph_radius=sph_radius, sph_mat=sph_mat, sph_count=S,
         tri_v0=v0, tri_e1=e1, tri_e2=e2, tri_mat=tmat, tri_count=T,
@@ -351,11 +464,71 @@ def build_pt_scene(
         light_area=light_area, light_le=light_le, light_count=L,
         light_pick=light_pick, light_cdf=light_cdf,
         light_total_power=np.float32(total_power),
-        # the optional columns, present only where a material uses them
-        mat_rough=mat_rough if metal.any() else None,
-        mat_rough2=mat_rough2 if (metal & (mat_rough2 != mat_rough)).any() else None,
-        mat_albedo2=mat_albedo2 if (mat_tex_scale > 0).any() else None,
-        mat_tex_scale=mat_tex_scale if (mat_tex_scale > 0).any() else None,
+        # the optional columns, present only where a material uses them;
+        # mat_rough ships with metal or rough glass, as in the JAX package
+        mat_rough=mat_rough if ((mat_kind == METAL).any() or rough_diel.any()) else None,
+        mat_rough2=(mat_rough2 if ((mat_kind == METAL) & (mat_rough2 != mat_rough)).any()
+                    else None),
+        mat_albedo2=mat_albedo2 if textured else None,
+        mat_tex_scale=mat_tex_scale if textured else None,
+        mat_tex_space=mat_tex_space if uv_space else None,
+        tex_atlas=tex_atlas, mat_tex_rect=mat_rect, tri_uv=tri_uv6,
         mat_dispersion=mat_dispersion if (mat_dispersion > 0).any() else None,
-        env=_env_rows(env),
+        env=_env_rows(env), env_img=env_img, env_smp=env_smp, env_pick=env_pick_v,
     ), device)
+
+
+def _alias_table(p):
+    """Vose alias table for the normalized pmf p (N,) (JAX
+    scene._alias_table): (accept_prob (N,) f32, alias_index (N,) f32).
+    One uniform u samples it: x = u N, j = floor(x), f = x - j; take j if
+    f < prob[j], else alias[j]."""
+    p = np.asarray(p, np.float64)
+    n = p.size
+    scaled = p * n
+    prob = np.ones(n, np.float64)
+    alias = np.arange(n, dtype=np.int64)
+    small = [i for i in range(n) if scaled[i] < 1.0]
+    large = [i for i in range(n) if scaled[i] >= 1.0]
+    while small and large:
+        s = small.pop()
+        lg = large.pop()
+        prob[s] = scaled[s]
+        alias[s] = lg
+        scaled[lg] = scaled[lg] - (1.0 - scaled[s])
+        (small if scaled[lg] < 1.0 else large).append(lg)
+    return prob.astype(np.float32), alias.astype(np.float32)
+
+
+def build_env_map(img, rows: int | None = None):
+    """Equirect HDR environment map -> its tables (JAX scene.build_env_map).
+
+    img: (H, W, 3) radiance, θ from +z (top row) to -z (bottom row), φ over
+    the full azimuth with u = 0.5 at +x (the parametrization of the
+    spheres' UVs). Resampled (nearest) to (K, ENV_W) with K = min(rows or
+    H, ENV_MAX_ROWS). -> (env_img (3K, 128) channel-major radiance rows,
+    env_smp (3K, 128) = [p_sel; alias prob; alias index] rows, p_sel each
+    texel's selection probability ∝ luminance × solid angle, floored so
+    every texel with energy stays samplable; env_power ∫ lum(L) dω, the
+    default NEE pick weight)."""
+    img = np.asarray(img, np.float32)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"env map must be (H, W, 3); got {img.shape}")
+    H, W = img.shape[:2]
+    K = min(rows or H, ENV_MAX_ROWS)
+    iy = np.minimum(((np.arange(K) + 0.5) / K * H).astype(np.int64), H - 1)
+    ix = np.minimum(((np.arange(ENV_W) + 0.5) / ENV_W * W).astype(np.int64), W - 1)
+    tex = img[iy][:, ix]  # (K, 128, 3) nearest resample
+    lum = tex @ _LUM      # (K, 128) float64
+    # texel solid angle: (2π/W) * (cos θ_top - cos θ_bot) per row
+    th = np.arange(K + 1) / K * np.pi
+    domega = (2.0 * np.pi / ENV_W) * (np.cos(th[:-1]) - np.cos(th[1:]))
+    w = lum * domega[:, None]
+    env_power = float(w.sum())
+    # floor: texels with any energy stay samplable, and an all-black map builds
+    w = w + max(env_power, 1e-12) * 1e-4 * (domega[:, None] / (4 * np.pi))
+    p_sel = (w / w.sum()).astype(np.float32)
+    ap, ai = _alias_table(p_sel.reshape(-1))
+    env_img = np.concatenate([tex[:, :, c] for c in range(3)], axis=0)
+    env_smp = np.concatenate([p_sel, ap.reshape(K, ENV_W), ai.reshape(K, ENV_W)], axis=0)
+    return env_img.astype(np.float32), env_smp.astype(np.float32), env_power

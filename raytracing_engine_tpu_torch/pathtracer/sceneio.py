@@ -79,9 +79,8 @@ light would be a wrongness hazard, not a convenience.
 
 In the port every entry of the schema loads, with the JAX package's checks
 and messages; ``build_pt_scene`` then refuses, naming the ROADMAP item that
-brings it, what the port cannot render yet: UV-space checkers, image
-textures and normal maps, OBJ UVs, the env map, mesh lights, tex_mips and a
-dielectric's roughness. The scene goes to ``device`` (None: the CUDA card).
+brings it, what the port cannot render yet: normal maps, mesh lights and
+tex_mips. The scene goes to ``device`` (None: the CUDA card).
 """
 
 from __future__ import annotations

@@ -2,13 +2,15 @@
 CPU renderer (raytracing_engine_tpu/pathtracer/wavefront.py).
 
 Same estimator and the same sample streams as the JAX wavefront: NEE
-toward power- or uniform-selected sphere and triangle lights with
-power-heuristic MIS, DIFFUSE / MIRROR / smooth DIELECTRIC (with spectral
-dispersion) / METAL (GGX, isotropic or anisotropic) / emissive materials,
-world-space checkers, a constant or gradient sky, optional Russian
-roulette. Per-ray state is component planes of any shape, and every
-expression keeps the JAX operation order, because csrc/pt.cuh is held to
-this code on the card.
+toward power- or uniform-selected sphere and triangle lights and, with an
+env map, toward the map's alias-sampled texels (one coin splits the two),
+with power-heuristic MIS, DIFFUSE / MIRROR / DIELECTRIC (smooth, or rough
+by Walter 2007; with spectral dispersion) / METAL (GGX, isotropic or
+anisotropic) / emissive materials, checkers in world or UV space, image
+textures from the atlas (nearest or bilinear), a constant or gradient sky
+or the env map, optional Russian roulette. Per-ray state is component
+planes of any shape, and every expression keeps the JAX operation order,
+because csrc/pt.cuh is held to this code on the card.
 
 Streams (``PTConfig.rng``): ``"pcg"``, the counter-based PCG4D hash keyed on
 pixel coordinates (ops/rng_pcg.py; the megakernels' stream); ``"threefry"``
@@ -50,11 +52,18 @@ with a dispersive scene's chan), which carries each ray's pixel
 coordinates so that any regrouping of rays between calls draws the same
 numbers.
 
+Hit UVs (scenes with image textures or UV-space checkers): spheres take
+the analytic parametrization (``_sphere_uv``, polynomial inverse trig),
+the unrolled slots and a raw BVH interpolate ``scene.tri_uv`` at the hit's
+barycentrics, a ClusterSet with UV rows interpolates them (the gather path
+from the barycentrics recomputed at the hit point, the attributes path from
+the sweep's), as in the JAX package.
+
 Not in this slice (each raises NotImplementedError; ROADMAP queue 1 lists
 them in order): thin-lens DOF, fog and media, the R_d sampler, the light
-tree, texture filters other than nearest, the sorted wavefront (``sort``,
-with pathtracer/compaction.py); the scene features pathtracer/scene.py
-refuses never reach this code.
+tree, the trilinear texture filter, the sorted wavefront (``sort``, with
+pathtracer/compaction.py); the scene features pathtracer/scene.py refuses
+never reach this code.
 """
 
 from __future__ import annotations
@@ -124,8 +133,8 @@ def check_supported(cfg: PTConfig, bvh=None, sort=False):
         _not_yet(f"sampler={cfg.sampler!r} (the R_d sampler)")
     if cfg.light_sampling == "tree":
         _not_yet("light_sampling='tree' (the light tree)")
-    if cfg.tex_filter != "nearest":
-        _not_yet(f"tex_filter={cfg.tex_filter!r}")
+    if cfg.tex_filter not in ("nearest", "bilinear"):
+        _not_yet(f"tex_filter={cfg.tex_filter!r} (mip chains, K4 feature 7)")
     check_mesh(bvh)
     if sort and cfg.rng != "pcg":
         raise ValueError("sort=True requires rng='pcg'")
@@ -253,12 +262,13 @@ def _mean_live_origin(o):
 
 
 def _tri_hits_clusters(o, d, t_min, cs: ClusterSet):
-    """(t, original tri index, n V3 unnormalized, 2*area) of the nearest
-    ClusterSet hit, the normal and area gathered by the hit slot; t = BIG
-    on a miss. Smooth tables recompute the hit barycentrics from the affine
-    rows at the hit point and interpolate the shading normals (JAX
-    wavefront.py:311-334). Visit orders (JAX wavefront.py:294-310): row 0
-    from the mean live origin, rows 1+ from the set's order_refs."""
+    """(t, original tri index, n V3 unnormalized, 2*area, uv or None) of the
+    nearest ClusterSet hit, the normal and area gathered by the hit slot;
+    t = BIG on a miss. Smooth tables recompute the hit barycentrics from the
+    affine rows at the hit point and interpolate the shading normals, and
+    UV tables the texture UVs (JAX wavefront.py:311-345). Visit orders (JAX
+    wavefront.py:294-310): row 0 from the mean live origin, rows 1+ from
+    the set's order_refs."""
     fc = FrameClusters.at(cs, _mean_live_origin(o))
     t, sidx = kcluster.cluster_intersect(cs, o, d, BIG, t_min=t_min, order=fc.orders[0],
                                          orders=fc.orders, refs=fc.refs)
@@ -266,6 +276,7 @@ def _tri_hits_clusters(o, d, t_min, cs: ClusterSet):
     idx = torch.clamp_min(cs.perm[safe], 0).to(torch.int64)
     n = (cs.tri[0, safe], cs.tri[1, safe], cs.tri[2, safe])
     nlen2 = cs.tri[13, safe]
+    tuv = None
     if cs.smooth:
         base = (safe // CLUSTER) * CLUSTER
         px = o[0] + t * d[0] - cs.tri[20, base]
@@ -277,12 +288,40 @@ def _tri_hits_clusters(o, d, t_min, cs: ClusterSet):
              + cs.tri[10, safe] * pz + cs.tri[11, safe])
         n = tuple(cs.tri[21 + a, safe] + u * cs.tri[24 + a, safe]
                   + v * cs.tri[27 + a, safe] for a in range(3))
-    return torch.where(sidx >= 0, t, BIG), idx, n, nlen2
+        if cs.has_uv:  # rows 32-37: uv0, uv1 - uv0, uv2 - uv0
+            tuv = tuple(cs.tri[32 + a, safe] + u * cs.tri[34 + a, safe]
+                        + v * cs.tri[36 + a, safe] for a in range(2))
+    return torch.where(sidx >= 0, t, BIG), idx, n, nlen2, tuv
 
 
-def _surface(scene: PTScene, o, d, t_s, i_s, t_t, n_tri, use_tri_mat, tri_area):
+def _tri_uv_gather(scene: PTScene, i_t, p):
+    """The hit's UV from scene.tri_uv: the barycentrics recomputed from the
+    gathered triangle at p, then the corners interpolated (JAX
+    wavefront.py:545-558)."""
+    v0g = v3.unstack(scene.tri_v0[i_t])
+    e1g = v3.unstack(scene.tri_e1[i_t])
+    e2g = v3.unstack(scene.tri_e2[i_t])
+    ng = v3.cross(e1g, e2g)
+    nn = torch.clamp_min(v3.dot(ng, ng), 1e-30)
+    rel = v3.sub(p, v0g)
+    gu = v3.scale(v3.cross(e2g, ng), 1.0 / nn)  # gradient of barycentric u
+    gv = v3.scale(v3.cross(ng, e1g), 1.0 / nn)  # gradient of barycentric v
+    ub = v3.dot(gu, rel)
+    vb = v3.dot(gv, rel)
+    uv6 = scene.tri_uv[i_t]
+    du1 = uv6[..., 2] - uv6[..., 0]
+    du2 = uv6[..., 4] - uv6[..., 0]
+    return (uv6[..., 0] + ub * du1 + vb * du2,
+            uv6[..., 1] + ub * (uv6[..., 3] - uv6[..., 1]) + vb * (uv6[..., 5] - uv6[..., 1]))
+
+
+def _surface(scene: PTScene, o, d, t_s, i_s, t_t, n_tri, use_tri_mat, tri_area, tuv=None,
+             i_t=None):
     """The closest-hit dict from the sphere and triangle candidates
-    (the shared tail of JAX _intersect / _intersect_clusters)."""
+    (the shared tail of JAX _intersect / _intersect_clusters). Where the
+    scene's shading reads UVs (needs_uv) it adds ``uv``: on triangle hits
+    tuv, else scene.tri_uv at the hit slots i_t (original indices), else
+    zeros; the spheres' analytic UVs on sphere hits."""
     use_tri = t_t < t_s
     t = torch.minimum(t_s, t_t)
     hit = t < BIG
@@ -302,8 +341,16 @@ def _surface(scene: PTScene, o, d, t_s, i_s, t_t, n_tri, use_tri_mat, tri_area):
     sr = _sel(si, scene.sph_radius, S)
     sph_area = 4.0 * PI * sr * sr
     light_area = torch.where(use_tri, tri_area, sph_area)
-    return dict(t=t, hit=hit, p=p, n=n, mat_id=mat_id, light_area=light_area,
-                is_tri=use_tri, front=~flip)
+    out = dict(t=t, hit=hit, p=p, n=n, mat_id=mat_id, light_area=light_area,
+               is_tri=use_tri, front=~flip)
+    if scene.needs_uv:
+        su, sv = _sphere_uv(n_sph_v)
+        if tuv is None and i_t is not None and scene.tri_uv is not None:
+            tuv = _tri_uv_gather(scene, i_t, p)
+        if tuv is None:
+            tuv = (torch.zeros_like(t), torch.zeros_like(t))
+        out["uv"] = (torch.where(use_tri, tuv[0], su), torch.where(use_tri, tuv[1], sv))
+    return out
 
 
 def _intersect(scene: PTScene, o, d, t_min, counts, bvh=None):
@@ -319,8 +366,9 @@ def _intersect(scene: PTScene, o, d, t_min, counts, bvh=None):
     if isinstance(bvh, (InstancedClusters, FrameInstances)):
         return _intersect_instanced(scene, o, d, t_min, t_s, i_s, bvh)
     T = scene.tri_v0.shape[0]
+    tuv = None
     if isinstance(bvh, ClusterSet):
-        t_t, i_t, n_tri_v, nlen2 = _tri_hits_clusters(o, d, t_min, bvh)
+        t_t, i_t, n_tri_v, nlen2, tuv = _tri_hits_clusters(o, d, t_min, bvh)
         tri_mat = scene.tri_mat[i_t]  # gather — T too large to unroll
     elif isinstance(bvh, BVH):
         t_t, i_t, n_tri_v, nlen2 = _tri_hits_bvh(o, d, t_min, bvh)
@@ -336,7 +384,8 @@ def _intersect(scene: PTScene, o, d, t_min, counts, bvh=None):
         n_tri_v = v3.cross(e1c, e2c)
         nlen2 = v3.length(n_tri_v)
         tri_mat = _sel(safe, scene.tri_mat, T)
-    return _surface(scene, o, d, t_s, i_s, t_t, n_tri_v, tri_mat, 0.5 * nlen2)
+        i_t = safe
+    return _surface(scene, o, d, t_s, i_s, t_t, n_tri_v, tri_mat, 0.5 * nlen2, tuv, i_t)
 
 
 def _bvh_hits(o, d, t_max, t_min, bvh: BVH, any_hit: bool):
@@ -382,13 +431,15 @@ def _intersect_instanced(scene: PTScene, o, d, t_min, t_s, i_s, bvh):
 
 
 def _intersect_clusters(scene: PTScene, o, d, t_min, t_s, i_s, fc: FrameClusters):
-    """The attributes path (JAX wavefront.py:177-244): the plain sweep with
-    the frame's orders returns normal, material (tri row 12) and area."""
-    t_t, sidx, cnx, cny, cnz, cmat, carea = kcluster.cluster_intersect_reference(
+    """The attributes path (JAX wavefront.py:177-271): the plain sweep with
+    the frame's orders returns normal, material (tri row 12), area and, on
+    a UV table, the hit's UV (the sweep's barycentrics)."""
+    t_t, sidx, cnx, cny, cnz, cmat, carea, *tuv = kcluster.cluster_intersect_reference(
         fc.cs, o, d, BIG, t_min=t_min, attrs=True, order=fc.orders[0],
         orders=fc.orders, refs=fc.refs)
     t_t = torch.where(sidx >= 0, t_t, BIG)
-    return _surface(scene, o, d, t_s, i_s, t_t, (cnx, cny, cnz), cmat.to(torch.int32), carea)
+    return _surface(scene, o, d, t_s, i_s, t_t, (cnx, cny, cnz), cmat.to(torch.int32), carea,
+                    tuple(tuv) or None)
 
 
 def _occluded(scene: PTScene, o, d, max_t, t_min, counts, bvh=None):
@@ -488,16 +539,173 @@ def _alphas(scene: PTScene, mat_id):
     return alpha, torch.clamp_min(rough2 * rough2, 1e-4)
 
 
-def _textured_albedo(scene: PTScene, mat_id, albedo, p):
-    """The world-space checker (JAX wavefront.py:1193-1214, its world half):
-    cells of size 1/scale alternate the albedo and mat_albedo2; scale 0 is
-    flat. The parity is a floored modulo (negative cells included)."""
+def _poly_atan2(y, x):
+    """atan2 from multiplies, adds and selects (JAX wavefront.py:849):
+    octant-reduced Hastings polynomial, |err| < 1e-5 rad, in JAX's order of
+    operations (csrc/pt.cuh poly_atan2 repeats it)."""
+    ax = torch.abs(x)
+    ay = torch.abs(y)
+    hi = torch.maximum(ax, ay)
+    a = torch.minimum(ax, ay) / torch.clamp_min(hi, 1e-30)
+    s = a * a
+    r = a * (0.9998660 + s * (-0.3302995 + s * (0.1801410 + s * (-0.0851330 + s * 0.0208351))))
+    r = torch.where(ay > ax, 0.5 * PI - r, r)
+    r = torch.where(x < 0.0, PI - r, r)
+    return torch.where(y < 0.0, -r, r)
+
+
+def _poly_acos(x):
+    """acos by the Hastings square-root form, |err| < 7e-5 rad (JAX
+    wavefront.py:865)."""
+    ax = torch.clamp(torch.abs(x), 0.0, 1.0)
+    r = torch.sqrt(1.0 - ax) * (1.5707288 + ax * (-0.2121144 + ax * (0.0742610
+                                                                      - ax * 0.0187293)))
+    return torch.where(x < 0.0, PI - r, r)
+
+
+def _sphere_uv(n_sph):
+    """The spheres' analytic UVs from the unnormalized outward normal
+    (p - center): u = azimuth / 2π + 0.5, v = polar / π, Z up (JAX
+    wavefront.py:874)."""
+    ln = torch.clamp_min(v3.length(n_sph), 1e-20)
+    u = _poly_atan2(n_sph[1], n_sph[0]) * (0.5 / PI) + 0.5
+    v = _poly_acos(torch.clamp(n_sph[2] / ln, -1.0, 1.0)) * (1.0 / PI)
+    return u, v
+
+
+def _atlas_fetch(atlas, ty, tx):
+    """The texel (ty, tx) of a (3K, 128) channel-major table (the atlas, or
+    the env map's tables): (c0, c1, c2) planes, channel c from row c K +
+    ty; a row outside 0..K-1 reads 0 (JAX wavefront.py:892: its K-row
+    select chain). tx lies in 0..127 on every lane that keeps the value;
+    it is clamped there for the others, and a NaN coordinate (only such a
+    lane can carry one) reads 0, as XLA's float-to-int conversion gives."""
+    K = atlas.shape[0] // 3
+    ty, tx = (torch.nan_to_num(x, nan=0.0).to(torch.int64) for x in (ty, tx))
+    tx = tx.clamp(0, atlas.shape[1] - 1)
+    ok = (ty >= 0) & (ty < K)
+    row = ty.clamp(0, K - 1)
+    zero = torch.zeros((), dtype=atlas.dtype, device=atlas.device)
+    return tuple(torch.where(ok, atlas[c * K + row, tx], zero) for c in range(3))
+
+
+def _env_texel_of(d, K: int):
+    """(ty, tx) texel planes (f32, whole numbers) of direction d in the
+    equirect map, the inverse of _sample_env's mapping (JAX
+    wavefront.py:962)."""
+    u = _poly_atan2(d[1], d[0]) * (0.5 / PI) + 0.5
+    v = _poly_acos(torch.clamp(d[2], -1.0, 1.0)) * (1.0 / PI)
+    tx = torch.clamp(torch.floor(u * 128.0), 0.0, 127.0)
+    ty = torch.clamp(torch.floor(v * float(K)), 0.0, float(K - 1))
+    return ty, tx
+
+
+def _env_pdf_w(scene: PTScene, ty, tx, sin_t):
+    """Solid-angle pdf of the env NEE sampler for a direction in texel
+    (ty, tx) with polar sine sin_t: p_sel N / (2π² sinθ) (JAX
+    wavefront.py:974)."""
+    K = scene.env_img.shape[0] // 3
+    psel, _, _ = _atlas_fetch(scene.env_smp, ty, tx)
+    return psel * (K * 128.0) / torch.clamp_min(2.0 * PI * PI * sin_t, 1e-8)
+
+
+def _sample_env(scene: PTScene, s, j1, j2):
+    """Alias-sample an env-map texel with the selection uniform s and
+    jitter inside it by (j1, j2): (dir V3, pdf_w, le V3) (JAX
+    wavefront.py:985). The divisions by 128 and K divide by device
+    tensors, as the kernel divides (ops/vec3.div)."""
+    K = scene.env_img.shape[0] // 3
+    N = float(K * 128)
+    x = s * N
+    j = torch.clamp(torch.floor(x), 0.0, N - 1.0)
+    f = x - j
+    ty0 = torch.floor(v3.div(j, 128.0))
+    tx0 = j - ty0 * 128.0
+    _, ap, ai = _atlas_fetch(scene.env_smp, ty0, tx0)
+    t = torch.where(f < ap, j, ai)
+    ty = torch.floor(v3.div(t, 128.0))
+    tx = t - ty * 128.0
+    u = v3.div(tx + j1, 128.0)
+    v = v3.div(ty + j2, float(K))
+    theta = v * PI
+    phi = (u - 0.5) * (2.0 * PI)
+    sin_t = torch.sin(theta)
+    d = (sin_t * torch.cos(phi), sin_t * torch.sin(phi), torch.cos(theta))
+    psel, _, _ = _atlas_fetch(scene.env_smp, ty, tx)
+    le = _atlas_fetch(scene.env_img, ty, tx)
+    pdf = psel * N / torch.clamp_min(2.0 * PI * PI * sin_t, 1e-8)
+    return d, pdf, le
+
+
+def _rect_texel(x0, y0, tw, th, uv, s):
+    """Scale-tiled UV -> (ty, tx) texel planes (f32, whole numbers) inside
+    the [x0, y0, tw, th] rect, wrap addressing, nearest texel (JAX
+    wavefront.py:1019)."""
+    fu = uv[0] * s
+    fv = uv[1] * s
+    fu = fu - torch.floor(fu)  # wrap (tile) addressing
+    fv = fv - torch.floor(fv)
+    # max(..., 0) also guards untextured lanes (tw = 0: clamp hi = -1)
+    tx = torch.clamp_min(x0 + torch.clamp(torch.floor(fu * tw), torch.zeros_like(tw), tw - 1.0),
+                         0.0)
+    ty = torch.clamp_min(y0 + torch.clamp(torch.floor(fv * th), torch.zeros_like(th), th - 1.0),
+                         0.0)
+    return ty, tx
+
+
+def _sample_rect(atlas, x0, y0, tw, th, uv, s, bilinear=False):
+    """The [x0, y0, tw, th] atlas rect at scale-tiled UV (JAX
+    wavefront.py:1037): one texel (nearest), or four rect-clamped corners
+    lerped at texel centres (i + 0.5) / w (bilinear)."""
+    if not bilinear:
+        ty, tx = _rect_texel(x0, y0, tw, th, uv, s)
+        return _atlas_fetch(atlas, ty, tx)
+    fu = uv[0] * s
+    fv = uv[1] * s
+    fu = fu - torch.floor(fu)  # wrap (tile) addressing
+    fv = fv - torch.floor(fv)
+    fx = fu * tw - 0.5
+    fy = fv * th - 0.5
+    xf = torch.floor(fx)
+    yf = torch.floor(fy)
+    wx = fx - xf
+    wy = fy - yf
+    # clamp the corners to the rect (no bleeding across rects at edges)
+    zero = torch.zeros_like(tw)
+    xa = torch.clamp(xf, zero, tw - 1.0)
+    xb = torch.clamp(xf + 1.0, zero, tw - 1.0)
+    ya = torch.clamp(yf, zero, th - 1.0)
+    yb = torch.clamp(yf + 1.0, zero, th - 1.0)
+    c00 = _atlas_fetch(atlas, torch.clamp_min(y0 + ya, 0.0), torch.clamp_min(x0 + xa, 0.0))
+    c10 = _atlas_fetch(atlas, torch.clamp_min(y0 + ya, 0.0), torch.clamp_min(x0 + xb, 0.0))
+    c01 = _atlas_fetch(atlas, torch.clamp_min(y0 + yb, 0.0), torch.clamp_min(x0 + xa, 0.0))
+    c11 = _atlas_fetch(atlas, torch.clamp_min(y0 + yb, 0.0), torch.clamp_min(x0 + xb, 0.0))
+    return tuple((c00[c] * (1.0 - wx) + c10[c] * wx) * (1.0 - wy)
+                 + (c01[c] * (1.0 - wx) + c11[c] * wx) * wy for c in range(3))
+
+
+def _textured_albedo(scene: PTScene, mat_id, albedo, p, uv=None, bilinear=False):
+    """Checkers and image textures (JAX wavefront.py:1193-1225, without the
+    mip chains): checker cells of size 1/scale alternate the albedo and
+    mat_albedo2 (scale 0 is flat), in world space or, for mat_tex_space 1,
+    in UV space; the parity is a floored modulo (negative cells included).
+    Image-textured materials (rect w > 0) then sample the atlas at the
+    scale-tiled hit UV."""
     M = scene.mat_albedo.shape[0]
     s = _sel(mat_id, scene.mat_tex_scale, M)
     a2 = tuple(_sel(mat_id, scene.mat_albedo2[:, c], M) for c in range(3))
     cells = torch.floor(p[0] * s) + torch.floor(p[1] * s) + torch.floor(p[2] * s)
+    if uv is not None and scene.mat_tex_space is not None:
+        space = _sel(mat_id, scene.mat_tex_space, M)
+        cells_uv = torch.floor(uv[0] * s) + torch.floor(uv[1] * s)
+        cells = torch.where(space > 0.5, cells_uv, cells)
     odd = torch.remainder(cells, 2.0) >= 1.0
-    return v3.where((s > 0.0) & odd, a2, albedo)
+    out = v3.where((s > 0.0) & odd, a2, albedo)
+    if scene.mat_tex_rect is not None and uv is not None:
+        x0, y0, tw, th = (_sel(mat_id, scene.mat_tex_rect[:, k], M) for k in range(4))
+        rgb = _sample_rect(scene.tex_atlas, x0, y0, tw, th, uv, s, bilinear=bilinear)
+        out = v3.where(tw > 0.0, rgb, out)
+    return out
 
 
 def _sky(scene: PTScene, d):
@@ -557,8 +765,9 @@ def unpack_state(arr, has_chan: bool = False):
 
 def _bounce(cfg: PTConfig, scene: PTScene, st, b: int, draw, counts, bvh):
     """Bounce b of every ray of the state dict: returns the next state. The
-    material features (metal, anisotropy, checker, dispersion, sky) are
-    static gates: a scene without one runs the program it ran before."""
+    material features (metal, anisotropy, checkers, image textures,
+    dispersion, rough glass, the sky, the env map) are static gates: a
+    scene without one runs the program it ran before."""
     n_light = counts[2]
     st = dict(st)
     thr, rad = st["thr"], st["rad"]
@@ -576,7 +785,8 @@ def _bounce(cfg: PTConfig, scene: PTScene, st, b: int, draw, counts, bvh):
     if metal:
         alpha, alpha_y = _alphas(scene, isect["mat_id"])
     if scene.has_texture:
-        albedo = _textured_albedo(scene, isect["mat_id"], albedo, p)
+        albedo = _textured_albedo(scene, isect["mat_id"], albedo, p, uv=isect.get("uv"),
+                                  bilinear=cfg.tex_filter == "bilinear")
     if metal and scene.has_aniso:
         # the anisotropy axes live in the per-normal frame
         onb_t, onb_s = sampler.build_onb(n)
@@ -589,6 +799,11 @@ def _bounce(cfg: PTConfig, scene: PTScene, st, b: int, draw, counts, bvh):
     else:
         lum_e = 0.2126 * emission[0] + 0.7152 * emission[1] + 0.0722 * emission[2]
         sel_density = lum_e / torch.clamp_min(scene.light_total_power, 1e-20)
+    env_map = scene.has_env_map
+    if env_map and cfg.use_nee:
+        # the light table's branch runs with probability 1 - env_pick: the
+        # hit-side MIS density carries the same marginal
+        sel_density = sel_density * (1.0 - scene.env_pick)
     pdf_light_w = sel_density * (isect["t"] * isect["t"]) / torch.clamp_min(cos_l, 1e-6)
     w_b = torch.where(st["prev_did_nee"], sampler.power_heuristic(st["prev_pdf"], pdf_light_w),
                       1.0)
@@ -601,15 +816,46 @@ def _bounce(cfg: PTConfig, scene: PTScene, st, b: int, draw, counts, bvh):
         esc = torch.where(alive & ~isect["hit"], 1.0, 0.0)
         rad = v3.add(rad, v3.mul(thr, v3.scale(_sky(scene, d), esc)))
 
+    if env_map:
+        # escaped rays read the map's texel of their direction, MIS-weighted
+        # against the previous vertex's env NEE (JAX wavefront.py:1799-1819)
+        esc = torch.where(alive & ~isect["hit"], 1.0, 0.0)
+        e_ty, e_tx = _env_texel_of(d, scene.env_img.shape[0] // 3)
+        e_rad = _atlas_fetch(scene.env_img, e_ty, e_tx)
+        sin_t = torch.sqrt(torch.clamp_min(1.0 - d[2] * d[2], 1e-12))
+        pdf_env_h = _env_pdf_w(scene, e_ty, e_tx, sin_t)
+        w_esc = torch.where(st["prev_did_nee"] & cfg.use_nee,
+                            sampler.power_heuristic(st["prev_pdf"], scene.env_pick * pdf_env_h),
+                            1.0)
+        rad = v3.add(rad, v3.mul(thr, v3.scale(e_rad, esc * w_esc)))
+
     # --- NEE ------------------------------------------------------------
     if cfg.use_nee:
-        lp, ln, le, pdf_area = _sample_light(scene, u[2], u[3], u[4], n_light,
+        u_sel = u[2]
+        if env_map:
+            # one coin splits the env map and the light table; the selection
+            # uniform is rescaled into the chosen branch (JAX
+            # wavefront.py:1838-1846)
+            pick = scene.env_pick
+            sel_env = u[2] < pick
+            u_sel = torch.clamp((u[2] - pick) / torch.clamp_min(1.0 - pick, 1e-6),
+                                0.0, 1.0 - 1e-7)
+        lp, ln, le, pdf_area = _sample_light(scene, u_sel, u[3], u[4], n_light,
                                              uniform=cfg.light_sampling == "uniform")
         to_l = v3.sub(lp, p)
         dist = v3.length(to_l)
         wi = v3.scale(to_l, 1.0 / torch.clamp_min(dist, 1e-20))
         cos_ll = torch.abs(v3.dot(ln, wi))
         light_ok = (cos_ll > 1e-6) & (dist > cfg.eps) & (n_light > 0)
+        if env_map:
+            e_d, e_pdf, e_le = _sample_env(
+                scene, torch.clamp(u[2] / torch.clamp_min(pick, 1e-6), 0.0, 1.0 - 1e-7),
+                u[3], u[4])
+            wi = v3.where(sel_env, e_d, wi)
+            le = v3.where(sel_env, e_le, le)
+            # env lanes have no light surface: the shadow ray is unbounded
+            light_ok = sel_env | light_ok
+            dist = torch.where(sel_env, 1e4, dist)
         cos_s = v3.dot(n, wi)
         nee_kind = kind == DIFFUSE
         if metal:  # GGX surfaces are NEE-sampled too
@@ -622,8 +868,13 @@ def _bounce(cfg: PTConfig, scene: PTScene, st, b: int, draw, counts, bvh):
         sh_o = v3.where(cand, v3.add(p, v3.scale(n, cfg.eps)), dead_o)
         sh_d = v3.where(cand, wi, dead_d)
         max_t = dist * (1.0 - 1e-3)
+        if env_map:
+            max_t = torch.where(sel_env, BIG, max_t)
         vis = cand & ~_occluded(scene, sh_o, sh_d, max_t, cfg.t_min, counts, bvh)
         pdf_w = pdf_area * (dist * dist) / torch.clamp_min(cos_ll, 1e-6)
+        if env_map:
+            # each branch's pdf carries its selection probability
+            pdf_w = torch.where(sel_env, pick * e_pdf, (1.0 - pick) * pdf_w)
         if metal:
             # f = albedo/π (diffuse) or the GGX BRDF (metal); the MIS
             # counter-pdf follows (JAX wavefront.py:1904-1915)
@@ -676,6 +927,35 @@ def _bounce(cfg: PTConfig, scene: PTScene, st, b: int, draw, counts, bvh):
         refr_d = v3.add(v3.scale(d, eta), v3.scale(n, eta * cosi - cost))
         reflect = u[0] < refl_p
         is_diel = kind == DIELECTRIC
+        if scene.has_rough_dielectric:
+            # GGX rough glass (Walter 2007): a half-vector from u[3], u[4]
+            # (free on glass lanes), the same Fresnel coin about it, and
+            # the weight |d·h| G / (cos_o cos_h); a sample on the wrong
+            # side weighs 0 (JAX wavefront.py:1980-2030)
+            h_d, cos_hd = sampler.sample_ggx_h(u[3], u[4], n, alpha)
+            cosi_h = -v3.dot(d, h_d)
+            kk_h = 1.0 - eta * eta * (1.0 - cosi_h * cosi_h)
+            cost_h = torch.sqrt(torch.clamp_min(kk_h, 0.0))
+            rs_h = (eta * cosi_h - cost_h) / torch.clamp_min(eta * cosi_h + cost_h, 1e-20)
+            rp_h = (eta * cost_h - cosi_h) / torch.clamp_min(eta * cost_h + cosi_h, 1e-20)
+            reflp_h = torch.where(kk_h <= 0.0, 1.0, 0.5 * (rs_h * rs_h + rp_h * rp_h))
+            refl_h = u[0] < reflp_h
+            mirr_h = sampler.reflect(d, h_d)
+            refr_h = v3.add(v3.scale(d, eta), v3.scale(h_d, eta * cosi_h - cost_h))
+            d_r = v3.where(refl_h, mirr_h, refr_h)
+            cos_i_r = v3.dot(d_r, n)
+            g_r = sampler.ggx_smith_g1(cosi, alpha) * sampler.ggx_smith_g1(torch.abs(cos_i_r),
+                                                                          alpha)
+            w_g = (torch.abs(cosi_h) * g_r
+                   / torch.clamp_min(cosi * torch.clamp_min(cos_hd, 1e-6), 1e-6))
+            ok_r = (cosi_h > 0.0) & ((refl_h & (cos_i_r > 0.0)) | (~refl_h & (cos_i_r < 0.0)))
+            w_g = torch.where(ok_r, w_g, 0.0)
+            rough_d = _sel(isect["mat_id"], scene.mat_rough, scene.mat_albedo.shape[0])
+            is_rough_d = is_diel & (rough_d > 0.0)
+            reflect = (is_rough_d & refl_h) | (~is_rough_d & reflect)
+            diel_w = torch.where(is_rough_d, w_g, 1.0)
+            mirr_d = v3.where(is_rough_d, d_r, mirr_d)  # the reflect slot
+            refr_d = v3.where(is_rough_d, d_r, refr_d)  # the refract slot
         new_d = v3.where(is_diel, v3.where(reflect, mirr_d, refr_d), new_d)
         # refracted rays continue THROUGH the surface: offset inward
         off = torch.where(is_diel & ~reflect, -cfg.eps, cfg.eps)
@@ -702,6 +982,8 @@ def _bounce(cfg: PTConfig, scene: PTScene, st, b: int, draw, counts, bvh):
     else:
         new_thr = v3.mul(thr, albedo)
         pdf_bsdf = pdf_cos
+    if scene.has_rough_dielectric:  # the Walter weight on rough-glass lanes
+        new_thr = v3.scale(new_thr, diel_w)
     thr_max = torch.maximum(new_thr[0], torch.maximum(new_thr[1], new_thr[2]))
     cont = hit & (thr_max > 0.0)
     if cfg.rr_start > 0 and b >= cfg.rr_start:
@@ -718,7 +1000,8 @@ def _bounce(cfg: PTConfig, scene: PTScene, st, b: int, draw, counts, bvh):
     nee_kinds = kind == DIFFUSE
     if metal:
         nee_kinds = nee_kinds | (kind == METAL)
-    st["prev_did_nee"] = hit & nee_kinds & (n_light > 0) & cfg.use_nee
+    # the env map is an NEE target too: a vertex did NEE with no slot light
+    st["prev_did_nee"] = hit & nee_kinds & (env_map or n_light > 0) & cfg.use_nee
     st["prev_pdf"] = pdf_bsdf
     st["rad"] = rad
     st["nrays"] = nrays

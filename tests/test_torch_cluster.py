@@ -181,13 +181,16 @@ def test_sweep_tables_layout(sets):
 
 
 def test_uv_tables_are_not_ported_yet():
+    """UV tables sweep (their UV planes: tests/test_torch_textures.py); their
+    texture-u tangent planes (tan=True: normal maps and mips) still raise."""
     tris = mesh.icosphere(1)
     uvs = np.zeros((tris.shape[0], 3, 2), np.float32)
     cs = clusters.build_clusters(tris, vertex_uvs=uvs, device=CPU)
     o = (torch.zeros(2),) * 3
     d = (torch.ones(2),) * 3
+    assert len(cluster.cluster_intersect(cs, o, d, float("inf"), attrs=True)) == 9
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cluster.cluster_intersect(cs, o, d, float("inf"))
+        cluster.cluster_intersect(cs, o, d, float("inf"), attrs=True, tan=True)
 
 
 def _struct_fields(src, name):

@@ -184,7 +184,10 @@ def test_instances_block(tmp_path):
 
 def test_unported_entries_load_then_refuse(tmp_path):
     """Each file passes the loader's checks (JAX's own loader builds it);
-    the port's build_pt_scene refuses it, naming ROADMAP.md."""
+    the port's build_pt_scene refuses it, naming ROADMAP.md. UV checkers,
+    images, OBJ UVs, the env map and rough glass are ported: their cases
+    keep their names and add an entry that is still refused (a normal map,
+    tex_mips, mesh lights)."""
     write_png(str(tmp_path / "tex.png"), np.full((2, 2, 3), 0.5, np.float32))
     np.save(str(tmp_path / "nrm.npy"), np.full((2, 2, 3), 0.5, np.float32))
     tris = jax_icosphere(subdivisions=1)
@@ -194,17 +197,22 @@ def test_unported_entries_load_then_refuse(tmp_path):
     base = {"albedo": [0.5, 0.5, 0.5]}
     light = {"albedo": [0, 0, 0], "emission": [5, 5, 5]}
     cases = {
-        "uv checker": {"materials": [dict(base, checker={"scale": 2, "space": "uv"})],
+        "uv checker": {"materials": [dict(base, checker={"scale": 2, "space": "uv"},
+                                          normal={"npy": "nrm.npy"})],
                        "spheres": [ball]},
-        "image": {"materials": [dict(base, image={"png": "tex.png"})], "spheres": [ball]},
+        "image": {"materials": [dict(base, image={"png": "tex.png"})], "spheres": [ball],
+                  "tex_mips": True},
         "normal": {"materials": [dict(base, normal={"npy": "nrm.npy"})], "spheres": [ball]},
-        "obj uvs": {"materials": [base], "meshes": [{"obj": "uv.obj", "uvs": True}]},
-        "env map": {"materials": [base], "spheres": [ball],
+        "obj uvs": {"materials": [dict(base, normal={"npy": "nrm.npy"})],
+                    "meshes": [{"obj": "uv.obj", "uvs": True}]},
+        "env map": {"materials": [base, light], "spheres": [ball], "mesh_lights": True,
+                    "meshes": [{"icosphere": {"subdivisions": 1}, "mat": 1}],
                     "env": {"image": np.ones((2, 4, 3)).tolist(), "pick": 0.5, "rows": 2}},
         "mesh lights": {"materials": [base, light], "mesh_lights": True,
                         "meshes": [{"icosphere": {"subdivisions": 1}, "mat": 1}]},
         "tex_mips": {"materials": [base], "spheres": [ball], "tex_mips": True},
-        "rough dielectric": {"materials": [{"kind": "dielectric", "roughness": 0.2}],
+        "rough dielectric": {"materials": [{"kind": "dielectric", "roughness": 0.2},
+                                           dict(base, normal={"npy": "nrm.npy"})],
                              "spheres": [ball]},
     }
     for name, spec in cases.items():
