@@ -197,6 +197,23 @@ Phases, each printing its own lines:
      bit the glass without the key (also with the rough-glass branch
      forced on), and unused UV and image materials bit for bit the
      showcase without them, at 256x144; a tonemapped PNG.
+ 21. the entry points as a user starts them: (a) a LiveFrameServer over a
+     1920x1088 FrameLoop on default_scene(), driven over loopback by the
+     events of tests/test_live.py:19-28 and 24 steady forward steps under
+     the launch counters: the wire frames bit for bit an offline card
+     FrameLoop's under utils.image.to_srgb_u8, the server's on-card u8 bit
+     for bit to_srgb_u8 of its frame, and the median split of a /step
+     (render and quantize by CUDA events, the copy to the host, the PNG
+     encode, the HTTP round trip); (b) cli.main in process: render and
+     orbit (to an APNG, then --resume) at 1920x1088, replay of phase 17's
+     stream, pt on the showcase with --bvh (auto: rebin, K5), pt --mega on
+     the Cornell box at 512x512, pt with --denoise --aov --tonemap aces
+     --gamma 2.2, and instanced at 1920x1088 (K7), each command under the
+     launch counters and its every PNG or APNG frame bit for bit the direct
+     call of the port's wrapper on the card (the direct calls' kernels by
+     torch.profiler's device time beside the ms the command prints); (c)
+     python3 -m raytracing_engine_tpu_torch.cli render as a subprocess with
+     no --device: exit 0 and the PNG of (b).
 Then a line that sums up phases 4 and 5's image output, one JSON line of
 per-kernel results, each number measured in this run
 but the bounds, computed from its inputs (K4 once per instantiation, on its
@@ -385,6 +402,31 @@ RAGGED_SPP = 3
 RAGGED_RR_START = 1
 RAGGED_ROWS = 5
 K4_REPS = 9
+
+# phase 21: the entry points at SIZE. (a) the live server: the events of
+# tests/test_live.py:19-28, then LIVE_STEADY steady forward steps (the split's
+# medians are taken over those)
+LIVE_EVENTS = [
+    dict(move=(0, 1, 0), dt=0.05),
+    dict(move=(1, 0, 0), rot=(1, 0), dt=0.05),
+    dict(cursor=(12.0, -4.0), dt=0.05),
+    dict(move=(0, 0, 1), rot=(0, -1), dt=0.05),
+    dict(focus=False),
+    dict(move=(0, 1, 0)),
+    dict(focus=True),
+    dict(move=(0, 1, 0), dt=0.05),
+]
+LIVE_STEADY = 24
+LIVE_STEP = dict(move=(0, 1, 0), dt=0.01)
+# (b) the command line
+CLI_OUT = SMOKE_OUT / "cli"
+CLI_ORBIT = 4           # orbit frames, chunk 2; --resume after frames 0 and 2 exist
+CLI_MEGA_SPP = 16       # pt --scene cornell --mega --size 512x512
+CLI_DENOISE_SPP = 4     # pt --scene cornell --denoise --aov (256x256, the default size)
+CLI_INSTANCED = 2       # instanced frames at SIZE
+PORT_KERNELS = {"K1": "pyramid_kernel", "K2": "fused_kernel", "K3": "shade_kernel",
+                "K4": "pt_kernel", "K5": "pt_rebin_kernel", "K6": "cluster_kernel",
+                "K7": "instanced_kernel", "K8": "traverse_kernel", "K9": "rng_kernel"}
 
 # phase 19: the showcase scene (examples/showcase.json) as the JAX package's
 # cli.py pt --scene ... --bvh --engine mega renders it (cli.py:312-336):
@@ -3855,6 +3897,415 @@ def phase_showcase_rest(device, card):
     }
 
 
+def reset_launches():
+    """Every kernel's launch count to 0 (K4's by kind and material too)."""
+    from raytracing_engine_tpu_torch.ops.cuda import (
+        bvh_traverse,
+        cluster,
+        depth,
+        fused,
+        instanced,
+        pt,
+        rng,
+        shade,
+    )
+
+    reset_k4()
+    for mod in (bvh_traverse, cluster, depth, fused, instanced, rng, shade):
+        mod.launches = 0
+    pt.rebin_launches = pt.rebin_material_launches = 0
+
+
+def launch_counts() -> dict:
+    """The launch counts that are not 0: K1..K9, and K4 without a mesh and
+    the material instantiations of K4 and K5 apart."""
+    from raytracing_engine_tpu_torch.ops.cuda import (
+        bvh_traverse,
+        cluster,
+        depth,
+        fused,
+        instanced,
+        pt,
+        rng,
+        shade,
+    )
+
+    counts = {"K1": depth.launches, "K2": fused.launches, "K3": shade.launches,
+              "K4": pt.launches, "K4 none": pt.mesh_launches["none"],
+              "K4 material": sum(pt.material_launches.values()), "K5": pt.rebin_launches,
+              "K5 material": pt.rebin_material_launches, "K6": cluster.launches,
+              "K7": instanced.launches, "K8": bvh_traverse.launches, "K9": rng.launches}
+    return {k: n for k, n in counts.items() if n}
+
+
+def kernel_device_ms(fn):
+    """(fn(), {kernel: device ms}) with fn run under torch.profiler: the
+    port's kernels (PORT_KERNELS) by name; {} where the profiler records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for k, name in PORT_KERNELS.items():
+            if name in e.name:
+                ms[k] = ms.get(k, 0.0) + e.time_range.elapsed_us() / 1e3
+    return out, ms
+
+
+def post_step(url: str, event: dict):
+    """POST one event to a live server: (status, body, headers, round-trip ms)."""
+    import urllib.request
+
+    req = urllib.request.Request(url + "/step", data=json.dumps(event).encode(), method="POST")
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=300) as r:
+        status, body, hdrs = r.status, r.read(), dict(r.headers)
+    return status, body, hdrs, (time.perf_counter() - t0) * 1e3
+
+
+def png_of(data) -> np.ndarray:
+    """The pixels of an RGB8 PNG (its bytes, or a path). utils.image.encode_png
+    writes filter type 0 on every row, so those decode with one inflate;
+    any other PNG goes through utils.image.read_png (a Python loop a pixel,
+    about 5 s for a 1920x1088 frame)."""
+    import struct
+    import zlib
+
+    from raytracing_engine_tpu_torch.utils.image import read_png
+
+    if not isinstance(data, bytes):
+        data = Path(data).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("not a PNG")
+    pos, idat, head = 8, [], None
+    while pos < len(data):
+        length, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        if tag == b"IHDR":
+            head = struct.unpack(">IIBB", data[pos + 8:pos + 18])
+        elif tag == b"IDAT":
+            idat.append(data[pos + 8:pos + 8 + length])
+        pos += 12 + length
+    w, h, bit, ctype = head
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 3 * w + 1)
+    if bit == 8 and ctype == 2 and not rows[:, 0].any():
+        return rows[:, 1:].reshape(h, w, 3)
+    path = CLI_OUT / "filtered.png"
+    path.write_bytes(data)
+    return read_png(str(path))
+
+
+def phase_live(cfg, scene, card) -> dict:
+    """(a) of phase 21: the live server over loopback, each stage of a /step
+    timed by wrapping the server's own functions (the quantizer waits for
+    its kernel so that the copy is timed alone). -> launch counts."""
+    from raytracing_engine_tpu_torch.models import cuda_renderer
+    from raytracing_engine_tpu_torch.runtime import FrameLoop, InputEvent, LiveFrameServer, live
+    from raytracing_engine_tpu_torch.utils.image import to_srgb_u8
+
+    CLI_OUT.mkdir(parents=True, exist_ok=True)
+    events = LIVE_EVENTS + [LIVE_STEP] * LIVE_STEADY
+    split = {"render (K1 + K2, events)": [], "quantize (events)": [], "copy to host": [],
+             "PNG encode": []}
+    pairs, presented = [], []
+
+    def events_ms(fn, label):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        pairs.append((label, a, b))
+        return out, b
+
+    def render(*args):
+        return events_ms(lambda: cuda_renderer.render(*args), "render (K1 + K2, events)")[0]
+
+    def to_u8(img):
+        u8, done = events_ms(lambda: live.to_u8(img), "quantize (events)")
+        done.synchronize()
+        presented.append((img, u8))
+        return u8
+
+    def host_clock(fn, label):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            split[label].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+    encode = live.encode_png
+    srv = LiveFrameServer(FrameLoop(cfg, scene, render_fn=render))
+    srv._to_u8, srv._to_host = to_u8, host_clock(live.to_host, "copy to host")
+    live.encode_png = host_clock(encode, "PNG encode")
+    reset_launches()
+    try:
+        replies = [post_step(srv.url, ev) for ev in events]
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        state = srv.state()
+    finally:
+        live.encode_png = encode
+        srv.close()
+    for label, a, b in pairs:
+        split[label].append(a.elapsed_time(b))
+
+    want_status = [204 if k in (4, 5) else 200 for k in range(len(events))]
+    n = want_status.count(200)
+    loop, prev, offline = FrameLoop(cfg, scene), None, []
+    for ev in events:
+        img = loop.step(InputEvent(**ev))
+        if img is not prev:
+            offline.append(to_srgb_u8(img.cpu().numpy()))
+        prev = img
+    wire = [png_of(body) for status, body, _, _ in replies if status == 200]
+    same = len(wire) == len(offline) == n and all(np.array_equal(a, b)
+                                                   for a, b in zip(wire, offline))
+    on_card = all(np.array_equal(u8.cpu().numpy(), to_srgb_u8(img.cpu().numpy()))
+                  for img, u8 in presented)
+    idx = [int(h["X-Frame-Index"]) for status, _, h, _ in replies if status == 200]
+    split["HTTP round trip (client)"] = [r[3] for r in replies]
+    med = {k: float(np.median(v[-LIVE_STEADY:])) for k, v in split.items()}
+    log(f"  live: {len(events)} events, statuses {[r[0] for r in replies]}; {len(wire)} wire "
+        f"frames bit for bit an offline card FrameLoop's: {same}; on-card u8 == to_srgb_u8 "
+        f"on all {len(presented)}: {on_card}; launches {counts} (expected K1 = K2 = {n})")
+    log(f"  live /step split at {cfg.width}x{cfg.height}, medians of the {LIVE_STEADY} steady "
+        f"steps: " + ", ".join(f"{k} {v:.4f} ms" for k, v in med.items())
+        + f"; PNG {len(replies[-1][1])} B [{card}]")
+    # the card waits for the host at every step, so the spans above hold
+    # launch latency; the device's own time for the same work:
+    frame, pose = presented[-1][0], loop._pose()
+    q_ev, q_host = cuda_ms(lambda k: live.to_u8(frame), 20)
+    q_dev = profiled_device_ms(lambda: live.to_u8(frame), "")
+    _, r_dev = kernel_device_ms(lambda: cuda_renderer.render(cfg, scene, *pose))
+    log(f"  live device time a step: render K1 {r_dev.get('K1', float('nan')):.4f} + K2 "
+        f"{r_dev.get('K2', float('nan')):.4f} ms (profiler); quantize "
+        f"{q_dev if q_dev is not None else float('nan'):.4f} ms (profiler), {q_ev:.4f} ms a call "
+        f"by events back to back ({q_host:.4f} ms host enqueue) [{card}]")
+    if ([r[0] for r in replies] != want_status or not same or not on_card
+            or idx != list(range(n)) or state["frame"] != n - 1
+            or counts != {"K1": n, "K2": n}):
+        raise AssertionError("the live server's frames, statuses or launches are wrong")
+    return counts
+
+
+def run_cli(argv) -> dict:
+    """cli.main(argv) in process under the launch counters; its output is
+    logged. -> the launch counts."""
+    import io
+
+    from raytracing_engine_tpu_torch import cli
+
+    reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main([str(a) for a in argv])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"  $ cli {' '.join(str(a) for a in argv)}")
+    for line in buf.getvalue().strip().splitlines():
+        log(f"    | {line}")
+    return counts
+
+
+def check_cli(label, counts, want, files, kern_ms, frames, card):
+    """Log one command's result; raise unless its launches are `want` and
+    every file is bit for bit its direct call ({name: (got, want)})."""
+    same = {name: np.array_equal(got, ref) for name, (got, ref) in files.items()}
+    per_frame = ", ".join(f"{k} {v / frames:.4f} ms" for k, v in sorted(kern_ms.items()))
+    log(f"  {label}: launches {counts} (expected {want}); bit for bit the direct call: "
+        f"{same}; the direct call's kernels by the profiler, a frame: "
+        f"{per_frame or 'not measured'} [{card}]")
+    if counts != want or not all(same.values()):
+        raise AssertionError(f"cli {label}: launches {counts} != {want} or files {same}")
+
+
+def phase_cli(device, card) -> dict:
+    """(b) and (c) of phase 21. -> launch counts summed over the commands."""
+    import raytracing_engine_tpu_torch as rtt
+    from raytracing_engine_tpu_torch.accel import (
+        build_bvh,
+        build_clusters,
+        grid_instances,
+        torus_knot,
+    )
+    from raytracing_engine_tpu_torch.camera import Camera, orbit_path
+    from raytracing_engine_tpu_torch.models import cuda_renderer
+    from raytracing_engine_tpu_torch.models.instanced import render_instanced_phong
+    from raytracing_engine_tpu_torch.ops.cuda.instanced import pack_instances
+    from raytracing_engine_tpu_torch.ops.cuda.pt import render_pt_mega, render_pt_rebin
+    from raytracing_engine_tpu_torch.ops.rng_pcg import prng_key_data
+    from raytracing_engine_tpu_torch.pathtracer import (
+        PTConfig,
+        denoise,
+        load_scene_json,
+        render_aovs,
+        render_pt_fast,
+        scenes,
+    )
+    from raytracing_engine_tpu_torch.runtime import FrameLoop, load_replay, save_replay
+    from raytracing_engine_tpu_torch.utils import tonemap, write_png
+    from raytracing_engine_tpu_torch.utils.image import to_srgb_u8
+    from raytracing_engine_tpu_torch.utils.video import read_apng
+
+    out = CLI_OUT
+    size = f"{SIZE[0]}x{SIZE[1]}"
+    key = prng_key_data(0)  # the CLI's default --seed
+    cfg = rtt.RenderConfig(*SIZE)
+    scene = rtt.default_scene(device)
+    total = {}
+
+    def tally(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return counts
+
+    def u8(t):
+        return to_srgb_u8(t.cpu().numpy())
+
+    # render: K1 and K2
+    counts = tally(run_cli(["render", "--size", size, "--out", out / "render"]))
+    cam = Camera.initial()
+    img, ms = kernel_device_ms(lambda: cuda_renderer.render(
+        cfg, scene, cam.position.to(device), cam.quat().to(device)))
+    render_png = png_of(out / "render" / "frame_0000.png")
+    check_cli("render", counts, {"K1": 1, "K2": 1}, {"frame_0000.png": (render_png, u8(img))},
+              ms, 1, card)
+
+    # orbit: to an APNG, then --resume over a directory holding frames 0 and 2
+    positions, rotations = orbit_path(CLI_ORBIT)
+    orbit = ["orbit", "--size", size, "--frames", CLI_ORBIT, "--chunk", 2]
+    counts_a = tally(run_cli(orbit + ["--apng", out / "orbit.apng"]))
+    frames, _ = read_apng(str(out / "orbit.apng"))
+    (out / "orbit").mkdir(exist_ok=True)
+    for i in (0, 2):
+        write_png(str(out / "orbit" / f"frame_{i:04d}.png"), frames[i])
+    counts_r = tally(run_cli(orbit + ["--out", out / "orbit", "--resume"]))
+    cams = [Camera(positions[i], rotations[i]) for i in range(CLI_ORBIT)]
+    imgs, ms = kernel_device_ms(lambda: [cuda_renderer.render(
+        cfg, scene, c.position.to(device), c.quat().to(device)) for c in cams])
+    want = [u8(t) for t in imgs]
+    check_cli("orbit --apng", counts_a, {"K1": CLI_ORBIT, "K2": CLI_ORBIT},
+              {f"APNG frame {i}": (frames[i], want[i]) for i in range(CLI_ORBIT)}, ms,
+              CLI_ORBIT, card)
+    check_cli("orbit --resume", counts_r, {"K1": 2, "K2": 2},
+              {f"frame_{i:04d}.png": (png_of(out / "orbit" / f"frame_{i:04d}.png"),
+                                      want[i]) for i in range(CLI_ORBIT)}, ms, CLI_ORBIT, card)
+
+    # replay of phase 17's stream (chunked, as the CLI defaults)
+    path = out / "session.replay"
+    save_replay(str(path), replay_stream())
+    counts = tally(run_cli(["replay", path, "--size", size, "--monitor",
+                            f"{REPLAY_MONITOR[0]}x{REPLAY_MONITOR[1]}", "--out",
+                            out / "replay"]))
+    offline = {}
+    loop = FrameLoop(cfg, scene, monitor=REPLAY_MONITOR)
+    _, ms = kernel_device_ms(lambda: loop.run(load_replay(str(path)),
+                                              sink=offline.__setitem__))
+    rendered = [i for i in range(REPLAY_EVENTS) if i not in (6, 7, 8)]
+    names = sorted(p.name for p in (out / "replay").iterdir())
+    if names != [f"frame_{i:04d}.png" for i in rendered]:
+        raise AssertionError(f"cli replay wrote {names}")
+    check_cli("replay", counts, {"K1": len(rendered), "K2": len(rendered)},
+              {f"frame_{i:04d}.png": (png_of(out / "replay" / f"frame_{i:04d}.png"),
+                                      to_srgb_u8(offline[i])) for i in rendered}, ms,
+              len(rendered), card)
+
+    # pt on the showcase with --bvh: a ClusterSet on the card, auto -> rebin (K5)
+    pt_cfg = PTConfig(width=SIZE[0], height=SIZE[1], max_bounces=4, rng="pcg")
+    counts = tally(run_cli(["pt", "--scene", SHOWCASE, "--bvh", "--size", size, "--spp",
+                            SHOW_SPP, "--out", out / "showcase.png"]))
+    b = load_scene_json(str(SHOWCASE), device=device)
+    cs = build_clusters(b.tris, tri_mats=b.tri_mats, vertex_normals=b.tri_normals,
+                        vertex_uvs=b.tri_uvs, device=device)
+    pos, quat = (torch.from_numpy(v).to(device) for v in (b.cam_pos, b.cam_quat))
+    (img, _), ms = kernel_device_ms(
+        lambda: render_pt_rebin(pt_cfg, b.scene, pos, quat, SHOW_SPP, key, bvh=cs))
+    k5 = SHOW_SPP * (pt_cfg.max_bounces + 1)
+    check_cli("pt showcase --bvh (rebin)", counts, {"K5": k5, "K5 material": k5},
+              {"showcase.png": (png_of(out / "showcase.png"), u8(img))}, ms, 1, card)
+
+    # pt --mega on the Cornell box: K4 without a mesh
+    cornell = scenes.cornell_box(device=device)
+    pos = torch.tensor([0.0, 0.2, 0.0], device=device)
+    quat = torch.tensor([0.0, 0.0, 0.0, 1.0], device=device)
+    counts = tally(run_cli(["pt", "--scene", "cornell", "--mega", "--size", "512x512",
+                            "--spp", CLI_MEGA_SPP, "--out", out / "cornell_mega.png"]))
+    mega_cfg = PTConfig(width=512, height=512, max_bounces=4, rng="pcg")
+    (img, _), ms = kernel_device_ms(
+        lambda: render_pt_mega(mega_cfg, cornell, pos, quat, CLI_MEGA_SPP, key))
+    check_cli("pt cornell --mega", counts, {"K4": 1, "K4 none": 1},
+              {"cornell_mega.png": (png_of(out / "cornell_mega.png"), u8(img))},
+              ms, 1, card)
+
+    # pt --denoise --aov --tonemap aces --gamma 2.2: the wavefront, K9's AOV jitter
+    stem = out / "cornell_dn"
+    counts = tally(run_cli(["pt", "--scene", "cornell", "--spp", CLI_DENOISE_SPP, "--denoise",
+                            "--aov", "--tonemap", "aces", "--gamma", 2.2,
+                            "--out", f"{stem}.png"]))
+    dn_cfg = PTConfig(width=256, height=256, max_bounces=4, rng="pcg")
+
+    def denoised():
+        img, _ = render_pt_fast(dn_cfg, cornell, pos, quat, CLI_DENOISE_SPP, key)
+        img = img.cpu().numpy()
+        g = render_aovs(dn_cfg, cornell, pos, quat, CLI_DENOISE_SPP, key)
+        img = denoise(torch.from_numpy(img).to(device), g["albedo"], g["normal"],
+                      g["depth"]).cpu().numpy()
+        aovs = {k: v.cpu().numpy()
+                for k, v in render_aovs(dn_cfg, cornell, pos, quat, CLI_DENOISE_SPP,
+                                        key).items()}
+        return tonemap(img, "aces", 1.0, 2.2), aovs
+
+    (beauty, aovs), ms = kernel_device_ms(denoised)
+    dep = aovs["depth"]
+    lo, hi = dep[dep > 0].min() if (dep > 0).any() else 0.0, dep.max()
+    dvis = np.where(dep > 0, 1.0 - (dep - lo) / max(hi - lo, 1e-6), 0.0)
+    want = {"": beauty, "_albedo": aovs["albedo"], "_normal": aovs["normal"] * 0.5 + 0.5,
+            "_depth": np.repeat(dvis[..., None], 3, -1)}
+    check_cli("pt cornell --denoise --aov", counts, {"K9": 2 * CLI_DENOISE_SPP},
+              {f"cornell_dn{k}.png": (png_of(f"{stem}{k}.png"), to_srgb_u8(v))
+               for k, v in want.items()}, ms, 1, card)
+
+    # instanced: config 5's grid through K7
+    counts = tally(run_cli(["instanced", "--size", size, "--frames", CLI_INSTANCED,
+                            "--out", out / "instanced"]))
+    knot = torus_knot(segments=550, sides=32)
+    base = build_clusters(knot, device=device)
+    inst = grid_instances(build_bvh(knot, device=device), nx=6, ny=5, spacing=4.0,
+                          base=(0.0, 14.0, 0.0), mats=np.arange(30, dtype=np.int32) % 3,
+                          device=device)
+    alb = torch.tensor([[0.8, 0.5, 0.3], [0.4, 0.7, 0.5], [0.5, 0.5, 0.8]], device=device)
+    light = torch.tensor([6.0, 2.0, 8.0], device=device)
+    tab = pack_instances(inst)
+    yaws = [np.float32(0.5 * i / max(CLI_INSTANCED - 1, 1)) for i in range(CLI_INSTANCED)]
+    imgs, ms = kernel_device_ms(lambda: [render_instanced_phong(
+        tab, base, inst.mat, alb, torch.zeros(3, device=device), y, light, width=SIZE[0],
+        height=SIZE[1]) for y in yaws])
+    check_cli("instanced", counts, {"K7": 2 * CLI_INSTANCED},
+              {f"frame_{i:04d}.png": (png_of(out / "instanced" / f"frame_{i:04d}.png"),
+                                      u8(imgs[i])) for i in range(CLI_INSTANCED)}, ms,
+              CLI_INSTANCED, card)
+
+    # (c) the module entry point with no --device: the card by default
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "raytracing_engine_tpu_torch.cli", "render",
+                           "--size", size, "--out", str(out / "module")], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    log(f"  $ python3 -m raytracing_engine_tpu_torch.cli render --size {size}: exit "
+        f"{proc.returncode} in {time.perf_counter() - t0:.1f} s: {proc.stdout.strip()}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the module entry point failed:\n{proc.stderr[-4000:]}")
+    same = np.array_equal(png_of(out / "module" / "frame_0000.png"), render_png)
+    log(f"  its PNG bit for bit (b)'s render: {same}")
+    if not same:
+        raise AssertionError("python3 -m raytracing_engine_tpu_torch.cli render differs")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -3927,6 +4378,13 @@ def main() -> int:
     show = phase_showcase(device, card)
     log("phase 20: the showcase with the env map, rough glass and UV textures")
     rest = phase_showcase_rest(device, card)
+    t21 = time.perf_counter()
+    log(f"phase 21: the entry points at {cfg.width}x{cfg.height}: the live server and the "
+        "command line")
+    entry = phase_live(cfg, scene, card)
+    for k, v in phase_cli(device, card).items():
+        entry[k] = entry.get(k, 0) + v
+    log(f"phase 21: {time.perf_counter() - t21:.1f} s; launches on its paths {entry}")
 
     # no single PyTorch call computes any of these kernels (torch.rand draws
     # Philox, not threefry): library_ms null
@@ -3934,22 +4392,26 @@ def main() -> int:
     kernels = [
         {"name": "pyramid_kernel (K1)", "route": "cuda", "source": src,
          "replaces": "raytracing_engine_tpu/ops/pallas/depth.py:98",
-         "launches": counts["depth"] + replay["K1"], "max_abs_err": errs["depth"],
+         "launches": counts["depth"] + replay["K1"] + entry.get("K1", 0),
+         "max_abs_err": errs["depth"],
          **times["depth"],
          "library_ms": None},
         {"name": "fused_kernel (K2)", "route": "cuda", "source": src,
          "replaces": "raytracing_engine_tpu/ops/pallas/fused.py:30",
-         "launches": counts["fused"] + replay["K2"], "max_abs_err": errs["fused"],
+         "launches": counts["fused"] + replay["K2"] + entry.get("K2", 0),
+         "max_abs_err": errs["fused"],
          **times["fused"],
          "library_ms": None},
         {"name": "shade_kernel (K3)", "route": "cuda", "source": src,
          "replaces": "raytracing_engine_tpu/ops/pallas/shade.py:194",
-         "launches": counts["shade"], "max_abs_err": errs["shade"], **times["shade"],
+         "launches": counts["shade"] + entry.get("K3", 0), "max_abs_err": errs["shade"],
+         **times["shade"],
          "library_ms": None},
         {"name": "pt_kernel<none> (K4)", "route": "cuda",
          "source": "raytracing_engine_tpu_torch/csrc/pt.cu",
          "replaces": "raytracing_engine_tpu/ops/pallas/pt_kernel.py:194",
-         "max_abs_err": pt_err, **pt_main, "library_ms": None},
+         "max_abs_err": pt_err, **pt_main,
+         "launches": pt_main["launches"] + entry.get("K4 none", 0), "library_ms": None},
         {"name": "pt_kernel<clusters> (K4)", "route": "cuda",
          "source": "raytracing_engine_tpu_torch/csrc/pt.cu",
          "replaces": "raytracing_engine_tpu/ops/pallas/pt_kernel.py:194",
@@ -3966,7 +4428,8 @@ def main() -> int:
         {"name": "pt_rebin_kernel (K5)", "route": "cuda",
          "source": "raytracing_engine_tpu_torch/csrc/pt.cu",
          "replaces": "raytracing_engine_tpu/ops/pallas/pt_kernel.py:699",
-         "launches": c3_main["launches"]["K5"], "max_abs_err": inv["max_abs_err"],
+         "launches": c3_main["launches"]["K5"] + entry.get("K5", 0)
+         - entry.get("K5 material", 0), "max_abs_err": inv["max_abs_err"],
          **c3_main["k5"], "library_ms": None},
         {"name": "pt_kernel<clusters, material> (K4, env map, rough glass, UV textures)",
          "route": "cuda", "source": "raytracing_engine_tpu_torch/csrc/pt.cu",
@@ -3975,6 +4438,7 @@ def main() -> int:
         {"name": "pt_rebin_kernel<material> (K5)", "route": "cuda",
          "source": "raytracing_engine_tpu_torch/csrc/pt.cu",
          "replaces": "raytracing_engine_tpu/ops/pallas/pt_kernel.py:699", **show["k5"],
+         "launches": show["k5"]["launches"] + entry.get("K5 material", 0),
          "library_ms": None},
         {"name": "pt_rebin_kernel<material> (K5, env map, rough glass, UV textures)",
          "route": "cuda", "source": "raytracing_engine_tpu_torch/csrc/pt.cu",
@@ -3983,22 +4447,24 @@ def main() -> int:
         {"name": "cluster_kernel (K6)", "route": "cuda",
          "source": "raytracing_engine_tpu_torch/csrc/cluster.cu",
          "replaces": "raytracing_engine_tpu/ops/pallas/cluster_intersect.py:439",
-         "launches": c3_main["launches"]["K6"] + orbit["K6"] + show["K6"] + rest["K6"], **k6,
+         "launches": c3_main["launches"]["K6"] + orbit["K6"] + show["K6"] + rest["K6"]
+         + entry.get("K6", 0), **k6,
          "library_ms": None},
         {"name": "instanced_kernel (K7)", "route": "cuda",
          "source": "raytracing_engine_tpu_torch/csrc/instanced.cu",
          "replaces": "raytracing_engine_tpu/ops/pallas/instanced_intersect.py:225",
-         "launches": c5_main["launches"]["K7"],
+         "launches": c5_main["launches"]["K7"] + entry.get("K7", 0),
          "max_abs_err": max(k7_err, c5_main["k7_err"]), **c5_main["k7"],
          "library_ms": None},
         {"name": "traverse_kernel (K8)", "route": "cuda",
          "source": "raytracing_engine_tpu_torch/csrc/bvh.cu",
          "replaces": "raytracing_engine_tpu/ops/pallas/bvh_traverse.py:60",
-         "launches": c5_main["launches"]["K8"], **k8, "library_ms": None},
+         "launches": c5_main["launches"]["K8"] + entry.get("K8", 0), **k8,
+         "library_ms": None},
         {"name": "rng_kernel (K9)", "route": "cuda",
          "source": "raytracing_engine_tpu_torch/csrc/rng.cu",
          "replaces": "raytracing_engine_tpu/ops/pallas/rng.py:24", **k9,
-         "launches": k9["launches"] + orbit["K9"], "library_ms": None},
+         "launches": k9["launches"] + orbit["K9"] + entry.get("K9", 0), "library_ms": None},
     ]
     for k in kernels:  # a timing that failed fails the run
         bad = [key for key in ("ms", "plain_ms", "bound_ms", "max_abs_err")

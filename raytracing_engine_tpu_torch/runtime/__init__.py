@@ -1,6 +1,8 @@
-"""Host runtime: frame loop, sequence serving, progressive checkpoints, replay."""
+"""Host runtime: frame loop, live HTTP serving, sequence serving, progressive
+checkpoints, replay."""
 
 from raytracing_engine_tpu_torch.runtime.frame import FrameLoop, InputEvent  # noqa: F401
+from raytracing_engine_tpu_torch.runtime.live import LiveFrameServer  # noqa: F401
 from raytracing_engine_tpu_torch.runtime.serve import render_sequence  # noqa: F401
 from raytracing_engine_tpu_torch.runtime.checkpoint import (  # noqa: F401
     ProgressiveState,

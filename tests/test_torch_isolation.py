@@ -46,3 +46,6 @@ def test_port_imports_without_jax():
     # the threefry stream (K9's plain version) and K9's wrapper among them
     assert {"raytracing_engine_tpu_torch.ops.rng",
             "raytracing_engine_tpu_torch.ops.cuda.rng"} <= set(names), out.stdout
+    # and the entry points: the command line and the live server
+    assert {"raytracing_engine_tpu_torch.cli",
+            "raytracing_engine_tpu_torch.runtime.live"} <= set(names), out.stdout
