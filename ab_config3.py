@@ -95,13 +95,14 @@ from the work the plain rebin renderer counts on the whole frame, which it
 holds to K4's frame bit for bit (about two minutes).
 
 Sass: K4's and K5's instantiations without the material features, and
-K6's without UV planes, at two checkouts, instruction for instruction.
-Each checkout's libpt.so and libcluster.so are built by its own
-ops/cuda/common.build (a process each) and read by cuobjdump -sass; each
-instantiation of DIR_B's pt_kernel<kind, false>, pt_rebin_kernel<false>
-and cluster_kernel<false> is compared with DIR_A's of the same mesh kind
-(pt_kernel<kind>, pt_rebin_kernel, cluster_kernel, where DIR_A has no
-material or UV one), with the addresses and encodings dropped.
+K6's and K7's without UV planes, at two checkouts, instruction for
+instruction. Each checkout's libpt.so, libcluster.so and libinstanced.so
+are built by its own ops/cuda/common.build (a process each) and read by
+cuobjdump -sass; each instantiation of DIR_B's pt_kernel<kind, false>,
+pt_rebin_kernel<false>, cluster_kernel<false> and instanced_kernel is
+compared with DIR_A's of the same mesh kind (pt_kernel<kind>,
+pt_rebin_kernel, cluster_kernel, where DIR_A has no material or UV one),
+with the addresses and encodings dropped.
 
 Usage: python3 ab_config3.py DIR_A DIR_B
        python3 ab_config3.py --spheres DIR_A DIR_B
@@ -109,6 +110,7 @@ Usage: python3 ab_config3.py DIR_A DIR_B
        python3 ab_config3.py --lanes DIR
        python3 ab_config3.py --bound5 DIR
        python3 ab_config3.py --sass DIR_A DIR_B
+       python3 ab_config3.py --showcase DIR_A DIR_B   (phases 19-20 of each checkout's smoke, A B B A)
        python3 ab_config3.py --worker DIR [NAME=VALUE ...]   (one checkout, once)
        python3 ab_config3.py --sphere-worker DIR   (its sphere rows, once)
        python3 ab_config3.py --cone-worker DIR [NAME=VALUE ...]   (its cone rows, once)
@@ -122,6 +124,7 @@ from __future__ import annotations
 
 import difflib
 import hashlib
+import json
 import os
 import re
 import shutil
@@ -136,7 +139,8 @@ C4_SPP, C4_CHUNK = 1024, 128
 BOUNCE_REPS, K7_REPS = 9, 10
 SPIN_CYCLES = 2_000_000  # about 1 ms on the H100: device_ms's event timing
 KERNELS = ("pt_kernel", "pt_rebin_kernel", "instanced_kernel", "traverse_kernel",
-           "depth_kernel", "pyramid_kernel", "fused_kernel", "shade_kernel", "cluster_kernel")
+           "depth_kernel", "pyramid_kernel", "fused_kernel", "shade_kernel", "cluster_kernel",
+           "pt_tex_kernel", "pt_rebin_tex_kernel", "instanced_uv_kernel")
 K1_NAMES = ("depth_kernel", "pyramid_kernel")  # K1 before and after it took every level
 CONE_NAMES = K1_NAMES + ("fused_kernel", "shade_kernel")
 CONE_SIZE, CONE_POSES, K8_REPS, RAW_FRAMES = (1920, 1088), 24, 20, 3
@@ -156,19 +160,24 @@ def ptxas_lines(log: str):
     """(kernel, registers, stack B, spill stores B, spill loads B, smem B) of
     each entry of KERNELS in nvcc's -Xptxas -v log; an instantiation of K4 on
     a mesh kind is named pt_kernel<kind>, its material instantiation
-    pt_kernel<kind, material> (K5's pt_rebin_kernel<material>)."""
+    pt_kernel<kind, material> (K5's pt_rebin_kernel<material>), its texture
+    instantiation pt_tex_kernel<kind>; other templates by their arguments
+    (cluster_kernel<1, 1>)."""
     out, entry, stack = [], None, None
     for line in log.splitlines():
         m = re.search(r"entry function '(\w+)'", line)
         if m:
             name = next((k for k in KERNELS if re.search(rf"\d{k}[EI]", m.group(1))), None)
-            kind = re.search(r"\dpt_kernelILi(\d+)E", m.group(1))
+            kind = re.search(r"\dpt(?:_tex)?_kernelILi(\d+)E", m.group(1))
             material = re.search(r"\dpt(?:_rebin)?_kernelI(?:Li\d+E)?Lb1E", m.group(1))
+            targs = re.search(rf"\d{name}I((?:L[ib]\d+E)+)E", m.group(1)) if name else None
             if name and kind:
                 name = f"{name}<{MESH_KINDS.get(int(kind.group(1)), kind.group(1))}"
                 name += ", material>" if material else ">"
             elif name and material:
                 name = f"{name}<material>"
+            elif name and targs:
+                name += "<" + ", ".join(re.findall(r"L[ib](\d+)E", targs.group(1))) + ">"
             entry, stack = name, None
             continue
         if entry is None:
@@ -1158,9 +1167,11 @@ BUILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
 
 
 def sass_functions(lib: Path, kernels=("pt_kernel", "pt_rebin_kernel")) -> dict:
-    """{(kernel, mesh kind or None, material or UV 0/1): [instruction, ...]}
-    of the functions named `kernels` in lib, from cuobjdump -sass, without
-    the addresses and encodings."""
+    """{(kernel, mesh kind or None, its bool template arguments, "0" where
+    it has none): [instruction, ...]} of the functions named `kernels` in
+    lib, from cuobjdump -sass, without the addresses and encodings. The
+    instantiations without features have the flags "0"; K6's tangent
+    overload cluster_kernel<true, true> is "11"."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     dump = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(lib)],
@@ -1169,9 +1180,10 @@ def sass_functions(lib: Path, kernels=("pt_kernel", "pt_rebin_kernel")) -> dict:
     for line in dump.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            k = re.search(r"\d(" + "|".join(kernels) + r")(?:I(?:Li(\d+)E)?(?:Lb(\d)E)?E)?",
+            k = re.search(r"\d(" + "|".join(kernels) + r")(?:I(?:Li(\d+)E)?((?:Lb\dE)*)E)?",
                           m.group(1))
-            key = (k.group(1), k.group(2), k.group(3) or "0") if k else None
+            flags = "".join(re.findall(r"Lb(\d)E", k.group(3) or "")) if k else ""
+            key = (k.group(1), k.group(2), flags or "0") if k else None
             if key is not None:
                 out[key] = []
             continue
@@ -1189,7 +1201,8 @@ def sass(a: str, b: str) -> int:
         subprocess.run([sys.executable, "-c", BUILD, str(path)], check=True, timeout=900)
         build = path / "raytracing_engine_tpu_torch" / "build"
         funcs[root] = {**sass_functions(build / "libpt.so"),
-                       **sass_functions(build / "libcluster.so", ("cluster_kernel",))}
+                       **sass_functions(build / "libcluster.so", ("cluster_kernel",)),
+                       **sass_functions(build / "libinstanced.so", ("instanced_kernel",))}
         print(f"  {root}: {sorted(funcs[root])}", flush=True)
     same = {}
     for key in sorted(k for k in funcs[b] if k[2] == "0"):
@@ -1207,13 +1220,49 @@ def sass(a: str, b: str) -> int:
         print(f"  {name} without the material features: {len(ia)} instructions at A, {len(ib)} "
               f"at B, {len(diff)} lines differ{': ' + ' | '.join(diff[:12]) if diff else ''} "
               f"[{card}]", flush=True)
-    print(f"the instantiations without the material features (K4, K5) and without UVs (K6) "
-          f"are the same SASS at A and B: "
+    print(f"the instantiations without the material features (K4, K5) and without UVs (K6, "
+          f"K7) are the same SASS at A and B: "
           f"{all(same.values()) and bool(same)} {same}", flush=True)
     return 0 if same and all(same.values()) else 1
 
 
+# --- the material instantiations on phases 19 and 20 (--showcase) ---------------
+
+SHOWCASE_RUN = ("import json, os, sys; sys.path.insert(0, os.getcwd()); import torch; "
+                "import chip_smoke as c; d = torch.device('cuda', 0); torch.cuda.set_device(d); "
+                "k = c.card_line(); c.phase_build(); s = c.phase_showcase(d, k); "
+                "r = c.phase_showcase_rest(d, k); print('SHOWCASE ' + json.dumps({"
+                "'p19 K4': s['k4']['ms'], 'p19 K5': s['k5']['ms'], "
+                "'p20 K4': r['k4']['ms'], 'p20 K5': r['k5']['ms']}))")
+
+
+def showcase(a: str, b: str) -> int:
+    """Phases 19 and 20 of each checkout's own chip_smoke.py (run from its
+    root, each in its own process: build, then the phases), A B B A: the
+    device ms of K4's and K5's material instantiations on the showcase and
+    on phase 20's scene, the check that code beside them left them alone."""
+    card = card_line()
+    rows = []
+    for root in (a, b, b, a):
+        proc = subprocess.run([sys.executable, "-c", SHOWCASE_RUN], cwd=root, timeout=900,
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
+            return proc.returncode
+        ms = json.loads(proc.stdout.split("SHOWCASE ")[-1].splitlines()[0])
+        rows.append((root, ms))
+        print(f"  {root}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()) + f" [{card}]",
+              flush=True)
+    for key in rows[0][1]:
+        at = {r: [ms[key] for root, ms in rows if root == r] for r in (a, b)}
+        print(f"  {key}: A {at[a]}, B {at[b]}; B within A's spread: "
+              f"{min(at[a]) <= max(at[b]) and min(at[b]) <= max(at[a])}", flush=True)
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--showcase":
+        return showcase(sys.argv[2], sys.argv[3])
     if len(sys.argv) >= 3 and sys.argv[1] == "--worker":
         return worker(sys.argv[2], sys.argv[3:])
     if len(sys.argv) == 3 and sys.argv[1] == "--lanes":

@@ -214,6 +214,22 @@ Phases, each printing its own lines:
      torch.profiler's device time beside the ms the command prints); (c)
      python3 -m raytracing_engine_tpu_torch.cli render as a subprocess with
      no --device: exit 0 and the PNG of (b).
+ 22. the texture features at 1920x1088, 4 bounces, 4 spp, pcg, every
+     texture generated here: (a) K6's tangent planes (cluster_kernel<true,
+     true>) on the frame's camera rays against a UV icosphere, all twelve
+     planes bit for bit with the plain sweep; (b) K7 on a UV base table
+     (instanced_uv_kernel<true>): config 5's 6 x 5 grid of a UV icosphere,
+     the frame's camera rays, the ten planes (UV and world tangent among
+     them) bit for bit; (c) phase 20's showcase with its icosphere
+     normal-mapped and mip-chained under tex_filter="trilinear": K4's and
+     K5's texture instantiations (pt_tex_kernel<clusters>,
+     pt_rebin_tex_kernel) on the band at 1 spp bit for bit with their
+     plain versions (trilinear and bilinear), K5's whole frame bit for bit
+     K4's, card vs CPU at 64x36; (d) the grid of (b) normal-mapped,
+     image-textured and mip-chained: pt_tex_kernel<instances> on a band
+     bit for bit, K5 == K4 on the frame; each main path under the launch
+     counters (render_pt_mega, render_pt_rebin, render_pt_fast) and timed
+     by the profiler, with its bound.
 Then a line that sums up phases 4 and 5's image output, one JSON line of
 per-kernel results, each number measured in this run
 but the bounds, computed from its inputs (K4 once per instantiation, on its
@@ -448,6 +464,15 @@ REST_SUN = (35.0, 200.0, 3.0)  # its sun: elevation and disc radius in degrees, 
 # budget (scene.ATLAS_MAX_ROWS, JAX's), refuses a 64 x 64 image
 REST_TEX = (32, 64)
 REST_PNG = SMOKE_OUT / "showcase_rest.png"
+# phase 22: the texture features. The albedo image's mip chain (16 x 64 down
+# to 1 x 1: 127 texels wide) fills one 16-row shelf of the atlas and the
+# normal map the next, 32 rows in all (scene.ATLAS_MAX_ROWS)
+TEX_ALBEDO = (16, 64)
+TEX_NORMAL = (16, 32)
+TEX_BUMPS = 0.35             # the normal map's tilt: n = normalize(bx, by, 1)
+TEX_BASE = dict(subdivisions=3, radius=1.3)  # the instanced UV base mesh (1,280 triangles)
+TEX_INST_BAND = (540, 8)     # (d)'s rows held to the plain megakernel at 1 spp
+TEX_PNG = SMOKE_OUT / "textures.png"
 
 
 def log(msg: str):
@@ -485,7 +510,8 @@ def phase_build():
 
     info = common.build()
     for line in info["log"].splitlines():
-        if "ptxas info" in line and ("registers" in line or "entry function" in line):
+        if "ptxas info" in line and ("registers" in line or "entry function" in line) or (
+                "spill stores" in line):
             log(f"  {line.strip()}")
     for name in common.LIBRARIES:
         common.library(name)
@@ -993,6 +1019,7 @@ def reset_k4():
     pt.launches = 0
     pt.mesh_launches.update(dict.fromkeys(pt.mesh_launches, 0))
     pt.material_launches.update(dict.fromkeys(pt.material_launches, 0))
+    pt.tex_launches.update(dict.fromkeys(pt.tex_launches, 0))
 
 
 def pt_setup(device):
@@ -3897,6 +3924,408 @@ def phase_showcase_rest(device, card):
     }
 
 
+# --- phase 22: the texture features ---------------------------------------------
+
+def tex_images(seed: int = 22):
+    """(albedo (16, 64, 3), normal map (16, 32, 3) holding (n + 1) / 2): a
+    stripe pattern with noise, and bumps tilted by up to TEX_BUMPS."""
+    rng = np.random.default_rng(seed)
+    th, tw = TEX_ALBEDO
+    tex = ((np.arange(th) // 2 % 2)[:, None, None] * np.float32([0.7, 0.2, 0.1])
+           + (np.arange(tw) // 4 % 2)[None, :, None] * np.float32([0.1, 0.4, 0.7]))
+    tex = np.clip(tex + rng.uniform(0.05, 0.2, tex.shape), 0.0, 1.0).astype(np.float32)
+    nh, nw = TEX_NORMAL
+    y, x = np.mgrid[0:nh, 0:nw].astype(np.float32)
+    n = np.stack([TEX_BUMPS * np.sin(x * 0.8) * np.cos(y * 0.6),
+                  TEX_BUMPS * np.cos(x * 0.5 + y * 0.9), np.ones_like(x)], -1)
+    n = n + rng.normal(0.0, 0.03, n.shape)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    return tex, ((n + 1.0) * 0.5).astype(np.float32)
+
+
+def textures_spec(out_dir: Path) -> Path:
+    """Phase 20's showcase (showcase_rest_spec) with its UV icosphere
+    normal-mapped and its image a 16 x 64 texture with its mip chain
+    (tex_mips)."""
+    from raytracing_engine_tpu_torch.utils.image import write_png
+
+    spec = json.loads(showcase_rest_spec(out_dir).read_text())
+    tex, nrm = tex_images()
+    write_png(str(out_dir / "tex16.png"), tex)
+    np.save(str(out_dir / "nrm.npy"), nrm)
+    m = spec["materials"][spec["meshes"][0]["mat"]]
+    m["image"] = {"png": "tex16.png", "scale": 2}
+    m["normal"] = {"npy": "nrm.npy", "scale": 2}
+    spec["tex_mips"] = True
+    path = out_dir / "textures.json"
+    path.write_text(json.dumps(spec))
+    return path
+
+
+def tex_instances(device):
+    """(d)'s scene: config 5's grid (C5_GRID) of a UV icosphere (spherical
+    UVs) with per-instance materials 0 (image with its mip chain and a
+    normal map), 1 (a normal map) and 2 (flat), a sphere light and a floor;
+    -> (scene, InstancedClusters, the base ClusterSet)."""
+    from raytracing_engine_tpu_torch.accel import (
+        build_bvh,
+        build_clusters,
+        grid_instances,
+        icosphere,
+        make_instanced_clusters,
+    )
+    from raytracing_engine_tpu_torch.pathtracer import build_pt_scene
+
+    ball = icosphere(**TEX_BASE).astype(np.float32)
+    p = ball / np.linalg.norm(ball, axis=-1, keepdims=True)
+    uvs = np.stack([np.arctan2(p[..., 1], p[..., 0]) / (2.0 * np.pi) + 0.5,
+                    np.arccos(np.clip(p[..., 2], -1.0, 1.0)) / np.pi], -1).astype(np.float32)
+    tex, nrm = tex_images(23)
+    scene = build_pt_scene(
+        spheres=[((8.0, 2.0, 10.0), 2.0, 3), ((0.0, 14.0, -103.0), 100.0, 4)],
+        materials=[{"albedo": (0.75, 0.5, 0.3), "image": {"pixels": tex, "scale": 2.0},
+                    "normal": {"pixels": nrm, "scale": 3.0}},
+                   {"albedo": (0.4, 0.7, 0.5), "normal": nrm},
+                   {"albedo": (0.5, 0.5, 0.8)},
+                   {"albedo": (0, 0, 0), "emission": (40.0, 38.0, 34.0)},
+                   {"albedo": (0.55, 0.55, 0.5)}], tex_mips=True, device=device)
+    cs = build_clusters(ball, vertex_uvs=uvs, device=device)
+    inst = grid_instances(build_bvh(ball, device=device), **C5_GRID,
+                          mats=np.arange(30, dtype=np.int32) % 3, device=device)
+    return scene, make_instanced_clusters(inst, cs, scene=scene, device=device), cs
+
+
+def hold_planes(label, got, want, n_planes) -> int:
+    """Every output plane of a sweep kernel against its plain version, bit
+    for bit; -> the hits."""
+    same = len(got) == len(want) == n_planes and all(torch.equal(g, w) for g, w in zip(got, want))
+    hits = int((want[1] >= 0).sum())
+    log(f"  {label}: {n_planes} planes bit for bit with the plain sweep {same} ({hits} hits)")
+    if not same or hits == 0:
+        raise AssertionError(f"{label}: the planes differ from the plain sweep")
+    return hits
+
+
+def phase_textures(device, card):
+    """The texture features (module docstring, phase 22); -> the kernels-line
+    entries of the new instantiations."""
+    import tempfile
+
+    from raytracing_engine_tpu_torch.accel import build_clusters
+    from raytracing_engine_tpu_torch.ops.cuda import cluster, instanced, pt
+    from raytracing_engine_tpu_torch.ops.rng_pcg import seed_from_int
+    from raytracing_engine_tpu_torch.pathtracer import PTConfig, load_scene_json
+    from raytracing_engine_tpu_torch.pathtracer.wavefront import (
+        _camera_rays,
+        render_pt_fast,
+        state_plane_count,
+    )
+    from raytracing_engine_tpu_torch.utils.image import tonemap, write_png
+    from raytracing_engine_tpu_torch.utils.timing import (
+        bound_ms,
+        cluster_table_bytes,
+        instanced_ops,
+        k5_bytes,
+        k6_bytes,
+        k7_bytes,
+        pt_ops,
+        sweep_ops,
+    )
+
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    out_dir = Path(tmp.name)
+    b = load_scene_json(str(textures_spec(out_dir)))
+    scene = b.scene
+    cs = build_clusters(b.tris, tri_mats=b.tri_mats, vertex_normals=b.tri_normals,
+                        vertex_uvs=b.tri_uvs)
+    pos, quat = torch.from_numpy(b.cam_pos).to(device), torch.from_numpy(b.cam_quat).to(device)
+    seed = seed_from_int(1)
+    log(f"  textures scene: {b.tris.shape[0]} triangles (UV table {cs.has_uv}), atlas "
+        f"{tuple(scene.tex_atlas.shape)}, {scene.n_mip_levels} mip levels, normal map "
+        f"{scene.has_normal_map}, material table {tuple(pt.pack_pt_scene(scene)[2].shape)}; "
+        f"loaded in {time.perf_counter() - t0:.2f} s")
+    if not (scene.needs_tan and scene.has_mips and scene.has_normal_map and cs.has_uv
+            and scene.device.type == device.type):
+        raise AssertionError("the textures scene did not load onto the card with its features")
+    cfg = PTConfig(**SHOW, rng="pcg", tex_filter="trilinear")
+    half = torch.full((cfg.height, cfg.width), 0.5, device=device)
+    o, d = _camera_rays(cfg, pos, quat, half, half)
+    o, d = tuple(x.contiguous() for x in o), tuple(x.contiguous() for x in d)
+    n_rays = o[0].numel()
+
+    # (a) K6's tangent planes on the frame's camera rays
+    fc = pt.frame_view(cs, pos)
+    okw = dict(attrs=True, order=fc.orders[0], orders=fc.orders, refs=fc.refs, tan=True)
+    cluster.launches = cluster.tan_launches = 0
+    got = cluster.cluster_intersect(cs, o, d, float("inf"), **okw)
+    k6_launches = cluster.tan_launches
+    if (cluster.launches, k6_launches) != (1, 1):
+        raise AssertionError(f"cluster_intersect(tan=True) took other launches: "
+                             f"{cluster.launches}, {k6_launches}")
+    cluster.work.update(slabs=0, tests=0)
+    torch.cuda.synchronize(device)
+    t1 = time.perf_counter()
+    want = cluster.cluster_intersect_reference(cs, o, d, float("inf"), **okw)
+    torch.cuda.synchronize(device)
+    k6_plain_ms = (time.perf_counter() - t1) * 1e3
+    k6_work = dict(cluster.work)
+    hold_planes(f"K6<uv, tan> on the frame's {n_rays} camera rays", got, want, 12)
+    hit = want[1] >= 0
+    tl = torch.sqrt(want[9] ** 2 + want[10] ** 2 + want[11] ** 2)[hit]
+    log(f"  K6 tangent lengths on the hits: {tl.min().item():.4g} .. {tl.max().item():.4g}")
+    k6_ms = device_ms(lambda k: cluster.cluster_intersect(cs, o, d, float("inf"), **okw), 8,
+                      "cluster_kernel")
+    tb = cluster.sweep_tables(cs)
+    k6_tables = cluster_table_bytes([tb.sbox, tb.crec, tb.trec, tb.tsmooth, tb.tuv, fc.orders,
+                                     fc.refs])
+    k6_bound = bound_ms(k6_bytes(n_rays, True, k6_tables, uv=True, tan=True) + 8 * n_rays,
+                        sweep_ops(k6_work["slabs"], k6_work["tests"]))
+    log(f"  K6<uv, tan> frame camera rays: {k6_ms:.4f} ms of device time (the profiler's); "
+        f"plain {k6_plain_ms:.1f} ms; bound {k6_bound[0]:.5f} ms by {k6_bound[1]} "
+        f"({k6_work['slabs']} box + {k6_work['tests']} triangle tests; 12 planes out) = "
+        f"{k6_bound[0] / k6_ms:.2%} [{card}]")
+
+    # (c) K4 and K5's texture instantiations on the band, bit for bit
+    row0, bh = SHOW_BAND
+    kw = dict(seed=seed, bvh=cs, row0=row0, band_h=bh)
+    errs, k5_errs = [], []
+    for filt in ("trilinear", "bilinear"):
+        c = PTConfig(**SHOW, rng="pcg", tex_filter=filt)
+        reset_k4()
+        band, n_band = pt.render_pt_mega(c, scene, pos, quat, 1, **kw)
+        if pt.tex_launches["clusters"] != 1:
+            raise AssertionError(f"the band took another K4 instantiation: {pt.tex_launches}")
+        cluster.work.update(slabs=0, tests=0)
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        want, n_want = pt.render_pt_mega_reference(c, scene, pos, quat, 1, **kw)
+        torch.cuda.synchronize(device)
+        if filt == "trilinear":
+            plain_ms, band_work, band_rays = ((time.perf_counter() - t1) * 1e3,
+                                              dict(cluster.work), int(n_want))
+        errs.append(hold_bitwise(f"K4<clusters, tex> rows {row0}..{row0 + bh}, 1 spp, {filt}, "
+                                 f"vs its plain version", band, n_band, want, n_want))
+        before = pt.rebin_tex_launches
+        rb, n_rb = pt.render_pt_rebin(c, scene, pos, quat, 1, **kw)
+        same = torch.equal(rb, band) and int(n_rb) == int(n_band)
+        log(f"  K5<tex> == K4<clusters, tex> on the band ({filt}) bit for bit: {same}; K5 tex "
+            f"launches {pt.rebin_tex_launches - before}")
+        if not same or pt.rebin_tex_launches - before != c.max_bounces + 1:
+            raise AssertionError("K5 differs from K4 on the band")
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        want_rb, n_want_rb = pt.render_pt_rebin_reference(c, scene, pos, quat, 1, **kw)
+        torch.cuda.synchronize(device)
+        if filt == "trilinear":
+            plain_rb_ms = (time.perf_counter() - t1) * 1e3
+        k5_errs.append(hold_bitwise(f"K5<tex> rows {row0}..{row0 + bh}, 1 spp, {filt}, vs its "
+                                    f"plain version", rb, n_rb, want_rb, n_want_rb))
+    log(f"  plain versions on the trilinear band: megakernel {plain_ms / 1e3:.2f} s, rebin "
+        f"{plain_rb_ms / 1e3:.2f} s")
+
+    # (c)'s main path, counted from 0: whole frames through the entry points
+    reset_launches()
+    zs = [pos + torch.tensor([0.0, 0.0, 1e-4 * k], device=device) for k in range(SHOW_FRAMES + 1)]
+    frame, n_frame = pt.render_pt_mega(cfg, scene, pos, quat, SHOW_SPP, seed=seed, bvh=cs)
+    rays = []
+    k4_ev, k4_host = cuda_ms(lambda k: rays.append(pt.render_pt_mega(
+        cfg, scene, zs[k + 1], quat, SHOW_SPP, seed=seed, bvh=cs)[1]), SHOW_FRAMES)
+    n_frame_rays = int(torch.stack(rays).sum()) // SHOW_FRAMES
+    rb_frame, n_rb_frame = pt.render_pt_rebin(cfg, scene, pos, quat, SHOW_SPP, seed=seed, bvh=cs)
+    fast, n_fast = render_pt_fast(cfg, scene, pos, quat, 1, seed=seed, bvh=cs)
+    torch.cuda.synchronize(device)
+    counts_c = {"K4 tex": pt.tex_launches["clusters"], "K5 tex": pt.rebin_tex_launches,
+                "K6": cluster.launches}
+    want_c = {"K4 tex": 1 + SHOW_FRAMES, "K5 tex": SHOW_SPP * (cfg.max_bounces + 1),
+              "K6": 2 * (cfg.max_bounces + 1)}
+    log(f"  launches on (c)'s main path {counts_c} (expected {want_c})")
+    if counts_c != want_c or pt.launches != 1 + SHOW_FRAMES:
+        raise AssertionError("(c)'s main path took other launches")
+    same = torch.equal(rb_frame, frame) and int(n_rb_frame) == int(n_frame)
+    log(f"  render_pt_rebin == render_pt_mega on the whole {SHOW_SPP}-spp trilinear frame bit "
+        f"for bit: {same}")
+    if not same:
+        raise AssertionError("K5 differs from K4 on the frame")
+    if not (torch.isfinite(fast).all() and fast.shape == frame.shape):
+        raise AssertionError("render_pt_fast's frame is not finite")
+    scale = n_frame_rays / band_rays
+    ops = int((pt_ops(band_rays, int(scene.sph_count), 0)
+               + instanced_ops(0, 0, band_work["slabs"], band_work["tests"])) * scale)
+    feats = sum(4 * t.numel() for t in pt.feature_tables(pt.kernel_scene(scene, cs)).values()
+                if t is not None)
+    tables = k4_table_bytes(scene, cs, pos) + 4 * tb.tuv.numel() + feats
+    bound = bound_ms(12 * cfg.width * cfg.height + tables, ops)
+    k4_ms = device_ms(lambda k: pt.render_pt_mega(cfg, scene, zs[k % (SHOW_FRAMES + 1)], quat,
+                                                  SHOW_SPP, seed=seed, bvh=cs),
+                      SHOW_FRAMES, "pt_tex_kernel", setup=lambda k: k)
+    log(f"  K4<clusters, tex> {cfg.width}x{cfg.height} {SHOW_SPP} spp, trilinear: {k4_ev:.4f} "
+        f"ms/frame by CUDA events (host enqueue {k4_host:.4f} ms), {k4_ms:.4f} ms of device "
+        f"time (the profiler's), {n_frame_rays} rays/frame; bound {bound[0]:.5f} ms by "
+        f"{bound[1]} = {bound[0] / k4_ms:.2%} [{card}]")
+    k5_dev = profiled_device_ms(lambda: pt.render_pt_rebin(cfg, scene, pos, quat, SHOW_SPP,
+                                                           seed=seed, bvh=cs),
+                                "pt_rebin_tex_kernel")
+    if k5_dev is None:
+        raise AssertionError("the profiler recorded no pt_rebin_tex_kernel in a frame")
+    _, _, run = pt.rebin_bounce_launcher(cfg, scene, pos, quat, seed, cs)
+    planes, n_px = state_plane_count(scene, cfg), cfg.width * cfg.height
+    live = [live_rays(k5_states(run, cfg, s)) for s in range(SHOW_SPP)]
+    k5_bound = bound_ms(sum(k5_bytes(n_px, lv, tables, planes) for lv in live), ops)
+    log(f"  K5<tex> frame: {k5_dev:.4f} ms of device time over "
+        f"{SHOW_SPP * (cfg.max_bounces + 1)} launches; bound {k5_bound[0]:.5f} ms by "
+        f"{k5_bound[1]} (the {planes}-plane state of the live rays {live}) = "
+        f"{k5_bound[0] / k5_dev:.2%} [{card}]")
+    small = PTConfig(**SHOW_CPU, rng="pcg", tex_filter="trilinear")
+    b_cpu = load_scene_json(str(out_dir / "textures.json"), device="cpu")
+    cs_cpu = build_clusters(b_cpu.tris, tri_mats=b_cpu.tri_mats, vertex_normals=b_cpu.tri_normals,
+                            vertex_uvs=b_cpu.tri_uvs, device="cpu")
+    card_img, n_card = pt.render_pt_mega(small, scene, pos, quat, 2, seed=seed, bvh=cs)
+    with correctly_rounded_sqrt():
+        cpu_img, n_cpu = pt.render_pt_mega(small, b_cpu.scene, pos.cpu(), quat.cpu(), 2,
+                                           seed=seed, bvh=cs_cpu)
+    cpu_err = hold_pt(f"K4<clusters, tex> {small.width}x{small.height} 2 spp on the card vs the "
+                      "plain version on the CPU (correctly rounded sqrt)", card_img.cpu(),
+                      n_card, cpu_img, n_cpu)
+
+    # (b) K7 on the UV base table: the frame's camera rays from config 5's camera
+    iscene, ic, base = tex_instances(device)
+    ipos, iquat = torch.zeros(3, device=device), torch.tensor([0.0, 0.0, 0.0, 1.0], device=device)
+    io, idr = _camera_rays(cfg, ipos, iquat, half, half)
+    io, idr = tuple(x.contiguous() for x in io), tuple(x.contiguous() for x in idr)
+    fi = pt.frame_view(ic, ipos)
+    ikw = dict(attrs=True, tan=True, iorder=fi.iorder, iorders=fi.iorders)
+    got = instanced.instanced_cluster_intersect(ic.inst_tab, base, io, idr, **ikw)
+    instanced.work.update(gates=0, transforms=0)
+    cluster.work.update(slabs=0, tests=0)
+    torch.cuda.synchronize(device)
+    t1 = time.perf_counter()
+    want = instanced.instanced_cluster_intersect_reference(ic.inst_tab, base, io, idr, **ikw)
+    torch.cuda.synchronize(device)
+    k7_plain_ms = (time.perf_counter() - t1) * 1e3
+    k7_work = {**instanced.work, **cluster.work}
+    hits = hold_planes(f"K7<uv, tan> on the frame's {n_rays} camera rays over "
+                       f"{ic.num_instances} instances", got, want, 10)
+    k7_ms = device_ms(lambda k: instanced.instanced_cluster_intersect(ic.inst_tab, base, io, idr,
+                                                                      **ikw),
+                      K7_REPS, "instanced_uv_kernel")
+    tbb = cluster.sweep_tables(base)
+    k7_tables = cluster_table_bytes([tbb.sbox, tbb.crec, tbb.trec, tbb.tsmooth, tbb.tuv,
+                                     ic.inst_tab, fi.iorder, fi.iorders])
+    k7_bound = bound_ms(k7_bytes(n_rays, True, k7_tables, uv=True, tan=True),
+                        instanced_ops(k7_work["gates"], k7_work["transforms"], k7_work["slabs"],
+                                      k7_work["tests"]))
+    log(f"  K7<uv, tan> frame camera rays ({hits} hits): {k7_ms:.4f} ms of device time; plain "
+        f"{k7_plain_ms:.1f} ms; bound {k7_bound[0]:.5f} ms by {k7_bound[1]} ({k7_work}) = "
+        f"{k7_bound[0] / k7_ms:.2%} [{card}]")
+
+    # (d) K4's texture instantiation with instances on a band, bit for bit
+    irow0, ibh = TEX_INST_BAND
+    ikw4 = dict(seed=seed, bvh=ic, row0=irow0, band_h=ibh)
+    reset_k4()
+    band, n_band = pt.render_pt_mega(cfg, iscene, ipos, iquat, 1, **ikw4)
+    if pt.tex_launches["instances"] != 1:
+        raise AssertionError(f"the band took another K4 instantiation: {pt.tex_launches}")
+    instanced.work.update(gates=0, transforms=0)
+    cluster.work.update(slabs=0, tests=0)
+    torch.cuda.synchronize(device)
+    t1 = time.perf_counter()
+    want, n_want = pt.render_pt_mega_reference(cfg, iscene, ipos, iquat, 1, **ikw4)
+    torch.cuda.synchronize(device)
+    iplain_ms = (time.perf_counter() - t1) * 1e3
+    iband_work, iband_rays = {**instanced.work, **cluster.work}, int(n_want)
+    errs.append(hold_bitwise(f"K4<instances, tex> rows {irow0}..{irow0 + ibh}, 1 spp, trilinear, "
+                             f"vs its plain version (plain {iplain_ms / 1e3:.2f} s)", band, n_band,
+                             want, n_want))
+
+    # (d)'s main path, counted from 0
+    reset_launches()
+    izs = [ipos + torch.tensor([0.0, 0.0, 1e-4 * k], device=device)
+           for k in range(SHOW_FRAMES + 1)]
+    iframe, n_iframe = pt.render_pt_mega(cfg, iscene, ipos, iquat, SHOW_SPP, seed=seed, bvh=ic)
+    rays = []
+    ik4_ev, ik4_host = cuda_ms(lambda k: rays.append(pt.render_pt_mega(
+        cfg, iscene, izs[k + 1], iquat, SHOW_SPP, seed=seed, bvh=ic)[1]), SHOW_FRAMES)
+    n_iframe_rays = int(torch.stack(rays).sum()) // SHOW_FRAMES
+    irb, n_irb = pt.render_pt_rebin(cfg, iscene, ipos, iquat, SHOW_SPP, seed=seed, bvh=ic)
+    ifast, _ = render_pt_fast(cfg, iscene, ipos, iquat, 1, seed=seed, bvh=ic)
+    torch.cuda.synchronize(device)
+    counts_d = {"K4 tex": pt.tex_launches["instances"], "K5 tex": pt.rebin_tex_launches,
+                "K7 uv": instanced.uv_launches, "K7": instanced.launches}
+    want_d = {"K4 tex": 1 + SHOW_FRAMES, "K5 tex": SHOW_SPP * (cfg.max_bounces + 1),
+              "K7 uv": cfg.max_bounces + 1, "K7": 2 * (cfg.max_bounces + 1)}
+    log(f"  launches on (d)'s main path {counts_d} (expected {want_d})")
+    if counts_d != want_d or pt.launches != 1 + SHOW_FRAMES:
+        raise AssertionError("(d)'s main path took other launches")
+    same = torch.equal(irb, iframe) and int(n_irb) == int(n_iframe)
+    log(f"  render_pt_rebin == render_pt_mega with instances on the whole frame bit for bit: "
+        f"{same}")
+    if not same or not torch.isfinite(ifast).all():
+        raise AssertionError("K5 differs from K4 with instances, or render_pt_fast is not finite")
+    iscale = n_iframe_rays / iband_rays
+    iops = int((pt_ops(iband_rays, int(iscene.sph_count), 0)
+                + instanced_ops(iband_work["gates"], iband_work["transforms"],
+                                iband_work["slabs"], iband_work["tests"])) * iscale)
+    ifeats = sum(4 * t.numel() for t in pt.feature_tables(pt.kernel_scene(iscene, ic)).values()
+                 if t is not None)
+    itables = k4_table_bytes(iscene, ic, ipos) + 4 * tbb.tuv.numel() + ifeats
+    ibound = bound_ms(12 * cfg.width * cfg.height + itables, iops)
+    ik4_ms = device_ms(lambda k: pt.render_pt_mega(cfg, iscene, izs[k % (SHOW_FRAMES + 1)], iquat,
+                                                   SHOW_SPP, seed=seed, bvh=ic),
+                       SHOW_FRAMES, "pt_tex_kernel", setup=lambda k: k)
+    log(f"  K4<instances, tex> {cfg.width}x{cfg.height} {SHOW_SPP} spp, trilinear: "
+        f"{ik4_ev:.4f} ms/frame by CUDA events (host enqueue {ik4_host:.4f} ms), {ik4_ms:.4f} "
+        f"ms of device time, {n_iframe_rays} rays/frame; bound {ibound[0]:.5f} ms by "
+        f"{ibound[1]} = {ibound[0] / ik4_ms:.2%} [{card}]")
+    ik5_dev = profiled_device_ms(lambda: pt.render_pt_rebin(cfg, iscene, ipos, iquat, SHOW_SPP,
+                                                            seed=seed, bvh=ic),
+                                 "pt_rebin_tex_kernel")
+    log(f"  K5<tex> with instances: {ik5_dev} ms of device time over "
+        f"{SHOW_SPP * (cfg.max_bounces + 1)} launches [{card}]")
+
+    img = frame.cpu().numpy()
+    means = img.reshape(-1, 3).mean(0)
+    imeans = iframe.cpu().numpy().reshape(-1, 3).mean(0)
+    if not (np.isfinite(img).all() and means.min() > 0.0 and imeans.min() > 0.0):
+        raise AssertionError(f"a frame is non-finite or black: means {means} {imeans}")
+    SMOKE_OUT.mkdir(exist_ok=True)
+    write_png(str(TEX_PNG), tonemap(img, "aces", gamma=2.2))
+    tmp.cleanup()
+    log(f"  frames finite, channel means {[round(float(m), 5) for m in means]} and "
+        f"{[round(float(m), 5) for m in imeans]}; {TEX_PNG.name} written; card vs CPU "
+        f"{cpu_err:.6g}; phase {time.perf_counter() - t0:.1f} s")
+    src = "raytracing_engine_tpu_torch/csrc/"
+    k4 = "raytracing_engine_tpu/ops/pallas/pt_kernel.py:194"
+    k5 = "raytracing_engine_tpu/ops/pallas/pt_kernel.py:699"
+    return [
+        {"name": "pt_tex_kernel<clusters> (K4: normal maps, mips, trilinear)", "route": "cuda",
+         "source": src + "pt.cu", "replaces": k4, "launches": counts_c["K4 tex"],
+         "max_abs_err": max(errs), "ms": k4_ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+         "bound_by": bound[1], "library_ms": None},
+        {"name": "pt_tex_kernel<instances> (K4: a UV base table under instances)",
+         "route": "cuda", "source": src + "pt.cu", "replaces": k4,
+         "launches": counts_d["K4 tex"], "max_abs_err": errs[-1], "ms": ik4_ms,
+         "plain_ms": iplain_ms, "bound_ms": ibound[0], "bound_by": ibound[1],
+         "library_ms": None},
+        {"name": "pt_rebin_tex_kernel (K5: normal maps, mips, trilinear)", "route": "cuda",
+         "source": src + "pt.cu", "replaces": k5,
+         "launches": counts_c["K5 tex"] + counts_d["K5 tex"], "max_abs_err": max(k5_errs),
+         "ms": k5_dev, "plain_ms": plain_rb_ms, "bound_ms": k5_bound[0],
+         "bound_by": k5_bound[1], "library_ms": None},
+        {"name": "cluster_kernel<true, true> (K6: UV and tangent planes)", "route": "cuda",
+         "source": src + "cluster.cu",
+         "replaces": "raytracing_engine_tpu/ops/pallas/cluster_intersect.py:439",
+         "launches": k6_launches, "max_abs_err": 0.0, "ms": k6_ms, "plain_ms": k6_plain_ms,
+         "bound_ms": k6_bound[0], "bound_by": k6_bound[1], "library_ms": None},
+        {"name": "instanced_uv_kernel<true> (K7: a UV base table)", "route": "cuda",
+         "source": src + "instanced.cu",
+         "replaces": "raytracing_engine_tpu/ops/pallas/instanced_intersect.py:225",
+         "launches": counts_d["K7 uv"], "max_abs_err": 0.0, "ms": k7_ms,
+         "plain_ms": k7_plain_ms, "bound_ms": k7_bound[0], "bound_by": k7_bound[1],
+         "library_ms": None},
+    ]
+
+
 def reset_launches():
     """Every kernel's launch count to 0 (K4's by kind and material too)."""
     from raytracing_engine_tpu_torch.ops.cuda import (
@@ -3913,12 +4342,13 @@ def reset_launches():
     reset_k4()
     for mod in (bvh_traverse, cluster, depth, fused, instanced, rng, shade):
         mod.launches = 0
-    pt.rebin_launches = pt.rebin_material_launches = 0
+    pt.rebin_launches = pt.rebin_material_launches = pt.rebin_tex_launches = 0
+    cluster.tan_launches = instanced.uv_launches = 0
 
 
 def launch_counts() -> dict:
     """The launch counts that are not 0: K1..K9, and K4 without a mesh and
-    the material instantiations of K4 and K5 apart."""
+    the material and texture instantiations of K4 to K7 apart."""
     from raytracing_engine_tpu_torch.ops.cuda import (
         bvh_traverse,
         cluster,
@@ -3932,8 +4362,11 @@ def launch_counts() -> dict:
 
     counts = {"K1": depth.launches, "K2": fused.launches, "K3": shade.launches,
               "K4": pt.launches, "K4 none": pt.mesh_launches["none"],
-              "K4 material": sum(pt.material_launches.values()), "K5": pt.rebin_launches,
-              "K5 material": pt.rebin_material_launches, "K6": cluster.launches,
+              "K4 material": sum(pt.material_launches.values()),
+              "K4 tex": sum(pt.tex_launches.values()), "K5": pt.rebin_launches,
+              "K5 material": pt.rebin_material_launches, "K5 tex": pt.rebin_tex_launches,
+              "K6": cluster.launches, "K6 tan": cluster.tan_launches,
+              "K7 uv": instanced.uv_launches,
               "K7": instanced.launches, "K8": bvh_traverse.launches, "K9": rng.launches}
     return {k: n for k, n in counts.items() if n}
 
@@ -4385,6 +4818,9 @@ def main() -> int:
     for k, v in phase_cli(device, card).items():
         entry[k] = entry.get(k, 0) + v
     log(f"phase 21: {time.perf_counter() - t21:.1f} s; launches on its paths {entry}")
+    log("phase 22: the texture features (normal maps, mips and trilinear filtering, UV "
+        "tables under instances) through K4, K5, K6 and K7")
+    tex = phase_textures(device, card)
 
     # no single PyTorch call computes any of these kernels (torch.rand draws
     # Philox, not threefry): library_ms null
@@ -4465,6 +4901,7 @@ def main() -> int:
          "source": "raytracing_engine_tpu_torch/csrc/rng.cu",
          "replaces": "raytracing_engine_tpu/ops/pallas/rng.py:24", **k9,
          "launches": k9["launches"] + orbit["K9"] + entry.get("K9", 0), "library_ms": None},
+        *tex,
     ]
     for k in kernels:  # a timing that failed fails the run
         bad = [key for key in ("ms", "plain_ms", "bound_ms", "max_abs_err")

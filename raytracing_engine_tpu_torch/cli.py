@@ -31,9 +31,8 @@ Routes, with the JAX package's meanings:
 - ``instanced`` renders models/instanced.render_instanced_phong (K7).
 
 Features the port does not have yet (``--aperture``, ``--sampler r2``,
-``--fog``, ``--adaptive`` on mega, ``--tex-filter trilinear``, UV tables
-under instances) raise the renderers' own NotImplementedError, which names
-its ROADMAP item. Printed times wait for the device first.
+``--fog``, ``--adaptive`` on mega, mesh lights) raise the renderers' own
+NotImplementedError, which names its ROADMAP item. Printed times wait for the device first.
 """
 
 from __future__ import annotations

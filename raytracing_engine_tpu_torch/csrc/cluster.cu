@@ -4,9 +4,11 @@
 // Replaces raytracing_engine_tpu/ops/pallas/cluster_intersect.py:
 // _cluster_kernel (K6, launched by cluster_intersect): closest or any hit of
 // a grid of rays against a ClusterSet, with the closest hit's attributes
-// (normal, material, area, and on a UV table the texture UV) on request.
-// The sweep itself is cluster.cuh. The UV planes come from a second
-// instantiation (kUV), so a table without UVs runs the kernel it ran before.
+// (normal, material, area, and on a UV table the texture UV and, on
+// request, the texture-u tangent) on request. The sweep itself is
+// cluster.cuh. The UV planes come from a second instantiation (kUV), the
+// tangent planes from a third (cluster_kernel<true, true>: normal maps and
+// mip LOD), so a table without UVs runs the kernel it ran before.
 //
 // What bounds it on this card: FP32 ALU work and divergence, not bytes. A
 // ray reads 3 + 6 + 3 + 1 floats and writes 2 (7 with attributes), while it
@@ -48,16 +50,20 @@ struct Args {
   const float* tmax;  // (n,) initial t (the any-hit cutoff)
   float* out_t;       // (n,) t of the hit, +inf on a miss
   int* out_idx;       // (n,) padded slot, -1 on a miss
-  float* out_attr;    // (5, n) nx, ny, nz, mat, area (7 with u, v: kUV), or null
+  float* out_attr;    // (5, n) nx, ny, nz, mat, area (7 with u, v: kUV; 10 with
+                      // tx, ty, tz: kTan), or null
   int n;
   float t_min;
   int any_hit;
   int device;        // CUDA ordinal the pointers and the stream belong to
   const float* tuv;  // (T_pad, 8) UV records of a UV table, or null
+  int tan;           // with tuv and out_attr: also the tangent planes
 };
 
-template <bool kUV>
-__global__ void __launch_bounds__(kClusterBlock) cluster_kernel(const Args a) {
+// The kernel's body: kUV adds the UV planes, kTan the tangent planes after
+// them.
+template <bool kUV, bool kTan>
+__device__ __forceinline__ void cluster_body(const Args& a) {
   const int i = blockIdx.x * kClusterBlock + threadIdx.x;
   const bool active = i < a.n;
   const int j = active ? i : a.n - 1;  // a lane past the end sweeps the last ray, inactive
@@ -82,7 +88,24 @@ __global__ void __launch_bounds__(kClusterBlock) cluster_kernel(const Args a) {
       a.out_attr[5 * a.n + i] = uv.x;
       a.out_attr[6 * a.n + i] = uv.y;
     }
+    if constexpr (kTan) {
+      const float3 tg = h.idx >= 0 ? hit_tan(a.tables, a.tuv, h) : make_float3(0.0f, 0.0f, 0.0f);
+      a.out_attr[7 * a.n + i] = tg.x;
+      a.out_attr[8 * a.n + i] = tg.y;
+      a.out_attr[9 * a.n + i] = tg.z;
+    }
   }
+}
+
+template <bool kUV>
+__global__ void __launch_bounds__(kClusterBlock) cluster_kernel(const Args a) {
+  cluster_body<kUV, false>(a);
+}
+
+// The third instantiation, an overload, so the two above keep their names.
+template <bool kUV, bool kTan>
+__global__ void __launch_bounds__(kClusterBlock) cluster_kernel(const Args a) {
+  cluster_body<kUV, kTan>(a);
 }
 
 }  // namespace cl
@@ -95,7 +118,9 @@ extern "C" int cluster_intersect(const cl::Args* a, void* stream) {
   if (a->n > 0) {
     const dim3 grid((a->n + cl::kClusterBlock - 1) / cl::kClusterBlock);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (a->tuv != nullptr && a->out_attr != nullptr) {
+    if (a->tuv != nullptr && a->out_attr != nullptr && a->tan) {
+      cl::cluster_kernel<true, true><<<grid, cl::kClusterBlock, 0, s>>>(*a);
+    } else if (a->tuv != nullptr && a->out_attr != nullptr) {
       cl::cluster_kernel<true><<<grid, cl::kClusterBlock, 0, s>>>(*a);
     } else {
       cl::cluster_kernel<false><<<grid, cl::kClusterBlock, 0, s>>>(*a);

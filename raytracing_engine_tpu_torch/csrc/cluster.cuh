@@ -27,8 +27,9 @@
 // 36-float record [box(6), 0, 0, oc(3), 0, sub-box 0..3 (6 each)], so the
 // sub-boxes sit beside their cluster. A UV table (ROWS_UV) adds an 8-float
 // record per slot, [uv0(2), uv1-uv0(2), uv2-uv0(2), 0, 0] (rows 32-37),
-// read after the sweep from the hit's slot and barycentrics (`hit_uv`):
-// the sweep itself is the same for every table.
+// read after the sweep from the hit's slot and barycentrics (`hit_uv`),
+// and with the triangle record's gradient rows the hit's texture-u tangent
+// (`hit_tan`): the sweep itself is the same for every table.
 //
 // `sweep_warp` (K4, K5, K6, K7) is the sweep of one ray a lane, run by the
 // 32 lanes of a warp together. Each lane walks its own visit order and
@@ -323,6 +324,18 @@ __device__ __forceinline__ float2 hit_uv(const float* tuv, const SweepHit& h) {
   const float* r = tuv + h.idx * 8;
   return make_float2(__ldg(r) + h.u * __ldg(r + 2) + h.v * __ldg(r + 4),
                      __ldg(r + 1) + h.u * __ldg(r + 3) + h.v * __ldg(r + 5));
+}
+
+// The world texture-u tangent of a closest hit on a UV table (constant over
+// the triangle): du1 r1 + du2 r2, the UV record's deltas times the triangle
+// record's barycentric gradient rows, which rebasing to the cluster's frame
+// leaves unchanged (cluster_intersect.py:297-313).
+__device__ __forceinline__ float3 hit_tan(const Tables& tb, const float* tuv, const SweepHit& h) {
+  const float* rec = tb.trec + h.idx * kTriW;
+  const float du1 = __ldg(tuv + h.idx * 8 + 2), du2 = __ldg(tuv + h.idx * 8 + 4);
+  return make_float3(du1 * __ldg(rec + 4) + du2 * __ldg(rec + 8),
+                     du1 * __ldg(rec + 5) + du2 * __ldg(rec + 9),
+                     du1 * __ldg(rec + 6) + du2 * __ldg(rec + 10));
 }
 
 }  // namespace cl

@@ -5,7 +5,10 @@
 // Replaces raytracing_engine_tpu/ops/pallas/instanced_intersect.py:
 // _instanced_kernel (K7, launched by instanced_cluster_intersect): closest or
 // any hit of a grid of rays against N instances of one base ClusterSet,
-// with the world-space normal of the closest hit on request. The two-level
+// with the world-space normal of the closest hit on request, and on a UV
+// base table its texture UV and, on request, its world texture-u tangent
+// (instanced_uv_kernel<kTan>: a base set without UVs runs the kernel it ran
+// before). The two-level
 // sweep itself is instanced.cuh's instanced_sweep_warp, over cluster.cuh's
 // sweep_warp.
 //
@@ -60,9 +63,14 @@ struct Args {
   float t_min;
   int any_hit;
   int device;        // CUDA ordinal the pointers and the stream belong to
+  const float* tuv;  // (T_pad, 8) the base set's UV records, or null
+  float* out_uv;     // with tuv and out_n: (2, n) u, v, (5, n) with tx, ty, tz (tan)
+  int tan;
 };
 
-__global__ void __launch_bounds__(kBlock) instanced_kernel(const Args a) {
+// The kernel's body: kAttr as instanced_sweep_warp's (instanced.cuh).
+template <int kAttr>
+__device__ __forceinline__ void instanced_body(const Args& a) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   const bool active = i < a.n;
   float3 o = make_float3(cl::kParked * 10.0f, cl::kParked * 10.0f, cl::kParked * 10.0f);
@@ -74,8 +82,8 @@ __global__ void __launch_bounds__(kBlock) instanced_kernel(const Args a) {
     t0 = __ldg(a.tmax + i);
   }
   InstHit h;
-  instanced_sweep_warp(a.tables, a.inst, o, d, t0, a.t_min, a.any_hit != 0, a.out_n != nullptr,
-                       active, h);
+  instanced_sweep_warp<kAttr>(a.tables, a.inst, o, d, t0, a.t_min, a.any_hit != 0,
+                              a.out_n != nullptr, active, h, a.tuv);
   if (!active) return;
   a.out_t[i] = h.code >= 0 ? h.t : __int_as_float(0x7f800000);
   a.out_code[i] = h.code;
@@ -83,7 +91,27 @@ __global__ void __launch_bounds__(kBlock) instanced_kernel(const Args a) {
     a.out_n[i] = h.n.x;
     a.out_n[a.n + i] = h.n.y;
     a.out_n[2 * a.n + i] = h.n.z;
+    if constexpr (kAttr >= kAttrUV) {
+      a.out_uv[i] = h.uv.x;
+      a.out_uv[a.n + i] = h.uv.y;
+    }
+    if constexpr (kAttr == kAttrTan) {
+      a.out_uv[2 * a.n + i] = h.tan.x;
+      a.out_uv[3 * a.n + i] = h.tan.y;
+      a.out_uv[4 * a.n + i] = h.tan.z;
+    }
   }
+}
+
+__global__ void __launch_bounds__(kBlock) instanced_kernel(const Args a) {
+  instanced_body<kAttrNormal>(a);
+}
+
+// A UV base table's closest hits with attributes: the UV planes, and the
+// tangent planes (kTan).
+template <bool kTan>
+__global__ void __launch_bounds__(kBlock) instanced_uv_kernel(const Args a) {
+  instanced_body<kTan ? kAttrTan : kAttrUV>(a);
 }
 
 }  // namespace ins
@@ -95,7 +123,14 @@ extern "C" int instanced_intersect(const ins::Args* a, void* stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   if (a->n > 0) {
     const dim3 grid((a->n + ins::kBlock - 1) / ins::kBlock);
-    ins::instanced_kernel<<<grid, ins::kBlock, 0, static_cast<cudaStream_t>(stream)>>>(*a);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (a->tuv != nullptr && a->out_n != nullptr && a->tan) {
+      ins::instanced_uv_kernel<true><<<grid, ins::kBlock, 0, s>>>(*a);
+    } else if (a->tuv != nullptr && a->out_n != nullptr) {
+      ins::instanced_uv_kernel<false><<<grid, ins::kBlock, 0, s>>>(*a);
+    } else {
+      ins::instanced_kernel<<<grid, ins::kBlock, 0, s>>>(*a);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,7 +16,10 @@
 //
 // The TPU gates a whole tile per instance; here each ray gates itself, and
 // the plain version (ops/cuda/instanced.py) replays exactly that, so K7, K4
-// and K5 agree with it bit for bit. `instanced_sweep_warp` (K4, K5, K7)
+// and K5 agree with it bit for bit. On a UV base table the sweep can also
+// return the hit's texture UV (object-space data, carried untransformed) and
+// its texture-u tangent, rotated into world space by R as the normal is
+// (kAttr, :176-190). `instanced_sweep_warp` (K4, K5, K7)
 // walks the instances with the 32 lanes of a warp in lockstep (every ray
 // takes the same instance order and, within an instance, the same super
 // order, so the lanes never part), each lane with its own gate, transform
@@ -45,20 +48,34 @@ struct InstHit {
   float t;   // t0 (the caller's t_max) when nothing was hit
   int code;  // instance * t_pad + slot, -1 on a miss (0 for a parked any-hit ray)
   float3 n;  // unnormalized world normal of the hit (attrs), else 0
+  float2 uv;   // kAttr >= kAttrUV: the texture UV of the hit (0 without one)
+  float3 tan;  // kAttr == kAttrTan: its world texture-u tangent (0 without one)
 };
+
+// What a closest-hit sweep returns beside t and the code (with attrs): the
+// normal; with kAttrUV also the UV from the base set's UV records; with
+// kAttrTan also the tangent.
+constexpr int kAttrNormal = 0;
+constexpr int kAttrUV = 1;
+constexpr int kAttrTan = 2;
 
 // One world-space ray against every instance of the base set `tb`, for the
 // ray of each lane whose `active` is set, called by all 32 lanes of the warp
 // together (a lane without a ray passes active false and its h is not to be
-// read). Any hit stops a lane at the first instance that blocks it.
+// read). Any hit stops a lane at the first instance that blocks it. tuv:
+// the base set's (T_pad, 8) UV records, read where kAttr >= kAttrUV (null:
+// UV and tangent 0).
+template <int kAttr = kAttrNormal>
 __device__ __forceinline__ void instanced_sweep_warp(const cl::Tables& tb, const Instances& in,
                                                      float3 o, float3 d, float t0, float t_min,
                                                      bool any_hit, bool attrs, bool active,
-                                                     InstHit& h) {
+                                                     InstHit& h, const float* tuv = nullptr) {
   __syncwarp(cl::kFullWarp);
   h.t = t0;
   h.code = -1;
   h.n = make_float3(0.0f, 0.0f, 0.0f);
+  if constexpr (kAttr >= kAttrUV) h.uv = make_float2(0.0f, 0.0f);
+  if constexpr (kAttr == kAttrTan) h.tan = make_float3(0.0f, 0.0f, 0.0f);
   bool live = active;
   if (any_hit && fabsf(o.x) >= cl::kParked) {
     h.code = 0;
@@ -104,6 +121,17 @@ __device__ __forceinline__ void instanced_sweep_warp(const cl::Tables& tb, const
       cl::hit_attrs(tk, sh, n, mat, area2);
       h.n = make_float3(r00 * n.x + r10 * n.y + r20 * n.z, r01 * n.x + r11 * n.y + r21 * n.z,
                         r02 * n.x + r12 * n.y + r22 * n.z);
+      if constexpr (kAttr >= kAttrUV) {
+        if (tuv != nullptr) h.uv = cl::hit_uv(tuv, sh);
+      }
+      if constexpr (kAttr == kAttrTan) {  // object tangent -> world, as the normal
+        if (tuv != nullptr) {
+          const float3 tg = cl::hit_tan(tk, tuv, sh);
+          h.tan = make_float3(r00 * tg.x + r10 * tg.y + r20 * tg.z,
+                              r01 * tg.x + r11 * tg.y + r21 * tg.z,
+                              r02 * tg.x + r12 * tg.y + r22 * tg.z);
+        }
+      }
     }
   }
 }

@@ -16,10 +16,15 @@
 // image textures, dispersion, the gradient sky, the env map; the branches of
 // JAX's static flags, pt_kernel.py:200-206 and :707-713): a scene with none
 // of them launches the instantiation it launched before, so configs 2-5 pay
-// no registers for GGX.
+// no registers for GGX. A third one of each, pt_tex_kernel<kMesh> and
+// pt_rebin_tex_kernel (pt.cuh kTex), adds the texture features that read the
+// hit's texture-u tangent or a UV table under instances: normal maps, the
+// mip chains' trilinear filter with its ray cone, instances of a UV
+// ClusterSet; the material scenes without them keep their instantiation.
 //
 // K5 replaces pt_kernel.py:_pt_rebin_kernel (render_pt_rebin): one launch
-// per bounce over a packed 17-plane ray state (18 with dispersion's chan). Thread i owns the ray at
+// per bounce over a packed 17-plane ray state (then dispersion's chan and the
+// trilinear filter's tacc). Thread i owns the ray at
 // sorted rank i: bounce 0 makes the camera ray of pixel i of the band,
 // later launches read the state at rank i and write it back in place. A dead
 // ray (|o.x| >= 1e17) leaves its state unchanged: the per-thread form of the
@@ -82,8 +87,9 @@ constexpr int kRebinThreads = 256;  // K5's block
 // Stage the scene tables in shared memory (call from every thread, then
 // __syncthreads) and describe them; the live counts come from a.counts.
 // kMat: the material table a.mat_w wide and the sky's table after the
-// lights, and the features' flags and column offsets.
-template <int kBlock, bool kMat>
+// lights, and the features' flags and column offsets; kTex: the texture
+// features' too.
+template <int kBlock, bool kMat, bool kTex = false>
 __device__ __forceinline__ Scene stage_scene(const Args& a, float* tables, int tid) {
   const int mat_w = kMat ? a.mat_w : kMatW;
   const int n_sph_f = a.S * kSphW, n_tri_f = a.T * kTriW;
@@ -139,6 +145,16 @@ __device__ __forceinline__ Scene stage_scene(const Args& a, float* tables, int t
   col += sc.uv_space ? 1 : 0;
   sc.c_rect = col;
   col += sc.image ? 4 : 0;
+  if constexpr (kTex) {
+    sc.normal_map = a.normal_map != 0;
+    sc.n_mips = a.n_mips;
+    sc.tacc = a.tacc != 0;
+    sc.lod_alpha = a.lod_alpha;
+    sc.c_mips = col;
+    col += 4 * sc.n_mips;
+    sc.c_nrm = col;
+    col += sc.normal_map ? 5 : 0;
+  }
   sc.c_rough = col;
   col += sc.metal ? 1 : 0;
   sc.c_rough2 = col;
@@ -174,13 +190,14 @@ __device__ __forceinline__ uint32_t pass_seed(const Args& a, int s) {
   return static_cast<uint32_t>(a.seed) + static_cast<uint32_t>(a.spp_offset + s) * kPassPrime;
 }
 
-template <int kMesh, bool kMat>
-__global__ void __launch_bounds__(K4<kMesh>::kThreads) pt_kernel(const Args a) {
+// K4's body, for each instantiation.
+template <int kMesh, bool kMat, bool kTex>
+__device__ __forceinline__ void pt_body(const Args& a) {
   using B = K4<kMesh>;
   extern __shared__ float tables[];
   __shared__ unsigned block_rays;
   const int tid = threadIdx.y * B::kBlockX + threadIdx.x;
-  const Scene sc = stage_scene<B::kThreads, kMat>(a, tables, tid);
+  const Scene sc = stage_scene<B::kThreads, kMat, kTex>(a, tables, tid);
   if (tid == 0) block_rays = 0u;
   __syncthreads();
 
@@ -206,11 +223,11 @@ __global__ void __launch_bounds__(K4<kMesh>::kThreads) pt_kernel(const Args a) {
         for (int b = 0; b <= a.max_bounces; ++b) {
           const bool live = in_image && r.alive;
           if (!__any_sync(cl::kFullWarp, live)) break;
-          bounce<kMesh, true, kMat>(a, sc, r, b, seed, nrays, live);
+          bounce<kMesh, true, kMat, kTex>(a, sc, r, b, seed, nrays, live);
         }
       } else {
         for (int b = 0; b <= a.max_bounces && r.alive; ++b) {
-          bounce<kMesh, false, kMat>(a, sc, r, b, seed, nrays);
+          bounce<kMesh, false, kMat, kTex>(a, sc, r, b, seed, nrays);
         }
       }
       acc = add3(acc, r.rad);
@@ -226,12 +243,25 @@ __global__ void __launch_bounds__(K4<kMesh>::kThreads) pt_kernel(const Args a) {
   count_rays(a, &block_rays, tid, nrays);
 }
 
-template <bool kMat>
-__global__ void __launch_bounds__(kRebinThreads) pt_rebin_kernel(const Args a) {
+template <int kMesh, bool kMat>
+__global__ void __launch_bounds__(K4<kMesh>::kThreads) pt_kernel(const Args a) {
+  pt_body<kMesh, kMat, false>(a);
+}
+
+// K4's texture instantiation (pt.cuh kTex), beside pt_kernel so that its
+// instantiations keep their names.
+template <int kMesh>
+__global__ void __launch_bounds__(K4<kMesh>::kThreads) pt_tex_kernel(const Args a) {
+  pt_body<kMesh, true, true>(a);
+}
+
+// K5's body, for each instantiation.
+template <bool kMat, bool kTex>
+__device__ __forceinline__ void pt_rebin_body(const Args& a) {
   extern __shared__ float tables[];
   __shared__ unsigned block_rays;
   const int tid = threadIdx.x;
-  const Scene sc = stage_scene<kRebinThreads, kMat>(a, tables, tid);
+  const Scene sc = stage_scene<kRebinThreads, kMat, kTex>(a, tables, tid);
   if (tid == 0) block_rays = 0u;
   __syncthreads();
 
@@ -249,6 +279,7 @@ __global__ void __launch_bounds__(kRebinThreads) pt_rebin_kernel(const Args a) {
   r.px = 0u;
   r.py = 0u;
   r.chan = -1.0f;
+  r.tacc = 0.0f;
   bool live = i < a.n_state;
   float* st = a.state + (live ? i : 0);
   if (live) {
@@ -272,10 +303,13 @@ __global__ void __launch_bounds__(kRebinThreads) pt_rebin_kernel(const Args a) {
         r.px = static_cast<uint32_t>(st[15 * n]);
         r.py = static_cast<uint32_t>(st[16 * n]);
         if (sc.dispersion) r.chan = st[17 * n];
+        if constexpr (kTex) {
+          if (sc.tacc) r.tacc = st[(sc.dispersion ? 18 : 17) * n];
+        }
       }
     }
   }
-  bounce<kMeshAny, true, kMat>(a, sc, r, a.bounce, seed, nrays, live);
+  bounce<kMeshAny, true, kMat, kTex>(a, sc, r, a.bounce, seed, nrays, live);
   if (live) {
     const float planes[kStatePlanes] = {
         r.o.x, r.o.y, r.o.z, r.d.x, r.d.y, r.d.z, r.thr.x, r.thr.y, r.thr.z,
@@ -284,8 +318,21 @@ __global__ void __launch_bounds__(kRebinThreads) pt_rebin_kernel(const Args a) {
 #pragma unroll
     for (int k = 0; k < kStatePlanes; ++k) st[k * n] = planes[k];
     if (sc.dispersion) st[kStatePlanes * n] = r.chan;
+    if constexpr (kTex) {
+      if (sc.tacc) st[(sc.dispersion ? kStatePlanes + 1 : kStatePlanes) * n] = r.tacc;
+    }
   }
   count_rays(a, &block_rays, tid, nrays);
+}
+
+template <bool kMat>
+__global__ void __launch_bounds__(kRebinThreads) pt_rebin_kernel(const Args a) {
+  pt_rebin_body<kMat, false>(a);
+}
+
+// K5's texture instantiation (pt.cuh kTex).
+__global__ void __launch_bounds__(kRebinThreads) pt_rebin_tex_kernel(const Args a) {
+  pt_rebin_body<true, true>(a);
 }
 
 size_t table_bytes(const Args* a) {
@@ -297,14 +344,17 @@ size_t table_bytes(const Args* a) {
                           env);
 }
 
-// K4 at mesh kind kMesh, its material instantiation where the scene has
-// any of the features.
+// K4 at mesh kind kMesh, its texture instantiation where the scene has the
+// texture features, else its material instantiation where it has any of the
+// material features.
 template <int kMesh>
 cudaError_t launch_pt(const Args* a, cudaStream_t stream) {
   using B = K4<kMesh>;
   const dim3 grid((a->w + B::kBlockX - 1) / B::kBlockX, (a->h + B::kBlockY - 1) / B::kBlockY);
   const dim3 block(B::kBlockX, B::kBlockY);
-  if (a->material) {
+  if (a->tex) {
+    pt_tex_kernel<kMesh><<<grid, block, table_bytes(a), stream>>>(*a);
+  } else if (a->material) {
     pt_kernel<kMesh, true><<<grid, block, table_bytes(a), stream>>>(*a);
   } else {
     pt_kernel<kMesh, false><<<grid, block, table_bytes(a), stream>>>(*a);
@@ -333,7 +383,9 @@ extern "C" int pt_rebin(const pt::Args* a, void* stream) {
   if (a->n_state > 0) {
     const dim3 grid((a->n_state + pt::kRebinThreads - 1) / pt::kRebinThreads);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (a->material) {
+    if (a->tex) {
+      pt::pt_rebin_tex_kernel<<<grid, pt::kRebinThreads, pt::table_bytes(a), s>>>(*a);
+    } else if (a->material) {
       pt::pt_rebin_kernel<true><<<grid, pt::kRebinThreads, pt::table_bytes(a), s>>>(*a);
     } else {
       pt::pt_rebin_kernel<false><<<grid, pt::kRebinThreads, pt::table_bytes(a), s>>>(*a);

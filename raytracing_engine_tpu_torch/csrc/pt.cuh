@@ -18,7 +18,13 @@
 // the equirect env map: read by escaped rays under MIS and alias-sampled by
 // NEE against the light table with one coin. The atlas and the env map's
 // tables (at most 3 x 32 x 128 floats each) are read from global memory
-// through the read-only path.
+// through the read-only path. A third instantiation (kTex) adds the texture
+// features that read the hit's texture-u tangent or a UV table under
+// instances: tangent-space normal maps (the frame from the tangent,
+// wavefront._perturb_normal), the albedo mip chains' trilinear filter at the
+// ray cone's footprint (wavefront._mip_lod_footprint, _sample_rect_tri; the
+// cone's path length `tacc` rides in the ray state), and instances of a UV
+// ClusterSet (instanced.cuh kAttrTan).
 //
 // One thread follows one ray. The body of one bounce is one function,
 // `bounce`, over a per-ray state (`Ray`, the 17 planes of
@@ -92,7 +98,9 @@ constexpr uint32_t kPassPrime = 0x9E3779B9u;  // int32 -1640531527
 //            zero-padded to a multiple of 4 (Args.mat_w: 8, 12 or 16)
 //            (the material instantiation's full order: [albedo2(3), scale]
 //            | tex_space | tex_rect(4) | rough | rough2 | dispersion, width
-//            8 to 20)
+//            8 to 20; the texture instantiation's: [albedo2(3), scale] |
+//            tex_space | tex_rect(4) | mips(4 L) | nrm_rect(4), nrm_scale |
+//            rough | rough2 | dispersion)
 //   light    [kind, prim, area, le(3), pick, cdf, total_power, 0, 0, 0]
 //   env      [bottom(3), 0, top(3), 0] (the gradient sky; Args.sky)
 //   tri uv   [u0, v0, u1, v1, u2, v2, 0, 0] per unrolled slot (Args.tri_uvs)
@@ -107,7 +115,8 @@ constexpr int kEnvW = 8;
 constexpr int kTriUnrollMax = 32;
 constexpr float kDeadO = 1e18f;                    // parked-ray origin
 constexpr float kInvSqrt3 = 0.57735025882720947f;  // its direction components
-constexpr int kStatePlanes = 17;  // 18 with the chan plane of a dispersive scene
+constexpr int kStatePlanes = 17;  // then chan (a dispersive scene) and tacc (Args.tacc)
+constexpr float kQuarterInvPi = static_cast<float>(0.25 / 3.141592653589793);  // f32(0.25 / pi)
 
 // Mesh kinds, one instantiation of K4 each (pt_render picks it from the
 // tables, as stage_scene reads them: cl.trec, then inst.tab, null or not;
@@ -159,7 +168,13 @@ struct Args {
   const float* atlas;      // (3 atlas_k, 128) texture atlas (image)
   int atlas_k;
   const float* tri_uvs;    // (T, 8) the unrolled slots' UVs (tri_uv)
-  const float* cl_uv;      // (T_pad, 8) the UV records of a UV ClusterSet, or null
+  const float* cl_uv;      // (T_pad, 8) the UV records of a UV ClusterSet (or base set), or null
+  // The texture instantiation (tex 0 / 1, ops/cuda/pt.py
+  // uses_tex_instantiation) and its features: normal maps, the mip chains'
+  // L levels (0: none), the trilinear filter's ray cone (tacc 0 / 1: the
+  // state's tacc plane) and its spread 2 fov / width
+  int tex, normal_map, n_mips, tacc;
+  float lod_alpha;
 };
 
 // The scene tables, in shared memory, the live counts and the mesh.
@@ -186,6 +201,10 @@ struct Scene {
   int atlas_k;
   const float* tri_uvs;
   const float* cl_uv;
+  // the texture features (kTex) and their columns
+  bool normal_map, tacc;
+  int n_mips, c_mips, c_nrm;
+  float lod_alpha;
   cl::Tables cl;
   ins::Instances inst;
   bool mesh;       // kMeshAny: intersect cl instead of the unrolled triangle slots
@@ -372,6 +391,20 @@ __device__ __forceinline__ float2 tri_uv_at(const float* tr, const float* q, flo
                      v0 + ub * (__ldg(q + 3) - v0) + vb * (__ldg(q + 5) - v0));
 }
 
+// The unrolled slot's texture-u tangent (with tri_uv_at's UV): du1 grad(u)
+// + du2 grad(v), the barycentric gradients of the triangle.
+__device__ __forceinline__ float3 tri_tan_at(const float* tr, const float* q) {
+  const float3 e1 = row3(tr + 3), e2 = row3(tr + 6);
+  const float3 ng = cross3(e1, e2);
+  const float nn = vmax(dot3(ng, ng), 1e-30f);
+  const float inv = 1.0f / nn;
+  const float3 gu = scale3(cross3(e2, ng), inv);
+  const float3 gv = scale3(cross3(ng, e1), inv);
+  const float u0 = __ldg(q);
+  const float du1 = __ldg(q + 2) - u0, du2 = __ldg(q + 4) - u0;
+  return add3(scale3(gu, du1), scale3(gv, du2));
+}
+
 struct Hit {
   float t;
   float3 p, n;  // n: unit, facing the ray
@@ -379,14 +412,17 @@ struct Hit {
   float light_area;
   bool front;
   float2 uv;  // texture UV (kMat scenes whose shading reads UVs)
+  float3 tan;   // kTex: the raw world texture-u tangent (0 without one)
+  bool is_tri;  // kTex: a triangle hit (the footprint's UV density)
 };
 
 // wavefront._intersect (unrolled slots), wavefront._intersect_clusters (a
 // mesh, the attributes path) or wavefront._intersect_instanced (instances);
 // returns false on a miss (t = BIG) and for an inactive lane. kMat: the hit's
 // UV too, where the scene's shading reads it (0 on instances, and on a
-// ClusterSet or slots without UVs).
-template <int kMesh, bool kWarp, bool kMat = false>
+// ClusterSet or slots without UVs). kTex: the UV on instances of a UV set
+// too, and the texture-u tangent (wavefront._surface's `tan`).
+template <int kMesh, bool kWarp, bool kMat = false, bool kTex = false>
 __device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
                                           float t_min, Hit& h, bool active = true) {
   static_assert(kWarp || kMesh == kMeshNone, "a mesh is swept by the warp's lanes together");
@@ -406,7 +442,12 @@ __device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
   ins::InstHit ih;
   const bool instanced = has_instances<kMesh>(sc), mesh = has_clusters<kMesh>(sc);
   if (instanced) {
-    ins::instanced_sweep_warp(sc.cl, sc.inst, o, d, kBig, t_min, false, true, active, ih);
+    if constexpr (kTex) {
+      ins::instanced_sweep_warp<ins::kAttrTan>(sc.cl, sc.inst, o, d, kBig, t_min, false, true,
+                                               active, ih, sc.cl_uv);
+    } else {
+      ins::instanced_sweep_warp(sc.cl, sc.inst, o, d, kBig, t_min, false, true, active, ih);
+    }
     if (ih.code >= 0) t_t = ih.t;
   } else if (mesh) {
     cl::sweep_warp(sc.cl, o, d, kBig, t_min, false, active, ch);
@@ -428,10 +469,18 @@ __device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
   float3 n;
   float light_area;
   if constexpr (kMat) h.uv = make_float2(0.0f, 0.0f);
+  if constexpr (kTex) {
+    h.tan = make_float3(0.0f, 0.0f, 0.0f);
+    h.is_tri = use_tri;
+  }
   if (use_tri && instanced) {
     n = ih.n;
     light_area = 1.0f;
     h.mat = static_cast<int>(ins::hit_material(sc.inst, ih.code));
+    if constexpr (kTex) {
+      if (sc.needs_uv) h.uv = ih.uv;
+      h.tan = ih.tan;
+    }
   } else if (use_tri && mesh) {
     float mat, area2;
     cl::hit_attrs(sc.cl, ch, n, mat, area2);
@@ -439,6 +488,9 @@ __device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
     h.mat = static_cast<int>(mat);
     if constexpr (kMat) {
       if (sc.needs_uv && sc.cl_uv != nullptr) h.uv = cl::hit_uv(sc.cl_uv, ch);
+    }
+    if constexpr (kTex) {
+      if (sc.cl_uv != nullptr) h.tan = cl::hit_tan(sc.cl, sc.cl_uv, ch);
     }
   } else if (use_tri) {
     const float* tr = sc.tri + i_t * kTriW;
@@ -448,6 +500,9 @@ __device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
     if constexpr (kMat) {
       if (sc.needs_uv && sc.tri_uv) h.uv = tri_uv_at(tr, sc.tri_uvs + i_t * 8, h.p);
     }
+    if constexpr (kTex) {
+      if (sc.tri_uv) h.tan = tri_tan_at(tr, sc.tri_uvs + i_t * 8);
+    }
   } else {
     const float* s = sc.sph + i_s * kSphW;
     n = sub3(h.p, row3(s));
@@ -456,6 +511,7 @@ __device__ __forceinline__ bool intersect(const Scene& sc, float3 o, float3 d,
     if constexpr (kMat) {
       if (sc.needs_uv) h.uv = sphere_uv(n);
     }
+    if constexpr (kTex) h.tan = make_float3(-n.y, n.x, 0.0f);  // wavefront._sphere_tan
   }
   const float nlen = vmax(sqrtf(dot3(n, n)), 1e-20f);
   n = scale3(n, 1.0f / nlen);
@@ -715,20 +771,10 @@ __device__ __forceinline__ float3 tab_fetch3(const float* tab, int K, float ty, 
                      tab_fetch(tab, K, ty, tx, 2));
 }
 
-// The atlas rect [x0, y0, tw, th] at the scale-tiled UV: one texel, or the
-// four rect-clamped corners lerped at the texel centres (bilinear).
-__device__ __forceinline__ float3 sample_rect(const Scene& sc, const float* rect, float2 uv,
-                                              float s) {
-  const float x0 = rect[0], y0 = rect[1], tw = rect[2], th = rect[3];
-  float fu = uv.x * s;
-  float fv = uv.y * s;
-  fu = fu - floorf(fu);  // wrap (tile) addressing
-  fv = fv - floorf(fv);
-  if (!sc.bilinear) {
-    const float tx = vmax(x0 + vmin(vmax(floorf(fu * tw), 0.0f), tw - 1.0f), 0.0f);
-    const float ty = vmax(y0 + vmin(vmax(floorf(fv * th), 0.0f), th - 1.0f), 0.0f);
-    return tab_fetch3(sc.atlas, sc.atlas_k, ty, tx);
-  }
+// The four rect-clamped corners of the rect [x0, y0, tw, th] lerped at the
+// texel centres, at the wrapped (fu, fv): sample_rect's bilinear filter.
+__device__ __forceinline__ float3 rect_bilinear(const Scene& sc, float x0, float y0, float tw,
+                                                float th, float fu, float fv) {
   const float fx = fu * tw - 0.5f;
   const float fy = fv * th - 0.5f;
   const float xf = floorf(fx);
@@ -747,6 +793,99 @@ __device__ __forceinline__ float3 sample_rect(const Scene& sc, const float* rect
   return make_float3((c00.x * ux + c10.x * wx) * uy + (c01.x * ux + c11.x * wx) * wy,
                      (c00.y * ux + c10.y * wx) * uy + (c01.y * ux + c11.y * wx) * wy,
                      (c00.z * ux + c10.z * wx) * uy + (c01.z * ux + c11.z * wx) * wy);
+}
+
+// The atlas rect [x0, y0, tw, th] at the scale-tiled UV: one texel, or the
+// four rect-clamped corners lerped at the texel centres (bilinear).
+__device__ __forceinline__ float3 sample_rect(const Scene& sc, const float* rect, float2 uv,
+                                              float s) {
+  const float x0 = rect[0], y0 = rect[1], tw = rect[2], th = rect[3];
+  float fu = uv.x * s;
+  float fv = uv.y * s;
+  fu = fu - floorf(fu);  // wrap (tile) addressing
+  fv = fv - floorf(fv);
+  if (!sc.bilinear) {
+    const float tx = vmax(x0 + vmin(vmax(floorf(fu * tw), 0.0f), tw - 1.0f), 0.0f);
+    const float ty = vmax(y0 + vmin(vmax(floorf(fv * th), 0.0f), th - 1.0f), 0.0f);
+    return tab_fetch3(sc.atlas, sc.atlas_k, ty, tx);
+  }
+  return rect_bilinear(sc, x0, y0, tw, th, fu, fv);
+}
+
+// --- the texture features (kTex) --------------------------------------------
+// The ray cone's footprint at a hit in UV units (wavefront._mip_lod_footprint):
+// width tacc * lod_alpha / sqrt(|d.n|) (n the geometric normal), times the UV
+// density: |tan| on a triangle, on a sphere the larger of 1 / (2π |tan|) and
+// 1 / (π r), r from the light area 4π r².
+__device__ __forceinline__ float mip_footprint(const Scene& sc, const Hit& h, float3 d,
+                                               float tacc) {
+  const float tl = sqrtf(dot3(h.tan, h.tan));
+  const float sph_r = sqrtf(h.light_area * kQuarterInvPi);
+  const float sph_dens =
+      vmax(1.0f / (kTwoPi * vmax(tl, 1e-8f)), 1.0f / (kPi * vmax(sph_r, 1e-8f)));
+  const float inv_du = h.is_tri ? tl : sph_dens;
+  const float cosw = fabsf(dot3(d, h.n));
+  const float width = tacc * sc.lod_alpha / sqrtf(vmax(cosw, 1e-2f));
+  return width * inv_du;
+}
+
+// The trilinear sample of a material's albedo mip chain (the L rects at
+// mrow + c_mips; wavefront._sample_rect_tri): lod = log2 of the footprint in
+// level-0 texels, clamped to the chain; the two bracketing levels sampled
+// bilinearly and lerped by lod's fraction. A level outside the chain (a NaN
+// lod) reads the empty rect.
+__device__ __forceinline__ float3 sample_rect_tri(const Scene& sc, const float* mrow, float2 uv,
+                                                  float s, float fp) {
+  const float* mips = mrow + sc.c_mips;
+  const int L = sc.n_mips;
+  const float texels = fp * s * vmax(mips[2], 1.0f);
+  const float lod = log2f(vmin(vmax(texels, 1.0f), static_cast<float>(1 << (L - 1))));
+  const float l0 = floorf(lod);
+  const float fr = lod - l0;
+  float fu = uv.x * s;
+  float fv = uv.y * s;
+  fu = fu - floorf(fu);
+  fv = fv - floorf(fv);
+  float3 c[2];
+  const float lev[2] = {l0, vmin(l0 + 1.0f, static_cast<float>(L - 1))};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const float* r = lev[k] >= 0.0f && lev[k] < static_cast<float>(L)
+                         ? mips + 4 * static_cast<int>(lev[k])
+                         : zero;
+    c[k] = rect_bilinear(sc, r[0], r[1], r[2], r[3], fu, fv);
+  }
+  const float gr = 1.0f - fr;
+  return make_float3(c[0].x * gr + c[1].x * fr, c[0].y * gr + c[1].y * fr,
+                     c[0].z * gr + c[1].z * fr);
+}
+
+// Tangent-space normal mapping (wavefront._perturb_normal): the map's texel
+// (the rect and UV tiling at mrow + c_nrm, bilinear unless the filter is
+// nearest) decoded as 2 rgb - 1 and turned into world space by (T, n x T,
+// n), T the raw tangent made orthogonal to the unit normal n (degenerate:
+// z x n, or x x n near ±z) and normalized. A decoded texel of length <=
+// 1e-6 keeps n, as does a material without a map (w = 0).
+__device__ __forceinline__ float3 perturb_normal(const Scene& sc, const float* mrow, float3 n,
+                                                 float3 tan, float2 uv) {
+  const float* r = mrow + sc.c_nrm;
+  if (!(r[2] > 0.0f)) return n;
+  const float3 rgb = sample_rect(sc, r, uv, r[4]);
+  const float ntx = 2.0f * rgb.x - 1.0f;
+  const float nty = 2.0f * rgb.y - 1.0f;
+  const float ntz = 2.0f * rgb.z - 1.0f;
+  float3 tp = sub3(tan, scale3(n, dot3(n, tan)));
+  const float3 fb = fabsf(n.z) < 0.9f ? cross3(make_float3(0.0f, 0.0f, 1.0f), n)
+                                      : cross3(make_float3(1.0f, 0.0f, 0.0f), n);
+  if (!(dot3(tp, tp) > 1e-12f)) tp = fb;
+  const float3 t = scale3(tp, 1.0f / vmax(sqrtf(dot3(tp, tp)), 1e-20f));
+  const float3 b = cross3(n, t);
+  const float3 np = make_float3(ntx * t.x + nty * b.x + ntz * n.x,
+                                ntx * t.y + nty * b.y + ntz * n.y,
+                                ntx * t.z + nty * b.z + ntz * n.z);
+  const float ln = sqrtf(dot3(np, np));
+  return ln > 1e-6f ? scale3(np, 1.0f / vmax(ln, 1e-20f)) : n;
 }
 
 // The env map's texel (ty, tx) of direction d (wavefront._env_texel_of).
@@ -790,14 +929,16 @@ __device__ __forceinline__ float3 sample_env(const Scene& sc, float s, float j1,
 }
 
 // --- one ray's state and one bounce (wavefront._bounce) -------------------
-// The 17 planes of wavefront.pack_state, in registers, and chan, the 18th of
-// a dispersive scene (the committed color channel, -1: none yet).
+// The 17 planes of wavefront.pack_state, in registers, then chan, that of a
+// dispersive scene (the committed color channel, -1: none yet), and tacc,
+// the ray cone's path length under the trilinear filter (kTex).
 struct Ray {
   float3 o, d, thr, rad;
   bool alive, prev_did_nee;
   float prev_pdf;
   uint32_t px, py;  // global pixel coordinates: every draw is keyed on them
   float chan;
+  float tacc;
 };
 
 // The camera ray of pixel (px, py) for the pass of `seed` (ctr 0).
@@ -818,6 +959,7 @@ __device__ __forceinline__ Ray camera_ray(const Args& a, uint32_t px, uint32_t p
   r.px = px;
   r.py = py;
   r.chan = -1.0f;
+  r.tacc = 0.0f;
   return r;
 }
 
@@ -978,10 +1120,12 @@ __device__ __forceinline__ void nee_add_brdf(const Scene& sc, Ray& r, float3 thr
 // shadow-ray candidate) into nrays. With kWarp every lane of the warp calls
 // it together, a lane without a live ray with live false (it parks the ray,
 // keeps its radiance and counts no ray). kMat adds the material features'
-// branches, each under its scene flag.
-template <int kMesh, bool kWarp, bool kMat>
+// branches, each under its scene flag, and kTex (with kMat) the texture
+// features'.
+template <int kMesh, bool kWarp, bool kMat, bool kTex = false>
 __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, int b,
                                        uint32_t seed, unsigned& nrays, bool live = true) {
+  static_assert(kMat || !kTex, "the texture instantiation is a material one");
   const bool uniform = a.uniform_lights != 0;
   float u[8];
   // bounce draws: ctr b + 1, two blocks of 4 (nu = 5, or 6 with RR)
@@ -999,17 +1143,24 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
     h.light_area = 0.0f;
     h.front = true;
   }
-  const bool hit = intersect<kMesh, kWarp, kMat>(sc, r.o, d, a.t_min, h, live);
+  const bool hit = intersect<kMesh, kWarp, kMat, kTex>(sc, r.o, d, a.t_min, h, live);
   if (!kWarp && !hit) {
     if (kMat && sc.sky) add_sky(sc, r, r.thr, d);
     if (kMat && sc.env_map) add_env_map(a, sc, r, r.thr, d);
     park(r);
     return;
   }
-  const float3 n = h.n, p = h.p;
+  const float3 p = h.p;
   const float3 thr = r.thr;
   const bool mat_ok = h.mat >= 0 && h.mat < sc.M;
   const float* mrow = sc.mat + h.mat * (kMat ? sc.mat_w : kMatW);
+  // every later step reads the shading normal: kTex's normal map perturbs it
+  float3 n = h.n;
+  if constexpr (kTex) {
+    if (sc.normal_map && hit && mat_ok) n = perturb_normal(sc, mrow, n, h.tan, h.uv);
+    // the ray cone grows by this segment before the hit is shaded
+    if (sc.tacc && hit) r.tacc = r.tacc + h.t;
+  }
   float3 albedo = mat_ok ? row3(mrow) : make_float3(0.0f, 0.0f, 0.0f);
   const float3 emission = mat_ok ? row3(mrow + 3) : make_float3(0.0f, 0.0f, 0.0f);
   const int kind = mat_ok ? static_cast<int>(mrow[6]) : 0;
@@ -1033,7 +1184,16 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
     float cells = floorf(p.x * s) + floorf(p.y * s) + floorf(p.z * s);
     if (sc.uv_space && mrow[sc.c_space] > 0.5f) cells = floorf(h.uv.x * s) + floorf(h.uv.y * s);
     if (s > 0.0f && cells - 2.0f * floorf(cells * 0.5f) >= 1.0f) albedo = row3(mrow + sc.c_tex);
-    if (sc.image && mrow[sc.c_rect + 2] > 0.0f) albedo = sample_rect(sc, mrow + sc.c_rect, h.uv, s);
+    if (sc.image && mrow[sc.c_rect + 2] > 0.0f) {
+      bool trilinear = false;
+      if constexpr (kTex) {
+        if (sc.tacc) {
+          trilinear = true;
+          albedo = sample_rect_tri(sc, mrow, h.uv, s, mip_footprint(sc, h, d, r.tacc));
+        }
+      }
+      if (!trilinear) albedo = sample_rect(sc, mrow + sc.c_rect, h.uv, s);
+    }
   }
 
   // --- emission (MIS vs NEE of the previous vertex) -----------------------

@@ -80,3 +80,9 @@ def render(cfg: RenderConfig, scene, cam_pos, cam_quat):
     level is the output resolution (RenderConfig enforces multiples of 8)."""
     depth = render_depth_pyramid(cfg, scene, cam_pos, cam_quat)[-1]
     return shade(cfg, scene, cam_pos, cam_quat, depth)
+
+
+def render_jit(cfg: RenderConfig, scene, cam_pos, cam_quat):
+    """JAX's jitted entry (models/conemarch.render_jit), same arguments: the
+    eager render, since PyTorch has nothing to compile here."""
+    return render(cfg, scene, cam_pos, cam_quat)

@@ -36,3 +36,18 @@ def render(cfg: RenderConfig, scene, cam_pos, cam_quat, interpret=None, n_obj=No
     last = cfg.level_count - 2
     prev = depth_pyramid(cfg, scene, cam_pos, cam_quat, last)[-1] if last >= 0 else None
     return depth_shade_fused(cfg, scene, cam_pos, cam_quat, prev)
+
+
+def render_jit(cfg: RenderConfig, scene, cam_pos, cam_quat, interpret=None, n_obj=None,
+               n_light=None, fused=True):
+    """JAX's jitted entry (models/pallas_renderer.render_jit), position for
+    position: render itself, since PyTorch has nothing to compile here."""
+    return render(cfg, scene, cam_pos, cam_quat, interpret, n_obj, n_light, fused)
+
+
+def render_jit_for(cfg: RenderConfig, scene):
+    """JAX's render_jit_for: a render closure ``(s, pos, quat) -> image`` for
+    `scene`. JAX specializes it to the scene's live counts; the kernels
+    read those from the scene, so nothing is read here."""
+    del scene
+    return lambda s, pos, quat: render_jit(cfg, s, pos, quat)

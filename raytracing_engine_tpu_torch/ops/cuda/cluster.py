@@ -6,7 +6,9 @@ raytracing_engine_tpu/ops/pallas/cluster_intersect.py ``_cluster_kernel``.
 miss) and the padded-reordered slot (-1 on a miss; ``cs.perm`` maps it back),
 plus (nx, ny, nz, mat, area) with ``attrs=True``, and on a UV table
 (``cs.has_uv``, rows 32-37) the hit's interpolated texture (u, v) after
-them. Rays on the CPU take the
+them, and with ``tan=True`` the triangle's world texture-u tangent (tx, ty,
+tz) = du1 r1 + du2 r2 after those (the barycentric gradient rows r1, r2
+times the UV deltas; normal maps and mip LOD read it). Rays on the CPU take the
 plain version, ``cluster_intersect_reference``; rays on a CUDA device launch
 the kernel or raise.
 
@@ -46,12 +48,11 @@ from raytracing_engine_tpu_torch.ops.cuda import common
 SUB_TRIS = CLUSTER // SUBS
 PARKED = 1e17
 _INF = float("inf")
-_TANGENTS = ("the texture-u tangent planes of UV tables (tan=True: normal maps and mip LOD) "
-             "are not ported yet (ROADMAP.md queue 1 item 4, K4 features 6 and 7)")
 
 # kernel launches since the count was last set to 0 (plain-version calls
-# do not count)
+# do not count), and those of them with the tangent planes
 launches = 0
+tan_launches = 0
 # tests the plain version performed since they were last set to 0: box slab
 # tests (super, cluster and sub boxes) and Baldwin–Weber triangle tests
 work = {"slabs": 0, "tests": 0}
@@ -93,6 +94,7 @@ class ClusterArgs(ctypes.Structure):
         ("any_hit", ctypes.c_int),
         ("device", ctypes.c_int),
         ("tuv", ctypes.c_void_p),
+        ("tan", ctypes.c_int),
     ]
 
 
@@ -275,10 +277,11 @@ def _sweep(tb: SweepTables, o, d, t0, t_min: float, any_hit: bool, order, orders
     return t, idx, u, v
 
 
-def _attrs(tb: SweepTables, idx, u, v):
+def _attrs(tb: SweepTables, idx, u, v, tan: bool = False):
     """(nx, ny, nz, mat, area) of each hit, and (u, v) of its texture
-    coordinates on a UV table; 0 where idx < 0 (cluster.cuh hit_attrs /
-    hit_uv and the kernel's output)."""
+    coordinates on a UV table, then with tan its texture-u tangent du1 r1 +
+    du2 r2; 0 where idx < 0 (cluster.cuh hit_attrs / hit_uv / hit_tan and
+    the kernel's output)."""
     safe = idx.clamp_min(0)
     rec = tb.trec[safe]
     if tb.tsmooth is not None:
@@ -290,6 +293,8 @@ def _attrs(tb: SweepTables, idx, u, v):
     if tb.tuv is not None:  # cluster_intersect.py:290-295
         uv = tb.tuv[safe]
         cols += tuple(uv[:, a] + u * uv[:, 2 + a] + v * uv[:, 4 + a] for a in range(2))
+        if tan:  # cluster_intersect.py:297-313
+            cols += tuple(uv[:, 2] * rec[:, 4 + a] + uv[:, 4] * rec[:, 8 + a] for a in range(3))
     hit = idx >= 0
     zero = torch.zeros((), dtype=torch.float32, device=idx.device)
     out = tuple(torch.where(hit, x, zero) for x in cols)
@@ -308,8 +313,6 @@ def cluster_intersect_reference(cs: ClusterSet, o_planes, d_planes, t_max, t_min
                                 tan=False):
     """Plain PyTorch version of cluster_intersect (same arguments and
     results); it counts its tests in ``work``."""
-    if tan:
-        raise NotImplementedError(_TANGENTS)
     shape, o, d, t0, order = _flat_inputs(cs, o_planes, d_planes, t_max, order)
     tb = sweep_tables(cs)
     refs = None if refs is None else refs[:, :3]
@@ -318,7 +321,7 @@ def cluster_intersect_reference(cs: ClusterSet, o_planes, d_planes, t_max, t_min
     out_idx = idx.to(torch.int32).reshape(shape)
     if not attrs:
         return out_t, out_idx
-    return (out_t, out_idx) + tuple(a.reshape(shape) for a in _attrs(tb, idx, u, v))
+    return (out_t, out_idx) + tuple(a.reshape(shape) for a in _attrs(tb, idx, u, v, tan))
 
 
 def tables_struct(tb: SweepTables, order, orders=None, refs=None) -> ClusterTables:
@@ -360,15 +363,14 @@ def cluster_intersect(cs: ClusterSet, o_planes, d_planes, t_max, t_min=1e-3, any
     (default 0..S-1); orders/refs: (K, S) int32 orders and their (K, 3|4)
     reference origins, from which each closest-hit ray takes the row
     nearest its origin. On a UV table attrs=True appends (u, v), the hit's
-    texture coordinates (0 on a miss); tan=True, the texture-u tangent
-    planes, raises NotImplementedError (normal maps and mips are not
-    ported)."""
-    global launches
-    if tan:
-        raise NotImplementedError(_TANGENTS)
+    texture coordinates (0 on a miss), and with tan=True then (tx, ty, tz),
+    its world texture-u tangent (0 on a miss); tan is ignored on a table
+    without UVs, as in the JAX package."""
+    global launches, tan_launches
     if o_planes[0].device.type == "cpu":
         return cluster_intersect_reference(cs, o_planes, d_planes, t_max, t_min, any_hit,
-                                           attrs=attrs, order=order, orders=orders, refs=refs)
+                                           attrs=attrs, order=order, orders=orders, refs=refs,
+                                           tan=tan)
     dev = cs.device
     if dev.type != "cuda" or o_planes[0].device != dev:
         raise ValueError(f"rays on {o_planes[0].device}, ClusterSet on {dev}: the CUDA "
@@ -381,7 +383,8 @@ def cluster_intersect(cs: ClusterSet, o_planes, d_planes, t_max, t_min=1e-3, any
     n = t0.numel()
     out_t = torch.empty(n, dtype=torch.float32, device=dev)
     out_idx = torch.empty(n, dtype=torch.int32, device=dev)
-    n_attr = 7 if tb.tuv is not None else 5
+    tan = bool(tan and tb.tuv is not None and attrs)
+    n_attr = (10 if tan else 7) if tb.tuv is not None else 5
     out_attr = torch.empty((n_attr, n), dtype=torch.float32, device=dev) if attrs else None
     args = ClusterArgs(
         tables=tables_struct(tb, order, orders, refs),
@@ -391,9 +394,10 @@ def cluster_intersect(cs: ClusterSet, o_planes, d_planes, t_max, t_min=1e-3, any
         out_attr=0 if out_attr is None else out_attr.data_ptr(),
         n=n, t_min=float(np.float32(t_min)), any_hit=int(any_hit),
         device=dev.index if dev.index is not None else torch.cuda.current_device(),
-        tuv=0 if tb.tuv is None else tb.tuv.data_ptr())
+        tuv=0 if tb.tuv is None else tb.tuv.data_ptr(), tan=int(tan))
     common.launch("cluster_intersect", args, name="cluster")
     launches += 1
+    tan_launches += int(tan)
     out = (out_t.reshape(shape), out_idx.reshape(shape))
     if attrs:
         out += tuple(out_attr[a].reshape(shape) for a in range(n_attr))

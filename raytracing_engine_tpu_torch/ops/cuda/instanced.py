@@ -6,14 +6,15 @@ replaces raytracing_engine_tpu/ops/pallas/instanced_intersect.py
 ``instanced_cluster_intersect`` keeps the JAX signature and results: t
 (+inf on a miss) and the hit code instance * cs.padded_tris + slot (int32,
 -1 on a miss), plus the unnormalized world-space normal (nx, ny, nz) with
-``attrs=True``. ``origin`` orders the instances near to far from it and
+``attrs=True``, and on a base ClusterSet with UV rows the hit's texture (u,
+v) after it (object-space data, carried untransformed) and with
+``tan=True`` its texture-u tangent turned into world space by the
+instance's rotation, as the normal is. ``origin`` orders the instances near to far from it and
 gives each instance the super order of that origin moved into its object
 space (``instance_orders``); without it the orders are the identity.
 Either way the kernel and the plain version take the same orders, and agree
-bit for bit. ``tile`` and ``interpret`` are TPU knobs, accepted and ignored;
-a base ClusterSet with UV rows (a UV table under instances) raises
-NotImplementedError: its UV planes are not ported (``check_base``). Rays on
-the CPU take the plain
+bit for bit. ``tile`` and ``interpret`` are TPU knobs, accepted and ignored.
+Rays on the CPU take the plain
 version, ``instanced_cluster_intersect_reference``; rays on a CUDA device
 launch the kernel or raise.
 
@@ -44,8 +45,10 @@ INST_W = 24  # instance record width (csrc/instanced.cuh kInstW)
 _INF = float("inf")
 
 # kernel launches since the count was last set to 0 (plain-version calls
-# do not count)
+# do not count), and those of them on a UV base table with attributes
+# (instanced_uv_kernel)
 launches = 0
+uv_launches = 0
 # the plain version's instance work since it was last set to 0: world-box
 # gates (per ray and instance visited) and object-space transforms (per ray
 # and instance entered)
@@ -84,6 +87,9 @@ class InstancedArgs(ctypes.Structure):
         ("t_min", ctypes.c_float),
         ("any_hit", ctypes.c_int),
         ("device", ctypes.c_int),
+        ("tuv", ctypes.c_void_p),
+        ("out_uv", ctypes.c_void_p),
+        ("tan", ctypes.c_int),
     ]
 
 
@@ -155,30 +161,22 @@ class FrameInstances:
         return cls(ic, *instance_orders(ic.inst_tab, ic.cs, origin))
 
 
-_UV_BASE = ("UV tables under instances (K7 and K4 <instances, material>) are not ported yet "
-            "(ROADMAP.md queue 1 item 4, K4 feature 5, the texture features under instances)")
-
-
-def check_base(cs: ClusterSet):
-    """NotImplementedError for a base ClusterSet with UV rows (the
-    instanced UV tables are not ported)."""
-    if cs.has_uv:
-        raise NotImplementedError(_UV_BASE)
-
-
 def _sweep(tab, iorder, iorders, tb, t_pad: int, o, d, t0, t_min: float, any_hit: bool,
-           attrs: bool):
+           attrs: bool, tan: bool = False):
     """The plain two-level sweep over flat (n,) planes (csrc/instanced.cuh
     instanced_sweep_warp's result for each ray, as one batch): -> (t, code
-    int64, normal V3 or None); t = t0 where code < 0. tab: the instance
-    table as a numpy (N, 24) f32 array; iorder: a list of ints."""
+    int64, attribute planes or None); t = t0 where code < 0. The attribute
+    planes: the world normal, then on a UV table (tb.tuv) the UV, and with
+    tan the world tangent. tab: the instance table as a numpy (N, 24) f32
+    array; iorder: a list of ints."""
     dev = o[0].device
     n = o[0].numel()
     t_w = t0.clone()
     code = torch.full((n,), -1, dtype=torch.int64, device=dev)
     if any_hit:
         code = torch.where(o[0].abs() >= kcluster.PARKED, 0, code)
-    nrm = [torch.zeros(n, dtype=torch.float32, device=dev) for _ in range(3)] if attrs else None
+    n_attr = 3 + (0 if tb.tuv is None else (5 if tan else 2))
+    nrm = [torch.zeros(n, dtype=torch.float32, device=dev) for _ in range(n_attr)] if attrs else None
     winv = tuple(torch.reciprocal(c) for c in d)
     f32 = np.float32
     for k in iorder:
@@ -209,9 +207,14 @@ def _sweep(tab, iorder, iorders, tb, t_pad: int, o, d, t0, t_min: float, any_hit
         t_w[a] = torch.where(upd, t_obj * s, t_w[a])
         code[a] = torch.where(upd, k * t_pad + sidx, code[a])
         if attrs:
-            nx, ny, nz = kcluster._attrs(tb, sidx, uu, vv)[:3]
-            for c in range(3):  # object normal -> world: n_w = R n
-                w = r[c] * nx + r[3 + c] * ny + r[6 + c] * nz
+            at = kcluster._attrs(tb, sidx, uu, vv, tan)
+
+            def world(vec):  # object -> world: R vec, as the normal turns
+                return [r[c] * vec[0] + r[3 + c] * vec[1] + r[6 + c] * vec[2] for c in range(3)]
+
+            # the normal, the UV (object-space data, untransformed), the tangent
+            new = world(at[:3]) + list(at[5:7]) + (world(at[7:10]) if len(at) > 7 else [])
+            for c, w in enumerate(new):
                 nrm[c][a] = torch.where(upd, w, nrm[c][a])
     return t_w, code, nrm
 
@@ -224,14 +227,13 @@ def instanced_cluster_intersect_reference(inst_tab, cs: ClusterSet, o_planes, d_
     and results; explicit iorder / iorders, FrameInstances' orders, replace
     those of `origin`); it counts its work in ``work`` and
     ops/cuda/cluster.work."""
-    del tile, interpret, tan
-    check_base(cs)
+    del tile, interpret
     shape, o, d, t0 = common.flat_rays(o_planes, d_planes, t_max)
     if iorder is None or iorders is None:
         iorder, iorders = instance_orders(inst_tab, cs, origin)
     tb = kcluster.sweep_tables(cs)
     t, code, nrm = _sweep(inst_tab.cpu().numpy(), iorder.tolist(), iorders, tb, cs.padded_tris,
-                          o, d, t0, float(t_min), any_hit, attrs)
+                          o, d, t0, float(t_min), any_hit, attrs, tan)
     out = (torch.where(code >= 0, t, _INF).reshape(shape), code.to(torch.int32).reshape(shape))
     if attrs:
         out += tuple(c.reshape(shape) for c in nrm)
@@ -257,13 +259,14 @@ def instanced_cluster_intersect(inst_tab, cs: ClusterSet, o_planes, d_planes, t_
     """Closest hit (or any-hit occlusion) of a grid of rays over every
     instance of the base ClusterSet `cs`: (t, code int32), t = +inf and code
     = -1 on a miss, code = instance * cs.padded_tris + slot; attrs=True
-    appends (nx, ny, nz), the unnormalized world normal (0 on a miss).
-    inst_tab: pack_instances(...). t_max: a scalar or a plane (the shadow
+    appends (nx, ny, nz), the unnormalized world normal (0 on a miss), and on
+    a base set with UV rows (u, v), then with tan=True (tx, ty, tz), the
+    world texture-u tangent (0 on a miss; tan is ignored without UVs, as in
+    the JAX package). inst_tab: pack_instances(...). t_max: a scalar or a plane (the shadow
     cutoff). origin: (3,) representative origin for the visit orders
     (instance_orders); None: the identity orders. iorder / iorders: orders
     already made by instance_orders, which replace those of `origin`."""
-    global launches
-    check_base(cs)
+    global launches, uv_launches
     if o_planes[0].device.type == "cpu":
         return instanced_cluster_intersect_reference(
             inst_tab, cs, o_planes, d_planes, t_min, tile, interpret, any_hit, attrs, t_max,
@@ -281,6 +284,10 @@ def instanced_cluster_intersect(inst_tab, cs: ClusterSet, o_planes, d_planes, t_
     out_t = torch.empty(n, dtype=torch.float32, device=dev)
     out_code = torch.empty(n, dtype=torch.int32, device=dev)
     out_n = torch.empty((3, n), dtype=torch.float32, device=dev) if attrs else None
+    tan = bool(tan and attrs and tb.tuv is not None)
+    out_uv = None
+    if attrs and tb.tuv is not None:
+        out_uv = torch.empty((5 if tan else 2, n), dtype=torch.float32, device=dev)
     args = InstancedArgs(
         tables=kcluster.tables_struct(tb, order),
         inst=instance_struct(inst_tab, cs, iorder, iorders),
@@ -289,10 +296,15 @@ def instanced_cluster_intersect(inst_tab, cs: ClusterSet, o_planes, d_planes, t_
         out_t=out_t.data_ptr(), out_code=out_code.data_ptr(),
         out_n=0 if out_n is None else out_n.data_ptr(),
         n=n, t_min=float(np.float32(t_min)), any_hit=int(any_hit),
-        device=dev.index if dev.index is not None else torch.cuda.current_device())
+        device=dev.index if dev.index is not None else torch.cuda.current_device(),
+        tuv=0 if out_uv is None else tb.tuv.data_ptr(),
+        out_uv=0 if out_uv is None else out_uv.data_ptr(), tan=int(tan))
     common.launch("instanced_intersect", args, name="instanced")
     launches += 1
+    uv_launches += int(out_uv is not None)
     out = (out_t.reshape(shape), out_code.reshape(shape))
     if attrs:
         out += tuple(out_n[a].reshape(shape) for a in range(3))
+    if out_uv is not None:
+        out += tuple(out_uv[a].reshape(shape) for a in range(out_uv.shape[0]))
     return out

@@ -11,7 +11,8 @@
   32 lanes of a warp together.
 - ``render_pt_rebin`` launches ``pt_rebin_kernel`` (K5), which replaces
   ``_pt_rebin_kernel``: one launch per bounce over a packed 17-plane ray
-  state (18 with a dispersive scene's chan plane), with an image-wide
+  state (one plane more with a dispersive scene's chan, one more with the
+  ray cone's tacc under trilinear filtering), with an image-wide
   regroup between launches (``rebin_keys``, a stable ``torch.sort``, then
   ``index_select`` of every plane) and a final
   scatter of the radiance to pixel order. K5 sweeps the mesh with the 32
@@ -26,10 +27,15 @@ UVs, dispersion, the gradient sky, the env map:
 ``PTScene.has_material_features``); a scene without them launches the
 instantiations it launched before. The atlas, the env map's tables and the
 UV records go to the kernels as tables of their own, read from global
-memory; a UV ClusterSet under instances raises NotImplementedError before
-any launch (ops/cuda/instanced.check_base).
-``_kernel_args`` makes that choice once, as ``PTArgs.material``: the launch
-picks the instantiation by it, and the counts below read it.
+memory. A third instantiation of each (``pt_tex_kernel``,
+``pt_rebin_tex_kernel``) adds the texture features that read the hit's
+texture-u tangent or a UV table under instances: normal maps, the mip
+chains' trilinear filter with its ray-cone state, and instances of a UV
+ClusterSet (``uses_tex_instantiation``); the scenes without them launch the
+instantiations they launched before.
+``_kernel_args`` makes these choices once, as ``PTArgs.material`` and
+``PTArgs.tex``: the launch picks the instantiation by them, and the counts
+below read them.
 
 A scene on the CPU takes the plain versions, ``render_pt_mega_reference``
 and ``render_pt_rebin_reference``; a scene on a CUDA device launches the
@@ -58,6 +64,7 @@ from raytracing_engine_tpu_torch.pathtracer.scene import TRI_UNROLL_MAX, PTScene
 from raytracing_engine_tpu_torch.pathtracer.wavefront import (
     _trace_core,
     check_supported,
+    has_tacc,
     pack_state,
     state_plane_count,
     unpack_state,
@@ -68,16 +75,20 @@ from raytracing_engine_tpu_torch.pathtracer.wavefront import (
 MESH_KINDS = ("none", "clusters", "instances")
 
 # kernel launches since the counts were last set to 0 (plain-version calls
-# do not count): K4 (in all, by mesh kind, and those of the material
-# instantiation by mesh kind) and K5 (in all, and of its material one)
+# do not count): K4 (in all, by mesh kind, and those of the material and of
+# the texture instantiation by mesh kind) and K5 (in all, and of its material
+# and texture ones); a texture launch counts as a material launch too
 launches = 0
 mesh_launches = dict.fromkeys(MESH_KINDS, 0)
 material_launches = dict.fromkeys(MESH_KINDS, 0)
+tex_launches = dict.fromkeys(MESH_KINDS, 0)
 rebin_launches = 0
 rebin_material_launches = 0
+rebin_tex_launches = 0
 
-# the kernels stage the scene tables in shared memory (the material table at
-# most 20 columns wide and the sky's 2 x 4 floats included)
+# the kernels stage the scene tables in shared memory (the material table,
+# up to 20 + 4 L + 5 columns wide with L mip levels, and the sky's 2 x 4
+# floats included)
 _MAX_TABLE_BYTES = 48 * 1024
 # K5's block (csrc/pt.cu kRebinThreads): the "tile" of the tile_oct regroup key
 REBIN_TILE = 256
@@ -144,15 +155,21 @@ class PTArgs(ctypes.Structure):
         ("atlas_k", ctypes.c_int),
         ("tri_uvs", ctypes.c_void_p),
         ("cl_uv", ctypes.c_void_p),
+        ("tex", ctypes.c_int),
+        ("normal_map", ctypes.c_int),
+        ("n_mips", ctypes.c_int),
+        ("tacc", ctypes.c_int),
+        ("lod_alpha", ctypes.c_float),
     ]
 
 
 def pack_pt_scene(scene: PTScene):
     """The scene as kernel tables (ops/pallas/pt_kernel.py pack_pt_scene, the
     slice's columns): sph (S, 8) [pos, radius, mat, 0 x3]; tri (T, 12) [v0,
-    e1, e2, mat, 0 x2]; mat (M, 8 to 20) [albedo, emission, kind, ior],
-    then the optional columns in JAX's fixed order (pt_kernel.py:59-81):
-    albedo2 and the checker scale, tex_space, tex_rect, rough, rough2,
+    e1, e2, mat, 0 x2]; mat (M, 8 to 20 + 4 L + 5) [albedo, emission, kind,
+    ior], then the optional columns in JAX's fixed order
+    (pt_kernel.py:59-81): albedo2 and the checker scale, tex_space,
+    tex_rect, the L mip rects, nrm_rect and nrm_scale, rough, rough2,
     dispersion, zero-padded to a multiple of 4; light (L, 12) [kind, prim,
     area, le, pick, cdf, total_power, 0 x3]; counts int32 (4,) [spheres,
     triangles, materials, lights]; env (2, 4) [bottom, 0; top, 0] of the
@@ -174,6 +191,10 @@ def pack_pt_scene(scene: PTScene):
         mat_cols += [scene.mat_tex_space[:, None]]
     if scene.has_image:
         mat_cols += [scene.mat_tex_rect]
+    if scene.has_mips:
+        mat_cols += [scene.mat_tex_mips]
+    if scene.has_normal_map:
+        mat_cols += [scene.mat_nrm_rect, scene.mat_nrm_scale[:, None]]
     if scene.has_metal:
         mat_cols += [scene.mat_rough[:, None]]
     if scene.has_aniso:
@@ -231,6 +252,9 @@ def _prepare(cfg: PTConfig, scene: PTScene, row0: int, band_h, bvh, need_bvh=Fal
     if cfg.rng != "pcg":
         cfg = dataclasses.replace(cfg, rng="pcg")
     check_supported(cfg)
+    if cfg.tex_filter == "trilinear" and not scene.has_mips:
+        raise ValueError("tex_filter='trilinear' needs packed mip chains — build the scene "
+                         "with build_pt_scene(tex_mips=True)")
     h = band_h or cfg.height
     if not 0 <= row0 <= cfg.height - h:
         raise ValueError(f"band rows {row0}..{row0 + h} outside the {cfg.height}-row image")
@@ -301,6 +325,16 @@ def feature_tables(scene: PTScene):
                 tri_uvs=tri_uvs)
 
 
+def uses_tex_instantiation(scene: PTScene, bvh) -> bool:
+    """Whether K4 and K5 launch their texture instantiation: the scene's
+    shading reads the texture-u tangent (normal maps, mips), or it reads hit
+    UVs off a UV ClusterSet under instances (bvh an InstancedClusters or its
+    frame view)."""
+    ic = bvh.ic if isinstance(bvh, FrameInstances) else bvh
+    return scene.needs_tan or (isinstance(ic, InstancedClusters) and ic.cs.has_uv
+                               and scene.needs_uv)
+
+
 def _kernel_args(cfg: PTConfig, scene_k: PTScene, cam_pos, cam_quat, h: int, row0: int,
                  seed: int, spp_offset: int, frame):
     """(PTArgs without out / nrays / state, the tensors it points into)."""
@@ -324,11 +358,11 @@ def _kernel_args(cfg: PTConfig, scene_k: PTScene, cam_pos, cam_quat, h: int, row
         cs = frame.ic.cs
         if cs.device != device:
             raise ValueError(f"InstancedClusters on {cs.device}, scene on {device}")
-        kinst.check_base(cs)
         tb = kcluster.sweep_tables(cs)
         order = torch.arange(cs.num_super, dtype=torch.int32, device=device)
         cl = kcluster.tables_struct(tb, order)
         inst = kinst.instance_struct(frame.ic.inst_tab, cs, frame.iorder, frame.iorders)
+        cl_uv = tb.tuv
         keep += [tb, order, frame]
     elif frame is not None:
         if frame.cs.device != device:
@@ -358,11 +392,16 @@ def _kernel_args(cfg: PTConfig, scene_k: PTScene, cam_pos, cam_quat, h: int, row
         sky=int(scene_k.has_env),
         rough_diel=int(scene_k.has_rough_dielectric), env_map=int(scene_k.has_env_map),
         uv_space=int(scene_k.mat_tex_space is not None), image=int(scene_k.has_image),
-        tri_uv=int(scene_k.has_tri_uv), bilinear=int(cfg.tex_filter == "bilinear"),
+        tri_uv=int(scene_k.has_tri_uv),
+        # normal maps stay bilinear under the trilinear albedo filter
+        bilinear=int(cfg.tex_filter in ("bilinear", "trilinear")),
         env_k=0 if feats["env_img"] is None else feats["env_img"].shape[0] // 3,
         atlas_k=0 if feats["atlas"] is None else feats["atlas"].shape[0] // 3,
         cl_uv=None if cl_uv is None else cl_uv.data_ptr(),
         **{k: None if t is None else t.data_ptr() for k, t in feats.items()},
+        tex=int(uses_tex_instantiation(scene_k, frame)),
+        normal_map=int(scene_k.has_normal_map), n_mips=scene_k.n_mip_levels,
+        tacc=int(has_tacc(scene_k, cfg)), lod_alpha=2.0 * cfg.fov / cfg.width,
     )
     return args, keep
 
@@ -416,6 +455,7 @@ def render_pt_mega(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
     launches += 1
     mesh_launches[mesh_kind(frame)] += 1
     material_launches[mesh_kind(frame)] += args.material
+    tex_launches[mesh_kind(frame)] += args.tex
     del keep
     return out, nrays[0]
 
@@ -423,7 +463,7 @@ def render_pt_mega(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
 # --- the rebin renderer (K5) --------------------------------------------------
 
 def rebin_keys(state, mode: str, lo=None, hi=None, tile_ids=None):
-    """int32 regroup sort key per ray of a (17 or 18, n) packed state
+    """int32 regroup sort key per ray of a (17 to 19, n) packed state
     (pt_kernel.py:847-892). Every mode puts parked/dead rays (|o.x| >= 1e17)
     last; the live sub-order:
 
@@ -537,7 +577,7 @@ def render_pt_rebin_reference(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, 
     scene_k = kernel_scene(scene, bvh)
     frame = frame_view(bvh, cam_pos)
     n = h * cfg.width
-    planes = state_plane_count(scene)
+    planes = state_plane_count(scene, cfg)
 
     def run_bounce(b, state, gpass):
         kw = dict(bvh=frame, bounce_lo=b, bounce_hi=b, emit_state=True)
@@ -546,7 +586,8 @@ def render_pt_rebin_reference(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, 
             st = _trace_core(cfg, scene_k, cam_pos, cam_quat, seed0, row0=row0, band_h=h, **kw)
         else:
             st = _trace_core(cfg, scene_k, cam_pos, cam_quat, seed0,
-                             state_in=unpack_state(state, has_chan=scene.has_dispersion), **kw)
+                             state_in=unpack_state(state, has_chan=scene.has_dispersion,
+                                                   has_tacc=has_tacc(scene, cfg)), **kw)
         return pack_state(st).reshape(planes, n), st["nrays"]
 
     return _rebin(cfg, scene, spp, spp_offset, row0, h, rebin, run_bounce)
@@ -555,7 +596,7 @@ def render_pt_rebin_reference(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, 
 def rebin_bounce_launcher(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed: int,
                           bvh, row0: int = 0, band_h=None):
     """(cfg, band height, run_bounce): run_bounce(b, state, gpass) launches
-    K5 for bounce b of global pass gpass on the (17 or 18, n) state
+    K5 for bounce b of global pass gpass on the (17 to 19, n) state
     (state_plane_count; None for b = 0: a new one), updates it in place and
     returns (state, nrays).
     Arguments after the checks of render_pt_rebin; the tables are packed
@@ -566,10 +607,10 @@ def rebin_bounce_launcher(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed
                               seed, 0, frame_view(bvh, cam_pos))
     n = h * cfg.width
     args.n_state, args.spp = n, 1
-    planes = state_plane_count(scene)
+    planes = state_plane_count(scene, cfg)
 
     def run_bounce(b, state, gpass):
-        global rebin_launches, rebin_material_launches
+        global rebin_launches, rebin_material_launches, rebin_tex_launches
         if state is None:
             state = torch.empty((planes, n), dtype=torch.float32, device=dev)
         common.check(state, "state", (planes, n), torch.float32, dev)
@@ -579,6 +620,7 @@ def rebin_bounce_launcher(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed
         common.launch("pt_rebin", args, name="pt")
         rebin_launches += 1
         rebin_material_launches += args.material
+        rebin_tex_launches += args.tex
         return state, nr[0]
 
     run_bounce.keep = keep  # the packed tables live as long as the launcher

@@ -17,9 +17,9 @@ Misses write zeros into every plane (depth 0 is the conventional "sky"
 sentinel: a real hit has depth >= t_min > 0). The albedo follows checkers
 (world or UV space) and image textures at the hit's UV, as the JAX
 package's does (the denoiser demodulates by it; bilinear where
-cfg.tex_filter says "bilinear", else nearest, as in JAX aov.py:64-68); the
-port's scenes carry no normal maps (pathtracer/scene.py refuses them), so
-the normal is the geometric one.
+cfg.tex_filter says "bilinear", else nearest, as in JAX aov.py:64-68). The
+normal guide is the shading normal: the geometric one, perturbed by the
+material's normal map where the scene has one (JAX aov.py:70-79).
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from raytracing_engine_tpu_torch.pathtracer.wavefront import (
     _intersect,
     _mat_lookup,
     _occluded,
+    _perturb_normal,
     _textured_albedo,
     check_entry,
     check_mesh,
@@ -83,8 +84,12 @@ def render_aovs(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
             albedo = _textured_albedo(scene, isect["mat_id"], albedo, isect["p"],
                                       uv=isect.get("uv"),
                                       bilinear=cfg.tex_filter == "bilinear")
+        shade_n = isect["n"]
+        if scene.has_normal_map:  # the guide is the perturbed shading normal
+            shade_n = _perturb_normal(scene, isect["mat_id"], shade_n, isect["tan"], isect["uv"],
+                                      bilinear=cfg.tex_filter == "bilinear")
         alb = v3.add(alb, v3.scale(albedo, gate))
-        nrm = v3.add(nrm, v3.scale(isect["n"], gate))
+        nrm = v3.add(nrm, v3.scale(shade_n, gate))
         dep = dep + torch.where(hit, isect["t"], 0.0)
         if want_ao:
             probe_d, _ = sampler.cosine_hemisphere(u[2], u[3], isect["n"])

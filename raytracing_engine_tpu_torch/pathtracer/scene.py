@@ -9,8 +9,10 @@ NEE, so an emissive slot at or past it is refused as the JAX package
 refuses it), DIFFUSE / MIRROR / DIELECTRIC (smooth or rough: GGX, Walter
 2007) / METAL (GGX, isotropic or anisotropic) / emissive materials,
 checkers in world or UV space, image textures in the shared atlas
-(``pack_texture_atlas``), per-corner UVs of the unrolled slots
-(``tri_uvs``), spectral dispersion, a constant or gradient sky (``env``) or
+(``pack_texture_atlas``), with their box-filtered mip chains packed beside
+them (``build_mip_chain``, ``tex_mips=True``: trilinear filtering),
+tangent-space normal maps in the same atlas (the ``normal`` material key),
+per-corner UVs of the unrolled slots (``tri_uvs``), spectral dispersion, a constant or gradient sky (``env``) or
 an importance-sampled equirect env map (``env`` of shape (H, W, 3):
 ``build_env_map``), and the sphere and triangle light slots with their
 power CDF. Every other input raises NotImplementedError naming the ROADMAP
@@ -21,7 +23,8 @@ The optional columns and tables are None where nothing uses them, as in
 the JAX package: a scene without them renders the program it rendered
 before they existed (the static gates ``has_metal``, ``has_aniso``,
 ``has_texture``, ``has_dispersion``, ``has_env``, ``has_rough_dielectric``,
-``has_image``, ``has_tri_uv``, ``needs_uv``, ``has_env_map``). The atlas
+``has_image``, ``has_tri_uv``, ``needs_uv``, ``has_env_map``,
+``has_normal_map``, ``has_mips``, ``needs_tan``). The atlas
 and the env map stay JAX's tables, 128 texels wide with at most 32 rows:
 their resampling is part of the image, not a layout of the TPU.
 
@@ -61,6 +64,24 @@ _LATER = "ROADMAP.md queue 1 item 4, K4 feature"
 
 def _not_yet(what: str, feature: int):
     raise NotImplementedError(f"{what} is not ported yet ({_LATER} {feature})")
+
+
+def build_mip_chain(img):
+    """Box-filtered mip chain of an (h, w, 3) image (JAX
+    scene.build_mip_chain): level 0 is the image, each next level the 2 x 2
+    mean of the previous (an odd side first repeats its last row or column,
+    so sides halve rounding up), down to 1 x 1."""
+    img = np.asarray(img, np.float32)
+    chain = [img]
+    while img.shape[0] > 1 or img.shape[1] > 1:
+        h, w = img.shape[:2]
+        if h % 2:
+            img = np.concatenate([img, img[-1:]], axis=0)
+        if w % 2:
+            img = np.concatenate([img, img[:, -1:]], axis=1)
+        img = 0.25 * (img[0::2, 0::2] + img[1::2, 0::2] + img[0::2, 1::2] + img[1::2, 1::2])
+        chain.append(img)
+    return chain
 
 
 def pack_texture_atlas(images):
@@ -152,6 +173,16 @@ class PTScene:
     tex_atlas: torch.Tensor | None = None       # (3K, 128) atlas rows
     mat_tex_rect: torch.Tensor | None = None    # (M, 4) x0, y0, w, h texels; w 0 = none
     tri_uv: torch.Tensor | None = None          # (T, 6) u0, v0, u1, v1, u2, v2
+    # trilinear filtering (tex_mips=True with PTConfig.tex_filter="trilinear"):
+    # each albedo image's mip chain in the same atlas, L blocks of [x0, y0,
+    # w, h] a material; level 0 is mat_tex_rect, and a chain shorter than L
+    # repeats its 1 x 1 level
+    mat_tex_mips: torch.Tensor | None = None    # (M, 4 L) per-level rects
+    # tangent-space normal maps: a rect of the same atlas holding (n + 1) / 2
+    # and the UV tiling; the tangent frame comes from the hit's texture-u
+    # tangent (the intersectors' `tan` planes)
+    mat_nrm_rect: torch.Tensor | None = None    # (M, 4) x0, y0, w, h texels; w 0 = none
+    mat_nrm_scale: torch.Tensor | None = None   # (M,) UV tiling
     # gradient sky: (2, 3) [bottom, top] radiance, lerped on the ray's z at
     # 0.5 (d.z + 1); equal rows = a constant sky. Escaped rays read it at
     # full weight (never NEE-sampled)
@@ -173,6 +204,14 @@ class PTScene:
     @property
     def device(self) -> torch.device:
         return self.sph_pos.device
+
+    @property
+    def num_sphere_slots(self) -> int:
+        return self.sph_pos.shape[0]
+
+    @property
+    def num_triangle_slots(self) -> int:
+        return self.tri_v0.shape[0]
 
     @property
     def has_metal(self) -> bool:
@@ -208,8 +247,27 @@ class PTScene:
 
     @property
     def needs_uv(self) -> bool:
-        """Shading reads hit UVs (image textures or UV-space checkers)."""
+        """Shading reads hit UVs (image textures, normal maps or UV-space
+        checkers)."""
         return self.tex_atlas is not None or self.mat_tex_space is not None
+
+    @property
+    def has_normal_map(self) -> bool:
+        return self.mat_nrm_rect is not None
+
+    @property
+    def has_mips(self) -> bool:
+        return self.mat_tex_mips is not None
+
+    @property
+    def n_mip_levels(self) -> int:
+        return 0 if self.mat_tex_mips is None else self.mat_tex_mips.shape[1] // 4
+
+    @property
+    def needs_tan(self) -> bool:
+        """Shading reads the hit's world texture-u tangent: normal maps (the
+        tangent frame) or mips (the UV density of the ray-cone LOD)."""
+        return self.mat_nrm_rect is not None or self.mat_tex_mips is not None
 
     @property
     def has_env_map(self) -> bool:
@@ -221,7 +279,8 @@ class PTScene:
         material instantiation."""
         return (self.has_metal or self.has_aniso or self.has_texture or self.has_dispersion
                 or self.has_env or self.has_rough_dielectric or self.has_env_map
-                or self.mat_tex_space is not None or self.has_image or self.has_tri_uv)
+                or self.mat_tex_space is not None or self.has_image or self.has_tri_uv
+                or self.needs_tan)
 
     def tensors(self) -> dict:
         return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
@@ -234,7 +293,7 @@ class PTScene:
 
 OPTIONAL_FIELDS = ("mat_albedo2", "mat_tex_scale", "mat_rough", "mat_rough2", "mat_dispersion",
                    "mat_tex_space", "tex_atlas", "mat_tex_rect", "tri_uv", "env", "env_img",
-                   "env_smp", "env_pick")
+                   "env_smp", "env_pick", "mat_tex_mips", "mat_nrm_rect", "mat_nrm_scale")
 _STATIC_FIELDS = ("has_dielectric", "has_rough_dielectric", "n_tri_slot_lights")
 TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(PTScene)
                       if f.name not in _STATIC_FIELDS and f.name not in OPTIONAL_FIELDS)
@@ -261,7 +320,7 @@ def _scene(arrays: dict, device) -> PTScene:
 # ROADMAP.md queue 1 item 4 that brings them; a non-None value raises
 _UNPORTED_FIELDS = {
     "mesh_light_tri": 13, "mesh_light_cdf": 13, "mesh_light_area": 13, "mesh_light_pick": 13,
-    "mlt_rows": 13, "mlt_smp": 13, "mat_tex_mips": 7, "mat_nrm_rect": 6, "mat_nrm_scale": 6,
+    "mlt_rows": 13, "mlt_smp": 13,
     "lt_center": 12, "lt_radius": 12, "lt_power": 12, "lt_cluster": 12, "lt_cdf_intra": 12,
     "lt_pick_intra": 12,
 }
@@ -317,13 +376,14 @@ def build_pt_scene(
     makes it rough glass), roughness_y (anisotropic METAL), checker
     ({"color", "scale", "space": "world" | "uv"}), image ({"pixels": (h, w,
     3), "scale": UV tiling} or the pixels alone) and dispersion
-    (DIELECTRIC). device=None is the CUDA card."""
+    (DIELECTRIC), normal ({"pixels": (h, w, 3) holding (n + 1) / 2, "scale":
+    UV tiling} or the pixels alone: a tangent-space normal map). tex_mips
+    packs each image's mip chain (build_mip_chain) into the atlas, for
+    PTConfig(tex_filter="trilinear"). device=None is the CUDA card."""
     if mesh_lights:
         _not_yet("mesh_lights", 13)
     if light_tree:
         _not_yet("light_tree", 12)
-    if tex_mips:
-        _not_yet("tex_mips", 7)
     device = resolve(device)
 
     S = len(spheres)
@@ -360,10 +420,10 @@ def build_pt_scene(
     mat_tex_scale = np.zeros((M,), np.float32)
     mat_tex_space = np.zeros((M,), np.float32)
     mat_dispersion = np.zeros((M,), np.float32)
-    images = []  # (material index, (h, w, 3) pixels) for the atlas
+    mat_nrm_scale = np.zeros((M,), np.float32)
+    images = []   # (material index, (h, w, 3) pixels) for the atlas
+    normals = []  # (material index, (h, w, 3) (n + 1) / 2-encoded normal map)
     for i, m in enumerate(materials):
-        if "normal" in m:
-            _not_yet('material "normal" (normal maps)', 6)
         mat_kind[i] = m.get("kind", DIFFUSE)
         # a clear dielectric tints nothing: albedo defaults to 1 there
         default_albedo = (1.0,) * 3 if mat_kind[i] == DIELECTRIC else (0.0,) * 3
@@ -384,16 +444,42 @@ def build_pt_scene(
                 pixels, scale = spec, 1.0
             images.append((i, np.asarray(pixels, np.float32)))
             mat_tex_scale[i] = scale
+        if "normal" in m:  # {"pixels": (h, w, 3) (n + 1) / 2, "scale"} | array
+            spec = m["normal"]
+            if isinstance(spec, dict):
+                pixels, scale = spec["pixels"], spec.get("scale", 1.0)
+            else:
+                pixels, scale = spec, 1.0
+            normals.append((i, np.asarray(pixels, np.float32)))
+            mat_nrm_scale[i] = scale
         mat_dispersion[i] = m.get("dispersion", 0.0)
     textured = bool((mat_tex_scale > 0).any())
     uv_space = bool((mat_tex_space > 0).any())
     rough_diel = (mat_kind == DIELECTRIC) & (mat_rough > 0)
-    tex_atlas = mat_rect = None
-    if images:
-        tex_atlas, rects = pack_texture_atlas([img for _, img in images])
-        mat_rect = np.zeros((M, 4), np.float32)  # w = 0: no image texture
-        for (i, _), r in zip(images, rects):
-            mat_rect[i] = r
+    tex_atlas = mat_rect = nrm_rect = mat_mips = None
+    if images or normals:
+        # albedo images (with their mip chains under tex_mips) and normal
+        # maps share one atlas; level 0 of a chain is the image itself, so
+        # mat_tex_rect does not change with tex_mips
+        chains = [build_mip_chain(img) if tex_mips else [img] for _, img in images]
+        flat = [lv for ch in chains for lv in ch]
+        tex_atlas, rects = pack_texture_atlas(flat + [img for _, img in normals])
+        if images:
+            mat_rect = np.zeros((M, 4), np.float32)  # w = 0: no image texture
+            L = max(len(ch) for ch in chains)
+            if tex_mips:
+                mat_mips = np.zeros((M, 4 * L), np.float32)
+            off = 0
+            for (i, _), ch in zip(images, chains):
+                mat_rect[i] = rects[off]
+                if tex_mips:
+                    for lv in range(L):  # a short chain repeats its 1 x 1 level
+                        mat_mips[i, 4 * lv:4 * lv + 4] = rects[off + min(lv, len(ch) - 1)]
+                off += len(ch)
+        if normals:
+            nrm_rect = np.zeros((M, 4), np.float32)  # w = 0: no normal map
+            for (i, _), r in zip(normals, rects[len(flat):]):
+                nrm_rect[i] = r
     tri_uv6 = None
     if tri_uvs is not None:
         uv_arr = np.asarray(tri_uvs, np.float32)
@@ -472,7 +558,8 @@ def build_pt_scene(
         mat_albedo2=mat_albedo2 if textured else None,
         mat_tex_scale=mat_tex_scale if textured else None,
         mat_tex_space=mat_tex_space if uv_space else None,
-        tex_atlas=tex_atlas, mat_tex_rect=mat_rect, tri_uv=tri_uv6,
+        tex_atlas=tex_atlas, mat_tex_rect=mat_rect, tri_uv=tri_uv6, mat_tex_mips=mat_mips,
+        mat_nrm_rect=nrm_rect, mat_nrm_scale=None if nrm_rect is None else mat_nrm_scale,
         mat_dispersion=mat_dispersion if (mat_dispersion > 0).any() else None,
         env=_env_rows(env), env_img=env_img, env_smp=env_smp, env_pick=env_pick_v,
     ), device)

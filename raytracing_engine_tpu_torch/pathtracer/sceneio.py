@@ -79,8 +79,8 @@ light would be a wrongness hazard, not a convenience.
 
 In the port every entry of the schema loads, with the JAX package's checks
 and messages; ``build_pt_scene`` then refuses, naming the ROADMAP item that
-brings it, what the port cannot render yet: normal maps, mesh lights and
-tex_mips. The scene goes to ``device`` (None: the CUDA card).
+brings it, what the port cannot render yet: mesh lights. The scene goes to
+``device`` (None: the CUDA card).
 """
 
 from __future__ import annotations

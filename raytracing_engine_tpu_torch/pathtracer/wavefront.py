@@ -7,7 +7,8 @@ env map, toward the map's alias-sampled texels (one coin splits the two),
 with power-heuristic MIS, DIFFUSE / MIRROR / DIELECTRIC (smooth, or rough
 by Walter 2007; with spectral dispersion) / METAL (GGX, isotropic or
 anisotropic) / emissive materials, checkers in world or UV space, image
-textures from the atlas (nearest or bilinear), a constant or gradient sky
+textures from the atlas (nearest, bilinear, or trilinear across the mip
+chains by a ray cone), tangent-space normal maps, a constant or gradient sky
 or the env map, optional Russian roulette. Per-ray state is component
 planes of any shape, and every expression keeps the JAX operation order,
 because csrc/pt.cuh is held to this code on the card.
@@ -47,8 +48,9 @@ package:
 
 Staged launches (``state_in`` / ``bounce_lo`` / ``bounce_hi`` /
 ``emit_state``, kernel K5's oracle): a call runs bounces [bounce_lo,
-bounce_hi] and returns the 17-plane ray state (``pack_state``; 18 planes
-with a dispersive scene's chan), which carries each ray's pixel
+bounce_hi] and returns the 17-plane ray state (``pack_state``; one plane
+more with a dispersive scene's chan, and one more with the ray cone's
+path length tacc under trilinear filtering), which carries each ray's pixel
 coordinates so that any regrouping of rays between calls draws the same
 numbers.
 
@@ -57,13 +59,18 @@ the analytic parametrization (``_sphere_uv``, polynomial inverse trig),
 the unrolled slots and a raw BVH interpolate ``scene.tri_uv`` at the hit's
 barycentrics, a ClusterSet with UV rows interpolates them (the gather path
 from the barycentrics recomputed at the hit point, the attributes path from
-the sweep's), as in the JAX package.
+the sweep's), instances carry their base table's UVs untransformed, as in
+the JAX package. Where shading reads the texture-u tangent (normal maps,
+mips: ``PTScene.needs_tan``) the hit also carries ``tan``: spheres the
+azimuthal direction (``_sphere_tan``), triangles the world gradient of the
+texture u, du1 r1 + du2 r2 from the barycentric gradient rows (the unrolled
+slots from the gathered triangle, a ClusterSet from its table rows,
+instances rotated into world space as the normal is).
 
 Not in this slice (each raises NotImplementedError; ROADMAP queue 1 lists
 them in order): thin-lens DOF, fog and media, the R_d sampler, the light
-tree, the trilinear texture filter, the sorted wavefront (``sort``, with
-pathtracer/compaction.py); the scene features pathtracer/scene.py refuses
-never reach this code.
+tree, the sorted wavefront (``sort``, with pathtracer/compaction.py); the
+scene features pathtracer/scene.py refuses never reach this code.
 """
 
 from __future__ import annotations
@@ -133,8 +140,9 @@ def check_supported(cfg: PTConfig, bvh=None, sort=False):
         _not_yet(f"sampler={cfg.sampler!r} (the R_d sampler)")
     if cfg.light_sampling == "tree":
         _not_yet("light_sampling='tree' (the light tree)")
-    if cfg.tex_filter not in ("nearest", "bilinear"):
-        _not_yet(f"tex_filter={cfg.tex_filter!r} (mip chains, K4 feature 7)")
+    if cfg.tex_filter not in ("nearest", "bilinear", "trilinear"):
+        raise ValueError(f"tex_filter must be nearest, bilinear or trilinear, "
+                         f"got {cfg.tex_filter!r}")
     check_mesh(bvh)
     if sort and cfg.rng != "pcg":
         raise ValueError("sort=True requires rng='pcg'")
@@ -261,14 +269,15 @@ def _mean_live_origin(o):
     return torch.stack([torch.where(live, c, 0.0).sum() / n for c in o])
 
 
-def _tri_hits_clusters(o, d, t_min, cs: ClusterSet):
-    """(t, original tri index, n V3 unnormalized, 2*area, uv or None) of the
-    nearest ClusterSet hit, the normal and area gathered by the hit slot;
-    t = BIG on a miss. Smooth tables recompute the hit barycentrics from the
-    affine rows at the hit point and interpolate the shading normals, and
-    UV tables the texture UVs (JAX wavefront.py:311-345). Visit orders (JAX
-    wavefront.py:294-310): row 0 from the mean live origin, rows 1+ from
-    the set's order_refs."""
+def _tri_hits_clusters(o, d, t_min, cs: ClusterSet, need_tan: bool = False):
+    """(t, original tri index, n V3 unnormalized, 2*area, uv or None, tan or
+    None) of the nearest ClusterSet hit, the normal and area gathered by the
+    hit slot; t = BIG on a miss. Smooth tables recompute the hit
+    barycentrics from the affine rows at the hit point and interpolate the
+    shading normals, and UV tables the texture UVs, and with need_tan the
+    world texture-u gradient du1 r1 + du2 r2 (JAX wavefront.py:311-347).
+    Visit orders (JAX wavefront.py:294-310): row 0 from the mean live
+    origin, rows 1+ from the set's order_refs."""
     fc = FrameClusters.at(cs, _mean_live_origin(o))
     t, sidx = kcluster.cluster_intersect(cs, o, d, BIG, t_min=t_min, order=fc.orders[0],
                                          orders=fc.orders, refs=fc.refs)
@@ -276,7 +285,7 @@ def _tri_hits_clusters(o, d, t_min, cs: ClusterSet):
     idx = torch.clamp_min(cs.perm[safe], 0).to(torch.int64)
     n = (cs.tri[0, safe], cs.tri[1, safe], cs.tri[2, safe])
     nlen2 = cs.tri[13, safe]
-    tuv = None
+    tuv = ttan = None
     if cs.smooth:
         base = (safe // CLUSTER) * CLUSTER
         px = o[0] + t * d[0] - cs.tri[20, base]
@@ -291,13 +300,18 @@ def _tri_hits_clusters(o, d, t_min, cs: ClusterSet):
         if cs.has_uv:  # rows 32-37: uv0, uv1 - uv0, uv2 - uv0
             tuv = tuple(cs.tri[32 + a, safe] + u * cs.tri[34 + a, safe]
                         + v * cs.tri[36 + a, safe] for a in range(2))
-    return torch.where(sidx >= 0, t, BIG), idx, n, nlen2, tuv
+            if need_tan:  # the gradient rows are translation-invariant
+                du1, du2 = cs.tri[34, safe], cs.tri[36, safe]
+                ttan = tuple(du1 * cs.tri[4 + a, safe] + du2 * cs.tri[8 + a, safe]
+                             for a in range(3))
+    return torch.where(sidx >= 0, t, BIG), idx, n, nlen2, tuv, ttan
 
 
 def _tri_uv_gather(scene: PTScene, i_t, p):
-    """The hit's UV from scene.tri_uv: the barycentrics recomputed from the
-    gathered triangle at p, then the corners interpolated (JAX
-    wavefront.py:545-558)."""
+    """(uv, tan) of the hit from scene.tri_uv: the barycentrics recomputed
+    from the gathered triangle at p, then the corners interpolated, and
+    where shading reads it (needs_tan, else None) the world texture-u
+    gradient du1 grad(u) + du2 grad(v) (JAX wavefront.py:545-566)."""
     v0g = v3.unstack(scene.tri_v0[i_t])
     e1g = v3.unstack(scene.tri_e1[i_t])
     e2g = v3.unstack(scene.tri_e2[i_t])
@@ -311,17 +325,22 @@ def _tri_uv_gather(scene: PTScene, i_t, p):
     uv6 = scene.tri_uv[i_t]
     du1 = uv6[..., 2] - uv6[..., 0]
     du2 = uv6[..., 4] - uv6[..., 0]
-    return (uv6[..., 0] + ub * du1 + vb * du2,
-            uv6[..., 1] + ub * (uv6[..., 3] - uv6[..., 1]) + vb * (uv6[..., 5] - uv6[..., 1]))
+    uv = (uv6[..., 0] + ub * du1 + vb * du2,
+          uv6[..., 1] + ub * (uv6[..., 3] - uv6[..., 1]) + vb * (uv6[..., 5] - uv6[..., 1]))
+    if not scene.needs_tan:
+        return uv, None
+    return uv, v3.add(v3.scale(gu, du1), v3.scale(gv, du2))
 
 
 def _surface(scene: PTScene, o, d, t_s, i_s, t_t, n_tri, use_tri_mat, tri_area, tuv=None,
-             i_t=None):
+             i_t=None, ttan=None):
     """The closest-hit dict from the sphere and triangle candidates
     (the shared tail of JAX _intersect / _intersect_clusters). Where the
     scene's shading reads UVs (needs_uv) it adds ``uv``: on triangle hits
     tuv, else scene.tri_uv at the hit slots i_t (original indices), else
-    zeros; the spheres' analytic UVs on sphere hits."""
+    zeros; the spheres' analytic UVs on sphere hits. Where it reads the
+    tangent (needs_tan) it adds ``tan`` likewise: ttan, or the gradient of
+    scene.tri_uv at i_t, or zeros; _sphere_tan on sphere hits."""
     use_tri = t_t < t_s
     t = torch.minimum(t_s, t_t)
     hit = t < BIG
@@ -346,10 +365,14 @@ def _surface(scene: PTScene, o, d, t_s, i_s, t_t, n_tri, use_tri_mat, tri_area, 
     if scene.needs_uv:
         su, sv = _sphere_uv(n_sph_v)
         if tuv is None and i_t is not None and scene.tri_uv is not None:
-            tuv = _tri_uv_gather(scene, i_t, p)
+            tuv, ttan = _tri_uv_gather(scene, i_t, p)
         if tuv is None:
             tuv = (torch.zeros_like(t), torch.zeros_like(t))
         out["uv"] = (torch.where(use_tri, tuv[0], su), torch.where(use_tri, tuv[1], sv))
+    if scene.needs_tan:
+        if ttan is None:
+            ttan = (torch.zeros_like(t),) * 3
+        out["tan"] = v3.where(use_tri, ttan, _sphere_tan(n_sph_v))
     return out
 
 
@@ -366,9 +389,10 @@ def _intersect(scene: PTScene, o, d, t_min, counts, bvh=None):
     if isinstance(bvh, (InstancedClusters, FrameInstances)):
         return _intersect_instanced(scene, o, d, t_min, t_s, i_s, bvh)
     T = scene.tri_v0.shape[0]
-    tuv = None
+    tuv = ttan = None
     if isinstance(bvh, ClusterSet):
-        t_t, i_t, n_tri_v, nlen2, tuv = _tri_hits_clusters(o, d, t_min, bvh)
+        t_t, i_t, n_tri_v, nlen2, tuv, ttan = _tri_hits_clusters(o, d, t_min, bvh,
+                                                                 scene.needs_tan)
         tri_mat = scene.tri_mat[i_t]  # gather — T too large to unroll
     elif isinstance(bvh, BVH):
         t_t, i_t, n_tri_v, nlen2 = _tri_hits_bvh(o, d, t_min, bvh)
@@ -385,7 +409,7 @@ def _intersect(scene: PTScene, o, d, t_min, counts, bvh=None):
         nlen2 = v3.length(n_tri_v)
         tri_mat = _sel(safe, scene.tri_mat, T)
         i_t = safe
-    return _surface(scene, o, d, t_s, i_s, t_t, n_tri_v, tri_mat, 0.5 * nlen2, tuv, i_t)
+    return _surface(scene, o, d, t_s, i_s, t_t, n_tri_v, tri_mat, 0.5 * nlen2, tuv, i_t, ttan)
 
 
 def _bvh_hits(o, d, t_max, t_min, bvh: BVH, any_hit: bool):
@@ -414,32 +438,36 @@ def _intersect_instanced(scene: PTScene, o, d, t_min, t_s, i_s, bvh):
     attributes for an InstancedClusters (the identity orders, as the JAX
     host path), the plain sweep with the frame's orders for FrameInstances.
     Materials come per instance (table column 19); light_area is 1 for mesh
-    hits (instanced emissive materials are refused, so it is never read)."""
+    hits (instanced emissive materials are refused, so it is never read). A UV
+    base table gives the hit's UV (object-space data, carried untransformed)
+    and, where shading reads it, the tangent in world space."""
     if isinstance(bvh, FrameInstances):
         ic = bvh.ic
-        t_w, code, cnx, cny, cnz = kinst.instanced_cluster_intersect_reference(
+        t_w, code, cnx, cny, cnz, *rest = kinst.instanced_cluster_intersect_reference(
             ic.inst_tab, ic.cs, o, d, t_min=t_min, attrs=True, t_max=BIG, iorder=bvh.iorder,
-            iorders=bvh.iorders)
+            iorders=bvh.iorders, tan=scene.needs_tan)
     else:
         ic = bvh
-        t_w, code, cnx, cny, cnz = kinst.instanced_cluster_intersect(
-            ic.inst_tab, ic.cs, o, d, t_min=t_min, attrs=True)
+        t_w, code, cnx, cny, cnz, *rest = kinst.instanced_cluster_intersect(
+            ic.inst_tab, ic.cs, o, d, t_min=t_min, attrs=True, tan=scene.needs_tan)
     inst_id = torch.clamp_min(code, 0).to(torch.int64) // ic.cs.padded_tris
     inst_mat = _sel(inst_id, ic.inst_tab[:, 19], ic.num_instances)
     t_t = torch.where(code >= 0, t_w, BIG)
-    return _surface(scene, o, d, t_s, i_s, t_t, (cnx, cny, cnz), inst_mat.to(torch.int32), 1.0)
+    return _surface(scene, o, d, t_s, i_s, t_t, (cnx, cny, cnz), inst_mat.to(torch.int32), 1.0,
+                    tuple(rest[:2]) or None, ttan=tuple(rest[2:]) or None)
 
 
 def _intersect_clusters(scene: PTScene, o, d, t_min, t_s, i_s, fc: FrameClusters):
     """The attributes path (JAX wavefront.py:177-271): the plain sweep with
     the frame's orders returns normal, material (tri row 12), area and, on
-    a UV table, the hit's UV (the sweep's barycentrics)."""
-    t_t, sidx, cnx, cny, cnz, cmat, carea, *tuv = kcluster.cluster_intersect_reference(
+    a UV table, the hit's UV (the sweep's barycentrics) and, where shading
+    reads it, its texture-u tangent."""
+    t_t, sidx, cnx, cny, cnz, cmat, carea, *rest = kcluster.cluster_intersect_reference(
         fc.cs, o, d, BIG, t_min=t_min, attrs=True, order=fc.orders[0],
-        orders=fc.orders, refs=fc.refs)
+        orders=fc.orders, refs=fc.refs, tan=scene.needs_tan)
     t_t = torch.where(sidx >= 0, t_t, BIG)
     return _surface(scene, o, d, t_s, i_s, t_t, (cnx, cny, cnz), cmat.to(torch.int32), carea,
-                    tuple(tuv) or None)
+                    tuple(rest[:2]) or None, ttan=tuple(rest[2:]) or None)
 
 
 def _occluded(scene: PTScene, o, d, max_t, t_min, counts, bvh=None):
@@ -573,6 +601,13 @@ def _sphere_uv(n_sph):
     return u, v
 
 
+def _sphere_tan(n_sph):
+    """The spheres' raw texture-u tangent: the azimuthal direction (-y, x,
+    0) of the unnormalized outward normal (JAX wavefront.py:885); it
+    degenerates at the poles, where _perturb_normal falls back."""
+    return (-n_sph[1], n_sph[0], torch.zeros_like(n_sph[0]))
+
+
 def _atlas_fetch(atlas, ty, tx):
     """The texel (ty, tx) of a (3K, 128) channel-major table (the atlas, or
     the env map's tables): (c0, c1, c2) planes, channel c from row c K +
@@ -684,13 +719,87 @@ def _sample_rect(atlas, x0, y0, tw, th, uv, s, bilinear=False):
                  + (c01[c] * (1.0 - wx) + c11[c] * wx) * wy for c in range(3))
 
 
-def _textured_albedo(scene: PTScene, mat_id, albedo, p, uv=None, bilinear=False):
-    """Checkers and image textures (JAX wavefront.py:1193-1225, without the
-    mip chains): checker cells of size 1/scale alternate the albedo and
-    mat_albedo2 (scale 0 is flat), in world space or, for mat_tex_space 1,
-    in UV space; the parity is a floored modulo (negative cells included).
-    Image-textured materials (rect w > 0) then sample the atlas at the
-    scale-tiled hit UV."""
+def _mip_lod_footprint(cfg: PTConfig, scene: PTScene, isect, d, tacc):
+    """The ray cone's footprint at the hit in UV units (JAX
+    wavefront.py:1074-1110): width tacc * 2 fov / width over sqrt(|d.n|),
+    times the UV density, on a sphere the larger of the azimuthal 1 / (2π
+    |tan|) and the polar 1 / (π r) (r from the carried light area 4π r²),
+    on a triangle |tan|, the texture-u gradient alone (the reference's
+    approximation: the v-gradient is left out)."""
+    tl = v3.length(isect["tan"])
+    sph_r = torch.sqrt(isect["light_area"] * (0.25 / PI))
+    sph_dens = torch.maximum(1.0 / (2.0 * PI * torch.clamp_min(tl, 1e-8)),
+                             1.0 / (PI * torch.clamp_min(sph_r, 1e-8)))
+    inv_du = torch.where(isect["is_tri"], tl, sph_dens)
+    alpha = 2.0 * cfg.fov / cfg.width
+    cosw = torch.abs(v3.dot(d, isect["n"]))
+    width = tacc * alpha / torch.sqrt(torch.clamp_min(cosw, 1e-2))
+    return width * inv_du
+
+
+def _sample_rect_tri(scene: PTScene, mat_id, uv, s, fp_uv):
+    """Trilinear sample of a material's albedo mip chain (JAX
+    wavefront.py:1111-1148): the level lod = log2 of the footprint in
+    level-0 texels, clamped to the chain; the two bracketing levels' rects
+    (mat_tex_mips) sampled bilinearly and lerped by lod's fraction."""
+    M = scene.mat_albedo.shape[0]
+    L = scene.n_mip_levels
+    mips = scene.mat_tex_mips
+    tw0 = _sel(mat_id, mips[:, 2], M)
+    texels = fp_uv * s * torch.clamp_min(tw0, 1.0)
+    lod = torch.log2(torch.clamp(texels, 1.0, float(1 << (L - 1))))
+    l0 = torch.floor(lod)
+    fr = lod - l0
+
+    def level_rect(lev):
+        rect = [torch.zeros_like(lod) for _ in range(4)]
+        for lv in range(L):
+            m = lev == lv
+            for k in range(4):
+                rect[k] = torch.where(m, _sel(mat_id, mips[:, 4 * lv + k], M), rect[k])
+        return rect
+
+    ca = _sample_rect(scene.tex_atlas, *level_rect(l0), uv, s, bilinear=True)
+    cb = _sample_rect(scene.tex_atlas, *level_rect(torch.clamp_max(l0 + 1.0, float(L - 1))),
+                      uv, s, bilinear=True)
+    return tuple(ca[c] * (1.0 - fr) + cb[c] * fr for c in range(3))
+
+
+def _perturb_normal(scene: PTScene, mat_id, n, tan, uv, bilinear=False):
+    """Tangent-space normal mapping (JAX wavefront.py:1151-1190): the map's
+    texel decoded as 2 rgb - 1 and turned into world space by the frame (T,
+    n x T, n), T the tangent made orthogonal to the unit ray-facing normal n
+    (a degenerate one falls back to z x n, or x x n near ±z), normalized.
+    A decoded texel of length <= 1e-6 keeps n, and so does a material
+    without a map (rect w = 0)."""
+    M = scene.mat_albedo.shape[0]
+    x0, y0, tw, th = (_sel(mat_id, scene.mat_nrm_rect[:, k], M) for k in range(4))
+    s = _sel(mat_id, scene.mat_nrm_scale, M)
+    rgb = _sample_rect(scene.tex_atlas, x0, y0, tw, th, uv, s, bilinear=bilinear)
+    ntx = 2.0 * rgb[0] - 1.0
+    nty = 2.0 * rgb[1] - 1.0
+    ntz = 2.0 * rgb[2] - 1.0
+    tp = v3.sub(tan, v3.scale(n, v3.dot(n, tan)))
+    zero, one = torch.zeros_like(n[0]), torch.ones_like(n[0])
+    fb = v3.where(torch.abs(n[2]) < 0.9, v3.cross((zero, zero, one), n),
+                  v3.cross((one, zero, zero), n))
+    tp = v3.where(v3.dot(tp, tp) > 1e-12, tp, fb)
+    t = v3.scale(tp, 1.0 / torch.clamp_min(v3.length(tp), 1e-20))
+    b = v3.cross(n, t)
+    np_ = tuple(ntx * t[a] + nty * b[a] + ntz * n[a] for a in range(3))
+    ln = v3.length(np_)
+    np_ = v3.where(ln > 1e-6, v3.scale(np_, 1.0 / torch.clamp_min(ln, 1e-20)), n)
+    return v3.where(tw > 0.0, np_, n)
+
+
+def _textured_albedo(scene: PTScene, mat_id, albedo, p, uv=None, bilinear=False, fp_uv=None):
+    """Checkers and image textures (JAX wavefront.py:1193-1225): checker
+    cells of size 1/scale alternate the albedo and mat_albedo2 (scale 0 is
+    flat), in world space or, for mat_tex_space 1, in UV space; the parity
+    is a floored modulo (negative cells included). Image-textured materials
+    (rect w > 0) then sample the atlas at the scale-tiled hit UV, trilinearly
+    across the mip chain where a ray-cone footprint fp_uv is given (a
+    tex_mips scene under tex_filter "trilinear")."""
     M = scene.mat_albedo.shape[0]
     s = _sel(mat_id, scene.mat_tex_scale, M)
     a2 = tuple(_sel(mat_id, scene.mat_albedo2[:, c], M) for c in range(3))
@@ -703,7 +812,10 @@ def _textured_albedo(scene: PTScene, mat_id, albedo, p, uv=None, bilinear=False)
     out = v3.where((s > 0.0) & odd, a2, albedo)
     if scene.mat_tex_rect is not None and uv is not None:
         x0, y0, tw, th = (_sel(mat_id, scene.mat_tex_rect[:, k], M) for k in range(4))
-        rgb = _sample_rect(scene.tex_atlas, x0, y0, tw, th, uv, s, bilinear=bilinear)
+        if fp_uv is not None and scene.has_mips:
+            rgb = _sample_rect_tri(scene, mat_id, uv, s, fp_uv)
+        else:
+            rgb = _sample_rect(scene.tex_atlas, x0, y0, tw, th, uv, s, bilinear=bilinear)
         out = v3.where(tw > 0.0, rgb, out)
     return out
 
@@ -719,21 +831,29 @@ def _sky(scene: PTScene, d):
 _STATE_V3 = ("o", "d", "thr", "rad")
 _STATE_SCALAR = ("alive", "prev_did_nee", "prev_pdf")
 # o, d, thr, rad (3 each), alive, prev_did_nee, prev_pdf, px, py; a
-# dispersive scene adds chan, the committed color channel (-1: none yet)
+# dispersive scene adds chan, the committed color channel (-1: none yet), and
+# trilinear filtering tacc, the ray cone's path length so far
 STATE_PLANES = 17
 
 
+def has_tacc(scene: PTScene, cfg: PTConfig | None) -> bool:
+    """The ray state carries tacc: a tex_mips scene under "trilinear"."""
+    return cfg is not None and scene.has_mips and cfg.tex_filter == "trilinear"
+
+
 def state_plane_count(scene: PTScene | None = None, cfg: PTConfig | None = None) -> int:
-    """Number of f32 planes in a packed inter-launch ray state: 17, and 18
-    with the chan plane of a dispersive scene (the JAX count without the
-    mip plane, which this slice lacks)."""
-    return STATE_PLANES + (1 if scene is not None and scene.has_dispersion else 0)
+    """Number of f32 planes in a packed inter-launch ray state (JAX
+    wavefront.py:1325-1329): 17, one more with the chan plane of a
+    dispersive scene, and one more with tacc (has_tacc)."""
+    if scene is None:
+        return STATE_PLANES
+    return STATE_PLANES + (1 if scene.has_dispersion else 0) + (1 if has_tacc(scene, cfg) else 0)
 
 
 def pack_state(st) -> torch.Tensor:
-    """A state dict as one (17 or 18, ...) f32 tensor: the transport format
+    """A state dict as one (17 to 19, ...) f32 tensor: the transport format
     between per-bounce launches. Masks ride as 0/1, px/py as f32 (exact
-    below 2^24), then chan where the state has it."""
+    below 2^24), then chan and tacc where the state has them."""
     planes = []
     for k in _STATE_V3:
         planes.extend(st[k])
@@ -743,10 +863,12 @@ def pack_state(st) -> torch.Tensor:
     planes.append(st["py"].to(torch.float32))
     if "chan" in st:
         planes.append(st["chan"])
+    if "tacc" in st:
+        planes.append(st["tacc"])
     return torch.stack(planes)
 
 
-def unpack_state(arr, has_chan: bool = False):
+def unpack_state(arr, has_chan: bool = False, has_tacc: bool = False):
     """Inverse of pack_state."""
     st = {}
     i = 0
@@ -758,16 +880,20 @@ def unpack_state(arr, has_chan: bool = False):
     st["prev_pdf"] = arr[i + 2]
     st["px"] = arr[i + 3].to(torch.int64)
     st["py"] = arr[i + 4].to(torch.int64)
+    i += 5
     if has_chan:
-        st["chan"] = arr[i + 5]
+        st["chan"] = arr[i]
+        i += 1
+    if has_tacc:
+        st["tacc"] = arr[i]
     return st
 
 
 def _bounce(cfg: PTConfig, scene: PTScene, st, b: int, draw, counts, bvh):
     """Bounce b of every ray of the state dict: returns the next state. The
-    material features (metal, anisotropy, checkers, image textures,
-    dispersion, rough glass, the sky, the env map) are static gates: a
-    scene without one runs the program it ran before."""
+    material features (metal, anisotropy, checkers, image textures, normal
+    maps, mips, dispersion, rough glass, the sky, the env map) are static
+    gates: a scene without one runs the program it ran before."""
     n_light = counts[2]
     st = dict(st)
     thr, rad = st["thr"], st["rad"]
@@ -784,9 +910,20 @@ def _bounce(cfg: PTConfig, scene: PTScene, st, b: int, draw, counts, bvh):
     metal = scene.has_metal
     if metal:
         alpha, alpha_y = _alphas(scene, isect["mat_id"])
+    if scene.has_normal_map:
+        # every later step reads the perturbed shading normal; the map has no
+        # mip chain and is sampled bilinearly under trilinear filtering
+        n = _perturb_normal(scene, isect["mat_id"], n, isect["tan"], isect["uv"],
+                            bilinear=cfg.tex_filter in ("bilinear", "trilinear"))
+    fp_uv = None
+    if has_tacc(scene, cfg):
+        # the cone grows by this segment before the hit is shaded
+        st["tacc"] = st["tacc"] + torch.where(hit, isect["t"], 0.0)
+        fp_uv = _mip_lod_footprint(cfg, scene, isect, d, st["tacc"])
     if scene.has_texture:
         albedo = _textured_albedo(scene, isect["mat_id"], albedo, p, uv=isect.get("uv"),
-                                  bilinear=cfg.tex_filter == "bilinear")
+                                  bilinear=cfg.tex_filter in ("bilinear", "trilinear"),
+                                  fp_uv=fp_uv)
     if metal and scene.has_aniso:
         # the anisotropy axes live in the per-normal frame
         onb_t, onb_s = sampler.build_onb(n)
@@ -1050,6 +1187,9 @@ def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed0=None,
     (rad, nrays). The state carries px/py, and every draw of a staged call
     is keyed on them (rng="pcg" only, as in the JAX package)."""
     check_supported(cfg, bvh=bvh, sort=sort)
+    if cfg.tex_filter == "trilinear" and not scene.has_mips:
+        raise ValueError("tex_filter='trilinear' needs packed mip chains — build the scene "
+                         "with build_pt_scene(tex_mips=True)")
     if bounce_hi is None:
         bounce_hi = cfg.max_bounces
     if bounce_lo > 0 and state_in is None:
@@ -1090,6 +1230,8 @@ def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed0=None,
                   nrays=torch.zeros((), dtype=torch.int64, device=device))
         if scene.has_dispersion:  # no channel committed yet
             st["chan"] = zero - 1.0
+        if has_tacc(scene, cfg):  # the ray cone's path length
+            st["tacc"] = zero
         if pix is not None:
             st["py"], st["px"] = pix[0].to(torch.int64), pix[1].to(torch.int64)
         elif staged:

@@ -131,11 +131,14 @@ def cluster_table_bytes(tables) -> int:
     return sum(4 * t.numel() for t in tables if t is not None)
 
 
-def k6_bytes(n_rays: int, attrs: bool, table_bytes: int, tmax_plane: bool = False) -> int:
+def k6_bytes(n_rays: int, attrs: bool, table_bytes: int, tmax_plane: bool = False,
+             uv: bool = False, tan: bool = False) -> int:
     """K6 reads 6 planes per ray (o, d), 7 when the caller passes a t_max
-    plane, and writes 2 (t, slot), 7 with the attributes, besides the
-    tables."""
-    return 4 * n_rays * (6 + int(tmax_plane) + (7 if attrs else 2)) + table_bytes
+    plane, and writes 2 (t, slot), 7 with the attributes, 9 with a UV
+    table's (u, v) (uv) and 12 with its tangent planes too (tan), besides
+    the tables (the UV records among them)."""
+    out = (7 + 2 * int(uv) + 3 * int(tan)) if attrs else 2
+    return 4 * n_rays * (6 + int(tmax_plane) + out) + table_bytes
 
 
 # what K8 reads per node and triangle: a node's whole 32-byte record (its box
@@ -153,16 +156,21 @@ def k8_bytes(n_rays: int, n_nodes: int, n_tris: int, tmax_plane: bool = False) -
             + BVH_NODE_BYTES * n_nodes + BVH_TRI_BYTES * n_tris)
 
 
-def k7_bytes(n_rays: int, attrs: bool, table_bytes: int, tmax_plane: bool = False) -> int:
+def k7_bytes(n_rays: int, attrs: bool, table_bytes: int, tmax_plane: bool = False,
+             uv: bool = False, tan: bool = False) -> int:
     """K7 reads 6 planes per ray (o, d), 7 when the caller passes a t_max
-    plane, and writes 2 (t, code), 5 with the world normal, besides the
-    base set's records, the instance table and the orders."""
-    return 4 * n_rays * (6 + int(tmax_plane) + (5 if attrs else 2)) + table_bytes
+    plane, and writes 2 (t, code), 5 with the world normal, 7 with a UV
+    base table's (u, v) (uv) and 10 with its world tangent too (tan),
+    besides the base set's records (its UV records among them), the
+    instance table and the orders."""
+    out = (5 + 2 * int(uv) + 3 * int(tan)) if attrs else 2
+    return 4 * n_rays * (6 + int(tmax_plane) + out) + table_bytes
 
 
 def k5_bytes(n_rays: int, live: list, table_bytes: int, planes: int = 17) -> int:
     """One pass of K5 launches (bounces 0..len(live)) over a state of n_rays
-    rays with `planes` planes (17, 18 with a dispersive scene's chan):
+    rays with `planes` planes (wavefront.state_plane_count: 17, and one more
+    each for a dispersive scene's chan and the trilinear filter's tacc):
     bounce 0 writes the whole state; each later launch reads every ray's
     o.x (the parked test) and, for the live[b - 1] rays it finds not parked,
     the rest of the state, and writes those back; each launch reads the

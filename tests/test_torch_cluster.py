@@ -22,6 +22,7 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+from test_torch_jax_stand_in import jnp_cluster_intersect
 
 from raytracing_engine_tpu.accel import clusters as jclusters
 from raytracing_engine_tpu.accel import icosphere
@@ -181,16 +182,44 @@ def test_sweep_tables_layout(sets):
 
 
 def test_uv_tables_are_not_ported_yet():
-    """UV tables sweep (their UV planes: tests/test_torch_textures.py); their
-    texture-u tangent planes (tan=True: normal maps and mips) still raise."""
-    tris = mesh.icosphere(1)
-    uvs = np.zeros((tris.shape[0], 3, 2), np.float32)
+    """K6's texture-u tangent planes on a UV table (tan=True: normal maps and
+    mip LOD) from the rows the table already holds: twelve planes, the first
+    nine those of the tan=False sweep bit for bit, the tangent du1 r1 + du2
+    r2 against JAX's table rows at the same slots (atol 1e-6; the stand-in
+    of tests/test_torch_jax_stand_in.py) and bit for bit the
+    gather path's (wavefront._tri_hits_clusters); 0 on misses; a table
+    without UVs ignores tan, as JAX's does."""
+    from raytracing_engine_tpu_torch.pathtracer import wavefront
+
+    rng = np.random.default_rng(6)
+    tris = mesh.icosphere(2, radius=1.2, center=tuple(CENTER))
+    uvs = rng.uniform(-0.5, 1.5, (tris.shape[0], 3, 2)).astype(np.float32)
     cs = clusters.build_clusters(tris, vertex_uvs=uvs, device=CPU)
-    o = (torch.zeros(2),) * 3
-    d = (torch.ones(2),) * 3
-    assert len(cluster.cluster_intersect(cs, o, d, float("inf"), attrs=True)) == 9
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cluster.cluster_intersect(cs, o, d, float("inf"), attrs=True, tan=True)
+    jcs = jclusters.build_clusters(tris, vertex_uvs=uvs)
+    o, d = (tuple(torch.from_numpy(np.ascontiguousarray(c)) for c in x) for x in _rays())
+    got = cluster.cluster_intersect(cs, o, d, float("inf"), attrs=True, tan=True)
+    base = cluster.cluster_intersect(cs, o, d, float("inf"), attrs=True)
+    assert len(got) == 12 and len(base) == 9
+    assert all(torch.equal(a, b) for a, b in zip(got[:9], base))
+    slot = got[1]
+    hit = (slot >= 0).numpy()
+    assert hit.mean() > 0.3
+    want = jnp_cluster_intersect(jcs, tuple(jnp.asarray(x) for x in _rays()[0]),
+                                 tuple(jnp.asarray(x) for x in _rays()[1]), jnp.inf,
+                                 attrs=True, tan=True)
+    same = hit & (slot.numpy() == np.asarray(want[1]))
+    assert same.sum() >= 0.99 * hit.sum()
+    for a in range(9, 12):
+        np.testing.assert_allclose(got[a].numpy()[same], np.asarray(want[a])[same], atol=1e-6,
+                                   rtol=0.0)
+        assert np.all(got[a].numpy()[~hit] == 0.0)
+    _, idx, _, _, _, gtan = wavefront._tri_hits_clusters(o, d, 1e-3, cs, need_tan=True)
+    same = torch.from_numpy(hit) & (cs.perm[slot.clamp_min(0).long()].long() == idx)
+    assert same.sum() >= 0.99 * hit.sum()  # its own visit orders may break a tie otherwise
+    for a in range(3):
+        assert torch.equal(got[9 + a][same], gtan[a][same])
+    flat = clusters.build_clusters(tris, device=CPU)
+    assert len(cluster.cluster_intersect(flat, o, d, float("inf"), attrs=True, tan=True)) == 7
 
 
 def _struct_fields(src, name):

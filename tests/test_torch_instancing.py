@@ -562,17 +562,84 @@ def test_progressive_render_with_instances(pt_port):
 
 
 def test_uv_base_tables_are_not_ported_yet(setup):
-    """Instances of a UV ClusterSet raise, naming the texture features."""
+    """Instances of a UV ClusterSet (the module's icosphere with spherical
+    UVs): K7's plain sweep returns the UV (object-space data, carried
+    untransformed) and the world tangent R (du1 r1 + du2 r2), held to JAX's
+    jnp intersector (wavefront._intersect, its stacked path) on the six
+    instances flattened into world-space triangles: on the rays that hit
+    the same triangle, t within rtol 1e-6, UV within atol 1e-5 and the
+    tangent within atol 1e-5 (the world triangle's own gradients against
+    the rotated object ones). The normal and the hits are those of the set
+    without UVs. Then a UV-textured, normal-mapped render over the
+    instances through the plain render_pt_fast and render_pt_mega (within
+    tests/test_megakernel.py:37-40's bounds of each other) and the rebin
+    route, bit for bit the megakernel."""
+    from raytracing_engine_tpu.pathtracer import wavefront as jwave
+
     from raytracing_engine_tpu_torch.accel import build_clusters
 
-    tris = icosphere(subdivisions=1)
-    uvs = np.zeros((tris.shape[0], 3, 2), np.float32)
-    cs_uv = build_clusters(tris, vertex_uvs=uvs, device=CPU)
-    ptab = setup["port"][3]
-    o, d = _rays(2, 4, park_rows=0)
-    with pytest.raises(NotImplementedError, match="texture"):
-        instanced.instanced_cluster_intersect(ptab, cs_uv, _torch(o), _torch(d), attrs=True,
-                                              tan=True)
+    _, _, jinst, _ = setup["jax"]
+    pb, pcs, pinst, ptab = setup["port"]
+    mesh = icosphere(subdivisions=2, radius=0.8).astype(np.float32)
+    p = mesh / np.linalg.norm(mesh, axis=-1, keepdims=True)
+    uvs = np.stack([np.arctan2(p[..., 1], p[..., 0]) / (2.0 * np.pi) + 0.5,
+                    np.arccos(np.clip(p[..., 2], -1.0, 1.0)) / np.pi], -1).astype(np.float32)
+    cs_uv = build_clusters(mesh, vertex_uvs=uvs, device=CPU)
+    o, d = _rays()
+    got = [x.numpy() for x in instanced.instanced_cluster_intersect(
+        ptab, cs_uv, _torch(o), _torch(d), attrs=True, tan=True)]
+    flat = instanced.instanced_cluster_intersect(ptab, pcs, _torch(o), _torch(d), attrs=True)
+    assert len(got) == 10
+    np.testing.assert_array_equal(got[0], flat[0].numpy())
+    np.testing.assert_array_equal(got[1] // cs_uv.padded_tris, flat[1].numpy() // pcs.padded_tris)
+    # the six instances in world space, per-corner UVs copied
+    rot, trans = np.asarray(jinst.rot), np.asarray(jinst.trans)
+    world = np.concatenate([mesh @ r.T + t for r, t in zip(rot, trans)]).astype(np.float32)
+    tex = np.random.default_rng(3).uniform(0.0, 1.0, (6, 10, 3)).astype(np.float32)
+    nrm = np.float32([0.4, -0.3, 1.0]) / np.linalg.norm([0.4, -0.3, 1.0])
+    mats = [{"albedo": (0.75, 0.5, 0.3), "image": {"pixels": tex, "scale": 2.0},
+             "normal": np.broadcast_to((nrm + 1.0) * 0.5, (2, 2, 3)).astype(np.float32)},
+            *PT_MATS[1:]]
+    js = jax_build_pt_scene(spheres=PT_SPHERES, materials=mats, triangles=world,
+                            tri_mats=np.zeros(len(world), np.int32),
+                            tri_uvs=np.concatenate([uvs] * len(rot)))
+    jd = tuple(jnp.asarray(x) for x in d)
+    # jitted: op by op the stacked intersector costs several times its compile
+    isect = jax.jit(lambda o3, d3: jwave._intersect(js, o3, d3, 1e-3, None))(
+        tuple(jnp.asarray(x) for x in o), jd)
+    jt = np.asarray(isect["t"])
+    jtri = np.asarray(isect["is_tri"]) & np.asarray(isect["hit"])
+    hit = got[1] >= 0
+    np.testing.assert_array_equal(hit[:-2], jtri[:-2])  # the parked rows hit nothing in JAX
+    np.testing.assert_allclose(got[0][hit], jt[hit], rtol=1e-6, atol=1e-6)
+    juv = np.stack([np.asarray(x) for x in isect["uv"]])
+    jtan = np.stack([np.asarray(x) for x in isect["tan"]])
+    near = hit & (np.abs(juv - np.stack(got[5:7])).max(0) < 1e-3)
+    assert near.sum() >= 0.98 * hit.sum()  # elsewhere a seam's neighbour triangle
+    np.testing.assert_allclose(np.stack(got[5:7])[:, near], juv[:, near], atol=1e-5, rtol=0.0)
+    np.testing.assert_allclose(np.stack(got[7:10])[:, near], jtan[:, near], atol=1e-5, rtol=0.0)
+    assert np.all(np.stack(got[5:10])[:, ~hit] == 0.0)
+
+    # the UV-textured, normal-mapped render over the instances: the plain
+    # wavefront and megakernel within the megakernel bounds of each other,
+    # the rebin route bit for bit the megakernel (JAX's render of such a
+    # scene: tests/test_torch_normal_map.py and tests/test_torch_mips.py)
+    scene = build_pt_scene(spheres=PT_SPHERES, materials=mats, device=CPU)
+    ic = instancing.make_instanced_clusters(
+        instancing.grid_instances(pb, nx=3, ny=2, spacing=2.5, base=(0.0, 8.0, 0.0),
+                                  mats=np.zeros(6, np.int32), device=CPU), cs_uv, scene=scene,
+        device=CPU)
+    assert scene.needs_tan and pt.uses_tex_instantiation(scene, ic)
+    cfg = PTConfig(**SIZE, rng="pcg", tex_filter="bilinear")
+    args = (cfg, scene, torch.zeros(3), torch.tensor(QUAT), 1)
+    fast = wavefront.render_pt_fast(*args, seed=seed_from_int(SEED), bvh=ic)
+    mega = pt.render_pt_mega(*args, seed=seed_from_int(SEED), bvh=ic)
+    hold_megakernel_bounds(fast[0].numpy(), int(fast[1]), mega[0].numpy(), int(mega[1]))
+    rb = pt.render_pt_rebin(*args, seed=seed_from_int(SEED), bvh=ic)
+    assert torch.equal(rb[0], mega[0]) and int(rb[1]) == int(mega[1])
+    flat_scene = build_pt_scene(spheres=PT_SPHERES, materials=PT_MATS, device=CPU)
+    untextured = pt.render_pt_mega(cfg, flat_scene, *args[2:], seed=seed_from_int(SEED), bvh=ic)
+    assert (mega[0] - untextured[0]).abs().max() > 1e-2  # the textures show
 
 
 def test_entry_points_refuse_in_kernel_views_on_a_cuda_scene(pt_port):

@@ -33,10 +33,10 @@ from raytracing_engine_tpu.ops.pallas.fused import depth_shade_fused as jax_fuse
 from raytracing_engine_tpu.ops.pallas.shade import shade_pallas
 
 from raytracing_engine_tpu_torch.config import RenderConfig
-from raytracing_engine_tpu_torch.models import cuda_renderer
+from raytracing_engine_tpu_torch.models import conemarch, cuda_renderer
 from raytracing_engine_tpu_torch.ops.cuda import common, depth, fused, pt, shade
-from raytracing_engine_tpu_torch.pathtracer import PTConfig, scenes, wavefront
-from raytracing_engine_tpu_torch.scene import scene_from_numpy
+from raytracing_engine_tpu_torch.pathtracer import PTConfig, build_pt_scene, scenes, wavefront
+from raytracing_engine_tpu_torch.scene import default_scene, scene_from_numpy
 
 torch.set_num_threads(1)
 
@@ -180,16 +180,47 @@ ENTRY_POINTS = {
                        "raytracing_engine_tpu.ops.pallas.pt_kernel:render_pt_mega", {}),
     "render_pt_rebin": (pt.render_pt_rebin,
                         "raytracing_engine_tpu.ops.pallas.pt_kernel:render_pt_rebin", {}),
+    "conemarch.render_jit": (conemarch.render_jit,
+                             "raytracing_engine_tpu.models.conemarch:render_jit", {}),
+    "cuda_renderer.render_jit": (cuda_renderer.render_jit,
+                                 "raytracing_engine_tpu.models.pallas_renderer:render_jit", {}),
+    "render_jit_for": (cuda_renderer.render_jit_for,
+                       "raytracing_engine_tpu.models.pallas_renderer:render_jit_for", {}),
 }
 
 
-@pytest.mark.parametrize("name", [*ENTRY_POINTS, "render_pt_fast with a positional key"])
+@pytest.mark.parametrize("name", [*ENTRY_POINTS, "render_pt_fast with a positional key",
+                                  "render_jit_for's closure", "PTScene slot counts"])
 def test_entry_points_keep_jax_positional_order(name):
     """Each port function that keeps a JAX name takes JAX's parameters as
     positional ones, in JAX's order, through the last one JAX has (TPU knobs
     accepted as no-ops); the port's own (the pcg `seed`) come after them or
     are keyword-only. And a JAX-style call with the key in 6th place renders
-    what the key= call renders, bit for bit."""
+    what the key= call renders, bit for bit. render_jit_for returns JAX's
+    closure shape (s, pos, quat), and PTScene has JAX's slot counts."""
+    if name == "render_jit_for's closure":
+        from raytracing_engine_tpu.models import pallas_renderer
+        from raytracing_engine_tpu.scene import default_scene as jax_default_scene
+
+        cfg = RenderConfig(width=64, height=64)
+        want = inspect.signature(pallas_renderer.render_jit_for(cfg, jax_default_scene()))
+        scene = default_scene(device="cpu")
+        fn = cuda_renderer.render_jit_for(cfg, scene)
+        assert list(inspect.signature(fn).parameters) == list(want.parameters)
+        pos, quat = torch.zeros(3), torch.tensor([0.0, 0.0, 0.0, 1.0])
+        assert torch.equal(fn(scene, pos, quat), cuda_renderer.render(cfg, scene, pos, quat))
+        assert torch.equal(conemarch.render_jit(cfg, scene, pos, quat),
+                           conemarch.render(cfg, scene, pos, quat))
+        return
+    if name == "PTScene slot counts":
+        from raytracing_engine_tpu.pathtracer.scene import build_pt_scene as jax_build_pt_scene
+
+        kw = dict(spheres=[((0.0, 4.0, 0.0), 1.0, 0)] * 3, triangles=np.eye(3, dtype=np.float32)[None],
+                  tri_mats=[0], materials=[{"albedo": (0.5,) * 3}], sphere_pad=8, tri_pad=4)
+        got, want = build_pt_scene(device="cpu", **kw), jax_build_pt_scene(**kw)
+        assert (got.num_sphere_slots, got.num_triangle_slots) == (8, 4)
+        assert (want.num_sphere_slots, want.num_triangle_slots) == (8, 4)
+        return
     if name == "render_pt_fast with a positional key":
         cfg = PTConfig(width=8, height=4, max_bounces=2)
         scene = scenes.cornell_box(device="cpu")

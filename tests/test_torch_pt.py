@@ -286,30 +286,32 @@ def test_load_checkpoint_without_device_needs_cuda(tmp_path, monkeypatch):
         load_checkpoint(path)
 
 
-# env, checker, metal, dispersion, the env map, UV checkers, images, tri_uvs
-# and rough glass are ported; their cases keep their names and hold inputs of
-# those features beside one that is still refused (a normal map, mips, mesh
+# env, checker, metal, dispersion, the env map, UV checkers, images, tri_uvs,
+# rough glass, normal maps and mips are ported; their cases keep their names
+# and hold inputs of those features beside one that is still refused (mesh
 # lights, the light tree)
 UNSUPPORTED_SCENES = {
     "env": dict(env=np.ones((4, 8, 3), np.float32), mesh_lights="lane"),  # the env map
     "tri_uvs": dict(triangles=np.zeros((1, 3, 3), np.float32), tri_mats=[0],
-                    tri_uvs=np.zeros((1, 3, 2), np.float32),
+                    tri_uvs=np.zeros((1, 3, 2), np.float32), mesh_lights=True,
                     materials=[{"albedo": (0.5,) * 3, "normal": np.ones((2, 2, 3))}]),
     "light_tree": dict(light_tree=2),
     "mesh_lights": dict(mesh_lights=True),
     "checker": dict(triangles=np.eye(3, dtype=np.float32)[None], tri_mats=[0],
-                    tri_uvs=np.zeros((1, 3, 2), np.float32), tex_mips=True,
+                    tri_uvs=np.zeros((1, 3, 2), np.float32), tex_mips=True, light_tree=2,
                     materials=[{"albedo": (0.5,) * 3,
                                 "checker": {"scale": 2.0, "space": "uv"}}]),
-    "image": dict(materials=[{"image": np.zeros((2, 2, 3), np.float32)}], tex_mips=True),
-    "normal": dict(materials=[{"albedo": (0.5,) * 3, "normal": np.ones((2, 2, 3))}]),
+    "image": dict(materials=[{"image": np.zeros((2, 2, 3), np.float32)}], tex_mips=True,
+                  mesh_lights=True),
+    "normal": dict(materials=[{"albedo": (0.5,) * 3, "normal": np.ones((2, 2, 3))}],
+                   light_tree=2),
     "metal": dict(triangles=np.eye(3, dtype=np.float32)[None], tri_mats=[1], mesh_lights="lane",
                   materials=[{"albedo": (0.5,) * 3, "kind": METAL},
                              {"albedo": (0.0,) * 3, "emission": (1.0,) * 3}]),
     "dispersion": dict(materials=[{"kind": DIELECTRIC, "roughness": 0.2, "dispersion": 0.02,
-                                   "normal": np.ones((2, 2, 3))}]),
+                                   "normal": np.ones((2, 2, 3))}], mesh_lights=True),
     "rough_dielectric": dict(materials=[{"kind": DIELECTRIC, "roughness": 0.2}], light_tree=2),
-    "tex_mips": dict(tex_mips=True),
+    "tex_mips": dict(tex_mips=True, light_tree=2),
 }
 
 
@@ -323,10 +325,11 @@ def test_unported_scene_inputs_raise(name):
 
 def test_unported_jax_fields_raise():
     """A JAX field the port does not carry raises, naming it (the env map's
-    tables are carried since its port; a normal map's rects are not)."""
+    tables, a normal map's rects and the mip rects are carried since their
+    port; the light tree's are not)."""
     arrays = jax_scene_arrays(jscenes.furnace_scene())
-    arrays["mat_nrm_rect"] = np.ones((1, 4), np.float32)
-    with pytest.raises(NotImplementedError, match="mat_nrm_rect"):
+    arrays["lt_center"] = np.ones((1, 3), np.float32)
+    with pytest.raises(NotImplementedError, match="lt_center"):
         pt_scene_from_numpy(arrays, device="cpu")
 
 
@@ -335,7 +338,8 @@ UNSUPPORTED_CONFIGS = {
     "fog": dict(fog_density=0.1),
     "r2": dict(sampler="r2"),
     "tree": dict(light_sampling="tree"),
-    "bilinear": dict(tex_filter="trilinear"),  # bilinear is ported; the mip filter is not
+    # bilinear and trilinear are ported; the light tree is not
+    "bilinear": dict(tex_filter="trilinear", light_sampling="tree"),
 }
 
 

@@ -12,8 +12,8 @@ package's on the CPU.
   raises NotImplementedError naming the ROADMAP item;
 - the showcase at 48x27 through a smooth ClusterSet: the plain
   render_pt_fast and render_pt_mega against JAX's render_pt_fast(bvh=cs,
-  rng="pcg") within the bounds of tests/test_megakernel.py:37-40 (one
-  interpret-mode cluster_intersect compile on the JAX side).
+  rng="pcg") within the bounds of tests/test_megakernel.py:37-40, its
+  cluster kernel routed to the jnp stand-in of tests/test_torch_jax_stand_in.py.
 
 Six tests (at most seven: the file queues behind tests/test_rebin.py under
 pytest-xdist's loadfile scheduling). chip_smoke.py phase 19 renders the
@@ -41,6 +41,7 @@ from raytracing_engine_tpu.pathtracer.integrator import PTConfig as JPTConfig
 from raytracing_engine_tpu.pathtracer.sceneio import load_scene_json as jax_load
 from raytracing_engine_tpu.pathtracer.wavefront import render_pt_fast as jax_render_pt_fast
 
+from test_torch_jax_stand_in import routed_cluster_intersect
 from raytracing_engine_tpu_torch.accel import (
     build_bvh,
     build_clusters,
@@ -185,9 +186,9 @@ def test_instances_block(tmp_path):
 def test_unported_entries_load_then_refuse(tmp_path):
     """Each file passes the loader's checks (JAX's own loader builds it);
     the port's build_pt_scene refuses it, naming ROADMAP.md. UV checkers,
-    images, OBJ UVs, the env map and rough glass are ported: their cases
-    keep their names and add an entry that is still refused (a normal map,
-    tex_mips, mesh lights)."""
+    images, OBJ UVs, the env map, rough glass, normal maps and tex_mips are
+    ported: their cases keep their names and add an entry that is still
+    refused (mesh lights)."""
     write_png(str(tmp_path / "tex.png"), np.full((2, 2, 3), 0.5, np.float32))
     np.save(str(tmp_path / "nrm.npy"), np.full((2, 2, 3), 0.5, np.float32))
     tris = jax_icosphere(subdivisions=1)
@@ -196,24 +197,31 @@ def test_unported_entries_load_then_refuse(tmp_path):
     ball = {"center": [0, 5, 0], "radius": 1, "mat": 0}
     base = {"albedo": [0.5, 0.5, 0.5]}
     light = {"albedo": [0, 0, 0], "emission": [5, 5, 5]}
+
+    def mesh_lit(spec):  # with an emissive mesh under mesh_lights, still refused
+        return dict(spec, mesh_lights=True, materials=spec["materials"] + [light],
+                    meshes=spec.get("meshes", []) + [{"icosphere": {"subdivisions": 1},
+                                                      "mat": len(spec["materials"])}])
+
     cases = {
-        "uv checker": {"materials": [dict(base, checker={"scale": 2, "space": "uv"},
-                                          normal={"npy": "nrm.npy"})],
-                       "spheres": [ball]},
-        "image": {"materials": [dict(base, image={"png": "tex.png"})], "spheres": [ball],
-                  "tex_mips": True},
-        "normal": {"materials": [dict(base, normal={"npy": "nrm.npy"})], "spheres": [ball]},
-        "obj uvs": {"materials": [dict(base, normal={"npy": "nrm.npy"})],
-                    "meshes": [{"obj": "uv.obj", "uvs": True}]},
+        "uv checker": mesh_lit({"materials": [dict(base, checker={"scale": 2, "space": "uv"},
+                                                   normal={"npy": "nrm.npy"})],
+                                "spheres": [ball]}),
+        "image": mesh_lit({"materials": [dict(base, image={"png": "tex.png"})],
+                           "spheres": [ball], "tex_mips": True}),
+        "normal": mesh_lit({"materials": [dict(base, normal={"npy": "nrm.npy"})],
+                            "spheres": [ball]}),
+        "obj uvs": mesh_lit({"materials": [dict(base, normal={"npy": "nrm.npy"})],
+                             "meshes": [{"obj": "uv.obj", "uvs": True}]}),
         "env map": {"materials": [base, light], "spheres": [ball], "mesh_lights": True,
                     "meshes": [{"icosphere": {"subdivisions": 1}, "mat": 1}],
                     "env": {"image": np.ones((2, 4, 3)).tolist(), "pick": 0.5, "rows": 2}},
         "mesh lights": {"materials": [base, light], "mesh_lights": True,
                         "meshes": [{"icosphere": {"subdivisions": 1}, "mat": 1}]},
-        "tex_mips": {"materials": [base], "spheres": [ball], "tex_mips": True},
-        "rough dielectric": {"materials": [{"kind": "dielectric", "roughness": 0.2},
-                                           dict(base, normal={"npy": "nrm.npy"})],
-                             "spheres": [ball]},
+        "tex_mips": mesh_lit({"materials": [base], "spheres": [ball], "tex_mips": True}),
+        "rough dielectric": mesh_lit({"materials": [{"kind": "dielectric", "roughness": 0.2},
+                                                    dict(base, normal={"npy": "nrm.npy"})],
+                                      "spheres": [ball]}),
     }
     for name, spec in cases.items():
         p = _write(tmp_path, spec, f"{name.replace(' ', '_')}.json")
@@ -228,10 +236,12 @@ def test_showcase_renders_match_jax():
     want_b = jax_load(SHOWCASE)
     jcs = jax_build_clusters(want_b.tris, tri_mats=want_b.tri_mats,
                              vertex_normals=want_b.tri_normals)
-    want, n_want = jax_render_pt_fast(JPTConfig(**SIZE, rng="pcg"), want_b.scene,
-                                      jnp.asarray(want_b.cam_pos), jnp.asarray(want_b.cam_quat),
-                                      2, jax.random.PRNGKey(13), bvh=jcs)
-    want, n_want = np.asarray(want), float(n_want)
+    with routed_cluster_intersect():
+        want, n_want = jax_render_pt_fast(JPTConfig(**SIZE, rng="pcg"), want_b.scene,
+                                          jnp.asarray(want_b.cam_pos),
+                                          jnp.asarray(want_b.cam_quat), 2,
+                                          jax.random.PRNGKey(13), bvh=jcs)
+        want, n_want = np.asarray(want), float(n_want)
     cs = build_clusters(got_b.tris, tri_mats=got_b.tri_mats, vertex_normals=got_b.tri_normals,
                         device=CPU)
     assert cs.smooth
