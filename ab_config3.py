@@ -94,15 +94,15 @@ Bound5: K5's least time for a config-5 frame (utils/timing.bound_ms),
 from the work the plain rebin renderer counts on the whole frame, which it
 holds to K4's frame bit for bit (about two minutes).
 
-Sass: K4's and K5's instantiations without the material features, and
-K6's and K7's without UV planes, at two checkouts, instruction for
-instruction. Each checkout's libpt.so, libcluster.so and libinstanced.so
-are built by its own ops/cuda/common.build (a process each) and read by
-cuobjdump -sass; each instantiation of DIR_B's pt_kernel<kind, false>,
-pt_rebin_kernel<false>, cluster_kernel<false> and instanced_kernel is
-compared with DIR_A's of the same mesh kind (pt_kernel<kind>,
-pt_rebin_kernel, cluster_kernel, where DIR_A has no material or UV one),
-with the addresses and encodings dropped.
+Sass: every instantiation of K4, K5, K6 and K7 that both checkouts have
+(K4's and K5's without the material features and with them, K6's without
+and with UV planes, K7's), instruction for instruction. Each checkout's
+libpt.so, libcluster.so and libinstanced.so are built by its own
+ops/cuda/common.build (a process each) and read by cuobjdump -sass; each
+instantiation of DIR_B is compared with DIR_A's of the same mesh kind and
+template flags (pt_kernel<kind>, pt_rebin_kernel, cluster_kernel where
+DIR_A has no material or UV one), with the addresses and encodings
+dropped; instantiations DIR_A lacks are skipped.
 
 Usage: python3 ab_config3.py DIR_A DIR_B
        python3 ab_config3.py --spheres DIR_A DIR_B
@@ -110,7 +110,6 @@ Usage: python3 ab_config3.py DIR_A DIR_B
        python3 ab_config3.py --lanes DIR
        python3 ab_config3.py --bound5 DIR
        python3 ab_config3.py --sass DIR_A DIR_B
-       python3 ab_config3.py --showcase DIR_A DIR_B   (phases 19-20 of each checkout's smoke, A B B A)
        python3 ab_config3.py --worker DIR [NAME=VALUE ...]   (one checkout, once)
        python3 ab_config3.py --sphere-worker DIR   (its sphere rows, once)
        python3 ab_config3.py --cone-worker DIR [NAME=VALUE ...]   (its cone rows, once)
@@ -124,7 +123,6 @@ from __future__ import annotations
 
 import difflib
 import hashlib
-import json
 import os
 import re
 import shutil
@@ -1205,64 +1203,26 @@ def sass(a: str, b: str) -> int:
                        **sass_functions(build / "libinstanced.so", ("instanced_kernel",))}
         print(f"  {root}: {sorted(funcs[root])}", flush=True)
     same = {}
-    for key in sorted(k for k in funcs[b] if k[2] == "0"):
-        ia, ib = funcs[a].get(key), funcs[b][key]
-        if ia is None:
-            continue
+    for key in sorted(k for k in funcs[b] if k in funcs[a]):  # every instantiation A has
+        ia, ib = funcs[a][key], funcs[b][key]
         diff = [d for d in difflib.unified_diff(ia, ib, lineterm="", n=0)
                 if d[:1] in "+-" and d[:3] not in ("+++", "---")]
-        name = key[0] + (f"<{MESH_KINDS.get(int(key[1]), key[1])}>" if key[1] else "")
+        name = key[0] + "<" + ", ".join(
+            ([MESH_KINDS.get(int(key[1]), key[1])] if key[1] else []) + [key[2]]) + ">"
         same[name] = not diff
         if diff:  # the whole diff, with context, beside the log
             Path("smoke_out").mkdir(exist_ok=True)
-            Path(f"smoke_out/sass_{key[0]}_{key[1]}.diff").write_text("\n".join(
+            Path(f"smoke_out/sass_{key[0]}_{key[1]}_{key[2]}.diff").write_text("\n".join(
                 difflib.unified_diff(ia, ib, "A", "B", lineterm="", n=6)))
-        print(f"  {name} without the material features: {len(ia)} instructions at A, {len(ib)} "
-              f"at B, {len(diff)} lines differ{': ' + ' | '.join(diff[:12]) if diff else ''} "
-              f"[{card}]", flush=True)
-    print(f"the instantiations without the material features (K4, K5) and without UVs (K6, "
-          f"K7) are the same SASS at A and B: "
+        print(f"  {name}: {len(ia)} instructions at A, {len(ib)} at B, {len(diff)} lines "
+              f"differ{': ' + ' | '.join(diff[:12]) if diff else ''} [{card}]", flush=True)
+    print(f"every instantiation of K4, K5, K6 and K7 that A has (the flags after the mesh kind: "
+          f"0 none, 1 material or UV planes) is the same SASS at B: "
           f"{all(same.values()) and bool(same)} {same}", flush=True)
     return 0 if same and all(same.values()) else 1
 
 
-# --- the material instantiations on phases 19 and 20 (--showcase) ---------------
-
-SHOWCASE_RUN = ("import json, os, sys; sys.path.insert(0, os.getcwd()); import torch; "
-                "import chip_smoke as c; d = torch.device('cuda', 0); torch.cuda.set_device(d); "
-                "k = c.card_line(); c.phase_build(); s = c.phase_showcase(d, k); "
-                "r = c.phase_showcase_rest(d, k); print('SHOWCASE ' + json.dumps({"
-                "'p19 K4': s['k4']['ms'], 'p19 K5': s['k5']['ms'], "
-                "'p20 K4': r['k4']['ms'], 'p20 K5': r['k5']['ms']}))")
-
-
-def showcase(a: str, b: str) -> int:
-    """Phases 19 and 20 of each checkout's own chip_smoke.py (run from its
-    root, each in its own process: build, then the phases), A B B A: the
-    device ms of K4's and K5's material instantiations on the showcase and
-    on phase 20's scene, the check that code beside them left them alone."""
-    card = card_line()
-    rows = []
-    for root in (a, b, b, a):
-        proc = subprocess.run([sys.executable, "-c", SHOWCASE_RUN], cwd=root, timeout=900,
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
-            return proc.returncode
-        ms = json.loads(proc.stdout.split("SHOWCASE ")[-1].splitlines()[0])
-        rows.append((root, ms))
-        print(f"  {root}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()) + f" [{card}]",
-              flush=True)
-    for key in rows[0][1]:
-        at = {r: [ms[key] for root, ms in rows if root == r] for r in (a, b)}
-        print(f"  {key}: A {at[a]}, B {at[b]}; B within A's spread: "
-              f"{min(at[a]) <= max(at[b]) and min(at[b]) <= max(at[a])}", flush=True)
-    return 0
-
-
 def main() -> int:
-    if len(sys.argv) == 4 and sys.argv[1] == "--showcase":
-        return showcase(sys.argv[2], sys.argv[3])
     if len(sys.argv) >= 3 and sys.argv[1] == "--worker":
         return worker(sys.argv[2], sys.argv[3:])
     if len(sys.argv) == 3 and sys.argv[1] == "--lanes":

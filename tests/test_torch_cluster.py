@@ -22,7 +22,6 @@ import pytest
 import torch
 
 import jax.numpy as jnp
-from test_torch_jax_stand_in import jnp_cluster_intersect
 
 from raytracing_engine_tpu.accel import clusters as jclusters
 from raytracing_engine_tpu.accel import icosphere
@@ -184,11 +183,18 @@ def test_sweep_tables_layout(sets):
 def test_uv_tables_are_not_ported_yet():
     """K6's texture-u tangent planes on a UV table (tan=True: normal maps and
     mip LOD) from the rows the table already holds: twelve planes, the first
-    nine those of the tan=False sweep bit for bit, the tangent du1 r1 + du2
-    r2 against JAX's table rows at the same slots (atol 1e-6; the stand-in
-    of tests/test_torch_jax_stand_in.py) and bit for bit the
-    gather path's (wavefront._tri_hits_clusters); 0 on misses; a table
-    without UVs ignores tan, as JAX's does."""
+    nine those of the tan=False sweep bit for bit. Against JAX's ClusterSet
+    hit path (wavefront._tri_hits of a normal-mapped scene: its
+    interpret-mode closest sweep, then JAX's du1 r1 + du2 r2 from the hit
+    slot's rows): the same hits, the same triangle on >= 99% of them (a
+    tie may go either way), t within rtol 1e-6 and the tangent within atol
+    1e-6 there; bit for bit the port's own gather path
+    (wavefront._tri_hits_clusters); 0 on misses; a table without UVs
+    ignores tan, as JAX's does. tests/test_torch_textures.py holds all
+    twelve planes to JAX's cluster_intersect(tan=True)."""
+    from raytracing_engine_tpu.pathtracer import wavefront as jwave
+    from raytracing_engine_tpu.pathtracer.scene import build_pt_scene as jax_build_pt_scene
+
     from raytracing_engine_tpu_torch.pathtracer import wavefront
 
     rng = np.random.default_rng(6)
@@ -204,17 +210,27 @@ def test_uv_tables_are_not_ported_yet():
     slot = got[1]
     hit = (slot >= 0).numpy()
     assert hit.mean() > 0.3
-    want = jnp_cluster_intersect(jcs, tuple(jnp.asarray(x) for x in _rays()[0]),
-                                 tuple(jnp.asarray(x) for x in _rays()[1]), jnp.inf,
-                                 attrs=True, tan=True)
-    same = hit & (slot.numpy() == np.asarray(want[1]))
+    js = jax_build_pt_scene(triangles=tris, tri_mats=np.zeros(len(tris), np.int32),
+                            tri_uvs=uvs, materials=[{"albedo": (0.5, 0.5, 0.5),
+                                                     "normal": np.full((2, 2, 3), 0.5,
+                                                                       np.float32)}])
+    assert js.needs_tan
+    jt, jidx, _, _, _, jtan = jwave._tri_hits(js, tuple(jnp.asarray(x) for x in _rays()[0]),
+                                              tuple(jnp.asarray(x) for x in _rays()[1]), 1e-3,
+                                              jcs)
+    jt, jidx = np.asarray(jt), np.asarray(jidx)
+    np.testing.assert_array_equal(hit, jt < jwave.BIG)
+    tri = cs.perm[slot.clamp_min(0).long()].numpy()
+    same = hit & (tri == jidx)
     assert same.sum() >= 0.99 * hit.sum()
-    for a in range(9, 12):
-        np.testing.assert_allclose(got[a].numpy()[same], np.asarray(want[a])[same], atol=1e-6,
-                                   rtol=0.0)
-        assert np.all(got[a].numpy()[~hit] == 0.0)
+    np.testing.assert_allclose(got[0].numpy()[same], jt[same], rtol=1e-6, atol=0.0)
+    for a in range(3):
+        np.testing.assert_allclose(got[9 + a].numpy()[same], np.asarray(jtan[a])[same],
+                                   atol=1e-6, rtol=0.0)
+        assert np.all(got[9 + a].numpy()[~hit] == 0.0)
+    assert np.abs(np.stack([x.numpy() for x in got[9:]])).max() > 0.1
     _, idx, _, _, _, gtan = wavefront._tri_hits_clusters(o, d, 1e-3, cs, need_tan=True)
-    same = torch.from_numpy(hit) & (cs.perm[slot.clamp_min(0).long()].long() == idx)
+    same = torch.from_numpy(hit) & (torch.from_numpy(tri).long() == idx)
     assert same.sum() >= 0.99 * hit.sum()  # its own visit orders may break a tie otherwise
     for a in range(3):
         assert torch.equal(got[9 + a][same], gtan[a][same])

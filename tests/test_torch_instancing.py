@@ -16,9 +16,11 @@ instances (tests/test_instanced_kernel.py:27-34), plus parked rays.
 - K7's plain version against JAX instanced_cluster_intersect in interpret
   mode (one compile, in a module fixture), closest hit with attributes: t
   within rtol 1e-6 / atol 1e-6, the instance (code // padded_tris) equal,
-  normals within atol 1e-6 where the codes agree. Its any hit against the
-  JAX gather oracle (a second interpret compile would cost 12 s more):
-  blocked exactly where the oracle's hit is closer than the cutoff.
+  normals within atol 1e-6 where the codes agree; on a UV base table with
+  tan=True (a second compile) the UV and world tangent planes too. Its any
+  hit against the JAX gather oracle (an any-hit interpret compile would
+  cost 12 s more): blocked exactly where the oracle's hit is closer than
+  the cutoff.
 - render_instanced_phong (hard, and soft with 2 samples) and
   render_pt_fast(bvh=InstancedClusters) against the JAX functions, whose
   instanced intersector is routed (for this module's fixtures only) to a
@@ -56,6 +58,9 @@ from raytracing_engine_tpu.accel.clusters import build_clusters as jax_build_clu
 from raytracing_engine_tpu.accel.clusters import visit_orders as jax_visit_orders
 from raytracing_engine_tpu.models import instanced as jmodels_instanced
 from raytracing_engine_tpu.ops.pallas import instanced_intersect as jii
+from raytracing_engine_tpu.ops.pallas.instanced_intersect import (  # bound before `routed`
+    instanced_cluster_intersect as jax_kernel_intersect,
+)
 from raytracing_engine_tpu.pathtracer import PTConfig as JPTConfig
 from raytracing_engine_tpu.pathtracer.scene import build_pt_scene as jax_build_pt_scene
 from raytracing_engine_tpu.pathtracer.wavefront import render_pt_fast as jax_render_pt_fast
@@ -564,14 +569,22 @@ def test_progressive_render_with_instances(pt_port):
 def test_uv_base_tables_are_not_ported_yet(setup):
     """Instances of a UV ClusterSet (the module's icosphere with spherical
     UVs): K7's plain sweep returns the UV (object-space data, carried
-    untransformed) and the world tangent R (du1 r1 + du2 r2), held to JAX's
-    jnp intersector (wavefront._intersect, its stacked path) on the six
-    instances flattened into world-space triangles: on the rays that hit
-    the same triangle, t within rtol 1e-6, UV within atol 1e-5 and the
-    tangent within atol 1e-5 (the world triangle's own gradients against
-    the rotated object ones). The normal and the hits are those of the set
-    without UVs. Then a UV-textured, normal-mapped render over the
-    instances through the plain render_pt_fast and render_pt_mega (within
+    untransformed) and the world tangent R (du1 r1 + du2 r2). Its ten planes
+    against JAX's instanced_cluster_intersect(attrs=True, tan=True) in
+    interpret mode: the same hits and instances, t within rtol 1e-6 / atol
+    1e-6, the code equal on >= 99% of the hits (a ray through a shared edge
+    may take the neighbouring triangle) and there the normal and the
+    tangent within atol 1e-6, the UV within atol 2e-6 (it is read at the
+    hit point: t's rtol 1e-6 at t of about 9 moves that point by up to
+    9e-6 in world units, and the UV changes by about 0.2-0.4 a unit on this
+    sphere), 0 on misses. The hits are those of the set
+    without UVs. A second witness, JAX's jnp intersector
+    (wavefront._intersect, its stacked path) on the six instances
+    flattened into world-space triangles: on the rays that hit the same
+    triangle, t within rtol 1e-6, UV and tangent within atol 1e-5 (the
+    world triangle's own gradients against the rotated object ones). Then
+    a UV-textured, normal-mapped render over the instances through the
+    plain render_pt_fast and render_pt_mega (within
     tests/test_megakernel.py:37-40's bounds of each other) and the rebin
     route, bit for bit the megakernel."""
     from raytracing_engine_tpu.pathtracer import wavefront as jwave
@@ -592,6 +605,22 @@ def test_uv_base_tables_are_not_ported_yet(setup):
     assert len(got) == 10
     np.testing.assert_array_equal(got[0], flat[0].numpy())
     np.testing.assert_array_equal(got[1] // cs_uv.padded_tris, flat[1].numpy() // pcs.padded_tris)
+    jcs_uv = jax_build_clusters(mesh, vertex_uvs=uvs)
+    want = [np.asarray(x) for x in jax_kernel_intersect(
+        setup["jax"][3], jcs_uv, _jnp(o), _jnp(d), attrs=True, tan=True, interpret=True)]
+    assert len(want) == 10
+    hit = want[1] >= 0
+    np.testing.assert_array_equal(got[1] >= 0, hit)
+    np.testing.assert_allclose(got[0][hit], want[0][hit], rtol=1e-6, atol=1e-6)
+    t_pad = cs_uv.padded_tris
+    np.testing.assert_array_equal(got[1][hit] // t_pad, want[1][hit] // t_pad)
+    same = (got[1] == want[1]) & hit
+    assert same.sum() >= 0.99 * hit.sum()
+    for a in range(2, 10):  # nx, ny, nz, u, v, tx, ty, tz
+        tol = 2e-6 if a in (5, 6) else 1e-6
+        np.testing.assert_allclose(got[a][same], want[a][same], atol=tol, rtol=0.0)
+        assert np.all(got[a][~hit] == 0.0)
+    assert np.ptp(got[5][hit]) > 0.1 and np.abs(np.stack(got[7:10])).max() > 0.1
     # the six instances in world space, per-corner UVs copied
     rot, trans = np.asarray(jinst.rot), np.asarray(jinst.trans)
     world = np.concatenate([mesh @ r.T + t for r, t in zip(rot, trans)]).astype(np.float32)

@@ -2,9 +2,10 @@
 plain version), the megakernel with a ClusterSet (K4's), and the wavefront's
 ClusterSet paths.
 
-- The plain render_pt_rebin against the JAX render_pt_fast(bvh=cs) (its
-  cluster kernel routed to the jnp stand-in of tests/test_torch_jax_stand_in.py)
-  on tests/test_rebin.py's mesh scene (icosphere(2) + a sphere light + a
+- The plain render_pt_rebin (over a ClusterSet) against the JAX
+  render_pt_fast over the same triangles without an acceleration structure
+  (its jnp mesh intersector: the same closest hits without an
+  interpret-mode cluster kernel compile) on tests/test_rebin.py's mesh scene (icosphere(2) + a sphere light + a
   ground sphere) at 32x16, 2 bounces, pcg, PRNGKey(3) <-> seed_from_int(3),
   held to the megakernel bounds of tests/test_megakernel.py:37-40 (< 1% of
   pixels off by more than 1e-3, mean difference < 1e-4, ray counts within
@@ -27,9 +28,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
-from test_torch_jax_stand_in import routed_cluster_intersect
 
-from raytracing_engine_tpu.accel.clusters import build_clusters as jax_build_clusters
 from raytracing_engine_tpu.pathtracer import PTConfig as JPTConfig
 from raytracing_engine_tpu.pathtracer.scene import build_pt_scene as jax_build_pt_scene
 from raytracing_engine_tpu.pathtracer.wavefront import render_pt_fast as jax_render_pt_fast
@@ -74,12 +73,9 @@ def port():
 @pytest.fixture(scope="module")
 def jax_render():
     kw = _mesh_scene_args()
-    cs = jax_build_clusters(kw["triangles"], tri_mats=kw["tri_mats"])
-    with routed_cluster_intersect():  # the jnp stand-in of its Pallas kernel
-        img, n = jax_render_pt_fast(JPTConfig(**SIZE, rng="pcg"), jax_build_pt_scene(**kw),
-                                    jnp.zeros(3), jnp.asarray(QUAT), 1,
-                                    jax.random.PRNGKey(SEED), bvh=cs)
-        return np.asarray(img), float(n)
+    img, n = jax_render_pt_fast(JPTConfig(**SIZE, rng="pcg"), jax_build_pt_scene(**kw),
+                                jnp.zeros(3), jnp.asarray(QUAT), 1, jax.random.PRNGKey(SEED))
+    return np.asarray(img), float(n)
 
 
 @pytest.fixture(scope="module")

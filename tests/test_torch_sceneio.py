@@ -12,8 +12,8 @@ package's on the CPU.
   raises NotImplementedError naming the ROADMAP item;
 - the showcase at 48x27 through a smooth ClusterSet: the plain
   render_pt_fast and render_pt_mega against JAX's render_pt_fast(bvh=cs,
-  rng="pcg") within the bounds of tests/test_megakernel.py:37-40, its
-  cluster kernel routed to the jnp stand-in of tests/test_torch_jax_stand_in.py.
+  rng="pcg") within the bounds of tests/test_megakernel.py:37-40 (one
+  interpret-mode cluster_intersect compile on the JAX side).
 
 Six tests (at most seven: the file queues behind tests/test_rebin.py under
 pytest-xdist's loadfile scheduling). chip_smoke.py phase 19 renders the
@@ -41,7 +41,6 @@ from raytracing_engine_tpu.pathtracer.integrator import PTConfig as JPTConfig
 from raytracing_engine_tpu.pathtracer.sceneio import load_scene_json as jax_load
 from raytracing_engine_tpu.pathtracer.wavefront import render_pt_fast as jax_render_pt_fast
 
-from test_torch_jax_stand_in import routed_cluster_intersect
 from raytracing_engine_tpu_torch.accel import (
     build_bvh,
     build_clusters,
@@ -236,12 +235,10 @@ def test_showcase_renders_match_jax():
     want_b = jax_load(SHOWCASE)
     jcs = jax_build_clusters(want_b.tris, tri_mats=want_b.tri_mats,
                              vertex_normals=want_b.tri_normals)
-    with routed_cluster_intersect():
-        want, n_want = jax_render_pt_fast(JPTConfig(**SIZE, rng="pcg"), want_b.scene,
-                                          jnp.asarray(want_b.cam_pos),
-                                          jnp.asarray(want_b.cam_quat), 2,
-                                          jax.random.PRNGKey(13), bvh=jcs)
-        want, n_want = np.asarray(want), float(n_want)
+    want, n_want = jax_render_pt_fast(JPTConfig(**SIZE, rng="pcg"), want_b.scene,
+                                      jnp.asarray(want_b.cam_pos), jnp.asarray(want_b.cam_quat),
+                                      2, jax.random.PRNGKey(13), bvh=jcs)
+    want, n_want = np.asarray(want), float(n_want)
     cs = build_clusters(got_b.tris, tri_mats=got_b.tri_mats, vertex_normals=got_b.tri_normals,
                         device=CPU)
     assert cs.smooth

@@ -8,11 +8,10 @@ JAX package on the CPU, inputs made from numpy seeds.
 - _atlas_fetch, _rect_texel and _sample_rect (nearest and bilinear) on
   seeded UVs within rtol 1e-6 / atol 1e-7;
 - K6's plain sweep on a UV table (ROWS_UV): every plane, the UV pair and
-  the texture-u tangent (tan=True) included, against the planes of JAX's
-  table rows (tests/test_torch_jax_stand_in.py: the interpret-mode kernel's
-  row arithmetic, whose sweep tests/test_torch_cluster.py holds the port's
-  to) on an 80-triangle icosphere; build_clusters(vertex_uvs=), save_obj(uvs=) and
-  load_obj(uvs=True) equal JAX's;
+  the texture-u tangent (tan=True) included, against JAX's cluster_intersect
+  (one interpret-mode compile, an 80-triangle icosphere);
+  build_clusters(vertex_uvs=), save_obj(uvs=) and load_obj(uvs=True) equal
+  JAX's;
 - renders at 32x16, 3 bounces, 2 spp, pcg, nearest and bilinear: a floor
   with a world checker, a UV-checkered sphere, an image-textured sphere and
   two unrolled slots with tri_uvs (render_pt_fast and render_pt_mega), and
@@ -40,11 +39,11 @@ import torch
 
 import jax
 import jax.numpy as jnp
-from test_torch_jax_stand_in import jnp_cluster_intersect
 
 from raytracing_engine_tpu.accel import clusters as jclusters
 from raytracing_engine_tpu.accel import icosphere as jax_icosphere
 from raytracing_engine_tpu.accel import mesh as jmesh
+from raytracing_engine_tpu.ops.pallas.cluster_intersect import cluster_intersect as jax_ci
 from raytracing_engine_tpu.pathtracer import aov as jax_aov
 from raytracing_engine_tpu.pathtracer import scene as jscene_mod
 from raytracing_engine_tpu.pathtracer import wavefront as jwave
@@ -203,8 +202,8 @@ def test_sample_rect_matches_jax():
 @pytest.fixture(scope="module")
 def uv_sets():
     """An 80-triangle icosphere with spherical UVs as a UV ClusterSet in both
-    packages, and the closest hits of a 16 x 16 grid of camera rays with the
-    attributes and tangents of JAX's table rows."""
+    packages, and JAX's closest-hit sweep of a 16 x 16 grid of camera rays
+    with attributes and tangents (one interpret-mode compile)."""
     ball = jax_icosphere(**BALL).astype(np.float32)
     uvs = spherical_uvs(ball, BALL["center"])
     mats = (np.arange(len(ball)) % 3).astype(np.int32)
@@ -215,17 +214,17 @@ def uv_sets():
     o, d = wavefront._camera_rays(cfg, torch.tensor([2.6, 7.6, 1.5]),
                                   torch.tensor([0.0, 0.0, 0.0, 1.0]), u, u)
     o, d = tuple(x.contiguous().numpy() for x in o), tuple(x.contiguous().numpy() for x in d)
-    want = jnp_cluster_intersect(jcs, tuple(jnp.asarray(x) for x in o),
-                                 tuple(jnp.asarray(x) for x in d), jnp.inf, attrs=True, tan=True)
+    want = jax_ci(jcs, tuple(jnp.asarray(x) for x in o), tuple(jnp.asarray(x) for x in d),
+                  jnp.inf, attrs=True, tan=True, interpret=True)
     return dict(ball=ball, uvs=uvs, mats=mats, jcs=jcs, cs=cs, o=o, d=d,
                 want=[np.asarray(x) for x in want])
 
 
 def test_uv_table_and_k6_uv_planes_match_jax(uv_sets, tmp_path):
     """build_clusters(vertex_uvs=) equals JAX's table; K6's plain sweep
-    returns the twelve planes of JAX's rows (t, slot, normal, material,
-    area, u, v, and with tan=True the texture-u tangent), each within atol
-    1e-6 on the hits; the OBJ round trip with UVs equals JAX's."""
+    returns JAX's twelve planes (t, slot, normal, material, area, u, v,
+    and with tan=True the texture-u tangent), each within atol 1e-6 on the
+    hits; the OBJ round trip with UVs equals JAX's."""
     jcs, cs = uv_sets["jcs"], uv_sets["cs"]
     assert cs.has_uv and cs.smooth and cs.tri.shape[0] == clusters.ROWS_UV
     for name in ("tri", "boxes", "super_boxes", "perm"):
