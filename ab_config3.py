@@ -1164,7 +1164,10 @@ BUILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
          "from raytracing_engine_tpu_torch.ops.cuda import common; common.build()")
 
 
-def sass_functions(lib: Path, kernels=("pt_kernel", "pt_rebin_kernel")) -> dict:
+def sass_functions(lib: Path, kernels=("pt_kernel", "pt_rebin_kernel", "pt_tex_kernel",
+                                       "pt_rebin_tex_kernel", "pt_samp_kernel",
+                                       "pt_samp_tex_kernel", "pt_rebin_samp_kernel",
+                                       "pt_rebin_samp_tex_kernel", "pt_cell_kernel")) -> dict:
     """{(kernel, mesh kind or None, its bool template arguments, "0" where
     it has none): [instruction, ...]} of the functions named `kernels` in
     lib, from cuobjdump -sass, without the addresses and encodings. The

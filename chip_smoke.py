@@ -102,8 +102,9 @@ Phases, each printing its own lines:
      render_pt_mega(bvh=InstancedClusters) in every regroup mode, the 2 rows
      whose camera rays hit the most instances through K4 and K5 equal to the
      rows of the full frame and K5 against its plain version there, K4
-     against its plain version on the whole frame (its replay counts the
-     work of K4's least time), render_pt_fast(bvh=InstancedClusters)
+     against its plain version on every 8th row of the frame (its replay
+     counts the work of K4's least time, scaled to the frame by the rays
+     traced), render_pt_fast(bvh=InstancedClusters)
      through K7 against K4; K4's instance instantiation on a ragged band
      (509 columns, 5 rows) of two scaled icosphere instances at 3 spp with
      Russian roulette against its plain version bit for bit; then K7's and K5's
@@ -230,12 +231,29 @@ Phases, each printing its own lines:
      bit for bit, K5 == K4 on the frame; each main path under the launch
      counters (render_pt_mega, render_pt_rebin, render_pt_fast) and timed
      by the profiler, with its bound.
+ 23. the sampling features: (a) config 4's Cornell box (pcg, R_d) at
+     1920x1088 through K4 with adaptive spp (tol 0.05, at least 8 of 64
+     passes, the passes table returned) under the launch counters: every
+     cell within [8, 64], tol 0 bit for bit the fixed render with a table
+     of 64, the band of whole cells at rows 576..639 equal to those rows
+     of the frame and, image, table and rays, bit for bit its plain
+     version; the cell update (pt_cell_kernel) alone on a seeded state at
+     the frame's shapes bit for bit its plain version; K4's adaptive
+     launches and the fixed R_d render timed; (b) the showcase through a
+     thin lens (aperture 0.15, focused at 7.5) with R_d, 4 spp: K5's frame
+     bit for bit K4's, each on rows 536..551 at 2 spp bit for bit its plain
+     version, both timed with their bounds; (c) benchmarks/run_all.py's
+     quality row at 256x256 (tile (16, 256)): fixed random sampling at 256
+     spp against R_d with adaptive tol 0.05 in the same budget, each timed
+     and scored by MSE against a 2048-spp render of another seed, the
+     adaptive render's mean spp beside.
 Then a line that sums up phases 4 and 5's image output, one JSON line of
 per-kernel results, each number measured in this run
 but the bounds, computed from its inputs (K4 once per instantiation, on its
 main path's frames: without a mesh at config 2, with clusters at config 3
 and with instances at config 5, each 512x512 frame's bound from the work
-its plain version counts; the material instantiations of K4 and K5 on the
+its plain version counts, config 5's on every 8th row scaled by the
+frame's rays, plain_ms those rows'; the material instantiations of K4 and K5 on the
 showcase, plain_ms their band's); the card line, and as the last
 line {"ok": true, "device": {...}}. Any failure exits
 non-zero before the last line; so does a machine without CUDA or a
@@ -330,6 +348,10 @@ C5_SOFT_FRAMES = 4   # soft-shadow orbit
 C5_SOFT = dict(light_radius=1.5, shadow_samples=4)
 C5_PT = dict(width=512, height=512, max_bounces=2)
 C5_PT_FRAMES = 4     # chained path-traced frames per timing round
+# the config-5 PT frame is held to the plain megakernel on every 8th row
+# (an even sample of its work for the bound): the whole frame's replay took
+# 165-268 s of the smoke's 1200 s, rows 224..287 alone 105 s
+C5_PT_PLAIN_STRIDE = 8
 C5_ROUNDS = 3
 C5_BAND = (540, 8)      # Phong rows held to the plain version (30 instances)
 # path-traced rows held to the plain K4 and K5 versions: the run of rows
@@ -473,6 +495,16 @@ TEX_BUMPS = 0.35             # the normal map's tilt: n = normalize(bx, by, 1)
 TEX_BASE = dict(subdivisions=3, radius=1.3)  # the instanced UV base mesh (1,280 triangles)
 TEX_INST_BAND = (540, 8)     # (d)'s rows held to the plain megakernel at 1 spp
 TEX_PNG = SMOKE_OUT / "textures.png"
+# phase 23: the sampling features. (a) config 4 at the full width with
+# run_all.py's quality-row settings (R_d, adaptive tol 0.05, 8 passes at
+# least), a 64-pass budget; (b) the showcase focused on its glass sphere
+SAMP = dict(width=1920, height=1088, max_bounces=4)
+SAMP_SPP, SAMP_TOL, SAMP_MIN = 64, 0.05, 8
+SAMP_BAND = (576, 64)        # (a)'s row of whole 64 x 128 cells held to the plain version
+SAMP_CELL_S = 12             # the passes of the cell update's seeded state
+SAMP_LENS = dict(aperture=0.15, focus_dist=7.5)
+SAMP_SHOW_SPP = 2            # (b)'s band (SHOW_BAND) against the plain versions
+QUALITY_SPP, QUALITY_REF_SPP, QUALITY_TILE = 256, 2048, (16, 256)  # run_all.py:268-310
 
 
 def log(msg: str):
@@ -978,35 +1010,57 @@ def hold_k4_ragged(what, cfg, scene, bvh, pos, quat, seed, row0, rows) -> float:
     return err
 
 
-def hold_k4_frame(what, cfg, scene, bvh, pos, quat, seed, k4, n4, device) -> dict:
+def hold_k4_frame(what, cfg, scene, bvh, pos, quat, seed, k4, n4, device, stride=1) -> dict:
     """K4's whole 1-spp frame from pos (k4, n4: render_pt_mega's output) against
-    render_pt_mega_reference on the same inputs; the plain run's time and the
-    work it counts (instance gates and transforms, box and triangle tests:
-    K4's, as its frame equals the plain one), from which the frame's least
-    time follows; -> the kernels-line numbers but K4's own time."""
+    render_pt_mega_reference on the same inputs, or, with stride > 1, its
+    every stride-th row (from row stride // 2) against the plain megakernel's
+    core on those rows' pixels; the plain run's time and the work it counts
+    (instance gates and transforms, box and triangle tests: K4's, as its
+    frame equals the plain one; the rows' scaled to the frame by the rays
+    traced, an even sample of the frame's rows), from which the frame's
+    least time follows; -> the kernels-line numbers but K4's own time."""
     from raytracing_engine_tpu_torch.ops.cuda import cluster, pt
     from raytracing_engine_tpu_torch.ops.cuda import instanced as kinst
+    from raytracing_engine_tpu_torch.ops.rng_pcg import pass_seed
+    from raytracing_engine_tpu_torch.pathtracer.wavefront import _trace_core
     from raytracing_engine_tpu_torch.utils.timing import bound_ms, instanced_ops, pt_ops
 
+    rows = torch.arange(stride // 2, cfg.height, stride, device=device)
     cluster.work.update(slabs=0, tests=0)
     kinst.work.update(gates=0, transforms=0)
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    want, n_want = pt.render_pt_mega_reference(cfg, scene, pos, quat, 1, seed=seed, bvh=bvh)
+    if stride == 1:
+        got, n_got, which = k4, n4, "the frame"
+        want, n_want = pt.render_pt_mega_reference(cfg, scene, pos, quat, 1, seed=seed, bvh=bvh)
+    else:
+        # render_pt_mega_reference's pass 0 on the rows' pixels (x 1 / 1)
+        got, n_got, which = k4[rows], None, f"every {stride}th row ({len(rows)} rows)"
+        py = rows[:, None].expand(-1, cfg.width)
+        px = torch.arange(cfg.width, device=device).expand(len(rows), -1)
+        rad, n_want = _trace_core(cfg, pt.kernel_scene(scene, bvh), pos, quat,
+                                  pass_seed(seed, 0), pix=(py, px), bvh=pt.frame_view(bvh, pos),
+                                  gpass=0, seed_base=seed)
+        want = torch.stack(rad, dim=-1) * 1.0
+        n_got = n_want  # K4 counts rays a frame; its rows are held bit for bit below
     torch.cuda.synchronize(device)
     plain_ms = (time.perf_counter() - t0) * 1e3
     kind = pt.mesh_kind(pt.frame_view(bvh, pos))
-    err = hold_pt(f"K4<{kind}> {what} {cfg.width}x{cfg.height} frame vs its plain version "
-                  f"(plain {plain_ms / 1e3:.1f} s)", k4, n4, want, n_want)
-    ops = pt_ops(int(n_want), int(scene.sph_count), 0) + instanced_ops(
+    if stride > 1 and not torch.equal(got, want):
+        raise AssertionError(f"K4<{kind}> {what}: {which} differ from the plain version")
+    err = hold_pt(f"K4<{kind}> {what} {cfg.width}x{cfg.height} {which} vs its plain version "
+                  f"(plain {plain_ms / 1e3:.1f} s)", got, n_got, want, n_want)
+    scale = int(n4) / int(n_want)
+    ops = int((pt_ops(int(n_want), int(scene.sph_count), 0) + instanced_ops(
         kinst.work["gates"], kinst.work["transforms"], cluster.work["slabs"],
-        cluster.work["tests"])
+        cluster.work["tests"])) * scale)
     n_bytes = 12 * cfg.width * cfg.height + k4_table_bytes(scene, bvh, pos)
     bound = bound_ms(n_bytes, ops)
     log(f"  K4<{kind}> {what} frame bound {bound[0]:.5f} ms by {bound[1]} ({n_bytes} B, {ops} "
         f"ops: {kinst.work['gates']} instance gates, {kinst.work['transforms']} transforms, "
         f"{cluster.work['slabs']} box + {cluster.work['tests']} triangle tests, {int(n_want)} "
-        f"rays x {int(scene.sph_count)} spheres)")
+        f"rays x {int(scene.sph_count)} spheres, x {scale:.6g}: the frame's rays over those "
+        f"of {which})")
     return {"max_abs_err": err, "plain_ms": plain_ms, "bound_ms": bound[0],
             "bound_by": bound[1]}
 
@@ -2271,8 +2325,8 @@ def phase_instanced_kernel(c5, quat, seed, device):
         f"rays {int(n4)}; lit pixels {(k4.amax(-1) > 0).double().mean().item():.4f}")
     # K4 and K5 on the band of rows whose camera rays hit the most instances,
     # bit for bit the rows of the full render; K5 against its plain version
-    # there, K4 against its own on the whole frame (its replay counts the
-    # work of K4's least time)
+    # there, K4 against its own on every C5_PT_PLAIN_STRIDE-th row (its
+    # replay counts the work of K4's least time)
     cam_code = kinst.instanced_cluster_intersect(ic.inst_tab, cs, o0, d0, origin=cam)[1]
     row0, covered = busiest_rows(cam_code, t_pad, n_inst, C5_PT_BAND_H)
     bh = C5_PT_BAND_H
@@ -2288,7 +2342,8 @@ def phase_instanced_kernel(c5, quat, seed, device):
     hold_pt(f"K5 with {n_inst} instances vs its plain version, {rows} (plain "
             f"{time.perf_counter() - t0:.1f} s; K4's and K5's bands == full-frame rows)", band,
             nband, want, nwant)
-    k4_frame = hold_k4_frame("config 5 PT", cfg, scene, ic, cam, quat, seed, k4, n4, device)
+    k4_frame = hold_k4_frame("config 5 PT", cfg, scene, ic, cam, quat, seed, k4, n4, device,
+                             stride=C5_PT_PLAIN_STRIDE)
     f, nf = render_pt_fast(cfg, scene, cam, quat, 1, seed=seed, bvh=ic)
     hold_pt("render_pt_fast(bvh=ic) through K7 vs K4", f, nf, k4, n4)
     # K4 with instances on the ragged band, through the two scaled icosphere
@@ -3290,6 +3345,30 @@ def profiled_device_ms(fn, name: str) -> float | None:
     us = [e.time_range.elapsed_us() for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
     return sum(us) / 1e3 if us else None
+
+
+def profiled_launches_ms(fn, name: str, n: int) -> float:
+    """Device ms of kernel `name` summed over its n launches in one call of
+    fn (torch.profiler), tried again where the profiler recorded another
+    count (it has dropped a third of 128 events in a window); after three
+    tries, the whole call by CUDA events, which adds the launch gaps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+        if len(us) == n:
+            return sum(us) / 1e3
+        counts.append(len(us))
+    ms = cuda_ms(lambda k: fn(), 1)[0]
+    log(f"  {name}: the profiler recorded {counts} of {n} launches; the whole call by CUDA "
+        f"events: {ms:.4f} ms")
+    return ms
 
 
 @contextlib.contextmanager
@@ -4326,6 +4405,275 @@ def phase_textures(device, card):
     ]
 
 
+def adapt_state(grid, h: int, w: int, device):
+    """A seeded adaptive state after SAMP_CELL_S - 1 passes and the next
+    pass's radiance: half the cells active, each cell's M2 scaled so that
+    the decisions differ from cell to cell; out zero (the plain check
+    compares it bit for bit)."""
+    from raytracing_engine_tpu_torch.ops.cuda import pt
+
+    gen = torch.Generator(device=device).manual_seed(23)
+    gh, gw = grid[:2]
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    st = pt.AdaptState.start(h, w, grid, SAMP_MIN, device)
+    st.acc.copy_(rand(h, w, 3) * SAMP_CELL_S)
+    st.mean.copy_(rand(h, w) + 0.05)
+    st.m2.copy_(rand(h, w) * st.pixels(rand(gh * gw)) * (0.06 * SAMP_CELL_S))
+    st.active.copy_((rand(gh * gw) < 0.5).to(torch.int32))
+    st.taken.fill_(float(SAMP_CELL_S - 1))
+    st.out.zero_()
+    # the pass near each pixel's mean (the luminance weights sum to 1), so
+    # that the cells' M2 scales decide
+    return st, st.mean[..., None] + (rand(h, w, 3) - 0.5) * 0.1
+
+
+def clone_state(st):
+    from raytracing_engine_tpu_torch.ops.cuda import pt
+
+    return pt.AdaptState(acc=st.acc.clone(), mean=st.mean.clone(), m2=st.m2.clone(),
+                         active=st.active.clone(), taken=st.taken.clone(), out=st.out.clone(),
+                         grid=st.grid)
+
+
+def phase_sampling(device, card):
+    """The sampling features (module docstring, phase 23); -> the kernels-line
+    entries of K4 with R_d and adaptive spp, the cell update, and K4 and K5
+    with the thin lens and R_d."""
+    import dataclasses
+
+    from raytracing_engine_tpu_torch.accel import build_clusters
+    from raytracing_engine_tpu_torch.ops.cuda import cluster, pt
+    from raytracing_engine_tpu_torch.ops.rng_pcg import seed_from_int
+    from raytracing_engine_tpu_torch.pathtracer import PTConfig, load_scene_json, scenes
+    from raytracing_engine_tpu_torch.pathtracer.wavefront import state_plane_count
+    from raytracing_engine_tpu_torch.utils.timing import bound_ms, instanced_ops, k5_bytes, pt_ops
+
+    t0 = time.perf_counter()
+    seed = seed_from_int(1)
+    quat = torch.tensor([0.0, 0.0, 0.0, 1.0], device=device)
+    box, box_pos = scenes.cornell_box(device=device), torch.tensor(C4_POS, device=device)
+    n_sph, n_tri = int(box.sph_count), int(box.tri_count)
+    cfg = PTConfig(**SAMP, rng="pcg", sampler="r2")
+    akw = dict(seed=seed, adaptive_tol=SAMP_TOL, adaptive_min=SAMP_MIN, return_spp=True)
+    h, w = cfg.height, cfg.width
+    grid = pt.adaptive_grid(box, h, w)
+
+    # (a) the main path, counted from 0
+    reset_launches()
+    img, n_img, spp_map = pt.render_pt_mega(cfg, box, box_pos, quat, SAMP_SPP, **akw)
+    torch.cuda.synchronize(device)
+    counts_a = launch_counts()
+    want_a = {"K4": SAMP_SPP, "K4 none": SAMP_SPP, "K4 sampling": SAMP_SPP,
+              "K4 cells": SAMP_SPP}
+    taken = spp_map.cpu()
+    log(f"  (a) config 4's Cornell box {w}x{h}, R_d, adaptive tol {SAMP_TOL}, at least "
+        f"{SAMP_MIN} of {SAMP_SPP} passes: {grid[0]} x {grid[1]} cells of {grid[2]}x{grid[3]}, "
+        f"passes taken min {taken.min():.0f} mean {taken.mean():.4f} max {taken.max():.0f}, "
+        f"{int(n_img)} rays; launches {counts_a} (expected {want_a})")
+    if counts_a != want_a:
+        raise AssertionError("(a)'s main path took other launches")
+    if (tuple(taken.shape) != grid[:2] or spp_map.dtype != torch.float32
+            or not ((taken >= SAMP_MIN) & (taken <= SAMP_SPP)).all()
+            or not torch.isfinite(img).all()):
+        raise AssertionError("the adaptive render's table or image is wrong")
+    fixed, n_fixed = pt.render_pt_mega(cfg, box, box_pos, quat, SAMP_SPP, seed=seed)
+    flat, n_flat, spp_flat = pt.render_pt_mega(cfg, box, box_pos, quat, SAMP_SPP,
+                                               **dict(akw, adaptive_tol=0.0))
+    ok0 = (torch.equal(flat, fixed) and int(n_flat) == int(n_fixed)
+           and tuple(spp_flat.shape) == grid[:2] and bool((spp_flat == SAMP_SPP).all()))
+    log(f"  adaptive_tol=0: bit for bit the fixed {SAMP_SPP}-pass render, its table all "
+        f"{SAMP_SPP}: {ok0}; the adaptive render traced {int(n_img) / int(n_fixed):.4f} of its "
+        f"rays")
+    if not ok0:
+        raise AssertionError("adaptive_tol=0 is not the fixed render")
+    row0, bh = SAMP_BAND
+    rows = slice(row0 // grid[2], (row0 + bh) // grid[2])
+    band, n_band, spp_band = pt.render_pt_mega(cfg, box, box_pos, quat, SAMP_SPP, row0=row0,
+                                               band_h=bh, **akw)
+    same_rows = torch.equal(band, img[row0:row0 + bh]) and torch.equal(spp_band, spp_map[rows])
+    torch.cuda.synchronize(device)
+    t1 = time.perf_counter()
+    want, n_want, spp_want = pt.render_pt_mega_reference(
+        cfg, box, box_pos, quat, SAMP_SPP, seed=seed, row0=row0, band_h=bh,
+        adaptive_tol=SAMP_TOL, adaptive_min=SAMP_MIN)
+    torch.cuda.synchronize(device)
+    plain_a_ms = (time.perf_counter() - t1) * 1e3
+    err_a = (band - want).abs().max().item()
+    bit_a = (torch.equal(band, want) and int(n_band) == int(n_want)
+             and torch.equal(spp_band, spp_want))
+    log(f"  K4<none> adaptive on rows {row0}..{row0 + bh} (cells {spp_band.cpu().flatten().tolist()}"
+        f" passes): the frame's rows and table {same_rows}; bit for bit its plain version (image, "
+        f"table, rays {int(n_band)} == {int(n_want)}): {bit_a}, max_abs_err {err_a:.6g} (plain "
+        f"{plain_a_ms / 1e3:.1f} s)")
+    if not (same_rows and bit_a):
+        raise AssertionError("K4's adaptive band differs from the frame or its plain version")
+
+    # the cell update alone, bit for bit its plain version
+    base, rad = adapt_state(grid, h, w, device)
+    st_k, st_p = clone_state(base), clone_state(base)
+    pt.adapt_pass(rad, st_k, SAMP_CELL_S, SAMP_MIN, SAMP_SPP, SAMP_TOL)
+    torch.cuda.synchronize(device)
+    t1 = time.perf_counter()
+    pt.adapt_pass_reference(rad, st_p, SAMP_CELL_S, SAMP_MIN, SAMP_SPP, SAMP_TOL)
+    torch.cuda.synchronize(device)
+    cell_plain_ms = (time.perf_counter() - t1) * 1e3
+    fields = ("acc", "mean", "m2", "active", "taken", "out")
+    same = {f: torch.equal(getattr(st_k, f), getattr(st_p, f)) for f in fields}
+    cell_err = max((getattr(st_k, f).float() - getattr(st_p, f).float()).abs().max().item()
+                   for f in fields)
+    was = base.active.bool()
+    stopped = int((was & (st_p.active == 0)).sum())
+    log(f"  pt_cell_kernel on a seeded state at {w}x{h} ({int(was.sum())} of {was.numel()} "
+        f"cells active, {stopped} of them stopping at {SAMP_CELL_S} passes): bit for bit its plain "
+        f"version {same}")
+    if not all(same.values()) or not 0 < stopped < int(was.sum()):
+        raise AssertionError("the cell update differs from its plain version, or the seeded "
+                             "state decides every cell alike")
+    cell_ms = device_ms(lambda st: pt.adapt_pass(rad, st, SAMP_CELL_S, SAMP_MIN, SAMP_SPP,
+                                                 SAMP_TOL),
+                        5, "pt_cell_kernel", setup=lambda k: clone_state(base))
+    act_px = int(base.pixels(was).sum())
+    stop_px = int(base.pixels(was & (st_p.active == 0)).sum())
+    cell_bound = bound_ms(52 * act_px + 12 * stop_px + 8 * was.numel(), 30 * act_px)
+    log(f"  pt_cell_kernel {cell_ms:.4f} ms of device time; bound {cell_bound[0]:.5f} ms by "
+        f"{cell_bound[1]} ({act_px} active pixels' rad, acc, mean and M2 read and acc, mean and "
+        f"M2 written, {stop_px} pixels' image written) = {cell_bound[0] / cell_ms:.2%} [{card}]")
+
+    # K4's time on the adaptive render (its launches summed) and on the fixed one
+    k4a_ms = profiled_launches_ms(lambda: pt.render_pt_mega(cfg, box, box_pos, quat, SAMP_SPP,
+                                                            **akw), "pt_samp_kernel", SAMP_SPP)
+    k4f_ms = profiled_launches_ms(lambda: pt.render_pt_mega(cfg, box, box_pos, quat, SAMP_SPP,
+                                                            seed=seed), "pt_samp_kernel", 1)
+    cells_ms = profiled_launches_ms(lambda: pt.render_pt_mega(
+        cfg, box, box_pos, quat, SAMP_SPP, **akw), "pt_cell_kernel", SAMP_SPP)
+    px_passes = int((spp_map.double() * grid[2] * grid[3]).sum())
+    k4a_bound = bound_ms(12 * px_passes + k4_table_bytes(box, None, box_pos),
+                         pt_ops(int(n_img), n_sph, n_tri))
+    log(f"  K4 pt_samp_kernel<none> R_d adaptive {w}x{h}: {k4a_ms:.4f} ms of device time over {SAMP_SPP} "
+        f"launches ({cells_ms:.4f} ms of cell updates beside); fixed {SAMP_SPP} passes "
+        f"{k4f_ms:.4f} ms; bound of the passes taken {k4a_bound[0]:.5f} ms by {k4a_bound[1]} "
+        f"({int(n_img)} rays x {n_sph} spheres and {n_tri} triangles, {px_passes} pixel-passes "
+        f"written) = {k4a_bound[0] / k4a_ms:.2%} [{card}]")
+
+    # (b) the showcase through the thin lens with R_d
+    b = load_scene_json(str(SHOWCASE))
+    scene = b.scene
+    cs = build_clusters(b.tris, tri_mats=b.tri_mats, vertex_normals=b.tri_normals)
+    pos, squat = torch.from_numpy(b.cam_pos).to(device), torch.from_numpy(b.cam_quat).to(device)
+    scfg = PTConfig(**SHOW, rng="pcg", sampler="r2", **SAMP_LENS)
+    reset_launches()
+    frame, n_frame = pt.render_pt_mega(scfg, scene, pos, squat, SHOW_SPP, seed=seed, bvh=cs)
+    rb, n_rb = pt.render_pt_rebin(scfg, scene, pos, squat, SHOW_SPP, seed=seed, bvh=cs)
+    torch.cuda.synchronize(device)
+    counts_b = launch_counts()
+    nb = SHOW_SPP * (scfg.max_bounces + 1)
+    want_b = {"K4": 1, "K4 material": 1, "K4 sampling": 1, "K5": nb, "K5 material": nb,
+              "K5 sampling": nb}
+    same_b = torch.equal(rb, frame) and int(n_rb) == int(n_frame)
+    log(f"  (b) the showcase {scfg.width}x{scfg.height}, thin lens {SAMP_LENS}, R_d, "
+        f"{SHOW_SPP} spp: K5's frame bit for bit K4's {same_b} ({int(n_frame)} rays); launches "
+        f"{counts_b} (expected {want_b})")
+    if counts_b != want_b or not same_b or not torch.isfinite(frame).all():
+        raise AssertionError("(b)'s main path took other launches, or K5 differs from K4")
+    row0, bh = SHOW_BAND
+    kw = dict(seed=seed, bvh=cs, row0=row0, band_h=bh)
+    k4b, n_k4b = pt.render_pt_mega(scfg, scene, pos, squat, SAMP_SHOW_SPP, **kw)
+    k5b, n_k5b = pt.render_pt_rebin(scfg, scene, pos, squat, SAMP_SHOW_SPP, **kw)
+    cluster.work.update(slabs=0, tests=0)
+    torch.cuda.synchronize(device)
+    t1 = time.perf_counter()
+    want4, n_want4 = pt.render_pt_mega_reference(scfg, scene, pos, squat, SAMP_SHOW_SPP, **kw)
+    torch.cuda.synchronize(device)
+    plain4_ms = (time.perf_counter() - t1) * 1e3
+    band_work = dict(cluster.work)
+    t1 = time.perf_counter()
+    want5, n_want5 = pt.render_pt_rebin_reference(scfg, scene, pos, squat, SAMP_SHOW_SPP, **kw)
+    torch.cuda.synchronize(device)
+    plain5_ms = (time.perf_counter() - t1) * 1e3
+    err4, err5 = (k4b - want4).abs().max().item(), (k5b - want5).abs().max().item()
+    bit4 = torch.equal(k4b, want4) and int(n_k4b) == int(n_want4)
+    bit5 = torch.equal(k5b, want5) and int(n_k5b) == int(n_want5)
+    log(f"  rows {row0}..{row0 + bh}, {SAMP_SHOW_SPP} spp: K4<clusters, material> bit for bit its "
+        f"plain version {bit4} (max_abs_err {err4:.6g}, plain {plain4_ms / 1e3:.1f} s), "
+        f"K5<material> {bit5} (max_abs_err {err5:.6g}, plain {plain5_ms / 1e3:.1f} s)")
+    if not (bit4 and bit5):
+        raise AssertionError("K4 or K5 with the thin lens and R_d differs from its plain version")
+    scale = int(n_frame) / int(n_want4)
+    ops = int((pt_ops(int(n_want4), int(scene.sph_count), 0)
+               + instanced_ops(0, 0, band_work["slabs"], band_work["tests"])) * scale)
+    tables = k4_table_bytes(scene, cs, pos)
+    k4b_bound = bound_ms(12 * scfg.width * scfg.height + tables, ops)
+    zs = [pos + torch.tensor([0.0, 0.0, 1e-4 * k], device=device) for k in range(SHOW_FRAMES + 1)]
+    k4b_ms = device_ms(lambda k: pt.render_pt_mega(scfg, scene, zs[k % (SHOW_FRAMES + 1)], squat,
+                                                   SHOW_SPP, seed=seed, bvh=cs),
+                       SHOW_FRAMES, "pt_samp_kernel", setup=lambda k: k)
+    k5b_ms = profiled_launches_ms(lambda: pt.render_pt_rebin(scfg, scene, pos, squat, SHOW_SPP,
+                                                             seed=seed, bvh=cs),
+                                  "pt_rebin_samp_kernel", nb)
+    _, _, run = pt.rebin_bounce_launcher(scfg, scene, pos, squat, seed, cs)
+    planes, n_px = state_plane_count(scene), scfg.width * scfg.height
+    live = [live_rays(k5_states(run, scfg, g)) for g in range(SHOW_SPP)]
+    k5b_bound = bound_ms(sum(k5_bytes(n_px, lv, tables, planes) for lv in live), ops)
+    log(f"  K4 pt_samp_kernel<clusters, material> thin lens + R_d {k4b_ms:.4f} ms of device "
+        f"time a frame, "
+        f"bound {k4b_bound[0]:.5f} ms by {k4b_bound[1]} = {k4b_bound[0] / k4b_ms:.2%}; "
+        f"K5<material> {k5b_ms:.4f} ms over {nb} launches, bound {k5b_bound[0]:.5f} ms by "
+        f"{k5b_bound[1]} = {k5b_bound[0] / k5b_ms:.2%} [{card}]")
+
+    # (c) run_all.py's quality row at 256x256
+    qcfg = PTConfig(**C4, rng="pcg")
+    r2cfg = dataclasses.replace(qcfg, sampler="r2")
+    ref, _ = pt.render_pt_mega(qcfg, box, box_pos, quat, QUALITY_REF_SPP, seed=seed_from_int(99),
+                               tile=QUALITY_TILE)
+
+    def timed(fn):
+        fn(0)  # warm-up
+        torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        out = fn(1)
+        torch.cuda.synchronize(device)
+        return out, time.perf_counter() - t
+
+    (img_f, _), t_fixed = timed(lambda off: pt.render_pt_mega(
+        qcfg, box, box_pos, quat, QUALITY_SPP, seed=seed, spp_offset=off, tile=QUALITY_TILE))
+    (img_q, _, sm), t_q = timed(lambda off: pt.render_pt_mega(
+        r2cfg, box, box_pos, quat, QUALITY_SPP, seed=seed, spp_offset=off, tile=QUALITY_TILE,
+        adaptive_tol=SAMP_TOL, return_spp=True))
+    mse_f = ((img_f - ref) ** 2).mean().item()
+    mse_q = ((img_q - ref) ** 2).mean().item()
+    log(f"  (c) run_all.py's quality row, config 4 {qcfg.width}x{qcfg.height}, tile "
+        f"{QUALITY_TILE}, against a {QUALITY_REF_SPP}-spp render of PRNGKey(99): fixed random "
+        f"{QUALITY_SPP} spp {t_fixed:.6f} s, MSE {mse_f:.9g}; R_d + adaptive tol {SAMP_TOL} in "
+        f"the same budget {t_q:.6f} s, MSE {mse_q:.9g}, mean spp {sm.mean().item():.4f} [{card}]")
+    if not (math.isfinite(mse_f) and math.isfinite(mse_q)):
+        raise AssertionError("the quality row's renders are not finite")
+    log(f"  phase 23: {time.perf_counter() - t0:.1f} s")
+    src = "raytracing_engine_tpu_torch/csrc/pt.cu"
+    k4 = "raytracing_engine_tpu/ops/pallas/pt_kernel.py:194"
+    k5 = "raytracing_engine_tpu/ops/pallas/pt_kernel.py:699"
+    return [
+        {"name": "pt_samp_kernel<none> (K4: R_d, adaptive spp)", "route": "cuda", "source": src,
+         "replaces": k4, "launches": counts_a["K4 sampling"], "max_abs_err": err_a,
+         "ms": k4a_ms, "plain_ms": plain_a_ms, "bound_ms": k4a_bound[0],
+         "bound_by": k4a_bound[1], "library_ms": None},
+        {"name": "pt_cell_kernel (K4 adaptive spp: the cells' update)", "route": "cuda",
+         "source": src, "replaces": k4, "launches": counts_a["K4 cells"],
+         "max_abs_err": cell_err, "ms": cell_ms, "plain_ms": cell_plain_ms,
+         "bound_ms": cell_bound[0], "bound_by": cell_bound[1], "library_ms": None},
+        {"name": "pt_samp_kernel<clusters, material> (K4: thin lens, R_d)", "route": "cuda",
+         "source": src, "replaces": k4, "launches": counts_b["K4 sampling"],
+         "max_abs_err": err4, "ms": k4b_ms, "plain_ms": plain4_ms, "bound_ms": k4b_bound[0],
+         "bound_by": k4b_bound[1], "library_ms": None},
+        {"name": "pt_rebin_samp_kernel<material> (K5: thin lens, R_d)", "route": "cuda",
+         "source": src, "replaces": k5, "launches": counts_b["K5 sampling"],
+         "max_abs_err": err5, "ms": k5b_ms, "plain_ms": plain5_ms, "bound_ms": k5b_bound[0],
+         "bound_by": k5b_bound[1], "library_ms": None},
+    ]
+
+
 def reset_launches():
     """Every kernel's launch count to 0 (K4's by kind and material too)."""
     from raytracing_engine_tpu_torch.ops.cuda import (
@@ -4343,6 +4691,8 @@ def reset_launches():
     for mod in (bvh_traverse, cluster, depth, fused, instanced, rng, shade):
         mod.launches = 0
     pt.rebin_launches = pt.rebin_material_launches = pt.rebin_tex_launches = 0
+    pt.sampling_launches = pt.rebin_sampling_launches = 0
+    pt.adapt_launches = 0
     cluster.tan_launches = instanced.uv_launches = 0
 
 
@@ -4363,8 +4713,10 @@ def launch_counts() -> dict:
     counts = {"K1": depth.launches, "K2": fused.launches, "K3": shade.launches,
               "K4": pt.launches, "K4 none": pt.mesh_launches["none"],
               "K4 material": sum(pt.material_launches.values()),
-              "K4 tex": sum(pt.tex_launches.values()), "K5": pt.rebin_launches,
-              "K5 material": pt.rebin_material_launches, "K5 tex": pt.rebin_tex_launches,
+              "K4 tex": sum(pt.tex_launches.values()), "K4 sampling": pt.sampling_launches,
+              "K4 cells": pt.adapt_launches,
+              "K5": pt.rebin_launches, "K5 material": pt.rebin_material_launches,
+              "K5 tex": pt.rebin_tex_launches, "K5 sampling": pt.rebin_sampling_launches,
               "K6": cluster.launches, "K6 tan": cluster.tan_launches,
               "K7 uv": instanced.uv_launches,
               "K7": instanced.launches, "K8": bvh_traverse.launches, "K9": rng.launches}
@@ -4821,6 +5173,9 @@ def main() -> int:
     log("phase 22: the texture features (normal maps, mips and trilinear filtering, UV "
         "tables under instances) through K4, K5, K6 and K7")
     tex = phase_textures(device, card)
+    log("phase 23: the sampling features (thin-lens depth of field, the R_d sampler, adaptive "
+        "spp) through K4 and K5")
+    samp = phase_sampling(device, card)
 
     # no single PyTorch call computes any of these kernels (torch.rand draws
     # Philox, not threefry): library_ms null
@@ -4902,6 +5257,7 @@ def main() -> int:
          "replaces": "raytracing_engine_tpu/ops/pallas/rng.py:24", **k9,
          "launches": k9["launches"] + orbit["K9"] + entry.get("K9", 0), "library_ms": None},
         *tex,
+        *samp,
     ]
     for k in kernels:  # a timing that failed fails the run
         bad = [key for key in ("ms", "plain_ms", "bound_ms", "max_abs_err")

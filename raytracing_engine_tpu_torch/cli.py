@@ -30,9 +30,11 @@ Routes, with the JAX package's meanings:
   BVH (K8 on the card) on the CPU, the JAX package's route off the TPU.
 - ``instanced`` renders models/instanced.render_instanced_phong (K7).
 
-Features the port does not have yet (``--aperture``, ``--sampler r2``,
-``--fog``, ``--adaptive`` on mega, mesh lights) raise the renderers' own
-NotImplementedError, which names its ROADMAP item. Printed times wait for the device first.
+``--aperture`` / ``--focus`` (the thin lens), ``--sampler r2`` (R_d, at
+``--rng pcg``) and ``--adaptive TOL`` on mega render as in the JAX package.
+Features the port does not have yet (``--fog``, mesh lights) raise the
+renderers' own NotImplementedError, which names its ROADMAP item. Printed
+times wait for the device first.
 """
 
 from __future__ import annotations
@@ -594,11 +596,11 @@ def main(argv=None):
     p.add_argument("--spp", type=int, default=16)
     p.add_argument("--bounces", type=int, default=4)
     p.add_argument("--aperture", type=float, default=0.0,
-                   help="thin-lens radius, world units (0 = pinhole; not ported yet)")
+                   help="thin-lens radius, world units (0 = pinhole)")
     p.add_argument("--focus", type=float, default=10.0,
                    help="focus distance along the view axis (with --aperture)")
     p.add_argument("--sampler", default="random", choices=["random", "r2"],
-                   help="r2 = low-discrepancy camera/NEE sampling (not ported yet)")
+                   help="r2 = low-discrepancy camera/NEE sampling")
     p.add_argument("--rr", type=int, default=0, metavar="BOUNCE",
                    help="Russian-roulette path termination from this bounce "
                         "on (0 = off); unbiased, prunes dim deep paths")
@@ -615,7 +617,7 @@ def main(argv=None):
     p.add_argument("--fps", type=int, default=30)
     p.add_argument("--adaptive", type=float, default=0.0, metavar="TOL",
                    help="per-tile adaptive sampling tolerance (--mega "
-                        "only; not ported yet)")
+                        "only)")
     p.add_argument("--aov", action="store_true",
                    help="also write first-hit albedo/normal/depth PNGs "
                         "(denoiser guide planes)")
@@ -639,8 +641,7 @@ def main(argv=None):
                         "default 1.0 = the reference's linear UNORM present)")
     p.add_argument("--tex-filter", choices=["nearest", "bilinear", "trilinear"],
                    default="nearest", dest="tex_filter",
-                   help="atlas texture filtering (trilinear = ray-cone mip LOD: "
-                        "not ported yet)")
+                   help="atlas texture filtering (trilinear = ray-cone mip LOD)")
     p.add_argument("--rng", choices=["threefry", "pcg", "pallas"], default="pcg")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bvh", action="store_true")

@@ -22,6 +22,18 @@
 // mip chains' trilinear filter with its ray cone, instances of a UV
 // ClusterSet; the material scenes without them keep their instantiation.
 //
+// The sampling features run in a sampling form of each of those
+// instantiations (pt.cuh kSamp: pt_samp_kernel<kMesh, kMat>,
+// pt_samp_tex_kernel<kMesh>, pt_rebin_samp_kernel<kMat>,
+// pt_rebin_samp_tex_kernel; ops/cuda/pt.py sets Args.samp): the thin lens
+// (JAX's cfg.aperture), the R_d sampler's camera and bounce-0 NEE dimensions
+// (cfg.sampler="r2") and K4's adaptive passes, so a render without them
+// launches the instantiation it launched before, instruction for
+// instruction. Adaptive spp (pt_kernel.py:310-370) runs as one K4 launch a
+// pass, each pixel tracing while its grid cell's flag is set, then
+// pt_cell_kernel (below) over the cells; the host enqueues every pass and
+// reads nothing back between them.
+//
 // K5 replaces pt_kernel.py:_pt_rebin_kernel (render_pt_rebin): one launch
 // per bounce over a packed 17-plane ray state (then dispersion's chan and the
 // trilinear filter's tacc). Thread i owns the ray at
@@ -191,7 +203,7 @@ __device__ __forceinline__ uint32_t pass_seed(const Args& a, int s) {
 }
 
 // K4's body, for each instantiation.
-template <int kMesh, bool kMat, bool kTex>
+template <int kMesh, bool kMat, bool kTex, bool kSamp>
 __device__ __forceinline__ void pt_body(const Args& a) {
   using B = K4<kMesh>;
   extern __shared__ float tables[];
@@ -203,7 +215,11 @@ __device__ __forceinline__ void pt_body(const Args& a) {
 
   const int x = blockIdx.x * B::kBlockX + threadIdx.x;
   const int y = blockIdx.y * B::kBlockY + threadIdx.y;
-  const bool in_image = x < a.w && y < a.h;
+  // an adaptive pass (kSamp) traces a pixel only while its cell takes
+  // passes; a pixel of a stopped cell is as one past the ragged edges
+  const bool in_image =
+      x < a.w && y < a.h &&
+      (!kSamp || a.active == nullptr || a.active[(y / a.cell_h) * a.grid_w + x / a.cell_w] != 0);
   unsigned nrays = 0u;
   // the warp form: every lane runs both loops, a lane past the ragged edges
   // with live false throughout (it writes nothing)
@@ -216,18 +232,19 @@ __device__ __forceinline__ void pt_body(const Args& a) {
     float3 acc = make_float3(0.0f, 0.0f, 0.0f);
     for (int s = 0; s < a.spp; ++s) {
       const uint32_t seed = pass_seed(a, s);
-      Ray r = camera_ray(a, px, py, seed, cam, q);
+      const uint32_t gpass = static_cast<uint32_t>(a.spp_offset + s);
+      Ray r = camera_ray<kSamp>(a, px, py, seed, gpass, cam, q);
       if constexpr (B::kWarp) {
         // a lane whose path has ended bounces with live false (a parked ray)
         // until no lane of the warp has a live path
         for (int b = 0; b <= a.max_bounces; ++b) {
           const bool live = in_image && r.alive;
           if (!__any_sync(cl::kFullWarp, live)) break;
-          bounce<kMesh, true, kMat, kTex>(a, sc, r, b, seed, nrays, live);
+          bounce<kMesh, true, kMat, kTex, kSamp>(a, sc, r, b, seed, gpass, nrays, live);
         }
       } else {
         for (int b = 0; b <= a.max_bounces && r.alive; ++b) {
-          bounce<kMesh, false, kMat, kTex>(a, sc, r, b, seed, nrays);
+          bounce<kMesh, false, kMat, kTex, kSamp>(a, sc, r, b, seed, gpass, nrays);
         }
       }
       acc = add3(acc, r.rad);
@@ -245,18 +262,29 @@ __device__ __forceinline__ void pt_body(const Args& a) {
 
 template <int kMesh, bool kMat>
 __global__ void __launch_bounds__(K4<kMesh>::kThreads) pt_kernel(const Args a) {
-  pt_body<kMesh, kMat, false>(a);
+  pt_body<kMesh, kMat, false, false>(a);
 }
 
 // K4's texture instantiation (pt.cuh kTex), beside pt_kernel so that its
 // instantiations keep their names.
 template <int kMesh>
 __global__ void __launch_bounds__(K4<kMesh>::kThreads) pt_tex_kernel(const Args a) {
-  pt_body<kMesh, true, true>(a);
+  pt_body<kMesh, true, true, false>(a);
+}
+
+// K4's sampling instantiations (kSamp: the thin lens, R_d, adaptive passes),
+// without and with the material features, and with the texture features.
+template <int kMesh, bool kMat>
+__global__ void __launch_bounds__(K4<kMesh>::kThreads) pt_samp_kernel(const Args a) {
+  pt_body<kMesh, kMat, false, true>(a);
+}
+template <int kMesh>
+__global__ void __launch_bounds__(K4<kMesh>::kThreads) pt_samp_tex_kernel(const Args a) {
+  pt_body<kMesh, true, true, true>(a);
 }
 
 // K5's body, for each instantiation.
-template <bool kMat, bool kTex>
+template <bool kMat, bool kTex, bool kSamp>
 __device__ __forceinline__ void pt_rebin_body(const Args& a) {
   extern __shared__ float tables[];
   __shared__ unsigned block_rays;
@@ -269,6 +297,7 @@ __device__ __forceinline__ void pt_rebin_body(const Args& a) {
   const size_t n = static_cast<size_t>(a.n_state);
   unsigned nrays = 0u;
   const uint32_t seed = pass_seed(a, 0);
+  const uint32_t gpass = static_cast<uint32_t>(a.spp_offset);
   // every lane enters bounce (the warp sweeps together); a lane past the
   // ragged end or holding a dead ray (|o.x| >= 1e17: the per-thread form of
   // the TPU kernel's skip_dead) carries a parked ray, with live false, and
@@ -287,8 +316,8 @@ __device__ __forceinline__ void pt_rebin_body(const Args& a) {
       const float3 cam = make_float3(__ldg(a.cam_pos), __ldg(a.cam_pos + 1), __ldg(a.cam_pos + 2));
       const float4 q = make_float4(__ldg(a.cam_quat), __ldg(a.cam_quat + 1),
                                    __ldg(a.cam_quat + 2), __ldg(a.cam_quat + 3));
-      r = camera_ray(a, static_cast<uint32_t>(i % a.w), static_cast<uint32_t>(i / a.w + a.row0),
-                     seed, cam, q);
+      r = camera_ray<kSamp>(a, static_cast<uint32_t>(i % a.w),
+                            static_cast<uint32_t>(i / a.w + a.row0), seed, gpass, cam, q);
     } else {
       const float ox = st[0];
       live = fabsf(ox) < cl::kParked;
@@ -309,7 +338,7 @@ __device__ __forceinline__ void pt_rebin_body(const Args& a) {
       }
     }
   }
-  bounce<kMeshAny, true, kMat, kTex>(a, sc, r, a.bounce, seed, nrays, live);
+  bounce<kMeshAny, true, kMat, kTex, kSamp>(a, sc, r, a.bounce, seed, gpass, nrays, live);
   if (live) {
     const float planes[kStatePlanes] = {
         r.o.x, r.o.y, r.o.z, r.d.x, r.d.y, r.d.z, r.thr.x, r.thr.y, r.thr.z,
@@ -327,12 +356,104 @@ __device__ __forceinline__ void pt_rebin_body(const Args& a) {
 
 template <bool kMat>
 __global__ void __launch_bounds__(kRebinThreads) pt_rebin_kernel(const Args a) {
-  pt_rebin_body<kMat, false>(a);
+  pt_rebin_body<kMat, false, false>(a);
 }
 
 // K5's texture instantiation (pt.cuh kTex).
 __global__ void __launch_bounds__(kRebinThreads) pt_rebin_tex_kernel(const Args a) {
-  pt_rebin_body<true, true>(a);
+  pt_rebin_body<true, true, false>(a);
+}
+
+// K5's sampling instantiations (kSamp: the thin lens, R_d).
+template <bool kMat>
+__global__ void __launch_bounds__(kRebinThreads) pt_rebin_samp_kernel(const Args a) {
+  pt_rebin_body<kMat, false, true>(a);
+}
+__global__ void __launch_bounds__(kRebinThreads) pt_rebin_samp_tex_kernel(const Args a) {
+  pt_rebin_body<true, true, true>(a);
+}
+
+// K4's adaptive spp, after each pass (ops/pallas/pt_kernel.py:310-356, the
+// while_loop's body and cond): one block a cell, which skips a stopped cell.
+// Each pixel of an active cell adds the pass to acc and updates the Welford
+// mean and M2 of its luminance (a true division, no FMA); the block sums the
+// pixels' standard errors sqrt(max(M2 / max(s - 1, 1) / max(s, 1), 0)) and
+// means pairwise, element i with element i + half at every level (the order
+// of ops/cuda/pt.py cell_sums, so the plain version decides each cell as
+// this kernel does), through the cell's rows of scratch; the cell takes
+// another pass while s < min_spp, or while s < spp and the relative error
+// mean(se) / max(mean(mean), 1e-4) exceeds tol, and else writes its pixels'
+// acc * (1 / s). Bound by bytes: each pixel's 9 floats read and 6 written
+// once a pass, the sums' levels in the L2.
+constexpr int kAdaptThreads = 256;
+
+__device__ __forceinline__ void adapt_pixel(const AdaptArgs& a, int cell_i, int cell_j, int j,
+                                            float sf, float& se, float& mu) {
+  se = 0.0f;  // past the cell's pixels: the sums' zero padding
+  mu = 0.0f;
+  if (j >= a.cell_h * a.cell_w) return;
+  const size_t p = static_cast<size_t>(cell_i * a.cell_h + j / a.cell_w) * a.w +
+                   cell_j * a.cell_w + j % a.cell_w;
+  const float r = a.rad[3 * p], g = a.rad[3 * p + 1], b = a.rad[3 * p + 2];
+  a.acc[3 * p] = a.acc[3 * p] + r;
+  a.acc[3 * p + 1] = a.acc[3 * p + 1] + g;
+  a.acc[3 * p + 2] = a.acc[3 * p + 2] + b;
+  const float x = 0.2126f * r + 0.7152f * g + 0.0722f * b;
+  const float d = x - a.mean[p];
+  const float mean = a.mean[p] + d / sf;
+  const float m2 = a.m2[p] + d * (x - mean);
+  a.mean[p] = mean;
+  a.m2[p] = m2;
+  const float var = m2 / vmax(sf - 1.0f, 1.0f);
+  se = sqrtf(vmax(var / vmax(sf, 1.0f), 0.0f));
+  mu = mean;
+}
+
+__global__ void __launch_bounds__(kAdaptThreads) pt_cell_kernel(const AdaptArgs a) {
+  const int c = blockIdx.x;
+  if (a.active[c] == 0) return;  // the whole block: a stopped cell
+  const int ci = c / a.grid_w, cj = c % a.grid_w;
+  const int n = a.cell_h * a.cell_w;
+  const float sf = static_cast<float>(a.s);
+  float* s_se = a.scratch + static_cast<size_t>(c) * 2 * (a.half > 0 ? a.half : 1);
+  float* s_mu = s_se + (a.half > 0 ? a.half : 1);
+  if (a.half == 0) {  // a cell of one pixel
+    if (threadIdx.x == 0) adapt_pixel(a, ci, cj, 0, sf, s_se[0], s_mu[0]);
+  } else {
+    for (int i = threadIdx.x; i < a.half; i += kAdaptThreads) {
+      float se0, mu0, se1, mu1;
+      adapt_pixel(a, ci, cj, i, sf, se0, mu0);
+      adapt_pixel(a, ci, cj, i + a.half, sf, se1, mu1);
+      s_se[i] = se0 + se1;
+      s_mu[i] = mu0 + mu1;
+    }
+    for (int stride = a.half / 2; stride >= 1; stride /= 2) {
+      __syncthreads();
+      for (int i = threadIdx.x; i < stride; i += kAdaptThreads) {
+        s_se[i] = s_se[i] + s_se[i + stride];
+        s_mu[i] = s_mu[i] + s_mu[i + stride];
+      }
+    }
+  }
+  __syncthreads();
+  const float se = s_se[0] / static_cast<float>(n);
+  const float rel = se / vmax(s_mu[0] / static_cast<float>(n), 1e-4f);
+  const bool more = a.s < a.min_spp || (a.s < a.spp && rel > a.tol);
+  if (!more) {
+    const float inv = 1.0f / sf;
+    for (int j = threadIdx.x; j < n; j += kAdaptThreads) {
+      const size_t p = static_cast<size_t>(ci * a.cell_h + j / a.cell_w) * a.w +
+                       cj * a.cell_w + j % a.cell_w;
+      a.out[3 * p] = a.acc[3 * p] * inv;
+      a.out[3 * p + 1] = a.acc[3 * p + 1] * inv;
+      a.out[3 * p + 2] = a.acc[3 * p + 2] * inv;
+    }
+  }
+  __syncthreads();  // every thread has read active[c]
+  if (threadIdx.x == 0) {
+    a.taken[c] = sf;
+    if (!more) a.active[c] = 0;
+  }
 }
 
 size_t table_bytes(const Args* a) {
@@ -346,18 +467,27 @@ size_t table_bytes(const Args* a) {
 
 // K4 at mesh kind kMesh, its texture instantiation where the scene has the
 // texture features, else its material instantiation where it has any of the
-// material features.
+// material features; each in its sampling form where a->samp.
 template <int kMesh>
 cudaError_t launch_pt(const Args* a, cudaStream_t stream) {
   using B = K4<kMesh>;
   const dim3 grid((a->w + B::kBlockX - 1) / B::kBlockX, (a->h + B::kBlockY - 1) / B::kBlockY);
   const dim3 block(B::kBlockX, B::kBlockY);
-  if (a->tex) {
-    pt_tex_kernel<kMesh><<<grid, block, table_bytes(a), stream>>>(*a);
+  const size_t smem = table_bytes(a);
+  if (a->samp) {
+    if (a->tex) {
+      pt_samp_tex_kernel<kMesh><<<grid, block, smem, stream>>>(*a);
+    } else if (a->material) {
+      pt_samp_kernel<kMesh, true><<<grid, block, smem, stream>>>(*a);
+    } else {
+      pt_samp_kernel<kMesh, false><<<grid, block, smem, stream>>>(*a);
+    }
+  } else if (a->tex) {
+    pt_tex_kernel<kMesh><<<grid, block, smem, stream>>>(*a);
   } else if (a->material) {
-    pt_kernel<kMesh, true><<<grid, block, table_bytes(a), stream>>>(*a);
+    pt_kernel<kMesh, true><<<grid, block, smem, stream>>>(*a);
   } else {
-    pt_kernel<kMesh, false><<<grid, block, table_bytes(a), stream>>>(*a);
+    pt_kernel<kMesh, false><<<grid, block, smem, stream>>>(*a);
   }
   return cudaGetLastError();
 }
@@ -383,13 +513,33 @@ extern "C" int pt_rebin(const pt::Args* a, void* stream) {
   if (a->n_state > 0) {
     const dim3 grid((a->n_state + pt::kRebinThreads - 1) / pt::kRebinThreads);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (a->tex) {
-      pt::pt_rebin_tex_kernel<<<grid, pt::kRebinThreads, pt::table_bytes(a), s>>>(*a);
+    const size_t smem = pt::table_bytes(a);
+    if (a->samp) {
+      if (a->tex) {
+        pt::pt_rebin_samp_tex_kernel<<<grid, pt::kRebinThreads, smem, s>>>(*a);
+      } else if (a->material) {
+        pt::pt_rebin_samp_kernel<true><<<grid, pt::kRebinThreads, smem, s>>>(*a);
+      } else {
+        pt::pt_rebin_samp_kernel<false><<<grid, pt::kRebinThreads, smem, s>>>(*a);
+      }
+    } else if (a->tex) {
+      pt::pt_rebin_tex_kernel<<<grid, pt::kRebinThreads, smem, s>>>(*a);
     } else if (a->material) {
-      pt::pt_rebin_kernel<true><<<grid, pt::kRebinThreads, pt::table_bytes(a), s>>>(*a);
+      pt::pt_rebin_kernel<true><<<grid, pt::kRebinThreads, smem, s>>>(*a);
     } else {
-      pt::pt_rebin_kernel<false><<<grid, pt::kRebinThreads, pt::table_bytes(a), s>>>(*a);
+      pt::pt_rebin_kernel<false><<<grid, pt::kRebinThreads, smem, s>>>(*a);
     }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the cell update of K4's adaptive pass a->s on `stream`; as pt_render.
+extern "C" int pt_adapt(const pt::AdaptArgs* a, void* stream) {
+  cudaError_t err = cudaSetDevice(a->device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (a->n_cells > 0) {
+    pt::pt_cell_kernel<<<a->n_cells, pt::kAdaptThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        *a);
   }
   return static_cast<int>(cudaGetLastError());
 }

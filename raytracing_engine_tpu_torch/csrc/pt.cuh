@@ -24,7 +24,11 @@
 // wavefront._perturb_normal), the albedo mip chains' trilinear filter at the
 // ray cone's footprint (wavefront._mip_lod_footprint, _sample_rect_tri; the
 // cone's path length `tacc` rides in the ray state), and instances of a UV
-// ClusterSet (instanced.cuh kAttrTan).
+// ClusterSet (instanced.cuh kAttrTan). A fourth template flag (kSamp, in
+// every instantiation's sampling form) adds the sampling features: the thin
+// lens (thin_lens_ray) and the R_d sampler (draw_r2: the camera dimensions,
+// and bounce 0's NEE dimensions) in `camera_ray` and `bounce`; K4's adaptive
+// passes in pt.cu.
 //
 // One thread follows one ray. The body of one bounce is one function,
 // `bounce`, over a per-ray state (`Ray`, the 17 planes of
@@ -175,6 +179,37 @@ struct Args {
   // state's tacc plane) and its spread 2 fov / width
   int tex, normal_map, n_mips, tacc;
   float lod_alpha;
+  // The sampling instantiation (samp 0 / 1, pt.cu kSamp: ops/cuda/pt.py
+  // sets it where any of these is on) and its features: the thin lens
+  // (aperture > 0: its radius, and the focus plane's distance), the R_d
+  // sampler (r2 0 / 1: the camera dimensions, and bounce 0's NEE dimensions
+  // under use_nee, keyed on the base seed and the global pass), and K4's
+  // adaptive passes (active non-null: one pass a launch, spp 1; a pixel
+  // traces only while its cell's flag is set; cells cell_h x cell_w, grid_w
+  // a row)
+  int samp;
+  float aperture, focus_dist;
+  int r2;
+  const int* active;
+  int cell_h, cell_w, grid_w;
+};
+
+// The cell update after each adaptive pass of K4 (pt_cell_kernel, pt.cu).
+// Mirrored field for field by AdaptArgs in ops/cuda/pt.py.
+struct AdaptArgs {
+  const float* rad;  // (h, w, 3): the pass's radiance, K4's output at spp 1
+  float* acc;        // (h, w, 3): the sum of the passes taken
+  float* mean;       // (h, w): each pixel's Welford mean of the luminance
+  float* m2;         // (h, w): and its sum of squared deviations
+  int* active;       // (n_cells,): 1 while the cell takes passes
+  float* taken;      // (n_cells,): the passes the cell took
+  float* out;        // (h, w, 3): acc / taken, written when the cell stops
+  float* scratch;    // (n_cells, 2, half): the cells' pairwise sums
+  int w, cell_h, cell_w, grid_w, n_cells;
+  int half;          // half the cell's pixel count rounded up to a power of 2
+  int s, min_spp, spp;  // passes taken after this one; the floor and budget
+  float tol;
+  int device;
 };
 
 // The scene tables, in shared memory, the live counts and the mesh.
@@ -289,6 +324,29 @@ __device__ __forceinline__ void draw4(uint32_t px, uint32_t py, uint32_t zz,
   u[3] = to_unit(w);
 }
 
+// --- the R_d sampler (ops/rng_pcg.r2_planes) --------------------------------
+constexpr uint32_t kR2Camera = 0x52AD1A7Eu;  // the camera dimensions' channel
+constexpr uint32_t kR2Nee = 0x1D0C0FFEu;     // bounce 0's NEE dimensions' channel
+
+// _R2_U32[n][k]: alpha_k of the n-dimensional sequence as a uint32 fraction
+__host__ __device__ constexpr uint32_t r2_alpha(int n, int k) {
+  return n == 2 ? (k == 0 ? 0xC13FA9A9u : 0x91E10DA6u)
+       : n == 3 ? (k == 0 ? 0xD1B54A33u : k == 1 ? 0xABC98389u : 0x8CB92BA7u)
+       : (k == 0 ? 0xDB4F0B91u : k == 1 ? 0xBBE05633u : k == 2 ? 0xA0F2EC76u : 0x89E18285u);
+}
+
+// r2_planes(seed, gpass, kN, px, py, channel): the rotation pcg4d(px, py,
+// channel, seed) plus gpass * alpha, wrapping.
+template <int kN>
+__device__ __forceinline__ void draw_r2(uint32_t px, uint32_t py, uint32_t channel,
+                                        uint32_t seed, uint32_t gpass, float* u) {
+  uint32_t x = px, y = py, z = channel, w = seed;
+  pcg4d(x, y, z, w);
+  const uint32_t rot[4] = {x, y, z, w};
+#pragma unroll
+  for (int k = 0; k < kN; ++k) u[k] = to_unit(rot[k] + gpass * r2_alpha(kN, k));
+}
+
 // --- camera (wavefront._camera_rays, pinhole) -----------------------------
 __device__ __forceinline__ float3 camera_dir(const Args& a, float qx, float qy,
                                              float qz, float qw, float ix,
@@ -304,6 +362,34 @@ __device__ __forceinline__ float3 camera_dir(const Args& a, float qx, float qy,
   const float dz = vz + 2.0f * (qx * ty - qy * tx);
   const float n = sqrtf(dx * dx + dy * dy + dz * dz);
   return make_float3(dx / n, dy / n, dz / n);
+}
+
+// v rotated by the camera quaternion (wavefront._camera_rays rot)
+__device__ __forceinline__ float3 quat_rot(float4 q, float vx, float vy, float vz) {
+  const float tx = q.y * vz - q.z * vy + q.w * vx;
+  const float ty = q.z * vx - q.x * vz + q.w * vy;
+  const float tz = q.x * vy - q.y * vx + q.w * vz;
+  return make_float3(vx + 2.0f * (q.y * tz - q.z * ty), vy + 2.0f * (q.z * tx - q.x * tz),
+                     vz + 2.0f * (q.x * ty - q.y * tx));
+}
+
+// The thin-lens camera ray (wavefront._camera_rays with lens=(u3, u4)): the
+// lens point at radius aperture sqrt(u3), angle 2 pi u4 on the sensor plane,
+// aimed at the pixel's point on the y = focus_dist plane; sets o (before the
+// o + d * 0 of the caller) and d.
+__device__ __forceinline__ void thin_lens_ray(const Args& a, float4 q, float3 cam, float ix,
+                                              float iy, const float* u, float3& o, float3& d) {
+  const float ncx = ((ix + u[0]) * 2.0f / static_cast<float>(a.width) - 1.0f) * a.ratio_x;
+  const float ncy = ((iy + u[1]) * 2.0f / static_cast<float>(a.height) - 1.0f) * a.ratio_y;
+  const float rr = a.aperture * sqrtf(u[2]);
+  const float phi = kTwoPi * u[3];
+  const float lx = rr * cosf(phi), lz = rr * sinf(phi);
+  const float fd = a.focus_dist;
+  const float3 v = quat_rot(q, ncx * fd - lx, 0.0f + fd, ncy * fd - lz);
+  const float n = sqrtf(v.x * v.x + v.y * v.y + v.z * v.z);
+  d = make_float3(v.x / n, v.y / n, v.z / n);
+  const float3 l = quat_rot(q, lx, 0.0f, lz);
+  o = make_float3(cam.x + l.x, cam.y + l.y, cam.z + l.z);
 }
 
 // --- intersection (wavefront._sphere_hits / _tri_hits_unrolled) -----------
@@ -941,15 +1027,32 @@ struct Ray {
   float tacc;
 };
 
-// The camera ray of pixel (px, py) for the pass of `seed` (ctr 0).
+// The camera ray of pixel (px, py) for the pass of `seed` (ctr 0), global
+// pass gpass: the pinhole, or, in the sampling instantiations (kSamp), the
+// thin lens (aperture > 0: two more dimensions) and the dimensions from the
+// R_d sequence under r2.
+template <bool kSamp = false>
 __device__ __forceinline__ Ray camera_ray(const Args& a, uint32_t px, uint32_t py,
-                                          uint32_t seed, float3 cam, float4 q) {
+                                          uint32_t seed, uint32_t gpass, float3 cam, float4 q) {
   float u[4];
-  draw4(px, py, 0u, seed, u);
+  const bool lens = kSamp && a.aperture > 0.0f;
+  if (kSamp && a.r2) {
+    if (lens) {
+      draw_r2<4>(px, py, kR2Camera, static_cast<uint32_t>(a.seed), gpass, u);
+    } else {
+      draw_r2<2>(px, py, kR2Camera, static_cast<uint32_t>(a.seed), gpass, u);
+    }
+  } else {
+    draw4(px, py, 0u, seed, u);
+  }
   Ray r;
-  r.d = camera_dir(a, q.x, q.y, q.z, q.w, static_cast<float>(px), static_cast<float>(py),
-                   u[0], u[1]);
-  r.o = make_float3(cam.x + r.d.x * 0.0f, cam.y + r.d.y * 0.0f, cam.z + r.d.z * 0.0f);
+  if (lens) {
+    thin_lens_ray(a, q, cam, static_cast<float>(px), static_cast<float>(py), u, r.o, r.d);
+  } else {
+    r.d = camera_dir(a, q.x, q.y, q.z, q.w, static_cast<float>(px), static_cast<float>(py),
+                     u[0], u[1]);
+    r.o = make_float3(cam.x + r.d.x * 0.0f, cam.y + r.d.y * 0.0f, cam.z + r.d.z * 0.0f);
+  }
   r.o = add3(r.o, scale3(r.d, 0.0f));
   r.thr = make_float3(1.0f, 1.0f, 1.0f);
   r.rad = make_float3(0.0f, 0.0f, 0.0f);
@@ -1121,16 +1224,22 @@ __device__ __forceinline__ void nee_add_brdf(const Scene& sc, Ray& r, float3 thr
 // it together, a lane without a live ray with live false (it parks the ray,
 // keeps its radiance and counts no ray). kMat adds the material features'
 // branches, each under its scene flag, and kTex (with kMat) the texture
-// features'.
-template <int kMesh, bool kWarp, bool kMat, bool kTex = false>
+// features'; kSamp the R_d sampler's bounce-0 NEE dimensions (global pass
+// gpass).
+template <int kMesh, bool kWarp, bool kMat, bool kTex = false, bool kSamp = false>
 __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, int b,
-                                       uint32_t seed, unsigned& nrays, bool live = true) {
+                                       uint32_t seed, uint32_t gpass, unsigned& nrays,
+                                       bool live = true) {
   static_assert(kMat || !kTex, "the texture instantiation is a material one");
   const bool uniform = a.uniform_lights != 0;
   float u[8];
   // bounce draws: ctr b + 1, two blocks of 4 (nu = 5, or 6 with RR)
   draw4(r.px, r.py, static_cast<uint32_t>(b + 1) * 2u, seed, u);
   draw4(r.px, r.py, static_cast<uint32_t>(b + 1) * 2u + 1u, seed, u + 4);
+  // R_d: bounce 0's NEE light dimensions u[2..4] from the 3-D sequence
+  if (kSamp && a.r2 && a.use_nee && b == 0) {
+    draw_r2<3>(r.px, r.py, kR2Nee, static_cast<uint32_t>(a.seed), gpass, u + 2);
+  }
   if (live) nrays += 1;
   const float3 d = r.d;
 

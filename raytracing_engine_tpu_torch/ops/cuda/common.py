@@ -30,7 +30,7 @@ BUILD_DIR = PACKAGE_DIR / "build"
 # library name -> (its source in csrc/, its C entries)
 LIBRARIES = {
     "conemarch": ("conemarch.cu", ("conemarch_pyramid", "conemarch_shade", "conemarch_fused")),
-    "pt": ("pt.cu", ("pt_render", "pt_rebin")),
+    "pt": ("pt.cu", ("pt_render", "pt_rebin", "pt_adapt")),
     "cluster": ("cluster.cu", ("cluster_intersect",)),
     "bvh": ("bvh.cu", ("bvh_traverse",)),
     "instanced": ("instanced.cu", ("instanced_intersect",)),
@@ -169,6 +169,18 @@ def library(name: str) -> ctypes.CDLL:
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     return lib
+
+
+def pick_tile(h: int, w: int, max_th: int = 16, max_tw: int = 256):
+    """Tile dims that divide (h, w), as the JAX package picks them
+    (ops/pallas/common.py:11-22: the widest of max_tw, 256, 128 under max_tw
+    that divides w, else w; the tallest of max_th, 16, 8 under max_th that
+    divides h, else h). The kernels here take no tiles; adaptive spp
+    (ops/cuda/pt.py adaptive_grid) reads them as the cells whose pixels stop
+    sampling together."""
+    tw = next((t for t in (max_tw, 256, 128) if t <= max_tw and w % t == 0), w)
+    th = next((t for t in (max_th, 16, 8) if t <= max_th and h % t == 0), h)
+    return min(th, h), min(tw, w)
 
 
 def flat_rays(o_planes, d_planes, t_max):

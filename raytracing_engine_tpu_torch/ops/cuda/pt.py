@@ -37,6 +37,17 @@ instantiations they launched before.
 ``PTArgs.tex``: the launch picks the instantiation by them, and the counts
 below read them.
 
+The sampling features run in a sampling form of each of these
+instantiations (``pt_samp_kernel``, ``pt_samp_tex_kernel``,
+``pt_rebin_samp_kernel``, ``pt_rebin_samp_tex_kernel``; ``PTArgs.samp``),
+so that the renders without them launch the code they launched before: the
+thin lens (``PTConfig.aperture`` > 0) and the R_d sampler
+(``sampler="r2"``) in K4 and K5, and K4's adaptive spp
+(``render_pt_mega(adaptive_tol > 0)``): one K4 launch a pass, each pixel
+tracing while its cell takes passes, then ``pt_cell_kernel``, which
+updates each cell's sums and decides whether it takes another pass
+(``adapt_pass``); nothing goes back to the host between passes.
+
 A scene on the CPU takes the plain versions, ``render_pt_mega_reference``
 and ``render_pt_rebin_reference``; a scene on a CUDA device launches the
 kernels or raises. Nothing in a frame reads back to the host.
@@ -85,6 +96,11 @@ tex_launches = dict.fromkeys(MESH_KINDS, 0)
 rebin_launches = 0
 rebin_material_launches = 0
 rebin_tex_launches = 0
+# the sampling instantiations' launches (K4's and K5's: the thin lens, R_d,
+# adaptive passes) and the cell updates between K4's adaptive passes
+sampling_launches = 0
+rebin_sampling_launches = 0
+adapt_launches = 0
 
 # the kernels stage the scene tables in shared memory (the material table,
 # up to 20 + 4 L + 5 columns wide with L mip levels, and the sky's 2 x 4
@@ -160,6 +176,40 @@ class PTArgs(ctypes.Structure):
         ("n_mips", ctypes.c_int),
         ("tacc", ctypes.c_int),
         ("lod_alpha", ctypes.c_float),
+        ("samp", ctypes.c_int),
+        ("aperture", ctypes.c_float),
+        ("focus_dist", ctypes.c_float),
+        ("r2", ctypes.c_int),
+        ("active", ctypes.c_void_p),
+        ("cell_h", ctypes.c_int),
+        ("cell_w", ctypes.c_int),
+        ("grid_w", ctypes.c_int),
+    ]
+
+
+class AdaptArgs(ctypes.Structure):
+    """Mirror of ``pt::AdaptArgs`` (csrc/pt.cuh), field for field."""
+
+    _fields_ = [
+        ("rad", ctypes.c_void_p),
+        ("acc", ctypes.c_void_p),
+        ("mean", ctypes.c_void_p),
+        ("m2", ctypes.c_void_p),
+        ("active", ctypes.c_void_p),
+        ("taken", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("scratch", ctypes.c_void_p),
+        ("w", ctypes.c_int),
+        ("cell_h", ctypes.c_int),
+        ("cell_w", ctypes.c_int),
+        ("grid_w", ctypes.c_int),
+        ("n_cells", ctypes.c_int),
+        ("half", ctypes.c_int),
+        ("s", ctypes.c_int),
+        ("min_spp", ctypes.c_int),
+        ("spp", ctypes.c_int),
+        ("tol", ctypes.c_float),
+        ("device", ctypes.c_int),
     ]
 
 
@@ -283,22 +333,208 @@ def mesh_kind(frame) -> str:
     return "instances" if isinstance(frame, FrameInstances) else "clusters"
 
 
+# --- adaptive spp (K4 feature 14) --------------------------------------------
+
+def adaptive_grid(scene: PTScene, h: int, w: int, tile=(64, 256), stripes=None):
+    """(grid_h, grid_w, cell_h, cell_w): the cells whose pixels stop taking
+    passes together, JAX's grid cells (ops/pallas/pt_kernel.py:464-480): the
+    tile's width narrowed to the atlas' or the env map's row width where the
+    scene has one, pick_tile(h, w, *tile), then `stripes` halved until it
+    fits; cell (i, j) covers rows i cell_h .. and columns j cell_w ..,
+    cell_h = tile_h stripes and cell_w = tile_w / stripes."""
+    if scene.has_atlas and tile[1] != scene.tex_atlas.shape[1]:
+        tile = (tile[0], scene.tex_atlas.shape[1])
+    if scene.has_env_map and tile[1] != scene.env_img.shape[1]:
+        tile = (tile[0], scene.env_img.shape[1])
+    th, tw = common.pick_tile(h, w, *tile)
+    stripes = 1 if stripes is None else stripes
+    while stripes > 1 and not (tw % stripes == 0 and h % (th * stripes) == 0
+                               and w % (tw // stripes) == 0):
+        stripes //= 2
+    ch, cw = th * stripes, tw // stripes
+    return h // ch, w // cw, ch, cw
+
+
+def _half(grid) -> int:
+    """Half the cell's pixel count rounded up to a power of 2 (0: one pixel)."""
+    return (1 << (grid[2] * grid[3] - 1).bit_length()) // 2
+
+
+def cell_sums(v, grid):
+    """(grid_h, grid_w) sums of the (h, w) plane v over each cell, in the
+    order of pt_cell_kernel: the cell's pixels row-major, zero-padded to a
+    power of 2, element i added to element i + half at each level."""
+    gh, gw, ch, cw = grid
+    x = v.reshape(gh, ch, gw, cw).permute(0, 2, 1, 3).reshape(gh, gw, ch * cw)
+    half = _half(grid)
+    if 2 * half > ch * cw:
+        x = torch.cat([x, x.new_zeros((gh, gw, 2 * half - ch * cw))], -1)
+    while x.shape[-1] > 1:
+        n = x.shape[-1] // 2
+        x = x[..., :n] + x[..., n:]
+    return x[..., 0]
+
+
+@dataclasses.dataclass
+class AdaptState:
+    """The planes and tables of an adaptive render (K4 feature 14): the sum
+    of the passes taken, each pixel's Welford mean and M2 of its luminance,
+    each cell's flag (1 while it takes passes) and passes taken, and the
+    image, written cell by cell as they stop (NaN, JAX's 0 * (1 / 0), in a
+    cell that takes none)."""
+
+    acc: torch.Tensor
+    mean: torch.Tensor
+    m2: torch.Tensor
+    active: torch.Tensor
+    taken: torch.Tensor
+    out: torch.Tensor
+    grid: tuple
+
+    @classmethod
+    def start(cls, h: int, w: int, grid, min_spp: int, device):
+        f32 = torch.float32
+        n = grid[0] * grid[1]
+        return cls(acc=torch.zeros((h, w, 3), dtype=f32, device=device),
+                   mean=torch.zeros((h, w), dtype=f32, device=device),
+                   m2=torch.zeros((h, w), dtype=f32, device=device),
+                   active=torch.full((n,), int(min_spp > 0), dtype=torch.int32, device=device),
+                   taken=torch.zeros((n,), dtype=f32, device=device),
+                   out=torch.full((h, w, 3), float("nan"), dtype=f32, device=device),
+                   grid=tuple(grid))
+
+    def pixels(self, cells):
+        """(h, w): each pixel's entry of the (n_cells,) per-cell `cells` (a
+        bool: the pixels of the cells where it holds)."""
+        gh, gw, ch, cw = self.grid
+        return cells.reshape(gh, 1, gw, 1).expand(gh, ch, gw, cw).reshape(gh * ch, gw * cw)
+
+    def pixel_active(self):
+        """(h, w) bool: the pixels whose cell takes passes."""
+        return self.pixels(self.active != 0)
+
+
+def cell_rel(st: AdaptState, s: int):
+    """(grid_h, grid_w) float32: each cell's relative standard error after s
+    passes, mean(se) / max(mean(mean), 1e-4), se a pixel's sqrt(max(M2 /
+    max(s - 1, 1) / max(s, 1), 0)) rooted in float64 (PyTorch's float32
+    root on the CPU is not correctly rounded), the means cell_sums over the
+    cell's pixel count."""
+    dev = st.m2.device
+    sf = torch.full((), float(s), dtype=torch.float32, device=dev)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    var = st.m2 / torch.maximum(sf - 1.0, one)
+    se_px = torch.sqrt(torch.clamp_min(var / torch.maximum(sf, one), 0.0).double()).float()
+    n = torch.full((), float(st.grid[2] * st.grid[3]), dtype=torch.float32, device=dev)
+    se = cell_sums(se_px, st.grid) / n
+    return se / torch.clamp_min(cell_sums(st.mean, st.grid) / n, 1e-4)
+
+
+def adapt_pass_reference(rad, st: AdaptState, s: int, min_spp: int, spp: int, tol: float):
+    """Plain PyTorch version of pt_cell_kernel, in place on st: after the
+    pass that brings the active cells to s passes (rad (h, w, 3) its
+    radiance), each of their pixels adds it to acc and updates its Welford
+    mean and M2 (ops/pallas/pt_kernel.py:343-351); each such cell records s
+    passes and takes another while s < min_spp, or while s < spp and its
+    cell_rel exceeds tol (:330-339); else it writes acc * (1 / s)
+    (:357-363)."""
+    dev = rad.device
+    sf = torch.full((), float(s), dtype=torch.float32, device=dev)
+    px = st.pixel_active()
+    acc = st.acc + rad
+    x = 0.2126 * rad[..., 0] + 0.7152 * rad[..., 1] + 0.0722 * rad[..., 2]
+    d = x - st.mean
+    mean = st.mean + d / sf
+    m2 = st.m2 + d * (x - mean)
+    st.acc.copy_(torch.where(px[..., None], acc, st.acc))
+    st.mean.copy_(torch.where(px, mean, st.mean))
+    st.m2.copy_(torch.where(px, m2, st.m2))
+    rel = cell_rel(st, s)
+    tol32 = torch.full((), tol, dtype=torch.float32, device=dev)
+    more = (rel > tol32) if s < spp else torch.zeros_like(rel, dtype=torch.bool)
+    if s < min_spp:
+        more = torch.ones_like(more)
+    active = st.active.reshape(rel.shape) != 0
+    stop = (active & ~more).reshape(-1)
+    st.taken.copy_(torch.where(st.active != 0, sf, st.taken))
+    stop_px = st.pixels(stop)
+    inv = torch.ones((), dtype=torch.float32, device=dev) / sf
+    st.out.copy_(torch.where(stop_px[..., None], st.acc * inv, st.out))
+    st.active.copy_((active & more).reshape(-1).to(torch.int32))
+
+
+def adapt_pass(rad, st: AdaptState, s: int, min_spp: int, spp: int, tol: float):
+    """The cell update after an adaptive pass: pt_cell_kernel on CUDA
+    tensors, adapt_pass_reference on CPU ones."""
+    global adapt_launches
+    if rad.device.type == "cpu":
+        return adapt_pass_reference(rad, st, s, min_spp, spp, tol)
+    h, w = st.mean.shape
+    dev = rad.device
+    for name, t, shape, dtype in (("rad", rad, (h, w, 3), torch.float32),
+                                  ("acc", st.acc, (h, w, 3), torch.float32),
+                                  ("mean", st.mean, (h, w), torch.float32),
+                                  ("m2", st.m2, (h, w), torch.float32),
+                                  ("out", st.out, (h, w, 3), torch.float32),
+                                  ("active", st.active, st.active.shape, torch.int32),
+                                  ("taken", st.taken, st.active.shape, torch.float32)):
+        common.check(t, name, shape, dtype, dev)
+    gh, gw, ch, cw = st.grid
+    half = _half(st.grid)
+    scratch = torch.empty((gh * gw, 2, max(half, 1)), dtype=torch.float32, device=dev)
+    args = AdaptArgs(
+        rad=rad.data_ptr(), acc=st.acc.data_ptr(), mean=st.mean.data_ptr(), m2=st.m2.data_ptr(),
+        active=st.active.data_ptr(), taken=st.taken.data_ptr(), out=st.out.data_ptr(),
+        scratch=scratch.data_ptr(), w=w, cell_h=ch, cell_w=cw, grid_w=gw, n_cells=gh * gw,
+        half=half, s=s, min_spp=min_spp, spp=spp, tol=tol,
+        device=dev.index if dev.index is not None else torch.cuda.current_device())
+    common.launch("pt_adapt", args, name="pt")
+    adapt_launches += 1
+    del scratch
+
+
 def render_pt_mega_reference(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int, *,
                              seed: int = 0, spp_offset: int = 0, bvh=None, row0: int = 0,
-                             band_h=None):
+                             band_h=None, adaptive_tol=0.0, adaptive_min=8, tile=(64, 256),
+                             stripes=None):
     """Plain PyTorch version: the wavefront core per pass (the attributes
     path with the camera's visit orders for a ClusterSet or an
     InstancedClusters), passes summed in pass order and then scaled by
-    1/spp (ops/pallas/pt_kernel.py:360-363).
-    → ((band_h or H, W, 3) image, nrays int64)."""
+    1/spp (ops/pallas/pt_kernel.py:360-363); pass s keyed on the global pass
+    spp_offset + s and the base seed, which the R_d sampler reads.
+    → ((band_h or H, W, 3) image, nrays int64). With adaptive_tol > 0, each
+    pass traces the pixels of the cells still taking passes
+    (adaptive_grid(scene, h, W, tile, stripes)) and adapt_pass_reference
+    updates the cells: → (image, nrays, (grid_h, grid_w) float32 passes
+    taken)."""
     cfg, h = _prepare(cfg, scene, row0, band_h, bvh)
     scene_k = kernel_scene(scene, bvh)
     frame = frame_view(bvh, cam_pos)
-    acc = torch.zeros((h, cfg.width, 3), dtype=torch.float32, device=scene.device)
-    nrays = torch.zeros((), dtype=torch.int64, device=scene.device)
+    dev = scene.device
+    nrays = torch.zeros((), dtype=torch.int64, device=dev)
+    if adaptive_tol > 0.0:
+        min_spp = min(adaptive_min, spp)
+        st = AdaptState.start(h, cfg.width, adaptive_grid(scene, h, cfg.width, tile, stripes),
+                              min_spp, dev)
+        py = torch.arange(h, device=dev)[:, None].expand(h, cfg.width) + row0
+        px = torch.arange(cfg.width, device=dev).expand(h, cfg.width)
+        for s in range(spp):
+            sel = st.pixel_active()
+            if not bool(sel.any()):
+                break
+            g = spp_offset + s
+            rad, n = _trace_core(cfg, scene_k, cam_pos, cam_quat, pass_seed(seed, g),
+                                 pix=(py[sel], px[sel]), bvh=frame, gpass=g, seed_base=seed)
+            full = torch.zeros((h, cfg.width, 3), dtype=torch.float32, device=dev)
+            full[sel] = torch.stack(rad, dim=-1)
+            adapt_pass_reference(full, st, s + 1, min_spp, spp, float(adaptive_tol))
+            nrays = nrays + n
+        return st.out, nrays, st.taken.reshape(st.grid[:2])
+    acc = torch.zeros((h, cfg.width, 3), dtype=torch.float32, device=dev)
     for s in range(spp):
-        rad, n = _trace_core(cfg, scene_k, cam_pos, cam_quat, pass_seed(seed, spp_offset + s),
-                             row0=row0, band_h=h, bvh=frame)
+        g = spp_offset + s
+        rad, n = _trace_core(cfg, scene_k, cam_pos, cam_quat, pass_seed(seed, g),
+                             row0=row0, band_h=h, bvh=frame, gpass=g, seed_base=seed)
         acc = acc + torch.stack(rad, dim=-1)
         nrays = nrays + n
     inv = float(np.float32(1.0) / np.float32(spp))
@@ -402,6 +638,9 @@ def _kernel_args(cfg: PTConfig, scene_k: PTScene, cam_pos, cam_quat, h: int, row
         tex=int(uses_tex_instantiation(scene_k, frame)),
         normal_map=int(scene_k.has_normal_map), n_mips=scene_k.n_mip_levels,
         tacc=int(has_tacc(scene_k, cfg)), lod_alpha=2.0 * cfg.fov / cfg.width,
+        samp=int(cfg.aperture > 0.0 or cfg.sampler == "r2"),
+        aperture=max(cfg.aperture, 0.0), focus_dist=cfg.focus_dist,
+        r2=int(cfg.sampler == "r2"),
     )
     return args, keep
 
@@ -428,36 +667,67 @@ def render_pt_mega(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
     TRI_UNROLL_MAX triangle slots. A raw BVH raises TypeError, as in the
     JAX package: it goes to render_pt_fast.
 
-    interpret, tile, stripes, groups and fast_math are TPU knobs, accepted
-    and ignored. Adaptive spp (adaptive_tol > 0, return_spp) is not ported
-    yet and raises.
+    interpret, groups and fast_math are TPU knobs, accepted and ignored.
+
+    Adaptive spp (adaptive_tol > 0): the image's cells (adaptive_grid: JAX's
+    grid cells from tile and stripes, which mean only this here) take
+    passes independently: each pixel's luminance is tracked across passes,
+    and a cell stops once it has taken min(adaptive_min, spp) passes and the
+    relative standard error of its pixels' means is at most adaptive_tol,
+    or at spp; a pixel is the mean of its cell's passes, and nrays counts
+    the passes taken. return_spp=True appends the (grid_h, grid_w) float32
+    table of the passes each cell took (all spp without adaptive_tol).
     """
-    global launches
-    del interpret, tile, stripes, groups, fast_math, adaptive_min
-    if adaptive_tol > 0.0 or return_spp:
-        raise NotImplementedError("adaptive spp (adaptive_tol, adaptive_min, return_spp) is not "
-                                  "ported yet (ROADMAP.md queue 1 item 4, K4 feature 14)")
+    global launches, sampling_launches
+    del interpret, groups, fast_math
     seed = pcg_base_seed(seed, key)
+    h = band_h or cfg.height
+    grid = adaptive_grid(scene, h, cfg.width, tile, stripes)
+    adaptive = adaptive_tol > 0.0
     if scene.device.type == "cpu":
-        return render_pt_mega_reference(cfg, scene, cam_pos, cam_quat, spp, seed=seed,
-                                         spp_offset=spp_offset, bvh=bvh, row0=row0,
-                                         band_h=band_h)
-    cfg, h = _prepare(cfg, scene, row0, band_h, bvh)
-    if spp < 1:
-        raise ValueError(f"spp must be >= 1, got {spp}")
-    frame = frame_view(bvh, cam_pos)
-    args, keep = _kernel_args(cfg, kernel_scene(scene, bvh), cam_pos, cam_quat, h, row0,
-                              seed, spp_offset, frame)
-    out = torch.empty((h, cfg.width, 3), dtype=torch.float32, device=scene.device)
-    nrays = torch.zeros((1,), dtype=torch.int64, device=scene.device)
-    args.out, args.nrays, args.spp = out.data_ptr(), nrays.data_ptr(), spp
-    common.launch("pt_render", args, name="pt")
-    launches += 1
-    mesh_launches[mesh_kind(frame)] += 1
-    material_launches[mesh_kind(frame)] += args.material
-    tex_launches[mesh_kind(frame)] += args.tex
-    del keep
-    return out, nrays[0]
+        res = render_pt_mega_reference(cfg, scene, cam_pos, cam_quat, spp, seed=seed,
+                                       spp_offset=spp_offset, bvh=bvh, row0=row0,
+                                       band_h=band_h, adaptive_tol=adaptive_tol,
+                                       adaptive_min=adaptive_min, tile=tile, stripes=stripes)
+    else:
+        cfg, h = _prepare(cfg, scene, row0, band_h, bvh)
+        if spp < 1:
+            raise ValueError(f"spp must be >= 1, got {spp}")
+        frame = frame_view(bvh, cam_pos)
+        args, keep = _kernel_args(cfg, kernel_scene(scene, bvh), cam_pos, cam_quat, h, row0,
+                                  seed, spp_offset, frame)
+        nrays = torch.zeros((1,), dtype=torch.int64, device=scene.device)
+        args.nrays = nrays.data_ptr()
+        kind = mesh_kind(frame)
+        if adaptive:
+            min_spp = min(adaptive_min, spp)
+            st = AdaptState.start(h, cfg.width, grid, min_spp, scene.device)
+            rad = torch.empty((h, cfg.width, 3), dtype=torch.float32, device=scene.device)
+            args.out, args.spp, args.active = rad.data_ptr(), 1, st.active.data_ptr()
+            args.samp = 1
+            args.cell_h, args.cell_w, args.grid_w = grid[2], grid[3], grid[1]
+        else:
+            out = torch.empty((h, cfg.width, 3), dtype=torch.float32, device=scene.device)
+            args.out, args.spp = out.data_ptr(), spp
+        for k in range(spp if adaptive else 1):
+            if adaptive:
+                args.spp_offset = to_int32(spp_offset + k)
+            common.launch("pt_render", args, name="pt")
+            launches += 1
+            mesh_launches[kind] += 1
+            material_launches[kind] += args.material
+            tex_launches[kind] += args.tex
+            sampling_launches += args.samp
+            if adaptive:
+                adapt_pass(rad, st, k + 1, min_spp, spp, float(adaptive_tol))
+        del keep
+        res = ((st.out, nrays[0], st.taken.reshape(grid[:2])) if adaptive
+               else (out, nrays[0]))
+    if not return_spp:
+        return res[:2]
+    if adaptive:
+        return res
+    return (*res, torch.full(grid[:2], float(spp), dtype=torch.float32, device=scene.device))
 
 
 # --- the rebin renderer (K5) --------------------------------------------------
@@ -583,11 +853,13 @@ def render_pt_rebin_reference(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, 
         kw = dict(bvh=frame, bounce_lo=b, bounce_hi=b, emit_state=True)
         seed0 = pass_seed(seed, gpass)
         if b == 0:
-            st = _trace_core(cfg, scene_k, cam_pos, cam_quat, seed0, row0=row0, band_h=h, **kw)
+            st = _trace_core(cfg, scene_k, cam_pos, cam_quat, seed0, row0=row0, band_h=h,
+                             gpass=gpass, seed_base=seed, **kw)
         else:
             st = _trace_core(cfg, scene_k, cam_pos, cam_quat, seed0,
                              state_in=unpack_state(state, has_chan=scene.has_dispersion,
-                                                   has_tacc=has_tacc(scene, cfg)), **kw)
+                                                   has_tacc=has_tacc(scene, cfg)),
+                             gpass=gpass, seed_base=seed, **kw)
         return pack_state(st).reshape(planes, n), st["nrays"]
 
     return _rebin(cfg, scene, spp, spp_offset, row0, h, rebin, run_bounce)
@@ -611,6 +883,7 @@ def rebin_bounce_launcher(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed
 
     def run_bounce(b, state, gpass):
         global rebin_launches, rebin_material_launches, rebin_tex_launches
+        global rebin_sampling_launches
         if state is None:
             state = torch.empty((planes, n), dtype=torch.float32, device=dev)
         common.check(state, "state", (planes, n), torch.float32, dev)
@@ -621,6 +894,7 @@ def rebin_bounce_launcher(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed
         rebin_launches += 1
         rebin_material_launches += args.material
         rebin_tex_launches += args.tex
+        rebin_sampling_launches += args.samp
         return state, nr[0]
 
     run_bounce.keep = keep  # the packed tables live as long as the launcher

@@ -15,6 +15,10 @@ Seeds: ``seed_from_key_data`` is the numpy counterpart of the JAX package's
 data is ``[s >> 32, s & 0xFFFFFFFF]``. Pass ``g`` of a render uses
 ``pass_seed(base, g) = base + g * -1640531527`` in wrapping int32 arithmetic
 (ops/pallas/pt_kernel.py:37,297; pathtracer/wavefront.py:2192).
+
+``r2_planes`` is the quasirandom R_d sampler's draw (ops/rng_pcg.py:80-119):
+a per-pixel rotation hashed from the pixel coordinates plus the global pass
+index times the dimension's uint32 alpha, wrapping.
 """
 
 from __future__ import annotations
@@ -71,6 +75,35 @@ def to_int32(v) -> int:
     """The low 32 bits of an int as a two's-complement int32."""
     v = int(v) & MASK
     return v - (1 << 32) if v >= 1 << 31 else v
+
+
+# additive-recurrence (quasirandom "R_d") alphas, Roberts 2018, as exact
+# uint32 fractions, so that i * alpha mod 1 wraps exactly in uint32
+_R2_ALPHAS = {
+    1: (0.6180339887498949,),
+    2: (0.7548776662466927, 0.5698402909980532),
+    3: (0.8191725133961645, 0.6710436067037893, 0.5497004779019703),
+    4: (0.8566748838545029, 0.7338918566271259,
+        0.6287067210378087, 0.5385972572236101),
+}
+_R2_U32 = {n: tuple(np.uint32(int(round(a * 2.0**32)) & MASK) for a in al)
+           for n, al in _R2_ALPHAS.items()}
+R2_CAMERA = 0x52AD1A7E  # the camera dimensions' rotation channel
+R2_NEE = 0x1D0C0FFE     # bounce 0's NEE dimensions' channel
+
+
+def r2_planes(seed, gpass, n: int, px, py, channel=R2_CAMERA):
+    """n low-discrepancy float32 planes in [0, 1) for GLOBAL pass gpass:
+    _to_unit(rot_k + gpass * alpha_k) with rot = pcg4d(px, py, channel,
+    seed), keyed on the integer coordinate planes px, py (any shape), so a
+    band, a tile or a chunk of passes draws the same numbers."""
+    if n not in _R2_U32:
+        raise ValueError(f"r2_planes supports 1-4 dims, got {n}")
+    px = px.to(torch.int64) & MASK
+    py = py.to(torch.int64) & MASK
+    i = u32(gpass)
+    rots = pcg4d(px, py, torch.full_like(px, u32(channel)), torch.full_like(px, u32(seed)))
+    return tuple(_to_unit((rots[k] + (i * int(_R2_U32[n][k]) & MASK)) & MASK) for k in range(n))
 
 
 def uniform_pcg_coords(seed, ctr, n: int, px, py):

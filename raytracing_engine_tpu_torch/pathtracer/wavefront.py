@@ -67,10 +67,17 @@ texture u, du1 r1 + du2 r2 from the barycentric gradient rows (the unrolled
 slots from the gathered triangle, a ClusterSet from its table rows,
 instances rotated into world space as the normal is).
 
+Sampling (``PTConfig``): ``aperture > 0`` turns the pinhole into a thin lens
+(two more camera dimensions, a disk of radius ``aperture`` aimed at the
+``y = focus_dist`` plane); ``sampler="r2"`` (rng="pcg" and a global pass
+index) draws the camera dimensions, and bounce 0's NEE dimensions where NEE
+is on, from the R_d sequence (ops/rng_pcg.r2_planes) keyed on the render's
+base seed and the global pass.
+
 Not in this slice (each raises NotImplementedError; ROADMAP queue 1 lists
-them in order): thin-lens DOF, fog and media, the R_d sampler, the light
-tree, the sorted wavefront (``sort``, with pathtracer/compaction.py); the
-scene features pathtracer/scene.py refuses never reach this code.
+them in order): fog and media, the light tree, mesh lights, the sorted
+wavefront (``sort``, with pathtracer/compaction.py); the scene features
+pathtracer/scene.py refuses never reach this code.
 """
 
 from __future__ import annotations
@@ -96,7 +103,10 @@ from raytracing_engine_tpu_torch.ops.rng import (
     planes_key,
 )
 from raytracing_engine_tpu_torch.ops.rng_pcg import (
+    R2_CAMERA,
+    R2_NEE,
     pass_seed,
+    r2_planes,
     to_int32,
     uniform_pcg,
     uniform_pcg_coords,
@@ -119,7 +129,7 @@ INV_SQRT3 = float(np.float32(0.5773502691896258))
 BVH_MAX_STEPS = 10_000              # JAX bvh_intersect's per-ray node cap
 _MESHES = (BVH, ClusterSet, InstancedClusters, FrameClusters, FrameInstances)
 
-_LATER = "ROADMAP.md queue 1 item 4, K4 features still to port"
+_LATER = "ROADMAP.md queue 1 item 4"
 _COMPACTION = "ROADMAP.md queue 1 item 7, pathtracer/compaction.py"
 RNGS = ("threefry", "pcg", "pallas")
 
@@ -132,14 +142,10 @@ def check_supported(cfg: PTConfig, bvh=None, sort=False):
     """Raise NotImplementedError for every static gate this slice lacks."""
     if cfg.rng not in RNGS:
         raise ValueError(f"rng must be one of {RNGS}, got {cfg.rng!r}")
-    if cfg.aperture > 0.0:
-        _not_yet("aperture > 0 (thin-lens DOF)")
     if cfg.fog_density > 0.0 or cfg.fog_scatter > 0.0:
-        _not_yet("fog_density / fog_scatter (fog and media)")
-    if cfg.sampler != "random":
-        _not_yet(f"sampler={cfg.sampler!r} (the R_d sampler)")
+        _not_yet("fog_density / fog_scatter (fog and media, feature 9)")
     if cfg.light_sampling == "tree":
-        _not_yet("light_sampling='tree' (the light tree)")
+        _not_yet("light_sampling='tree' (the light tree, feature 12)")
     if cfg.tex_filter not in ("nearest", "bilinear", "trilinear"):
         raise ValueError(f"tex_filter must be nearest, bilinear or trilinear, "
                          f"got {cfg.tex_filter!r}")
@@ -182,9 +188,11 @@ def _sel(idx, col, n: int):
 
 def _camera_rays(cfg: PTConfig, cam_pos, cam_quat, u1, u2, row0=0, col0=0,
                  coords=None, lens=None):
-    """Pinhole primary rays through pixel + (u1, u2) jitter: (o V3, d V3)."""
-    if lens is not None and cfg.aperture > 0.0:
-        _not_yet("aperture > 0 (thin-lens DOF)")
+    """Primary rays through pixel + (u1, u2) jitter: (o V3, d V3). With
+    lens=(u3, u4) and cfg.aperture > 0 a thin lens: a point of the disk of
+    radius aperture on the sensor plane (radius aperture sqrt(u3), angle
+    2 pi u4), aimed at the pixel's point on the y = focus_dist camera-space
+    plane."""
     if coords is not None:  # explicit global pixel-coordinate planes (py, px)
         iy, ix = coords[0].to(torch.float32), coords[1].to(torch.float32)
     else:
@@ -195,15 +203,30 @@ def _camera_rays(cfg: PTConfig, cam_pos, cam_quat, u1, u2, row0=0, col0=0,
     ncy = (v3.div((iy + u2) * 2.0, cfg.height) - 1.0) * cfg.ratio[1]
     qx, qy, qz, qw = cam_quat[0], cam_quat[1], cam_quat[2], cam_quat[3]
     vx, vy, vz = ncx, torch.ones_like(ncx), ncy
-    tx = qy * vz - qz * vy + qw * vx
-    ty = qz * vx - qx * vz + qw * vy
-    tz = qx * vy - qy * vx + qw * vz
-    dx = vx + 2.0 * (qy * tz - qz * ty)
-    dy = vy + 2.0 * (qz * tx - qx * tz)
-    dz = vz + 2.0 * (qx * ty - qy * tx)
+    lx = lz = None
+    if lens is not None and cfg.aperture > 0.0:
+        r = cfg.aperture * torch.sqrt(lens[0])
+        phi = (2.0 * PI) * lens[1]
+        lx, lz = r * torch.cos(phi), r * torch.sin(phi)
+        fd = float(np.float32(cfg.focus_dist))
+        vx, vy, vz = ncx * fd - lx, torch.zeros_like(ncx) + fd, ncy * fd - lz
+
+    def rot(vx, vy, vz):
+        tx = qy * vz - qz * vy + qw * vx
+        ty = qz * vx - qx * vz + qw * vy
+        tz = qx * vy - qy * vx + qw * vz
+        return (vx + 2.0 * (qy * tz - qz * ty),
+                vy + 2.0 * (qz * tx - qx * tz),
+                vz + 2.0 * (qx * ty - qy * tx))
+
+    dx, dy, dz = rot(vx, vy, vz)
     n = torch.sqrt(dx * dx + dy * dy + dz * dz)
     d = (dx / n, dy / n, dz / n)
-    o = (cam_pos[0] + dx * 0.0, cam_pos[1] + dy * 0.0, cam_pos[2] + dz * 0.0)
+    if lx is not None:
+        ox, oy, oz = rot(lx, torch.zeros_like(lx), lz)
+        o = (cam_pos[0] + ox, cam_pos[1] + oy, cam_pos[2] + oz)
+    else:
+        o = (cam_pos[0] + dx * 0.0, cam_pos[1] + dy * 0.0, cam_pos[2] + dz * 0.0)
     return o, d
 
 
@@ -1173,7 +1196,7 @@ def _draws(cfg: PTConfig, key, h: int, w: int, row0, band_h, col0, band_w, devic
 def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed0=None,
                 row0=0, band_h=None, col0=0, band_w=None, pix=None, bvh=None,
                 sort=False, state_in=None, bounce_lo=0, bounce_hi=None,
-                emit_state=False, key=None):
+                emit_state=False, key=None, gpass=None, seed_base=None):
     """One sample per pixel of the window at (row0, col0): (rad V3 planes,
     nrays int64 tensor). The pass's stream: at rng="pcg" the int32 seed0
     (else key_to_seed(key)); at "threefry" and "pallas" the pass key. pix:
@@ -1185,7 +1208,10 @@ def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed0=None,
     camera rays; bounces bounce_lo .. bounce_hi (default cfg.max_bounces)
     run; emit_state returns the state dict (rad and nrays inside) instead of
     (rad, nrays). The state carries px/py, and every draw of a staged call
-    is keyed on them (rng="pcg" only, as in the JAX package)."""
+    is keyed on them (rng="pcg" only, as in the JAX package).
+
+    gpass, seed_base: the pass's global index and the render's base seed
+    (default seed0), which key the R_d draws of sampler="r2"."""
     check_supported(cfg, bvh=bvh, sort=sort)
     if cfg.tex_filter == "trilinear" and not scene.has_mips:
         raise ValueError("tex_filter='trilinear' needs packed mip chains — build the scene "
@@ -1210,18 +1236,36 @@ def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed0=None,
             raise ValueError(f"rng={cfg.rng!r} draws from the pass key: pass key=")
         window_draw = _draws(cfg, key, h, w, row0, band_h, col0, band_w, device)
 
+    use_r2 = cfg.sampler == "r2"
+    if use_r2:
+        if cfg.rng != "pcg" or gpass is None:
+            raise ValueError("sampler='r2' needs rng='pcg' and a global pass index "
+                             "(render via render_pt_fast / render_pt_mega)")
+        if pix is not None:
+            r2py, r2px = pix[0], pix[1]
+        else:
+            r2px = torch.arange(w, device=device).expand(h, w) + col0
+            r2py = torch.arange(h, device=device)[:, None].expand(h, w) + row0
+        r2_seed = seed_base if seed_base is not None else seed0
+
+        def draw_r2(n, channel):
+            return r2_planes(r2_seed, gpass, n, r2px, r2py, channel=channel)
+
     if state_in is not None:
         st = dict(state_in)
         st["nrays"] = torch.zeros((), dtype=torch.int64, device=device)
     else:
-        if pix is not None:
-            u = uniform_pcg_coords(seed0, 0, 2, pix[1], pix[0])
+        n_cam = 4 if cfg.aperture > 0.0 else 2  # two lens dimensions under DOF
+        if use_r2:
+            u = draw_r2(n_cam, R2_CAMERA)
+        elif pix is not None:
+            u = uniform_pcg_coords(seed0, 0, n_cam, pix[1], pix[0])
         elif window_draw is not None:
-            u = window_draw(0, 2)
+            u = window_draw(0, n_cam)
         else:
-            u = uniform_pcg(seed0, 0, 2, h, w, row0=row0, col0=col0, device=device)
+            u = uniform_pcg(seed0, 0, n_cam, h, w, row0=row0, col0=col0, device=device)
         o, d = _camera_rays(cfg, cam_pos, cam_quat, u[0], u[1], row0=row0, col0=col0,
-                            coords=pix)
+                            coords=pix, lens=(u[2], u[3]) if n_cam == 4 else None)
         zero = d[0] * 0.0
         o = v3.add(o, v3.scale(d, 0.0))
         st = dict(o=o, d=d, thr=(zero + 1.0, zero + 1.0, zero + 1.0), rad=(zero, zero, zero),
@@ -1244,6 +1288,17 @@ def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed0=None,
             if "px" in st:
                 return uniform_pcg_coords(seed0, ctr, n, st["px"], st["py"])
             return uniform_pcg(seed0, ctr, n, h, w, row0=row0, col0=col0, device=device)
+    if use_r2 and cfg.use_nee:
+        # bounce 0's NEE light dimensions u[2..4] (draw counter 1) from a 3-D
+        # R_d sequence on their own channel; deeper bounces stay random
+        random_draw = draw
+
+        def draw(ctr, n):
+            u = random_draw(ctr, n)
+            if ctr != 1:
+                return u
+            r2u = draw_r2(3, R2_NEE)
+            return tuple(r2u[k - 2] if 2 <= k <= 4 else u[k] for k in range(n))
 
     for b in range(bounce_lo, bounce_hi + 1):
         st = _bounce(cfg, scene, st, b, draw, counts, bvh)
@@ -1268,17 +1323,19 @@ def trace_pass_soa(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, key=None,
     rng="pcg"; else key_to_seed(key)). packet: JAX's choice between the
     packet kernel and the gather traversal for a raw BVH; here a CUDA scene
     always launches K8 and a CPU one traverses plainly, so it is accepted
-    and ignored. sort and probe (ROADMAP.md queue 1 item 7) and mesh_light,
-    gpass and seed_base (item 4, K4 feature 13) are not ported yet and
-    raise when set."""
+    and ignored. gpass and seed_base: the global pass index and the
+    render's base seed, which key the R_d draws (sampler="r2"). sort and
+    probe (ROADMAP.md queue 1 item 7) and mesh_light (item 4, K4 feature
+    13) are not ported yet and raise when set."""
     del packet
     if probe is not None:
         _not_yet("probe (the regroup probe)", _COMPACTION)
-    if mesh_light is not None or gpass is not None or seed_base is not None:
-        _not_yet("mesh_light / gpass / seed_base (mesh lights)")
+    if mesh_light is not None:
+        _not_yet("mesh_light (mesh lights, feature 13)")
     check_entry(scene, bvh)
     rad, nrays = _trace_core(cfg, scene, cam_pos, cam_quat, seed0, row0, band_h,
-                             col0, band_w, bvh=bvh, sort=sort, key=key)
+                             col0, band_w, bvh=bvh, sort=sort, key=key, gpass=gpass,
+                             seed_base=seed_base)
     return v3.stack(rad), nrays
 
 
@@ -1314,7 +1371,7 @@ def render_pt_fast(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
         g = int(spp_offset) + i
         if cfg.rng == "pcg":
             img, nr = trace_pass_soa(cfg, scene, cam_pos, cam_quat, bvh=bvh,
-                                     seed0=pass_seed(base, g))
+                                     seed0=pass_seed(base, g), gpass=g, seed_base=base)
         else:
             img, nr = trace_pass_soa(cfg, scene, cam_pos, cam_quat, bvh=bvh,
                                      key=fold_in(words, g))

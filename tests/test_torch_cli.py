@@ -19,8 +19,10 @@ the port's own entry points, on the CPU (``--device cpu``).
 - The ``pt`` routes: ``--scene obj --bvh`` renders a skip-link BVH through
   render_pt_fast and ``--engine rebin`` a ClusterSet through
   render_pt_rebin, each bit for bit the direct call; rebin without
-  ``--bvh`` exits naming rebin; the features not ported yet raise the
-  renderers' NotImplementedError naming ROADMAP item 4 and write nothing.
+  ``--bvh`` exits naming rebin; ``--aperture``, ``--sampler r2`` and
+  ``--mega --adaptive`` write their direct calls' PNGs bit for bit; the
+  features not ported yet (fog, mesh lights) raise the renderers'
+  NotImplementedError naming ROADMAP item 4 and write nothing.
 - ``instanced`` bit for bit render_instanced_phong.
 
 Calling the JAX CLI costs an interpret-mode compile on its orbit, rebin and
@@ -324,9 +326,7 @@ def test_pt_routes_and_refusals(tmp_path, monkeypatch):
                                                        "emission": [5, 5, 5]}],
            "meshes": [{"obj": obj, "mat": 1}], "mesh_lights": True}
     (tmp_path / "lit.json").write_text(json.dumps(lit))
-    refused = {"thin-lens": ["--aperture", "0.1"], "sampler='r2'": ["--sampler", "r2"],
-               "fog": ["--fog", "0.1"], "feature 13": ["--scene", str(tmp_path / "lit.json")],
-               "feature 14": ["--mega", "--adaptive", "0.05"]}
+    refused = {"fog": ["--fog", "0.1"], "feature 13": ["--scene", str(tmp_path / "lit.json")]}
     for what, extra in refused.items():
         out = tmp_path / "refused.png"
         with pytest.raises(NotImplementedError, match="item 4") as e:
@@ -334,6 +334,26 @@ def test_pt_routes_and_refusals(tmp_path, monkeypatch):
                 + extra)
         assert what in str(e.value)
         assert not out.exists(), what
+    # the sampling features (item 4 features 10, 11 and 14) render, each bit for
+    # bit its direct call: the thin lens and the R_d sampler through
+    # render_pt_fast, adaptive spp through the megakernel
+    box, box_pos = scenes.cornell_box(device="cpu"), torch.tensor([0.0, 0.2, 0.0])
+    small = dict(width=16, height=16, max_bounces=1, rng="pcg")
+    sampling = {
+        "dof": (["--aperture", "0.1", "--focus", "5"],
+                lambda: wavefront.render_pt_fast(PTConfig(**small, aperture=0.1, focus_dist=5.0),
+                                                 box, box_pos, quat, 2, KEY0)),
+        "r2": (["--sampler", "r2"],
+               lambda: wavefront.render_pt_fast(PTConfig(**small, sampler="r2"), box, box_pos,
+                                                quat, 2, KEY0)),
+        "adaptive": (["--mega", "--adaptive", "0.05"],
+                     lambda: pt.render_pt_mega(PTConfig(**small), box, box_pos, quat, 2, KEY0,
+                                               adaptive_tol=0.05)),
+    }
+    for name, (extra, direct) in sampling.items():
+        out = tmp_path / f"{name}.png"
+        run(["pt", "--size", "16x16", "--spp", "2", "--bounces", "1", "--out", str(out)] + extra)
+        np.testing.assert_array_equal(png(out), to_srgb_u8(direct()[0].numpy()), err_msg=name)
 
 
 def test_instanced_equals_render_instanced_phong(tmp_path):

@@ -334,12 +334,10 @@ def test_unported_jax_fields_raise():
 
 
 UNSUPPORTED_CONFIGS = {
-    "aperture": dict(aperture=0.1),
     "fog": dict(fog_density=0.1),
-    "r2": dict(sampler="r2"),
     "tree": dict(light_sampling="tree"),
-    # bilinear and trilinear are ported; the light tree is not
-    "bilinear": dict(tex_filter="trilinear", light_sampling="tree"),
+    # trilinear filtering is ported; the light tree is not
+    "trilinear_tree": dict(tex_filter="trilinear", light_sampling="tree"),
 }
 
 

@@ -174,10 +174,13 @@ def test_tpu_knobs_are_accepted():
     got, _ = pt.render_pt_mega(cfg, scene, POS, QUAT, 1, key=5, interpret=True, tile=(8, 128),
                                stripes=2, groups=2, fast_math=True, adaptive_min=4)
     assert torch.equal(got, want)
-    with pytest.raises(NotImplementedError, match="feature 14"):
-        pt.render_pt_mega(cfg, scene, POS, QUAT, 1, adaptive_tol=0.01)
-    with pytest.raises(NotImplementedError, match="feature 14"):
-        pt.render_pt_mega(cfg, scene, POS, QUAT, 1, return_spp=True)
+    # adaptive spp (K4 feature 14) is ported: at spp 1 its one pass is the
+    # fixed render, and each cell's table entry 1
+    for kw in (dict(adaptive_tol=0.01), {}):
+        got, _, spp_map = pt.render_pt_mega(cfg, scene, POS, QUAT, 1, key=5, return_spp=True,
+                                            **kw)
+        assert torch.equal(got, want) and spp_map.dtype == torch.float32
+        assert spp_map.numel() > 0 and bool((spp_map == 1.0).all())
     mesh_scene, cs = _mesh()
     want, _ = pt.render_pt_rebin(cfg, mesh_scene, POS, QUAT, 1, key=5, bvh=cs)
     got, _ = pt.render_pt_rebin(cfg, mesh_scene, POS, QUAT, 1, key=5, bvh=cs, interpret=True,
