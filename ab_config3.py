@@ -104,8 +104,19 @@ template flags (pt_kernel<kind>, pt_rebin_kernel, cluster_kernel where
 DIR_A has no material or UV one), with the addresses and encodings
 dropped; instantiations DIR_A lacks are skipped.
 
+Phase: one phase of this checkout's chip_smoke.py run on each checkout's
+package, A B B A, each run a process of its own, after the ptxas lines
+(registers, stack, spills) of the K4 / K5 instantiations it runs: sampling,
+phase 23 (config 4 at 1920x1088 with R_d and adaptive spp, the showcase
+through the thin lens with R_d in K4 and K5, run_all.py's quality row;
+pt_samp_kernel, pt_samp_tex_kernel, pt_rebin_samp_kernel,
+pt_rebin_samp_tex_kernel), or textures, phase 22 (normal maps, mips and
+trilinear filtering, UV tables under instances; pt_tex_kernel,
+pt_rebin_tex_kernel).
+
 Usage: python3 ab_config3.py DIR_A DIR_B
        python3 ab_config3.py --spheres DIR_A DIR_B
+       python3 ab_config3.py --phase sampling|textures DIR_A DIR_B
        python3 ab_config3.py --cone DIR_A DIR_B [PAIRS]   (default 10)
        python3 ab_config3.py --lanes DIR
        python3 ab_config3.py --bound5 DIR
@@ -720,6 +731,46 @@ def cone_worker(root: str, settings=()) -> int:
     return 0
 
 
+# --phase: chip_smoke.py's function of each phase, and what names its
+# K4 / K5 instantiations in their mangled names
+PHASES = {"sampling": ("phase_sampling", "_samp_"), "textures": ("phase_textures", "_tex_")}
+
+
+def phase_worker(phase: str, root: str) -> int:
+    """One --phase run: DIR's ptxas lines of the phase's instantiations,
+    then the phase of chip_smoke.py (this checkout's script) on DIR's
+    package."""
+    import importlib.util
+
+    sys.path.insert(0, str(Path(root).resolve()))
+    import torch
+
+    from raytracing_engine_tpu_torch.ops.cuda import common
+
+    if not torch.cuda.is_available():
+        print("ab_config3: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+    info = common.build()
+    print(f"  {root}: built {', '.join(info['built']) or 'nothing'} in {info['seconds']:.1f} s "
+          f"(one nvcc a source, in parallel)", flush=True)
+    entry = None
+    for line in info["log"].splitlines():
+        m = re.search(rf"entry function '(\w*pt\w*{PHASES[phase][1]}\w*)'", line)
+        if m:
+            entry = m.group(1)
+        elif entry and ("spill stores" in line or "Used" in line):
+            print(f"  {root}: ptxas {entry}: {line.strip()}", flush=True)
+            entry = None if "Used" in line else entry
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  Path(__file__).with_name("chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    print(f"  {root}: {PHASES[phase][0]} [{card}]", flush=True)
+    getattr(smoke, PHASES[phase][0])(torch.device("cuda", 0), card)
+    return 0
+
+
 def cone_ab(a: str, b: str, pairs: int) -> int:
     """PAIRS pairs of --cone-worker runs, A B B A A B ...; see the module
     docstring."""
@@ -1239,6 +1290,8 @@ def main() -> int:
         return bound5(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--sphere-worker":
         return sphere_worker(sys.argv[2])
+    if len(sys.argv) == 4 and sys.argv[1] == "--phase-worker":
+        return phase_worker(sys.argv[2], sys.argv[3])
     if len(sys.argv) >= 3 and sys.argv[1] == "--k6-worker":
         return k6_worker(sys.argv[2], sys.argv[3:])
     if len(sys.argv) >= 3 and sys.argv[1] == "--cone-worker":
@@ -1249,13 +1302,17 @@ def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--spheres":
         mode = "--sphere-worker"
         del sys.argv[1]
+    if len(sys.argv) == 5 and sys.argv[1] == "--phase" and sys.argv[2] in PHASES:
+        mode = ("--phase-worker", sys.argv[2])
+        del sys.argv[1:3]
     if len(sys.argv) != 3:
         print(__doc__, file=sys.stderr)
         return 2
     a, b = sys.argv[1:]
     hashes = {}
     for root in (a, b, b, a):
-        proc = subprocess.run([sys.executable, __file__, mode, root], timeout=900,
+        cmd = [sys.executable, __file__, *(mode if isinstance(mode, tuple) else (mode,)), root]
+        proc = subprocess.run(cmd, timeout=900,
                               capture_output=True, text=True)
         sys.stdout.write(proc.stdout)
         sys.stderr.write(proc.stderr)

@@ -247,6 +247,22 @@ Phases, each printing its own lines:
      spp against R_d with adaptive tol 0.05 in the same budget, each timed
      and scored by MSE against a 2048-spp render of another seed, the
      adaptive render's mean spp beside.
+ 24. the light features at 1920x1088, pcg, seed_from_int(1), each main
+     path under the launch counters from 0: (a) config 4's Cornell box in
+     fog with single scattering (fog_density 0.08, fog_scatter 0.06), 4
+     bounces, 4 spp, through K4 pt_lights_kernel<none>, beside the clear
+     render; (b) tests/test_light_tree.py's grid of 8 x 8 equal sphere
+     lights under an 8-cluster tree, 2 bounces, 4 spp, through K4, the
+     frame timed beside power selection on the same scene (pt_kernel<none>);
+     (c) tests/test_mesh_lights.py's emissive 320-triangle icosphere over a
+     floor, through a ClusterSet, as mesh lights per pass and per lane, 4
+     bounces, 4 spp, through K4 pt_lights_kernel<clusters> and K5
+     pt_rebin_lights_kernel, K5's frame bit for bit K4's; in (a)-(c) each
+     kernel on rows 536..551 at 1 spp bit for bit its plain version, image
+     and ray count, and timed with its bound; (d) cli.main: pt --fog on the
+     Cornell box through --mega (K4) and through the wavefront, and a scene
+     file with mesh_lights through --bvh (a ClusterSet, K5), each PNG bit
+     for bit its direct call.
 Then a line that sums up phases 4 and 5's image output, one JSON line of
 per-kernel results, each number measured in this run
 but the bounds, computed from its inputs (K4 once per instantiation, on its
@@ -464,7 +480,9 @@ CLI_DENOISE_SPP = 4     # pt --scene cornell --denoise --aov (256x256, the defau
 CLI_INSTANCED = 2       # instanced frames at SIZE
 PORT_KERNELS = {"K1": "pyramid_kernel", "K2": "fused_kernel", "K3": "shade_kernel",
                 "K4": "pt_kernel", "K5": "pt_rebin_kernel", "K6": "cluster_kernel",
-                "K7": "instanced_kernel", "K8": "traverse_kernel", "K9": "rng_kernel"}
+                "K7": "instanced_kernel", "K8": "traverse_kernel", "K9": "rng_kernel",
+                "K4 sampling": "pt_samp_kernel", "K5 sampling": "pt_rebin_samp_kernel",
+                "K4 lights": "pt_lights_kernel", "K5 lights": "pt_rebin_lights_kernel"}
 
 # phase 19: the showcase scene (examples/showcase.json) as the JAX package's
 # cli.py pt --scene ... --bvh --engine mega renders it (cli.py:312-336):
@@ -505,6 +523,22 @@ SAMP_CELL_S = 12             # the passes of the cell update's seeded state
 SAMP_LENS = dict(aperture=0.15, focus_dist=7.5)
 SAMP_SHOW_SPP = 2            # (b)'s band (SHOW_BAND) against the plain versions
 QUALITY_SPP, QUALITY_REF_SPP, QUALITY_TILE = 256, 2048, (16, 256)  # run_all.py:268-310
+# phase 24: the light features at 1920x1088. (a) config 4's Cornell box in
+# fog with single scattering; (b) tests/test_light_tree.py's grid of equal
+# sphere lights at n = 8 (64 lights) under an 8-cluster tree, 2 bounces as
+# that file renders it; (c) tests/test_mesh_lights.py's emissive icosphere of
+# 320 triangles (> TRI_UNROLL_MAX) over a floor, through a ClusterSet, as
+# mesh lights per pass and per lane
+LIGHTS = dict(width=1920, height=1088, max_bounces=4)
+LIGHTS_FOG = dict(fog_density=0.08, fog_scatter=0.06, fog_color=(0.02, 0.02, 0.03))
+LIGHTS_SPP = 4
+LIGHTS_BAND = (536, 16)      # rows held to the plain versions at 1 spp
+LIGHTS_FRAMES = 3            # frames (distinct camera z) a K4 timing
+TREE = dict(width=1920, height=1088, max_bounces=2)
+TREE_N, TREE_C, TREE_POS = 8, 8, (0.0, 0.0, 1.0)
+MESH_LAMP = dict(subdivisions=2, radius=1.0, center=(0.0, 6.0, 2.5))
+MESH_POS = (0.0, -1.0, 0.5)
+CLI_LIGHTS = (512, 512, 16)  # pt --fog --mega and a mesh_lights scene file: size, spp
 
 
 def log(msg: str):
@@ -2050,6 +2084,26 @@ def k5_states(run, cfg, gpass: int = 0) -> list:
     return inputs
 
 
+def k5_events_ms(run, states) -> float:
+    """Device ms of a frame's K5 launches, each timed by CUDA events behind a
+    spin kernel on a fresh copy of the state it reads, summed. states: for
+    each pass g, k5_states(run, cfg, g). The events also hold the launch's
+    one-element ray-count fill."""
+    total = 0.0
+    for g, inputs in enumerate(states):
+        for b, x in enumerate(inputs):
+            y = None if x is None else x.clone()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPIN_CYCLES)
+            start.record()
+            run(b, y, g)
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+    return total
+
+
 def live_rays(states) -> list:
     """The rays K5 finds not parked (|o.x| < 1e17) in each state after
     bounce 0's (utils/timing.k5_bytes's live)."""
@@ -3347,11 +3401,13 @@ def profiled_device_ms(fn, name: str) -> float | None:
     return sum(us) / 1e3 if us else None
 
 
-def profiled_launches_ms(fn, name: str, n: int) -> float:
+def profiled_launches_ms(fn, name: str, n: int, fallback=None) -> float:
     """Device ms of kernel `name` summed over its n launches in one call of
     fn (torch.profiler), tried again where the profiler recorded another
     count (it has dropped a third of 128 events in a window); after three
-    tries, the whole call by CUDA events, which adds the launch gaps."""
+    tries, fallback() where it is given (k5_events_ms: each launch by CUDA
+    events), else the whole call by CUDA events, which adds the launch
+    gaps."""
     from torch.profiler import ProfilerActivity, profile
 
     counts = []
@@ -3365,6 +3421,11 @@ def profiled_launches_ms(fn, name: str, n: int) -> float:
         if len(us) == n:
             return sum(us) / 1e3
         counts.append(len(us))
+    if fallback is not None:
+        ms = fallback()
+        log(f"  {name}: the profiler recorded {counts} of {n} launches; each launch by CUDA "
+            f"events behind a spin kernel, summed: {ms:.4f} ms")
+        return ms
     ms = cuda_ms(lambda k: fn(), 1)[0]
     log(f"  {name}: the profiler recorded {counts} of {n} launches; the whole call by CUDA "
         f"events: {ms:.4f} ms")
@@ -4610,12 +4671,14 @@ def phase_sampling(device, card):
     k4b_ms = device_ms(lambda k: pt.render_pt_mega(scfg, scene, zs[k % (SHOW_FRAMES + 1)], squat,
                                                    SHOW_SPP, seed=seed, bvh=cs),
                        SHOW_FRAMES, "pt_samp_kernel", setup=lambda k: k)
+    _, _, run = pt.rebin_bounce_launcher(scfg, scene, pos, squat, seed, cs)
+    states = [k5_states(run, scfg, g) for g in range(SHOW_SPP)]
     k5b_ms = profiled_launches_ms(lambda: pt.render_pt_rebin(scfg, scene, pos, squat, SHOW_SPP,
                                                              seed=seed, bvh=cs),
-                                  "pt_rebin_samp_kernel", nb)
-    _, _, run = pt.rebin_bounce_launcher(scfg, scene, pos, squat, seed, cs)
+                                  "pt_rebin_samp_kernel", nb,
+                                  fallback=lambda: k5_events_ms(run, states))
     planes, n_px = state_plane_count(scene), scfg.width * scfg.height
-    live = [live_rays(k5_states(run, scfg, g)) for g in range(SHOW_SPP)]
+    live = [live_rays(x) for x in states]
     k5b_bound = bound_ms(sum(k5_bytes(n_px, lv, tables, planes) for lv in live), ops)
     log(f"  K4 pt_samp_kernel<clusters, material> thin lens + R_d {k4b_ms:.4f} ms of device "
         f"time a frame, "
@@ -4674,6 +4737,284 @@ def phase_sampling(device, card):
     ]
 
 
+def grid_light_scene(device, light_tree=0, n=TREE_N):
+    """tests/test_light_tree.py:29-47: a big diffuse floor under an n x n grid
+    of equal emissive spheres spread far apart."""
+    from raytracing_engine_tpu_torch.pathtracer import build_pt_scene
+
+    mats = [{"albedo": (0.6, 0.6, 0.6)}] + [
+        {"albedo": (0, 0, 0), "emission": (40.0, 32.0, 24.0)} for _ in range(n * n)]
+    spheres = [((0.0, 30.0, -1001.0), 1000.0, 0)]
+    for i in range(n):
+        for j in range(n):
+            spheres.append(((i * 16.0 - 24.0, 14.0 + j * 16.0, 2.0), 0.4, 1 + i * n + j))
+    return build_pt_scene(spheres=spheres, materials=mats, light_tree=light_tree, device=device)
+
+
+def mesh_light_scene(device, mode):
+    """tests/test_mesh_lights.py:26-46: an emissive icosphere (MESH_LAMP)
+    above a two-triangle floor and a diffuse ball, mesh_lights=mode; ->
+    (scene, its ClusterSet)."""
+    from raytracing_engine_tpu_torch.accel import build_clusters, icosphere
+    from raytracing_engine_tpu_torch.pathtracer import build_pt_scene
+
+    lamp = icosphere(**MESH_LAMP)
+    floor = np.array([[[-8, -2, -1.5], [8, -2, -1.5], [8, 14, -1.5]],
+                      [[-8, -2, -1.5], [8, 14, -1.5], [-8, 14, -1.5]]], np.float32)
+    tris = np.concatenate([floor, lamp], axis=0)
+    mats = np.array([0] * 2 + [1] * len(lamp), np.int32)
+    scene = build_pt_scene(
+        spheres=[((1.2, 6.0, -0.6), 0.9, 2)], triangles=tris, tri_mats=mats,
+        materials=[{"albedo": (0.65, 0.6, 0.55)}, {"albedo": (0, 0, 0), "emission": (6.0,) * 3},
+                   {"albedo": (0.4, 0.45, 0.7)}], mesh_lights=mode, device=device)
+    return scene, build_clusters(tris, tri_mats=mats, device=device)
+
+
+def phase_lights(device, card):
+    """The light features (module docstring, phase 24); -> the kernels-line
+    entries of K4 and K5 with them."""
+    from raytracing_engine_tpu_torch.ops.cuda import cluster, pt
+    from raytracing_engine_tpu_torch.ops.rng_pcg import prng_key_data, seed_from_int
+    from raytracing_engine_tpu_torch.pathtracer import PTConfig, load_scene_json, scenes
+    from raytracing_engine_tpu_torch.pathtracer.wavefront import render_pt_fast, state_plane_count
+    from raytracing_engine_tpu_torch.utils.image import to_srgb_u8
+    from raytracing_engine_tpu_torch.utils.timing import bound_ms, instanced_ops, k5_bytes, pt_ops
+
+    t0 = time.perf_counter()
+    seed = seed_from_int(1)
+    quat = torch.tensor([0.0, 0.0, 0.0, 1.0], device=device)
+    row0, bh = LIGHTS_BAND
+    src = "raytracing_engine_tpu_torch/csrc/pt_lights.cu"
+    k4_src = "raytracing_engine_tpu/ops/pallas/pt_kernel.py:194"
+    k5_src = "raytracing_engine_tpu/ops/pallas/pt_kernel.py:699"
+    entries = []
+
+    def poses(pos):
+        return [pos + torch.tensor([0.0, 0.0, 1e-4 * k], device=device)
+                for k in range(LIGHTS_FRAMES + 1)]
+
+    def main_path(label, fn, want):
+        """fn() under the launch counters from 0; -> (its output, the counts)."""
+        reset_launches()
+        res = fn()
+        torch.cuda.synchronize(device)
+        counts = launch_counts()
+        log(f"  {label}: launches {counts} (expected {want})")
+        if counts != want or not all(torch.isfinite(r).all() for r in res[::2]):
+            raise AssertionError(f"{label}: other launches, or a non-finite image")
+        return res, counts
+
+    def band(label, cfg, scene, bvh, pos, rebin=False):
+        """K4 (and K5) on the band at 1 spp, image and rays bit for bit their
+        plain versions; -> errors, the plain versions' ms, the plain K4's
+        rays and cluster work."""
+        kw = dict(seed=seed, bvh=bvh, row0=row0, band_h=bh)
+        k4b, n4 = pt.render_pt_mega(cfg, scene, pos, quat, 1, **kw)
+        cluster.work.update(slabs=0, tests=0)
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        w4, m4 = pt.render_pt_mega_reference(cfg, scene, pos, quat, 1, **kw)
+        torch.cuda.synchronize(device)
+        res = dict(plain4_ms=(time.perf_counter() - t1) * 1e3, work=dict(cluster.work),
+                   rays=int(m4), err4=(k4b - w4).abs().max().item())
+        ok = [torch.equal(k4b, w4) and int(n4) == int(m4)]
+        msg = (f"K4 {ok[0]} (max_abs_err {res['err4']:.6g}, rays {int(n4)} == {int(m4)}, plain "
+               f"{res['plain4_ms'] / 1e3:.2f} s)")
+        if rebin:
+            k5b, n5 = pt.render_pt_rebin(cfg, scene, pos, quat, 1, **kw)
+            torch.cuda.synchronize(device)
+            t1 = time.perf_counter()
+            w5, m5 = pt.render_pt_rebin_reference(cfg, scene, pos, quat, 1, **kw)
+            torch.cuda.synchronize(device)
+            res["plain5_ms"] = (time.perf_counter() - t1) * 1e3
+            res["err5"] = (k5b - w5).abs().max().item()
+            ok.append(torch.equal(k5b, w5) and int(n5) == int(m5))
+            msg += (f", K5 {ok[1]} (max_abs_err {res['err5']:.6g}, rays {int(n5)} == {int(m5)}"
+                    f", plain {res['plain5_ms'] / 1e3:.2f} s)")
+        log(f"  {label}: rows {row0}..{row0 + bh - 1} at 1 spp bit for bit the plain versions: "
+            f"{msg}")
+        if not all(ok):
+            raise AssertionError(f"{label}: a kernel differs from its plain version")
+        return res
+
+    def k4_entry(name, counts, res, ms, bound):
+        return {"name": name, "route": "cuda", "source": src, "replaces": k4_src,
+                "launches": counts["K4 lights"], "max_abs_err": res["err4"], "ms": ms,
+                "plain_ms": res["plain4_ms"], "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": None}
+
+    # (a) fog and single-scatter media on the Cornell box
+    box, box_pos = scenes.cornell_box(device=device), torch.tensor(C4_POS, device=device)
+    n_sph, n_tri = int(box.sph_count), int(box.tri_count)
+    fcfg = PTConfig(**LIGHTS, rng="pcg", **LIGHTS_FOG)
+    ccfg = PTConfig(**LIGHTS, rng="pcg")
+    (img, n_img), counts_a = main_path(
+        f"(a) the Cornell box {fcfg.width}x{fcfg.height}, {LIGHTS_FOG}, {LIGHTS_SPP} spp",
+        lambda: pt.render_pt_mega(fcfg, box, box_pos, quat, LIGHTS_SPP, seed=seed),
+        {"K4": 1, "K4 none": 1, "K4 lights": 1})
+    clear, n_clear = pt.render_pt_mega(ccfg, box, box_pos, quat, LIGHTS_SPP, seed=seed)
+    log(f"  fog: mean radiance {img.mean().item():.6f} (clear {clear.mean().item():.6f}), rays "
+        f"{int(n_img)} ({int(n_img) / int(n_clear):.4f} of the clear render's)")
+    ra = band("K4<none> fog + media", fcfg, box, None, box_pos)
+    fz = poses(box_pos)
+    fog_ms = device_ms(lambda k: pt.render_pt_mega(fcfg, box, fz[k], quat, LIGHTS_SPP,
+                                                   seed=seed), LIGHTS_FRAMES, "pt_lights_kernel",
+                       setup=lambda k: k)
+    clear_ms = device_ms(lambda k: pt.render_pt_mega(ccfg, box, fz[k], quat, LIGHTS_SPP,
+                                                     seed=seed), LIGHTS_FRAMES, "pt_kernel",
+                         setup=lambda k: k)
+    fog_bound = bound_ms(12 * fcfg.width * fcfg.height + k4_table_bytes(box, None, box_pos),
+                         pt_ops(int(n_img), n_sph, n_tri))
+    log(f"  K4 pt_lights_kernel<none> fog + media {fog_ms:.4f} ms of device time a frame (the "
+        f"clear frame's pt_kernel<none> {clear_ms:.4f} ms); bound {fog_bound[0]:.5f} ms by "
+        f"{fog_bound[1]} ({int(n_img)} rays, media shadow rays among them, x {n_sph} spheres and "
+        f"{n_tri} triangles) = {fog_bound[0] / fog_ms:.2%} [{card}]")
+    entries.append(k4_entry("pt_lights_kernel<none> (K4: fog, single-scatter media)", counts_a,
+                            ra, fog_ms, fog_bound))
+
+    # (b) the light tree on a grid of 64 sphere lights, beside power selection
+    grid = grid_light_scene(device, light_tree=TREE_C)
+    tpos = torch.tensor(TREE_POS, device=device)
+    tcfg = PTConfig(**TREE, rng="pcg", light_sampling="tree")
+    pcfg = PTConfig(**TREE, rng="pcg")
+    (timg, n_timg), counts_b = main_path(
+        f"(b) {TREE_N} x {TREE_N} sphere lights, a {TREE_C}-cluster tree, "
+        f"{tcfg.width}x{tcfg.height}, {tcfg.max_bounces} bounces, {LIGHTS_SPP} spp",
+        lambda: pt.render_pt_mega(tcfg, grid, tpos, quat, LIGHTS_SPP, seed=seed),
+        {"K4": 1, "K4 none": 1, "K4 lights": 1})
+    pimg, n_pimg = pt.render_pt_mega(pcfg, grid, tpos, quat, LIGHTS_SPP, seed=seed)
+    # the camera rays and their direct light hits are the same in both: the
+    # means differ by the floor's NEE estimators alone (heavy-tailed under
+    # power selection, tests/test_light_tree.py:159-162)
+    tm, pm = timg.double().mean().item(), pimg.double().mean().item()
+    log(f"  tree vs power selection ({int(n_timg)} and {int(n_pimg)} rays): the image's mean "
+        f"{tm:.6f} and {pm:.6f} (relative difference {abs(tm - pm) / max(pm, 1e-12):.4f})")
+    rb = band("K4<none> light tree", tcfg, grid, None, tpos)
+    tz = poses(tpos)
+    tree_ms = device_ms(lambda k: pt.render_pt_mega(tcfg, grid, tz[k], quat, LIGHTS_SPP,
+                                                    seed=seed), LIGHTS_FRAMES, "pt_lights_kernel",
+                        setup=lambda k: k)
+    power_ms = device_ms(lambda k: pt.render_pt_mega(pcfg, grid, tz[k], quat, LIGHTS_SPP,
+                                                     seed=seed), LIGHTS_FRAMES, "pt_kernel",
+                         setup=lambda k: k)
+    g_sph = int(grid.sph_count)
+    tree_bound = bound_ms(12 * tcfg.width * tcfg.height + k4_table_bytes(grid, None, tpos)
+                          + 4 * grid.lt_center.shape[0] * 8, pt_ops(int(n_timg), g_sph, 0))
+    log(f"  K4 pt_lights_kernel<none> light tree {tree_ms:.4f} ms of device time a frame, power "
+        f"selection (pt_kernel<none>) {power_ms:.4f} ms: x {tree_ms / power_ms:.3f}; bound "
+        f"{tree_bound[0]:.5f} ms by {tree_bound[1]} ({int(n_timg)} rays x {g_sph} spheres) = "
+        f"{tree_bound[0] / tree_ms:.2%} [{card}]")
+    entries.append(k4_entry("pt_lights_kernel<none> (K4: the light tree)", counts_b, rb,
+                            tree_ms, tree_bound))
+
+    # (c) mesh lights per pass and per lane over a ClusterSet, K4 and K5
+    mpos = torch.tensor(MESH_POS, device=device)
+    mcfg = PTConfig(**LIGHTS, rng="pcg")
+    nb = LIGHTS_SPP * (mcfg.max_bounces + 1)
+    for mode, what in ((True, "per pass"), ("lane", "per lane")):
+        scene, cs = mesh_light_scene(device, mode)
+
+        def both():
+            k4, n4 = pt.render_pt_mega(mcfg, scene, mpos, quat, LIGHTS_SPP, seed=seed, bvh=cs)
+            k5, n5 = pt.render_pt_rebin(mcfg, scene, mpos, quat, LIGHTS_SPP, seed=seed, bvh=cs)
+            return k4, n4, k5, n5
+
+        (k4, n4, k5, n5), counts_c = main_path(
+            f"(c) mesh lights {what}: a ClusterSet of {int(scene.tri_count)} triangles, "
+            f"{int(scene.tri_count) - 2} of them in the light table's mesh slot, "
+            f"{mcfg.width}x{mcfg.height}, {LIGHTS_SPP} spp, K4 and K5",
+            both, {"K4": 1, "K4 lights": 1, "K5": nb, "K5 lights": nb})
+        same = torch.equal(k5, k4) and int(n5) == int(n4)
+        log(f"  K5's frame bit for bit K4's: {same} ({int(n4)} rays)")
+        if not same:
+            raise AssertionError(f"mesh lights {what}: K5 differs from K4")
+        rc = band(f"K4<clusters> and K5, mesh lights {what}", mcfg, scene, cs, mpos, rebin=True)
+        scale = int(n4) / rc["rays"]
+        ops = int((pt_ops(rc["rays"], int(scene.sph_count), 0)
+                   + instanced_ops(0, 0, rc["work"]["slabs"], rc["work"]["tests"])) * scale)
+        lt = pt.light_tables(pt.kernel_scene(scene, cs))
+        tables = k4_table_bytes(scene, cs, mpos) + sum(
+            4 * t.numel() for t in lt.values() if t is not None) + 64 * LIGHTS_SPP
+        k4_bound = bound_ms(12 * mcfg.width * mcfg.height + tables, ops)
+        mz = poses(mpos)
+        k4_ms = device_ms(lambda k: pt.render_pt_mega(mcfg, scene, mz[k], quat, LIGHTS_SPP,
+                                                      seed=seed, bvh=cs), LIGHTS_FRAMES,
+                          "pt_lights_kernel", setup=lambda k: k)
+        _, _, run = pt.rebin_bounce_launcher(mcfg, scene, mpos, quat, seed, cs)
+        states = [k5_states(run, mcfg, g) for g in range(LIGHTS_SPP)]
+        k5_ms = profiled_launches_ms(lambda: pt.render_pt_rebin(mcfg, scene, mpos, quat,
+                                                                LIGHTS_SPP, seed=seed, bvh=cs),
+                                     "pt_rebin_lights_kernel", nb,
+                                     fallback=lambda: k5_events_ms(run, states))
+        planes, n_px = state_plane_count(scene, mcfg), mcfg.width * mcfg.height
+        live = [live_rays(x) for x in states]
+        k5_bound = bound_ms(sum(k5_bytes(n_px, lv, tables, planes) for lv in live), ops)
+        log(f"  mesh lights {what}: K4 pt_lights_kernel<clusters> {k4_ms:.4f} ms of device time a "
+            f"frame, bound {k4_bound[0]:.5f} ms by {k4_bound[1]} = {k4_bound[0] / k4_ms:.2%}; K5 "
+            f"pt_rebin_lights_kernel {k5_ms:.4f} ms over {nb} launches, bound {k5_bound[0]:.5f} ms "
+            f"by {k5_bound[1]} = {k5_bound[0] / k5_ms:.2%} ({ops} ops: the band's "
+            f"{rc['work']['slabs']} box + {rc['work']['tests']} triangle tests and {rc['rays']} "
+            f"rays x {int(scene.sph_count)} spheres, x {scale:.6g}) [{card}]")
+        entries.append(k4_entry(f"pt_lights_kernel<clusters> (K4: mesh lights {what})", counts_c,
+                                rc, k4_ms, k4_bound))
+        entries.append({"name": f"pt_rebin_lights_kernel (K5: mesh lights {what})",
+                        "route": "cuda", "source": src, "replaces": k5_src,
+                        "launches": counts_c["K5 lights"], "max_abs_err": rc["err5"],
+                        "ms": k5_ms, "plain_ms": rc["plain5_ms"], "bound_ms": k5_bound[0],
+                        "bound_by": k5_bound[1], "library_ms": None})
+
+    # (d) the command line: pt --fog, through the megakernel and the wavefront,
+    # and a scene file with mesh lights (auto: a ClusterSet and K5)
+    out = CLI_OUT
+    out.mkdir(parents=True, exist_ok=True)
+    key = prng_key_data(0)
+    fog_args = ["--fog", 0.05, "--fog-color", 0.1, 0.1, 0.12]
+    w, h, spp = CLI_LIGHTS
+    size = f"{w}x{h}"
+    small = dict(width=w, height=h, max_bounces=4, rng="pcg", fog_density=0.05,
+                 fog_color=(0.1, 0.1, 0.12))
+    counts = run_cli(["pt", "--scene", "cornell", "--mega", "--size", size, "--spp", spp,
+                      *fog_args, "--out", out / "cornell_fog_mega.png"])
+    (img, _), ms = kernel_device_ms(lambda: pt.render_pt_mega(
+        PTConfig(**small), box, box_pos, quat, spp, key))
+    check_cli("pt cornell --mega --fog", counts, {"K4": 1, "K4 none": 1, "K4 lights": 1},
+              {"cornell_fog_mega.png": (png_of(out / "cornell_fog_mega.png"),
+                                        to_srgb_u8(img.cpu().numpy()))}, ms, 1, card)
+    counts = run_cli(["pt", "--scene", "cornell", "--size", f"{w // 2}x{h // 2}", "--spp", 2,
+                      *fog_args, "--out", out / "cornell_fog.png"])
+    img, _ = render_pt_fast(PTConfig(**dict(small, width=w // 2, height=h // 2)), box, box_pos,
+                            quat, 2, key)
+    check_cli("pt cornell --fog (the wavefront)", counts, {},
+              {"cornell_fog.png": (png_of(out / "cornell_fog.png"),
+                                   to_srgb_u8(img.cpu().numpy()))}, {}, 1, card)
+    spec = {"materials": [{"albedo": [0.6, 0.6, 0.6]},
+                          {"albedo": [0, 0, 0], "emission": [6, 6, 6]}],
+            "spheres": [{"center": [0, 6, -51.5], "radius": 50, "mat": 0}],
+            "meshes": [{"icosphere": {k: list(v) if isinstance(v, tuple) else v
+                                      for k, v in MESH_LAMP.items()}, "mat": 1}],
+            "camera": {"position": list(MESH_POS), "quat": [0, 0, 0, 1]},
+            "mesh_lights": True}
+    path = out / "mesh_lights.json"
+    path.write_text(json.dumps(spec))
+    counts = run_cli(["pt", "--scene", path, "--bvh", "--size", size, "--spp", LIGHTS_SPP,
+                      "--out", out / "mesh_lights.png"])
+    b = load_scene_json(str(path), device=device)
+    from raytracing_engine_tpu_torch.accel import build_clusters
+
+    cs = build_clusters(b.tris, tri_mats=b.tri_mats, vertex_normals=b.tri_normals,
+                        vertex_uvs=b.tri_uvs, device=device)
+    fcfg5 = PTConfig(width=w, height=h, max_bounces=4, rng="pcg")
+    (img, _), ms = kernel_device_ms(lambda: pt.render_pt_rebin(
+        fcfg5, b.scene, torch.from_numpy(b.cam_pos).to(device),
+        torch.from_numpy(b.cam_quat).to(device), LIGHTS_SPP, key, bvh=cs))
+    n5 = LIGHTS_SPP * 5
+    check_cli("pt mesh_lights.json --bvh (rebin)", counts, {"K5": n5, "K5 lights": n5},
+              {"mesh_lights.png": (png_of(out / "mesh_lights.png"),
+                                   to_srgb_u8(img.cpu().numpy()))}, ms, 1, card)
+    log(f"  phase 24: {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
 def reset_launches():
     """Every kernel's launch count to 0 (K4's by kind and material too)."""
     from raytracing_engine_tpu_torch.ops.cuda import (
@@ -4693,6 +5034,7 @@ def reset_launches():
     pt.rebin_launches = pt.rebin_material_launches = pt.rebin_tex_launches = 0
     pt.sampling_launches = pt.rebin_sampling_launches = 0
     pt.adapt_launches = 0
+    pt.light_launches = pt.rebin_light_launches = 0
     cluster.tan_launches = instanced.uv_launches = 0
 
 
@@ -4714,8 +5056,9 @@ def launch_counts() -> dict:
               "K4": pt.launches, "K4 none": pt.mesh_launches["none"],
               "K4 material": sum(pt.material_launches.values()),
               "K4 tex": sum(pt.tex_launches.values()), "K4 sampling": pt.sampling_launches,
-              "K4 cells": pt.adapt_launches,
-              "K5": pt.rebin_launches, "K5 material": pt.rebin_material_launches,
+              "K4 cells": pt.adapt_launches, "K4 lights": pt.light_launches,
+              "K5": pt.rebin_launches, "K5 lights": pt.rebin_light_launches,
+              "K5 material": pt.rebin_material_launches,
               "K5 tex": pt.rebin_tex_launches, "K5 sampling": pt.rebin_sampling_launches,
               "K6": cluster.launches, "K6 tan": cluster.tan_launches,
               "K7 uv": instanced.uv_launches,
@@ -5176,6 +5519,9 @@ def main() -> int:
     log("phase 23: the sampling features (thin-lens depth of field, the R_d sampler, adaptive "
         "spp) through K4 and K5")
     samp = phase_sampling(device, card)
+    log("phase 24: the light features (fog and single-scatter media, the light tree, mesh "
+        "lights per pass and per lane) through K4 and K5")
+    lights = phase_lights(device, card)
 
     # no single PyTorch call computes any of these kernels (torch.rand draws
     # Philox, not threefry): library_ms null
@@ -5258,6 +5604,7 @@ def main() -> int:
          "launches": k9["launches"] + orbit["K9"] + entry.get("K9", 0), "library_ms": None},
         *tex,
         *samp,
+        *lights,
     ]
     for k in kernels:  # a timing that failed fails the run
         bad = [key for key in ("ms", "plain_ms", "bound_ms", "max_abs_err")

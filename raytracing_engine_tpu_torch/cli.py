@@ -31,9 +31,8 @@ Routes, with the JAX package's meanings:
 - ``instanced`` renders models/instanced.render_instanced_phong (K7).
 
 ``--aperture`` / ``--focus`` (the thin lens), ``--sampler r2`` (R_d, at
-``--rng pcg``) and ``--adaptive TOL`` on mega render as in the JAX package.
-Features the port does not have yet (``--fog``, mesh lights) raise the
-renderers' own NotImplementedError, which names its ROADMAP item. Printed
+``--rng pcg``), ``--adaptive TOL`` on mega, ``--fog`` / ``--fog-color`` and
+scene files with ``mesh_lights`` render as in the JAX package. Printed
 times wait for the device first.
 """
 
@@ -628,7 +627,7 @@ def main(argv=None):
                    help="AOV-guided a-trous denoise of the beauty pass "
                         "(the low-spp real-time pattern)")
     p.add_argument("--fog", type=float, default=0.0, metavar="DENSITY",
-                   help="homogeneous Beer-Lambert fog density (0 = off; not ported yet)")
+                   help="homogeneous Beer-Lambert fog density (0 = off)")
     p.add_argument("--fog-color", type=float, nargs=3, default=(0.0, 0.0, 0.0))
     p.add_argument("--bloom", type=float, default=0.0, metavar="STRENGTH",
                    help="HDR bloom before tonemapping (0 = off)")

@@ -28,7 +28,19 @@
 // every instantiation's sampling form) adds the sampling features: the thin
 // lens (thin_lens_ray) and the R_d sampler (draw_r2: the camera dimensions,
 // and bounce 0's NEE dimensions) in `camera_ray` and `bounce`; K4's adaptive
-// passes in pt.cu.
+// passes in pt_body.cuh. A fifth (kLights, in the light forms of
+// pt_lights.cu, which take the sampling features too) adds the light
+// features, each under its run-time flag (their state in `Lights`):
+// homogeneous fog and single-scatter media (fog_segment: Beer–Lambert and
+// the fog color's in-scatter, the equiangular scatter vertex with its own
+// shadow ray, and the shadow segments' transmittance), the light tree
+// (tree_walk, and the hit's slot match for its MIS density), and mesh
+// lights, one triangle a pass (a row of Args.mesh_rows) or one a lane (the
+// alias tables Args.mlt_*), with the bounce's longer draw (JAX's nu). Their
+// branches sit under `if constexpr (kLights)` or behind a test of kLights,
+// so the instantiations without them keep their code and their registers
+// (their state is in `Lights`, not in `Scene` or `Hit`, whose layouts those
+// instantiations keep).
 //
 // One thread follows one ray. The body of one bounce is one function,
 // `bounce`, over a per-ray state (`Ray`, the 17 planes of
@@ -91,6 +103,7 @@ constexpr int kMirror = 1;
 constexpr int kDielectric = 3;
 constexpr int kMetal = 4;
 constexpr int kLightTri = 1;
+constexpr int kLightMesh = 2;  // the mesh lights' pseudo-slot
 constexpr uint32_t kPassPrime = 0x9E3779B9u;  // int32 -1640531527
 
 // Packed scene table widths (ops/cuda/pt.py pack_pt_scene):
@@ -117,6 +130,8 @@ constexpr int kMatW = 8;
 constexpr int kLightW = 12;
 constexpr int kEnvW = 8;
 constexpr int kTriUnrollMax = 32;
+constexpr int kTreeW = 8;      // light tree cluster row [center(3), radius, power, 0, 0, 0]
+constexpr int kPassRowW = 16;  // mesh-light row [v0(3), e1(3), e2(3), Le(3), area, pick, 0, 0]
 constexpr float kDeadO = 1e18f;                    // parked-ray origin
 constexpr float kInvSqrt3 = 0.57735025882720947f;  // its direction components
 constexpr int kStatePlanes = 17;  // then chan (a dispersive scene) and tacc (Args.tacc)
@@ -192,6 +207,22 @@ struct Args {
   int r2;
   const int* active;
   int cell_h, cell_w, grid_w;
+  // The light features (the light forms of pt_lights.cu, kLights, which
+  // ops/cuda/pt.py launches where any is on): homogeneous fog (fog_density > 0) and its
+  // in-scatter color, single scattering (fog_scatter > 0); the light tree
+  // (tree 0 / 1: light_sampling "tree"; the slot columns ride the light
+  // table's columns 9-11) and its n_clusters rows (C, 8); mesh lights per
+  // pass (mesh_rows: (n, 16) rows, row s for pass s of a K4 launch, K5's
+  // pass's row first) or per lane (mlt_k: the lane tables' K, 0 without;
+  // mlt_meta [total area, pick])
+  float fog_density, fog_scatter, fog_r, fog_g, fog_b;
+  int tree, n_clusters;
+  const float* lt;
+  const float* mesh_rows;
+  const float* mlt_rows;   // (12 mlt_k, 128) [v0, e1, e2, Le] component rows
+  const float* mlt_smp;    // (2 mlt_k, 128) [alias prob; alias index] rows
+  const float* mlt_meta;
+  int mlt_k;
 };
 
 // The cell update after each adaptive pass of K4 (pt_cell_kernel, pt.cu).
@@ -244,6 +275,31 @@ struct Scene {
   ins::Instances inst;
   bool mesh;       // kMeshAny: intersect cl instead of the unrolled triangle slots
   bool instanced;  // kMeshAny: intersect the instances of cl instead
+};
+
+// The light features' flags and tables (kLights, pt_body.cuh stage_lights):
+// fog and media, the light tree, mesh lights per lane (per pass: the pass's
+// row, an argument of bounce). A struct of its own, so that Scene, and with
+// it the instantiations without these features, keeps its layout.
+struct Lights {
+  bool fog, media, tree, lane_mesh;
+  float fog_density, fog_scatter;
+  float3 fog_color;
+  int n_clusters;
+  const float* lt;
+  const float* mlt_rows;
+  const float* mlt_smp;
+  int mlt_k;
+  float mesh_area, mesh_pick;
+};
+
+// A light sample's light-feature inputs (kLights): the pass's mesh-light
+// row (or null), the point the light tree weighs its clusters at (null: no
+// tree), and the lane mesh light's triangle dimension.
+struct LightArgs {
+  const float* mesh_row;
+  const float3* tree_p;
+  float u_tri;
 };
 
 // Whether a scene of kind kMesh sweeps instances, else a ClusterSet: a
@@ -649,12 +705,121 @@ struct LightSample {
   float pdf_area;
 };
 
+// The light tree's weight of cluster c at p (wavefront._tree_cluster_weights):
+// power / max(dist², radius², 1e-12).
+__device__ __forceinline__ float tree_weight(const Lights& L, int c, float3 p) {
+  const float* r = L.lt + c * kTreeW;
+  const float dx = p.x - __ldg(r), dy = p.y - __ldg(r + 1), dz = p.z - __ldg(r + 2);
+  const float d2 = dx * dx + dy * dy + dz * dz;
+  const float rad = __ldg(r + 3);
+  return __ldg(r + 4) / vmax(vmax(d2, rad * rad), 1e-12f);
+}
+
+// The light tree's slot for u_sel at p (wavefront._sample_light, tree_p): a
+// cluster by the running CDF of the weights (summed in cluster order), u_sel
+// rescaled into its interval, then the first slot of that cluster whose
+// within-cluster CDF exceeds it; pick: the cluster's probability times the
+// slot's within it.
+__device__ __forceinline__ int tree_walk(const Scene& sc, const Lights& L, float3 p, float u_sel,
+                                         float& pick) {
+  float wtot = tree_weight(L, 0, p);
+  for (int c = 1; c < L.n_clusters; ++c) wtot = wtot + tree_weight(L, c, p);
+  const float uw = u_sel * wtot;
+  float cum = tree_weight(L, 0, p);
+  float cl = 0.0f, lo = 0.0f, w_sel = cum;
+  for (int c = 1; c < L.n_clusters; ++c) {
+    const float w = tree_weight(L, c, p);
+    if (uw >= cum) {
+      cl = cl + 1.0f;
+      lo = cum;
+      w_sel = w;
+    }
+    cum = cum + w;
+  }
+  const float p_cl = w_sel / vmax(wtot, 1e-30f);
+  const float u_in = vmin(vmax((uw - lo) / vmax(w_sel, 1e-30f), 0.0f), kBelowOne);
+  int idx = sc.L - 1;
+  for (int k = 0; k < sc.L; ++k) {
+    const float* row = sc.light + k * kLightW;
+    if (row[9] == cl && u_in < row[10]) {
+      idx = k;
+      break;
+    }
+  }
+  pick = p_cl * sc.light[idx * kLightW + 11];
+  return idx;
+}
+
+// Texel (ty, tx) of component block `block` of a lane-row table of K rows a
+// block (wavefront._fetch_row_block): a row outside 0..K-1 reads 0.
+__device__ __forceinline__ float block_fetch(const float* tab, int K, int block, int ty, int tx) {
+  return ty >= 0 && ty < K ? __ldg(tab + (block * K + ty) * kTexW + min(max(tx, 0), kTexW - 1))
+                           : 0.0f;
+}
+
+// The mesh pseudo-slot's point at a triangle slot's barycentrics (kLights):
+// on the lane's own triangle, alias-sampled from the lane tables by u_tri
+// (wavefront._sample_mesh_tri_lane), or on the pass's (mesh_row: the
+// scalars of the plain version's row, its point summed left to right and
+// its normal from the scalar cross product).
+__device__ __forceinline__ void mesh_light_point(const Lights& L, const LightArgs& la, float u1,
+                                                 float u2, LightSample& ls) {
+  const float su = sqrtf(u1);
+  const float b1 = su * (1.0f - u2);
+  const float b2 = su * u2;
+  if (L.lane_mesh) {
+    const int K = L.mlt_k;
+    const float N = static_cast<float>(K * kTexW);
+    const float x = la.u_tri * N;
+    const float j = vmin(vmax(floorf(x), 0.0f), N - 1.0f);
+    const float f = x - j;
+    const float ty0 = floorf(j / 128.0f);
+    const int tx0 = static_cast<int>(j - ty0 * 128.0f);
+    const int y0 = static_cast<int>(ty0);
+    const float ap = block_fetch(L.mlt_smp, K, 0, y0, tx0);
+    const float t = f < ap ? j : block_fetch(L.mlt_smp, K, 1, y0, tx0);
+    const float ty = floorf(t / 128.0f);
+    const int tx = static_cast<int>(t - ty * 128.0f);
+    const int y = static_cast<int>(ty);
+    float c[12];
+#pragma unroll
+    for (int k = 0; k < 12; ++k) c[k] = block_fetch(L.mlt_rows, K, k, y, tx);
+    const float3 v0 = make_float3(c[0], c[1], c[2]);
+    const float3 e1 = make_float3(c[3], c[4], c[5]);
+    const float3 e2 = make_float3(c[6], c[7], c[8]);
+    ls.p = add3(v0, add3(scale3(e1, b1), scale3(e2, b2)));
+    const float3 nt = cross3(e1, e2);
+    ls.n = scale3(nt, 1.0f / vmax(sqrtf(dot3(nt, nt)), 1e-20f));
+    ls.le = make_float3(c[9], c[10], c[11]);
+    return;
+  }
+  const float* m = la.mesh_row;
+  ls.p = make_float3(__ldg(m) + __ldg(m + 3) * b1 + __ldg(m + 6) * b2,
+                     __ldg(m + 1) + __ldg(m + 4) * b1 + __ldg(m + 7) * b2,
+                     __ldg(m + 2) + __ldg(m + 5) * b1 + __ldg(m + 8) * b2);
+  const float ncx = __ldg(m + 4) * __ldg(m + 8) - __ldg(m + 5) * __ldg(m + 7);
+  const float ncy = __ldg(m + 5) * __ldg(m + 6) - __ldg(m + 3) * __ldg(m + 8);
+  const float ncz = __ldg(m + 3) * __ldg(m + 7) - __ldg(m + 4) * __ldg(m + 6);
+  const float ninv = 1.0f / vmax(sqrtf(ncx * ncx + ncy * ncy + ncz * ncz), 1e-20f);
+  ls.n = make_float3(ncx * ninv + 0.0f * b1, ncy * ninv + 0.0f * b1, ncz * ninv + 0.0f * b1);
+  ls.le = make_float3(__ldg(m + 9), __ldg(m + 10), __ldg(m + 11));
+}
+
+// A light point and its area pdf for NEE, the slot by power or uniformly;
+// kLights adds wavefront._sample_light's tree_p, mesh_light and u_tri (L and
+// la): the slot by the light tree at *la->tree_p where it is given, and the
+// mesh pseudo-slot's point on the pass's triangle or the lane's own.
+template <bool kLights = false>
 __device__ __forceinline__ LightSample sample_light(const Scene& sc, float u_sel,
                                                     float u1, float u2,
-                                                    bool uniform) {
+                                                    bool uniform, const Lights* L = nullptr,
+                                                    const LightArgs* la = nullptr) {
   const int count = max(sc.n_light, 1);
   int idx = 0;
-  if (uniform) {
+  float tree_pick = 0.0f;
+  if (kLights && la->tree_p != nullptr) {
+    idx = tree_walk(sc, *L, *la->tree_p, u_sel, tree_pick);
+  } else if (uniform) {
     idx = min(static_cast<int>(u_sel * static_cast<float>(count)), count - 1);
   } else {
     for (int k = 0; k < sc.L - 1; ++k) idx += u_sel >= sc.light[k * kLightW + 7] ? 1 : 0;
@@ -677,6 +842,8 @@ __device__ __forceinline__ LightSample sample_light(const Scene& sc, float u_sel
     ls.p = add3(v0, add3(scale3(e1, b1), scale3(e2, b2)));
     const float3 nt = cross3(e1, e2);
     ls.n = scale3(nt, 1.0f / vmax(sqrtf(dot3(nt, nt)), 1e-20f));
+  } else if (kLights && kind == kLightMesh && (L->lane_mesh || la->mesh_row != nullptr)) {
+    mesh_light_point(*L, *la, u1, u2, ls);
   } else {
     const bool ok = prim >= 0 && prim < sc.S;
     const float* s = sc.sph + prim * kSphW;
@@ -688,8 +855,9 @@ __device__ __forceinline__ LightSample sample_light(const Scene& sc, float u_sel
     ls.n = make_float3(rr * cosf(phi), rr * sinf(phi), z);
     ls.p = add3(c, scale3(ls.n, r));
   }
-  ls.pdf_area = uniform ? 1.0f / (area * static_cast<float>(count))
-                        : row[6] / vmax(area, 1e-20f);
+  ls.pdf_area = kLights && la->tree_p != nullptr ? tree_pick / vmax(area, 1e-20f)
+                : uniform ? 1.0f / (area * static_cast<float>(count))
+                          : row[6] / vmax(area, 1e-20f);
   return ls;
 }
 
@@ -1113,9 +1281,12 @@ struct Nee {
   float dist, cos_ll, cos_s;
   float pdf_w, max_t;  // with an env map: the pdf with its branch's pick, the shadow ray's reach
 };
+template <bool kLights = false>
 __device__ __forceinline__ bool nee_sample(const Args& a, const Scene& sc, float3 p, float3 n,
-                                           const float* u, bool uniform, Nee& e) {
-  e.ls = sample_light(sc, u[2], u[3], u[4], uniform);
+                                           const float* u, bool uniform, Nee& e,
+                                           const Lights* L = nullptr,
+                                           const LightArgs* la = nullptr) {
+  e.ls = sample_light<kLights>(sc, u[2], u[3], u[4], uniform, L, la);
   const float3 to_l = sub3(e.ls.p, p);
   e.dist = sqrtf(dot3(to_l, to_l));
   e.wi = scale3(to_l, 1.0f / vmax(e.dist, 1e-20f));
@@ -1128,8 +1299,11 @@ __device__ __forceinline__ bool nee_sample(const Args& a, const Scene& sc, float
 // and rescales the selection uniform into the branch it took (wavefront.py
 // _bounce, JAX :1838-1846): the map's alias-sampled texel (unbounded shadow
 // ray) or a light sample; each pdf carries its branch's pick.
+template <bool kLights = false>
 __device__ __forceinline__ bool nee_sample_env(const Args& a, const Scene& sc, float3 p,
-                                               float3 n, const float* u, bool uniform, Nee& e) {
+                                               float3 n, const float* u, bool uniform, Nee& e,
+                                               const Lights* L = nullptr,
+                                               const LightArgs* la = nullptr) {
   const float pick = sc.env_pick;
   bool ok;
   if (u[2] < pick) {
@@ -1142,7 +1316,7 @@ __device__ __forceinline__ bool nee_sample_env(const Args& a, const Scene& sc, f
     ok = true;
   } else {
     const float u_sel = vmin(vmax((u[2] - pick) / vmax(1.0f - pick, 1e-6f), 0.0f), kBelowOne);
-    e.ls = sample_light(sc, u_sel, u[3], u[4], uniform);
+    e.ls = sample_light<kLights>(sc, u_sel, u[3], u[4], uniform, L, la);
     const float3 to_l = sub3(e.ls.p, p);
     e.dist = sqrtf(dot3(to_l, to_l));
     e.wi = scale3(to_l, 1.0f / vmax(e.dist, 1e-20f));
@@ -1158,19 +1332,32 @@ __device__ __forceinline__ bool nee_sample_env(const Args& a, const Scene& sc, f
 // NEE with the env map where the material instantiation has one, else
 // toward the light table alone, as the other instantiations always do:
 // whether a vertex has an NEE target, the shadow ray, its reach and the
-// sample's solid-angle pdf.
+// sample's solid-angle pdf. kLights: the light sample with the light
+// features (lt; mesh_row: the pass's mesh-light row, or null): the tree at
+// p + eps n (the next segment's origin, where the hit-side density
+// evaluates it), the pass's mesh-light row or the lane's triangle (its draw
+// dimension, the first after the fixed ones).
 template <bool kMat>
 __device__ __forceinline__ bool nee_target(const Scene& sc) {
   if constexpr (kMat) return sc.n_light > 0 || sc.env_map;
   return sc.n_light > 0;
 }
-template <bool kMat>
+template <bool kMat, bool kLights = false>
 __device__ __forceinline__ bool nee_cast(const Args& a, const Scene& sc, float3 p, float3 n,
-                                         const float* u, bool uniform, Nee& e) {
-  if constexpr (kMat) {
-    if (sc.env_map) return nee_sample_env(a, sc, p, n, u, uniform, e);
+                                         const float* u, bool uniform, Nee& e,
+                                         const Lights* lt = nullptr,
+                                         const float* mesh_row = nullptr) {
+  LightArgs la;  // (kLights)
+  float3 tree_p;
+  if constexpr (kLights) {
+    tree_p = add3(p, scale3(n, a.eps));
+    la = LightArgs{mesh_row, lt->tree ? &tree_p : nullptr,
+                   lt->lane_mesh ? u[a.rr_start > 0 ? 6 : 5] : 0.0f};
   }
-  return nee_sample(a, sc, p, n, u, uniform, e);
+  if constexpr (kMat) {
+    if (sc.env_map) return nee_sample_env<kLights>(a, sc, p, n, u, uniform, e, lt, &la);
+  }
+  return nee_sample<kLights>(a, sc, p, n, u, uniform, e, lt, &la);
 }
 template <bool kMat>
 __device__ __forceinline__ float nee_reach(const Scene& sc, const Nee& e) {
@@ -1187,11 +1374,17 @@ __device__ __forceinline__ float nee_pdf_w(const Scene& sc, const Nee& e) {
   return e.ls.pdf_area * (e.dist * e.dist) / vmax(e.cos_ll, 1e-6f);
 }
 
-// The light an unoccluded shadow ray brings, MIS-weighted, added to r.rad.
+// The light an unoccluded shadow ray brings, MIS-weighted, added to r.rad;
+// kLights: times the shadow segment's fog transmittance (wavefront._bounce's
+// scale * exp(-fog_density dist); fog_density 0: none).
+template <bool kLights = false>
 __device__ __forceinline__ void nee_add(Ray& r, float3 thr, float3 albedo, const Nee& e,
-                                        float pdf_w) {
+                                        float pdf_w, float fog_density = 0.0f) {
   const float w_nee = power_heuristic(pdf_w, e.cos_s / kPi);
-  const float s = e.cos_s / vmax(pdf_w, 1e-20f) * w_nee / kPi;
+  float s = e.cos_s / vmax(pdf_w, 1e-20f) * w_nee / kPi;
+  if constexpr (kLights) {
+    if (fog_density > 0.0f) s = s * expf(-fog_density * e.dist);
+  }
   r.rad.x = r.rad.x + thr.x * albedo.x * (e.ls.le.x * s);
   r.rad.y = r.rad.y + thr.y * albedo.y * (e.ls.le.y * s);
   r.rad.z = r.rad.z + thr.z * albedo.z * (e.ls.le.z * s);
@@ -1199,10 +1392,12 @@ __device__ __forceinline__ void nee_add(Ray& r, float3 thr, float3 albedo, const
 
 // nee_add's general form, taken in scenes with metal (JAX
 // wavefront.py:1904-1915): f = albedo/π on a diffuse hit, the GGX BRDF on a
-// metal one, and the MIS counter-pdf of the same BSDF.
+// metal one, and the MIS counter-pdf of the same BSDF; kLights as nee_add.
+template <bool kLights = false>
 __device__ __forceinline__ void nee_add_brdf(const Scene& sc, Ray& r, float3 thr, float3 albedo,
                                              bool is_metal, const Ggx& g, float3 n, float3 d,
-                                             const Nee& e, float pdf_w) {
+                                             const Nee& e, float pdf_w,
+                                             float fog_density = 0.0f) {
   float pdf_b;
   float3 f;
   if (is_metal) {
@@ -1212,10 +1407,167 @@ __device__ __forceinline__ void nee_add_brdf(const Scene& sc, Ray& r, float3 thr
     f = scale3(albedo, kInvPi);
   }
   const float w_nee = power_heuristic(pdf_w, pdf_b);
-  const float s = e.cos_s / vmax(pdf_w, 1e-20f) * w_nee;
+  float s = e.cos_s / vmax(pdf_w, 1e-20f) * w_nee;
+  if constexpr (kLights) {
+    if (fog_density > 0.0f) s = s * expf(-fog_density * e.dist);
+  }
   r.rad.x = r.rad.x + thr.x * f.x * (e.ls.le.x * s);
   r.rad.y = r.rad.y + thr.y * f.y * (e.ls.le.y * s);
   r.rad.z = r.rad.z + thr.z * f.z * (e.ls.le.z * s);
+}
+
+// Fog over the segment just intersected (wavefront._bounce, JAX
+// wavefront.py:1617-1683; kLights): Beer–Lambert over it (an escape 1e4 long)
+// and the fog color's in-scatter, then with single scattering the
+// equiangular scatter vertex: a light point first (power or uniform
+// selection, never the tree), the scatter
+// distance by the angle the point subtends, an isotropic phase, both legs
+// attenuated, and the vertex's own shadow ray, which every lane of the warp
+// form enters (a lane without one inactive). Then attenuates r.thr.
+template <int kMesh, bool kWarp>
+__device__ __forceinline__ void fog_segment(const Args& a, const Scene& sc, const Lights& L,
+                                            Ray& r, bool hit, float t, const float* u,
+                                            const float* mesh_row, bool uniform, unsigned& nrays,
+                                            bool live) {
+  const float seg = hit ? t : 1e4f;
+  const float trans = expf(-L.fog_density * seg);
+  const float inscat = 1.0f - trans;
+  const float3 thr = r.thr;
+  if (live) {
+    r.rad.x = r.rad.x + thr.x * inscat * L.fog_color.x;
+    r.rad.y = r.rad.y + thr.y * inscat * L.fog_color.y;
+    r.rad.z = r.rad.z + thr.z * inscat * L.fog_color.z;
+  }
+  if (L.media) {
+    bool cand = false;
+    float3 xm = r.o, wim = make_float3(1.0f, 0.0f, 0.0f), le = make_float3(0.0f, 0.0f, 0.0f);
+    float rdist = 0.0f, gain = 0.0f;
+    if (live) {
+      // the media's dimensions after the fixed ones and the lane mesh light's
+      const float* um = u + (a.rr_start > 0 ? 6 : 5) + (L.lane_mesh ? 1 : 0);
+      const LightArgs la{mesh_row, nullptr, L.lane_mesh ? um[4] : 0.0f};
+      const LightSample lm = sample_light<true>(sc, um[0], um[1], um[2], uniform, &L, &la);
+      const float3 o = r.o, d = r.d;
+      const float3 rel = sub3(lm.p, o);
+      const float delta = dot3(rel, d);
+      const float3 perp = sub3(rel, scale3(d, delta));
+      const float d_m = sqrtf(vmax(dot3(perp, perp), 1e-12f));
+      const float tha = poly_atan2(-delta, d_m);
+      const float thb = poly_atan2(seg - delta, d_m);
+      const float th = tha + (thb - tha) * um[3];
+      float tt = delta + d_m * (sinf(th) / vmax(cosf(th), 1e-9f));
+      tt = vmin(vmax(tt, 0.0f), seg);
+      const float dt = tt - delta;
+      const float pdf_t = d_m / vmax((thb - tha) * (d_m * d_m + dt * dt), 1e-12f);
+      xm = add3(o, scale3(d, tt));
+      const float3 tol = sub3(lm.p, xm);
+      rdist = sqrtf(dot3(tol, tol));
+      wim = scale3(tol, 1.0f / vmax(rdist, 1e-20f));
+      const float cos_lm = fabsf(dot3(lm.n, wim));
+      cand = sc.n_light > 0 && rdist > a.eps && thb > tha + 1e-7f;
+      gain = L.fog_scatter * expf(-L.fog_density * tt) * kQuarterInvPi * cos_lm *
+             expf(-L.fog_density * rdist) / vmax(lm.pdf_area * rdist * rdist * pdf_t, 1e-20f);
+      le = lm.le;
+    }
+    if (cand) nrays += 1;
+    bool blocked;
+    if constexpr (kWarp) {
+      blocked = occluded<kMesh, true>(sc, xm, wim, rdist * 0.999f, a.t_min, cand);
+    } else {
+      blocked = cand && occluded<kMesh, false>(sc, xm, wim, rdist * 0.999f, a.t_min);
+    }
+    if (cand && !blocked) {
+      r.rad.x = r.rad.x + thr.x * (le.x * gain);
+      r.rad.y = r.rad.y + thr.y * (le.y * gain);
+      r.rad.z = r.rad.z + thr.z * (le.z * gain);
+    }
+  }
+  if (live) r.thr = scale3(thr, trans);
+}
+
+// Whether a ray hit a triangle and the hit's slot (wavefront._surface's
+// is_tri and `prim`), from the sphere and unrolled-triangle tests of
+// intersect run again: a triangle where the hit's distance t_hit is under
+// the nearest sphere's (intersect's t_t < t_s); prim the sphere's, or the
+// unrolled triangle's, -1 on a mesh.
+template <int kMesh>
+__device__ __forceinline__ bool hit_slot(const Scene& sc, float3 o, float3 d, float t_min,
+                                         float t_hit, int& prim) {
+  float t_s = kBig;
+  int i_s = -1;
+  for (int k = 0; k < sc.n_sph; ++k) {
+    float disc;
+    const float t = sphere_t(sc.sph + k * kSphW, o, d, t_min, disc);
+    if (disc > 0.0f && t > t_min && t < t_s) {
+      t_s = t;
+      i_s = k;
+    }
+  }
+  if (!(t_hit < t_s)) {
+    prim = i_s;
+    return false;
+  }
+  if (has_instances<kMesh>(sc) || has_clusters<kMesh>(sc)) {
+    prim = -1;
+    return true;
+  }
+  float t_t = kBig;
+  int i_t = -1;
+  for (int k = 0; k < sc.n_tri; ++k) {
+    float t;
+    if (tri_hit(sc.tri + k * kTriW, o, d, t_min, t_t, t)) {
+      t_t = t;
+      i_t = k;
+    }
+  }
+  prim = i_t;
+  return true;
+}
+
+// The light tree's MIS density of the light a ray hit, seen from the
+// previous vertex at the ray's origin o (wavefront._bounce, JAX
+// wavefront.py:1741-1767): the hit's slot by its (prim, kind) match, the
+// slot's cluster weighted at o; a light NEE cannot address matches no slot
+// and has density 0.
+__device__ __forceinline__ float tree_density(const Scene& sc, const Lights& L, bool is_tri,
+                                              int prim, const Hit& h, float3 o) {
+  float clh = 0.0f, pick_h = 0.0f;
+  for (int k = 0; k < sc.L; ++k) {
+    const float* row = sc.light + k * kLightW;
+    if (prim == static_cast<int>(row[1]) && is_tri == (static_cast<int>(row[0]) == kLightTri)) {
+      clh = clh + row[9];
+      pick_h = pick_h + row[11];
+    }
+  }
+  float wtot = 0.0f, w_sel = 0.0f;
+  for (int c = 0; c < L.n_clusters; ++c) {
+    const float w = tree_weight(L, c, o);
+    wtot = c == 0 ? w : wtot + w;
+    if (clh == static_cast<float>(c)) w_sel = w_sel + w;
+  }
+  const float p_cl = w_sel / vmax(wtot, 1e-30f);
+  return p_cl * pick_h / vmax(h.light_area, 1e-20f);
+}
+
+// The hit-side MIS density of the light a ray (o, d) hit with the light
+// features (wavefront._bounce, JAX wavefront.py:1727-1790), given the
+// density without them: the light tree's, or for a triangle with mesh
+// lights the pseudo-slot's over the total emissive area (uniform
+// selection: 1 / (area count); power: pick / area; the pass's row, or the
+// lane tables' [area, pick]).
+template <int kMesh>
+__device__ __forceinline__ float light_density(const Args& a, const Scene& sc, const Lights& L,
+                                               const Hit& h, float3 o, float3 d, bool uniform,
+                                               const float* mesh_row, float density) {
+  const bool mesh_lights = mesh_row != nullptr || L.lane_mesh;
+  if (!(mesh_lights || (L.tree && !uniform))) return density;
+  int prim;
+  const bool is_tri = hit_slot<kMesh>(sc, o, d, a.t_min, h.t, prim);
+  if (L.tree && !uniform) return tree_density(sc, L, is_tri, prim, h, o);
+  if (!is_tri) return density;
+  const float area = L.lane_mesh ? L.mesh_area : __ldg(mesh_row + 12);
+  if (uniform) return 1.0f / vmax(area * static_cast<float>(max(sc.n_light, 1)), 1e-20f);
+  return (L.lane_mesh ? L.mesh_pick : __ldg(mesh_row + 13)) / vmax(area, 1e-20f);
 }
 
 // Bounce b of a live ray for the pass of `seed`: adds its emission, sky and
@@ -1225,17 +1577,34 @@ __device__ __forceinline__ void nee_add_brdf(const Scene& sc, Ray& r, float3 thr
 // keeps its radiance and counts no ray). kMat adds the material features'
 // branches, each under its scene flag, and kTex (with kMat) the texture
 // features'; kSamp the R_d sampler's bounce-0 NEE dimensions (global pass
-// gpass).
-template <int kMesh, bool kWarp, bool kMat, bool kTex = false, bool kSamp = false>
+// gpass); kLights (with kSamp) the light features, each under its flag in
+// *lt (mesh_row: the pass's mesh-light row, or null): the draw of JAX's nu
+// (the lane mesh light's dimension, then the media's 4 or 5, after the
+// fixed ones), the fog over each segment (fog_segment), the hit-side MIS
+// density of the tree and of mesh lights (light_density), and NEE with
+// nee_cast's light features and the shadow segment's fog.
+template <int kMesh, bool kWarp, bool kMat, bool kTex = false, bool kSamp = false,
+          bool kLights = false>
 __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, int b,
                                        uint32_t seed, uint32_t gpass, unsigned& nrays,
-                                       bool live = true) {
+                                       bool live = true, const Lights* lt = nullptr,
+                                       const float* mesh_row = nullptr) {
   static_assert(kMat || !kTex, "the texture instantiation is a material one");
+  static_assert(kSamp || !kLights, "the light forms take the sampling features too");
   const bool uniform = a.uniform_lights != 0;
-  float u[8];
-  // bounce draws: ctr b + 1, two blocks of 4 (nu = 5, or 6 with RR)
-  draw4(r.px, r.py, static_cast<uint32_t>(b + 1) * 2u, seed, u);
-  draw4(r.px, r.py, static_cast<uint32_t>(b + 1) * 2u + 1u, seed, u + 4);
+  float u[kLights ? 12 : 8];
+  if constexpr (kLights) {
+    // two blocks of 4 (6 or 7 dims with the lane mesh light's), three with
+    // the media's (nu 9 to 12)
+    const uint32_t blocks = lt->media ? 3u : 2u;
+    for (uint32_t k = 0; k < blocks; ++k) {
+      draw4(r.px, r.py, static_cast<uint32_t>(b + 1) * blocks + k, seed, u + 4 * k);
+    }
+  } else {
+    // bounce draws: ctr b + 1, two blocks of 4 (nu = 5, or 6 with RR)
+    draw4(r.px, r.py, static_cast<uint32_t>(b + 1) * 2u, seed, u);
+    draw4(r.px, r.py, static_cast<uint32_t>(b + 1) * 2u + 1u, seed, u + 4);
+  }
   // R_d: bounce 0's NEE light dimensions u[2..4] from the 3-D sequence
   if (kSamp && a.r2 && a.use_nee && b == 0) {
     draw_r2<3>(r.px, r.py, kR2Nee, static_cast<uint32_t>(a.seed), gpass, u + 2);
@@ -1253,6 +1622,10 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
     h.front = true;
   }
   const bool hit = intersect<kMesh, kWarp, kMat, kTex>(sc, r.o, d, a.t_min, h, live);
+  if constexpr (kLights) {
+    if (lt->fog) fog_segment<kMesh, kWarp>(a, sc, *lt, r, hit, h.t, u, mesh_row, uniform, nrays,
+                                           live);
+  }
   if (!kWarp && !hit) {
     if (kMat && sc.sky) add_sky(sc, r, r.thr, d);
     if (kMat && sc.env_map) add_env_map(a, sc, r, r.thr, d);
@@ -1315,6 +1688,9 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
       const float lum_e = 0.2126f * emission.x + 0.7152f * emission.y + 0.0722f * emission.z;
       sel_density = lum_e / vmax(sc.total_power, 1e-20f);
     }
+    if constexpr (kLights) {  // the light tree's, a mesh-light triangle's
+      sel_density = light_density<kMesh>(a, sc, *lt, h, r.o, d, uniform, mesh_row, sel_density);
+    }
     // the light table's NEE branch runs with probability 1 - env_pick
     if (kMat && sc.env_map && a.use_nee) sel_density = sel_density * (1.0f - sc.env_pick);
     const float pdf_light_w = sel_density * (h.t * h.t) / vmax(cos_l, 1e-6f);
@@ -1331,13 +1707,15 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
   // --- NEE ------------------------------------------------------------------
   // (with an env map a vertex does NEE without slot lights too)
   const bool nee_kind = kind == kDiffuse || is_metal;
+  float fog = 0.0f;  // the shadow segment's
+  if constexpr (kLights) fog = lt->fog ? lt->fog_density : 0.0f;
   const bool nee = hit && a.use_nee && nee_kind && nee_target<kMat>(sc);
   if (kWarp) {  // every lane reaches the shadow sweep; those without one inactive
     Nee e;
     e.wi = make_float3(1.0f, 0.0f, 0.0f);
     e.dist = 0.0f;
     if constexpr (kMat) e.max_t = 0.0f;
-    const bool cast = nee && nee_cast<kMat>(a, sc, p, n, u, uniform, e);
+    const bool cast = nee && nee_cast<kMat, kLights>(a, sc, p, n, u, uniform, e, lt, mesh_row);
     if (cast) nrays += 1;
     const float3 sh_o = add3(p, scale3(n, a.eps));
     const bool blocked =
@@ -1345,9 +1723,9 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
     if (cast && !blocked) {
       const float pdf_w = nee_pdf_w<kMat>(sc, e);
       if (kMat && sc.metal) {
-        nee_add_brdf(sc, r, thr, albedo, is_metal, g, n, d, e, pdf_w);
+        nee_add_brdf<kLights>(sc, r, thr, albedo, is_metal, g, n, d, e, pdf_w, fog);
       } else {
-        nee_add(r, thr, albedo, e, pdf_w);
+        nee_add<kLights>(r, thr, albedo, e, pdf_w, fog);
       }
     }
     if (!hit) {
@@ -1356,15 +1734,15 @@ __device__ __forceinline__ void bounce(const Args& a, const Scene& sc, Ray& r, i
     }
   } else if (nee) {
     Nee e;
-    if (nee_cast<kMat>(a, sc, p, n, u, uniform, e)) {
+    if (nee_cast<kMat, kLights>(a, sc, p, n, u, uniform, e, lt, mesh_row)) {
       nrays += 1;
       const float3 sh_o = add3(p, scale3(n, a.eps));
       if (!occluded<kMesh, kWarp>(sc, sh_o, e.wi, nee_reach<kMat>(sc, e), a.t_min)) {
         const float pdf_w = nee_pdf_w<kMat>(sc, e);
         if (kMat && sc.metal) {
-          nee_add_brdf(sc, r, thr, albedo, is_metal, g, n, d, e, pdf_w);
+          nee_add_brdf<kLights>(sc, r, thr, albedo, is_metal, g, n, d, e, pdf_w, fog);
         } else {
-          nee_add(r, thr, albedo, e, pdf_w);
+          nee_add<kLights>(r, thr, albedo, e, pdf_w, fog);
         }
       }
     }

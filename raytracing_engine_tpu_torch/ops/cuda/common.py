@@ -2,8 +2,9 @@
 
 Each ``.cu`` source of ``csrc/`` is compiled with ``nvcc`` into its own
 library, ``build/lib<name>.so`` inside this package (``libconemarch.so``:
-K1-K3; ``libpt.so``: K4 and K5; ``libcluster.so``: K6; ``libbvh.so``: K8;
-``libinstanced.so``: K7; ``librng.so``: K9), at first use and all at once (one nvcc process per
+K1-K3; ``libpt.so``: K4 and K5; ``libpt_lights.so``: their light forms;
+``libcluster.so``: K6; ``libbvh.so``: K8; ``libinstanced.so``: K7;
+``librng.so``: K9), at first use and all at once (one nvcc process per
 source, started together). Each library is keyed on a hash of every
 ``csrc/`` file and the flags, and loaded with ``ctypes`` through a plain C
 interface: an entry takes a pointer to its argument struct and a stream.
@@ -31,6 +32,7 @@ BUILD_DIR = PACKAGE_DIR / "build"
 LIBRARIES = {
     "conemarch": ("conemarch.cu", ("conemarch_pyramid", "conemarch_shade", "conemarch_fused")),
     "pt": ("pt.cu", ("pt_render", "pt_rebin", "pt_adapt")),
+    "pt_lights": ("pt_lights.cu", ("pt_lights_render", "pt_lights_rebin")),
     "cluster": ("cluster.cu", ("cluster_intersect",)),
     "bvh": ("bvh.cu", ("bvh_traverse",)),
     "instanced": ("instanced.cu", ("instanced_intersect",)),

@@ -48,6 +48,19 @@ tracing while its cell takes passes, then ``pt_cell_kernel``, which
 updates each cell's sums and decides whether it takes another pass
 (``adapt_pass``); nothing goes back to the host between passes.
 
+The light features run in a light form of each of these instantiations
+(csrc/pt_lights.cu, ``libpt_lights.so``: ``pt_lights_kernel``,
+``pt_lights_tex_kernel``, ``pt_rebin_lights_kernel``,
+``pt_rebin_lights_tex_kernel``), which holds the sampling features too,
+each feature a run-time flag (``uses_light_features``, ``light_tables``):
+homogeneous fog and single-scatter media (``PTConfig.fog_density``,
+``fog_scatter``, ``fog_color``), the light tree (``light_sampling="tree"``:
+the slots' tree columns in the light table's columns 9-11, a (C, 8) cluster
+table), mesh lights per pass (a (spp, 16) table of
+``scene.mesh_light_rows`` for K4's passes, one row for K5's pass) and per
+lane (the scene's lane tables and their [area, pick]). The renders without
+them launch the code they launched before.
+
 A scene on the CPU takes the plain versions, ``render_pt_mega_reference``
 and ``render_pt_rebin_reference``; a scene on a CUDA device launches the
 kernels or raises. Nothing in a frame reads back to the host.
@@ -71,7 +84,7 @@ from raytracing_engine_tpu_torch.ops.cuda.instanced import FrameInstances, Insta
 from raytracing_engine_tpu_torch.ops.rng import pcg_base_seed
 from raytracing_engine_tpu_torch.ops.rng_pcg import pass_seed, to_int32
 from raytracing_engine_tpu_torch.pathtracer.integrator import PTConfig
-from raytracing_engine_tpu_torch.pathtracer.scene import TRI_UNROLL_MAX, PTScene
+from raytracing_engine_tpu_torch.pathtracer.scene import TRI_UNROLL_MAX, PTScene, mesh_light_rows
 from raytracing_engine_tpu_torch.pathtracer.wavefront import (
     _trace_core,
     check_supported,
@@ -97,10 +110,15 @@ rebin_launches = 0
 rebin_material_launches = 0
 rebin_tex_launches = 0
 # the sampling instantiations' launches (K4's and K5's: the thin lens, R_d,
-# adaptive passes) and the cell updates between K4's adaptive passes
+# adaptive passes; not those of the light forms, which hold these features
+# too) and the cell updates between K4's adaptive passes
 sampling_launches = 0
 rebin_sampling_launches = 0
 adapt_launches = 0
+# the light forms' launches (fog and media, the light tree, mesh lights),
+# K4's and K5's
+light_launches = 0
+rebin_light_launches = 0
 
 # the kernels stage the scene tables in shared memory (the material table,
 # up to 20 + 4 L + 5 columns wide with L mip levels, and the sky's 2 x 4
@@ -184,6 +202,19 @@ class PTArgs(ctypes.Structure):
         ("cell_h", ctypes.c_int),
         ("cell_w", ctypes.c_int),
         ("grid_w", ctypes.c_int),
+        ("fog_density", ctypes.c_float),
+        ("fog_scatter", ctypes.c_float),
+        ("fog_r", ctypes.c_float),
+        ("fog_g", ctypes.c_float),
+        ("fog_b", ctypes.c_float),
+        ("tree", ctypes.c_int),
+        ("n_clusters", ctypes.c_int),
+        ("lt", ctypes.c_void_p),
+        ("mesh_rows", ctypes.c_void_p),
+        ("mlt_rows", ctypes.c_void_p),
+        ("mlt_smp", ctypes.c_void_p),
+        ("mlt_meta", ctypes.c_void_p),
+        ("mlt_k", ctypes.c_int),
     ]
 
 
@@ -221,8 +252,9 @@ def pack_pt_scene(scene: PTScene):
     (pt_kernel.py:59-81): albedo2 and the checker scale, tex_space,
     tex_rect, the L mip rects, nrm_rect and nrm_scale, rough, rough2,
     dispersion, zero-padded to a multiple of 4; light (L, 12) [kind, prim,
-    area, le, pick, cdf, total_power, 0 x3]; counts int32 (4,) [spheres,
-    triangles, materials, lights]; env (2, 4) [bottom, 0; top, 0] of the
+    area, le, pick, cdf, total_power, then the light tree's cluster,
+    cdf_intra and pick_intra of the slot (pt_kernel.py:83), else 0 x3];
+    counts int32 (4,) [spheres, triangles, materials, lights]; env (2, 4) [bottom, 0; top, 0] of the
     gradient sky, (0, 4) without one. The features' other tables:
     feature_tables."""
     f32 = torch.float32
@@ -255,10 +287,14 @@ def pack_pt_scene(scene: PTScene):
     if width % 4:
         mat_cols.append(torch.zeros((M, 4 - width % 4), dtype=f32, device=dev))
     mat = torch.cat(mat_cols, 1)
+    if scene.has_light_tree:
+        lt_cols = torch.stack([scene.lt_cluster, scene.lt_cdf_intra, scene.lt_pick_intra], 1)
+    else:
+        lt_cols = torch.zeros((L, 3), dtype=f32, device=dev)
     light = torch.cat([scene.light_kind[:, None].to(f32), scene.light_prim[:, None].to(f32),
                        scene.light_area[:, None], scene.light_le, scene.light_pick[:, None],
-                       scene.light_cdf[:, None], scene.light_total_power.expand(L, 1),
-                       torch.zeros((L, 3), dtype=f32, device=dev)], 1)
+                       scene.light_cdf[:, None], scene.light_total_power.expand(L, 1), lt_cols],
+                      1)
     # torch.full, not torch.tensor: a host-to-device copy would block the
     # host until the stream drains, every call
     counts = torch.stack([scene.sph_count, scene.tri_count,
@@ -299,9 +335,15 @@ def _prepare(cfg: PTConfig, scene: PTScene, row0: int, band_h, bvh, need_bvh=Fal
     if bvh is None and scene.tri_v0.shape[0] > TRI_UNROLL_MAX:
         raise ValueError(f"megakernel unrolls triangles; {scene.tri_v0.shape[0]} slots > "
                          f"{TRI_UNROLL_MAX}: pass bvh=build_clusters(mesh) instead")
+    if cfg.light_sampling == "tree" and bvh is not None and scene.n_tri_slot_lights:
+        # the kernels' sweeps give no hit triangle's slot: its hit-side MIS
+        # density would read 0 while NEE samples it too (pt_kernel.py:433-446)
+        raise ValueError("light_sampling='tree' with triangle slot lights cannot run over the "
+                         "cluster/instanced megakernel — use sphere lights, render_pt_fast with "
+                         "a gather BVH, or light_sampling='power'.")
     if cfg.rng != "pcg":
         cfg = dataclasses.replace(cfg, rng="pcg")
-    check_supported(cfg)
+    check_supported(cfg, scene=scene)
     if cfg.tex_filter == "trilinear" and not scene.has_mips:
         raise ValueError("tex_filter='trilinear' needs packed mip chains — build the scene "
                          "with build_pt_scene(tex_mips=True)")
@@ -493,6 +535,11 @@ def adapt_pass(rad, st: AdaptState, s: int, min_spp: int, spp: int, tol: float):
     del scratch
 
 
+def _mesh_row(scene: PTScene, seed: int, gpass: int):
+    """Pass gpass's (14,) mesh-light row (per-pass mesh lights), else None."""
+    return mesh_light_rows(scene, seed, gpass)[0] if scene.has_mesh_light else None
+
+
 def render_pt_mega_reference(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int, *,
                              seed: int = 0, spp_offset: int = 0, bvh=None, row0: int = 0,
                              band_h=None, adaptive_tol=0.0, adaptive_min=8, tile=(64, 256),
@@ -501,7 +548,8 @@ def render_pt_mega_reference(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, s
     path with the camera's visit orders for a ClusterSet or an
     InstancedClusters), passes summed in pass order and then scaled by
     1/spp (ops/pallas/pt_kernel.py:360-363); pass s keyed on the global pass
-    spp_offset + s and the base seed, which the R_d sampler reads.
+    spp_offset + s and the base seed, which the R_d sampler reads and which
+    picks the pass's mesh-light row (scene.mesh_light_rows).
     → ((band_h or H, W, 3) image, nrays int64). With adaptive_tol > 0, each
     pass traces the pixels of the cells still taking passes
     (adaptive_grid(scene, h, W, tile, stripes)) and adapt_pass_reference
@@ -524,7 +572,8 @@ def render_pt_mega_reference(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, s
                 break
             g = spp_offset + s
             rad, n = _trace_core(cfg, scene_k, cam_pos, cam_quat, pass_seed(seed, g),
-                                 pix=(py[sel], px[sel]), bvh=frame, gpass=g, seed_base=seed)
+                                 pix=(py[sel], px[sel]), bvh=frame, gpass=g, seed_base=seed,
+                                 mesh_light=_mesh_row(scene, seed, g))
             full = torch.zeros((h, cfg.width, 3), dtype=torch.float32, device=dev)
             full[sel] = torch.stack(rad, dim=-1)
             adapt_pass_reference(full, st, s + 1, min_spp, spp, float(adaptive_tol))
@@ -534,7 +583,8 @@ def render_pt_mega_reference(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, s
     for s in range(spp):
         g = spp_offset + s
         rad, n = _trace_core(cfg, scene_k, cam_pos, cam_quat, pass_seed(seed, g),
-                             row0=row0, band_h=h, bvh=frame, gpass=g, seed_base=seed)
+                             row0=row0, band_h=h, bvh=frame, gpass=g, seed_base=seed,
+                             mesh_light=_mesh_row(scene, seed, g))
         acc = acc + torch.stack(rad, dim=-1)
         nrays = nrays + n
     inv = float(np.float32(1.0) / np.float32(spp))
@@ -559,6 +609,45 @@ def feature_tables(scene: PTScene):
     return dict(env_img=env[0], env_smp=env[1], env_pick=env[2],
                 atlas=None if scene.tex_atlas is None else scene.tex_atlas.contiguous(),
                 tri_uvs=tri_uvs)
+
+
+def light_tables(scene: PTScene):
+    """The light features' tables, each None where the scene lacks it: the
+    light tree's (C, 8) cluster rows [center, radius, power, 0 x3]
+    (pt_kernel.py:555-563), the lane mesh lights' (12K, 128) component rows,
+    (2K, 128) [alias prob; alias index] rows and (2,) [total area, pick]
+    (:574-582)."""
+    f32 = torch.float32
+    lt = mlt = None
+    if scene.has_light_tree:
+        C = scene.lt_center.shape[0]
+        lt = torch.cat([scene.lt_center, scene.lt_radius[:, None], scene.lt_power[:, None],
+                        torch.zeros((C, 3), dtype=f32, device=scene.device)], 1).contiguous()
+    if scene.has_lane_mesh_light:
+        mlt = (scene.mlt_rows.contiguous(), scene.mlt_smp.contiguous(),
+               torch.stack([scene.mesh_light_area, scene.mesh_light_pick]).contiguous())
+    return dict(lt=lt, mlt_rows=None if mlt is None else mlt[0],
+                mlt_smp=None if mlt is None else mlt[1], mlt_meta=None if mlt is None else mlt[2])
+
+
+def uses_light_features(cfg: PTConfig, scene: PTScene) -> bool:
+    """Fog (and media), the light tree or mesh lights: the kernels then take
+    their light form (csrc/pt_lights.cu), with the light features' flags
+    set."""
+    return (cfg.fog_density > 0.0 or cfg.light_sampling == "tree" or scene.has_mesh_light
+            or scene.has_lane_mesh_light)
+
+
+def mesh_row_table(scene: PTScene, seed: int, gpass0: int, n: int):
+    """(n, 16) float32 rows of global passes gpass0 .. gpass0 + n - 1 for the
+    kernels: scene.mesh_light_rows and two zero columns (pt_kernel.py:536-552,
+    :1032-1048), computed on the scene's device; None without per-pass mesh
+    lights."""
+    if not scene.has_mesh_light:
+        return None
+    g = torch.arange(n, dtype=torch.int64, device=scene.device) + gpass0
+    rows = mesh_light_rows(scene, seed, g)
+    return torch.cat([rows, rows.new_zeros((n, 2))], 1).contiguous()
 
 
 def uses_tex_instantiation(scene: PTScene, bvh) -> bool:
@@ -587,7 +676,8 @@ def _kernel_args(cfg: PTConfig, scene_k: PTScene, cam_pos, cam_quat, h: int, row
         raise ValueError(f"scene tables of {table_bytes} B exceed the kernel's "
                          f"{_MAX_TABLE_BYTES} B of shared memory")
     feats = feature_tables(scene_k)
-    keep = list(tables) + [t for t in feats.values() if t is not None]
+    lights = light_tables(scene_k)
+    keep = list(tables) + [t for t in (*feats.values(), *lights.values()) if t is not None]
     cl, inst = ClusterTables(), InstanceTables()
     cl_uv = None
     if isinstance(frame, FrameInstances):
@@ -641,6 +731,12 @@ def _kernel_args(cfg: PTConfig, scene_k: PTScene, cam_pos, cam_quat, h: int, row
         samp=int(cfg.aperture > 0.0 or cfg.sampler == "r2"),
         aperture=max(cfg.aperture, 0.0), focus_dist=cfg.focus_dist,
         r2=int(cfg.sampler == "r2"),
+        fog_density=max(cfg.fog_density, 0.0), fog_scatter=max(cfg.fog_scatter, 0.0),
+        fog_r=cfg.fog_color[0], fog_g=cfg.fog_color[1], fog_b=cfg.fog_color[2],
+        tree=int(cfg.light_sampling == "tree"),
+        n_clusters=0 if lights["lt"] is None else lights["lt"].shape[0],
+        mlt_k=0 if lights["mlt_rows"] is None else lights["mlt_rows"].shape[0] // 12,
+        **{k: None if t is None else t.data_ptr() for k, t in lights.items()},
     )
     return args, keep
 
@@ -678,7 +774,7 @@ def render_pt_mega(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
     the passes taken. return_spp=True appends the (grid_h, grid_w) float32
     table of the passes each cell took (all spp without adaptive_tol).
     """
-    global launches, sampling_launches
+    global launches, sampling_launches, light_launches
     del interpret, groups, fast_math
     seed = pcg_base_seed(seed, key)
     h = band_h or cfg.height
@@ -699,6 +795,12 @@ def render_pt_mega(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
         nrays = torch.zeros((1,), dtype=torch.int64, device=scene.device)
         args.nrays = nrays.data_ptr()
         kind = mesh_kind(frame)
+        lit = uses_light_features(cfg, scene)
+        # pass s's mesh-light row (per-pass mesh lights): row s of the table,
+        # an adaptive launch's pass row 0 of its own slice
+        rows = mesh_row_table(scene, seed, spp_offset, spp)
+        if rows is not None:
+            args.mesh_rows = rows.data_ptr()
         if adaptive:
             min_spp = min(adaptive_min, spp)
             st = AdaptState.start(h, cfg.width, grid, min_spp, scene.device)
@@ -712,15 +814,21 @@ def render_pt_mega(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
         for k in range(spp if adaptive else 1):
             if adaptive:
                 args.spp_offset = to_int32(spp_offset + k)
-            common.launch("pt_render", args, name="pt")
+                if rows is not None:
+                    args.mesh_rows = rows[k].data_ptr()
+            if lit:
+                common.launch("pt_lights_render", args, name="pt_lights")
+            else:
+                common.launch("pt_render", args, name="pt")
             launches += 1
             mesh_launches[kind] += 1
             material_launches[kind] += args.material
             tex_launches[kind] += args.tex
-            sampling_launches += args.samp
+            sampling_launches += int(bool(args.samp) and not lit)
+            light_launches += int(lit)
             if adaptive:
                 adapt_pass(rad, st, k + 1, min_spp, spp, float(adaptive_tol))
-        del keep
+        del keep, rows
         res = ((st.out, nrays[0], st.taken.reshape(grid[:2])) if adaptive
                else (out, nrays[0]))
     if not return_spp:
@@ -850,7 +958,8 @@ def render_pt_rebin_reference(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, 
     planes = state_plane_count(scene, cfg)
 
     def run_bounce(b, state, gpass):
-        kw = dict(bvh=frame, bounce_lo=b, bounce_hi=b, emit_state=True)
+        kw = dict(bvh=frame, bounce_lo=b, bounce_hi=b, emit_state=True,
+                  mesh_light=_mesh_row(scene, seed, gpass))
         seed0 = pass_seed(seed, gpass)
         if b == 0:
             st = _trace_core(cfg, scene_k, cam_pos, cam_quat, seed0, row0=row0, band_h=h,
@@ -880,24 +989,35 @@ def rebin_bounce_launcher(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed
     n = h * cfg.width
     args.n_state, args.spp = n, 1
     planes = state_plane_count(scene, cfg)
+    lit = uses_light_features(cfg, scene)
+    rows = {}  # the passes' mesh-light rows (per-pass mesh lights), by global pass
 
     def run_bounce(b, state, gpass):
         global rebin_launches, rebin_material_launches, rebin_tex_launches
-        global rebin_sampling_launches
+        global rebin_sampling_launches, rebin_light_launches
         if state is None:
             state = torch.empty((planes, n), dtype=torch.float32, device=dev)
         common.check(state, "state", (planes, n), torch.float32, dev)
         nr = torch.zeros((1,), dtype=torch.int64, device=dev)
         args.state, args.nrays, args.bounce = state.data_ptr(), nr.data_ptr(), b
         args.spp_offset = to_int32(gpass)
-        common.launch("pt_rebin", args, name="pt")
+        if scene.has_mesh_light:
+            if gpass not in rows:
+                rows[gpass] = mesh_row_table(scene, seed, gpass, 1)
+            args.mesh_rows = rows[gpass].data_ptr()
+        if lit:
+            common.launch("pt_lights_rebin", args, name="pt_lights")
+        else:
+            common.launch("pt_rebin", args, name="pt")
         rebin_launches += 1
         rebin_material_launches += args.material
         rebin_tex_launches += args.tex
-        rebin_sampling_launches += args.samp
+        rebin_sampling_launches += int(bool(args.samp) and not lit)
+        rebin_light_launches += int(lit)
         return state, nr[0]
 
-    run_bounce.keep = keep  # the packed tables live as long as the launcher
+    # the packed tables and the rows live as long as the launcher
+    run_bounce.keep = (keep, rows)
     return cfg, h, run_bounce
 
 

@@ -1,13 +1,14 @@
 """The path tracer (raytracing_engine_tpu/pathtracer, the ported part):
 spheres, unrolled triangles and meshes as ClusterSets.
 
-    integrator.py  PTConfig (every field of the JAX config)
+    integrator.py  PTConfig (every field of the JAX config),
+                   tree_cluster_weights
     sampler.py     ONB, cosine hemisphere, sphere/triangle area samples, MIS,
                    the GGX microfacet functions (isotropic and anisotropic)
     scene.py       PTScene (with the METAL, rough-glass, checker, image,
-                   UV, dispersion, sky and env-map columns and tables),
-                   build_pt_scene, pt_scene_from_numpy, pack_texture_atlas,
-                   build_env_map
+                   UV, dispersion, sky, env-map, mesh-light and light-tree
+                   columns and tables), build_pt_scene, pt_scene_from_numpy,
+                   pack_texture_atlas, build_env_map, mesh_light_rows
     sceneio.py     JSON scene files: load_scene_json, SceneBundle
     scenes.py      furnace_scene, cornell_box, material_spheres
     wavefront.py   the plain PyTorch path tracer (render_pt_fast, the staged

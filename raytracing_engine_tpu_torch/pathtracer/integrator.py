@@ -1,17 +1,17 @@
 """Path-tracer configuration (raytracing_engine_tpu/pathtracer/integrator.py).
 
 ``PTConfig`` is copied with every field and default, so a configuration
-means the same in both packages. The port renders the three streams
-(threefry, pcg, pallas), pinhole camera, NEE with power or uniform light
-selection, Russian roulette and nearest texture filtering; the other fields
-are carried and refused where they change the render (pathtracer/
-wavefront.py). The stacked cross-check integrator (``render_pt``) is still
-to port (ROADMAP queue 1 item 5).
+means the same in both packages; pathtracer/wavefront.py renders every one
+of them. ``tree_cluster_weights`` is the vectorised light-tree weight, the
+cross-check of wavefront._tree_cluster_weights. The stacked cross-check
+integrator (``render_pt``) is still to port (ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,3 +46,20 @@ class PTConfig:
     @property
     def ratio(self):
         return (self.fov, self.fov * self.height / self.width)
+
+
+def tree_cluster_weights(scene, p3):
+    """Light-tree cluster weights at (..., 3) points (JAX
+    integrator.tree_cluster_weights): the (..., C) weights power_c /
+    max(dist², radius_c², 1e-12) and their sum, each summed in order. In
+    JAX its caller is the stacked integrator render_pt, which the port has
+    not ported yet (ROADMAP queue 1 item 5); until then the tests hold the
+    wavefront's per-ray weights (wavefront._tree_cluster_weights) to it."""
+    d = p3[..., None, :] - scene.lt_center
+    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    floor = torch.maximum(d2, scene.lt_radius * scene.lt_radius)
+    w = scene.lt_power / torch.clamp_min(floor, 1e-12)
+    total = w[..., 0]
+    for c in range(1, w.shape[-1]):
+        total = total + w[..., c]
+    return w, total

@@ -1,32 +1,36 @@
 """Path-tracer scene: spheres, triangles, materials and the NEE light table
 (raytracing_engine_tpu/pathtracer/scene.py).
 
-``build_pt_scene`` is the JAX package's host assembly (numpy, copied) for
-what the port renders: spheres, triangle slots (all of them stay in the
-scene; a mesh of more than ``TRI_UNROLL_MAX`` slots is intersected through
-a ClusterSet, and only the first ``TRI_UNROLL_MAX`` slots are unrolled, for
-NEE, so an emissive slot at or past it is refused as the JAX package
-refuses it), DIFFUSE / MIRROR / DIELECTRIC (smooth or rough: GGX, Walter
-2007) / METAL (GGX, isotropic or anisotropic) / emissive materials,
-checkers in world or UV space, image textures in the shared atlas
+``build_pt_scene`` is the JAX package's host assembly (numpy, copied):
+spheres, triangle slots (all of them stay in the scene; a mesh of more than
+``TRI_UNROLL_MAX`` slots is intersected through a ClusterSet, and only the
+first ``TRI_UNROLL_MAX`` slots are unrolled, for NEE, so an emissive slot at
+or past it is refused as the JAX package refuses it, unless mesh lights
+take every emissive triangle), DIFFUSE / MIRROR / DIELECTRIC (smooth or
+rough: GGX, Walter 2007) / METAL (GGX, isotropic or anisotropic) / emissive
+materials, checkers in world or UV space, image textures in the shared atlas
 (``pack_texture_atlas``), with their box-filtered mip chains packed beside
 them (``build_mip_chain``, ``tex_mips=True``: trilinear filtering),
 tangent-space normal maps in the same atlas (the ``normal`` material key),
-per-corner UVs of the unrolled slots (``tri_uvs``), spectral dispersion, a constant or gradient sky (``env``) or
-an importance-sampled equirect env map (``env`` of shape (H, W, 3):
-``build_env_map``), and the sphere and triangle light slots with their
-power CDF. Every other input raises NotImplementedError naming the ROADMAP
-item that brings it. ``pt_scene_from_numpy`` carries a JAX ``PTScene``'s
-arrays across, so both packages render the same data.
+per-corner UVs of the unrolled slots (``tri_uvs``), spectral dispersion, a
+constant or gradient sky (``env``) or an importance-sampled equirect env map
+(``env`` of shape (H, W, 3): ``build_env_map``), the sphere and triangle
+light slots with their power CDF, mesh lights (``mesh_lights``: every
+emissive triangle as one light, one area-weighted triangle a pass,
+``mesh_light_rows``, or one a lane from alias tables) and the two-level
+light tree (``light_tree=C``: ``_build_light_tree``), with every ValueError
+of the JAX package. ``pt_scene_from_numpy`` carries a JAX ``PTScene``'s
+arrays across, every field of it, so both packages render the same data.
 
 The optional columns and tables are None where nothing uses them, as in
 the JAX package: a scene without them renders the program it rendered
 before they existed (the static gates ``has_metal``, ``has_aniso``,
 ``has_texture``, ``has_dispersion``, ``has_env``, ``has_rough_dielectric``,
 ``has_image``, ``has_tri_uv``, ``needs_uv``, ``has_env_map``,
-``has_normal_map``, ``has_mips``, ``needs_tan``). The atlas
-and the env map stay JAX's tables, 128 texels wide with at most 32 rows:
-their resampling is part of the image, not a layout of the TPU.
+``has_normal_map``, ``has_mips``, ``needs_tan``, ``has_mesh_light``,
+``has_lane_mesh_light``, ``has_light_tree``). The atlas, the env map and
+the lane mesh-light tables stay JAX's tables, 128 texels wide with at most
+32 rows: their resampling is part of the image, not a layout of the TPU.
 
 Material kinds: 0 DIFFUSE, 1 MIRROR, 3 DIELECTRIC, 4 METAL.
 """
@@ -39,6 +43,7 @@ import numpy as np
 import torch
 
 from raytracing_engine_tpu_torch.device import resolve
+from raytracing_engine_tpu_torch.ops.rng_pcg import MASK, _to_unit, pcg4d, u32
 
 DIFFUSE = 0
 MIRROR = 1
@@ -52,19 +57,14 @@ ATLAS_W = 128        # texels per atlas row
 ATLAS_MAX_ROWS = 32  # atlas budget: 32 * 128 = 4096 texels
 ENV_W = 128          # env-map texels per row
 ENV_MAX_ROWS = 32    # env-map polar rows budget
+MLT_MAX_ROWS = 32    # lane mesh lights: 32 * 128 = 4096 triangles
 
 LIGHT_SPHERE = 0
 LIGHT_TRI = 1
+LIGHT_MESH = 2  # the pseudo-slot of mesh lights: every emissive triangle, one light
 
 # Rec.709 luminance weights: the "power" of power-weighted light selection
 _LUM = np.array([0.2126, 0.7152, 0.0722], np.float64)
-
-_LATER = "ROADMAP.md queue 1 item 4, K4 feature"
-
-
-def _not_yet(what: str, feature: int):
-    raise NotImplementedError(f"{what} is not ported yet ({_LATER} {feature})")
-
 
 def build_mip_chain(img):
     """Box-filtered mip chain of an (h, w, 3) image (JAX
@@ -193,6 +193,31 @@ class PTScene:
     env_img: torch.Tensor | None = None   # (3K, 128)
     env_smp: torch.Tensor | None = None   # (3K, 128)
     env_pick: torch.Tensor | None = None  # () f32
+    # mesh lights (build_pt_scene mesh_lights): every emissive triangle is
+    # one light, the light table's LIGHT_MESH pseudo-slot, whose area is the
+    # total emissive area, so its pick over that area is the marginal pdf of
+    # a point on it. Per pass (mesh_lights True or "pass"): one area-weighted
+    # triangle for each global pass (mesh_light_rows) from its rows and
+    # their area CDF. Per lane ("lane"): each NEE draw alias-samples its own
+    # triangle from 12 K-row blocks [v0, e1, e2, Le] and [alias prob; alias
+    # index] rows over the area pmf (padding probability 0)
+    mesh_light_tri: torch.Tensor | None = None   # (E, 12) v0, e1, e2, Le
+    mesh_light_cdf: torch.Tensor | None = None   # (E,) normalized area CDF
+    mesh_light_area: torch.Tensor | None = None  # () total emissive area
+    mesh_light_pick: torch.Tensor | None = None  # () the pseudo-slot's pick
+    mlt_rows: torch.Tensor | None = None         # (12K, 128) triangle component rows
+    mlt_smp: torch.Tensor | None = None          # (2K, 128) [alias prob; alias index]
+    # the two-level light tree (light_tree=C, PTConfig.light_sampling
+    # "tree"): C clusters of the slots in Morton order, each picked with the
+    # weight power / max(dist², radius²) at the shading point, then a slot of
+    # the cluster by its power CDF; padded slots carry cluster 0, pick 0 and
+    # CDF 1 (_build_light_tree)
+    lt_center: torch.Tensor | None = None      # (C, 3) cluster bound centers
+    lt_radius: torch.Tensor | None = None      # (C,) cluster bound radii
+    lt_power: torch.Tensor | None = None       # (C,) cluster total power
+    lt_cluster: torch.Tensor | None = None     # (L,) f32 slot -> cluster
+    lt_cdf_intra: torch.Tensor | None = None   # (L,) within-cluster inclusive CDF
+    lt_pick_intra: torch.Tensor | None = None  # (L,) within-cluster pick
     # static: any DIELECTRIC material (the scatter step's glass branch)
     has_dielectric: bool = False
     # static: any DIELECTRIC with roughness > 0 (the Walter 2007 branch;
@@ -274,6 +299,18 @@ class PTScene:
         return self.env_img is not None
 
     @property
+    def has_mesh_light(self) -> bool:
+        return self.mesh_light_tri is not None
+
+    @property
+    def has_lane_mesh_light(self) -> bool:
+        return self.mlt_rows is not None
+
+    @property
+    def has_light_tree(self) -> bool:
+        return self.lt_center is not None
+
+    @property
     def has_material_features(self) -> bool:
         """Any of the optional features: the kernels then launch their
         material instantiation."""
@@ -293,7 +330,10 @@ class PTScene:
 
 OPTIONAL_FIELDS = ("mat_albedo2", "mat_tex_scale", "mat_rough", "mat_rough2", "mat_dispersion",
                    "mat_tex_space", "tex_atlas", "mat_tex_rect", "tri_uv", "env", "env_img",
-                   "env_smp", "env_pick", "mat_tex_mips", "mat_nrm_rect", "mat_nrm_scale")
+                   "env_smp", "env_pick", "mat_tex_mips", "mat_nrm_rect", "mat_nrm_scale",
+                   "mesh_light_tri", "mesh_light_cdf", "mesh_light_area", "mesh_light_pick",
+                   "mlt_rows", "mlt_smp", "lt_center", "lt_radius", "lt_power", "lt_cluster",
+                   "lt_cdf_intra", "lt_pick_intra")
 _STATIC_FIELDS = ("has_dielectric", "has_rough_dielectric", "n_tri_slot_lights")
 TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(PTScene)
                       if f.name not in _STATIC_FIELDS and f.name not in OPTIONAL_FIELDS)
@@ -316,26 +356,13 @@ def _scene(arrays: dict, device) -> PTScene:
                    n_tri_slot_lights=int((lk == LIGHT_TRI).sum()))
 
 
-# JAX PTScene fields this slice does not carry, by the K4 feature of
-# ROADMAP.md queue 1 item 4 that brings them; a non-None value raises
-_UNPORTED_FIELDS = {
-    "mesh_light_tri": 13, "mesh_light_cdf": 13, "mesh_light_area": 13, "mesh_light_pick": 13,
-    "mlt_rows": 13, "mlt_smp": 13,
-    "lt_center": 12, "lt_radius": 12, "lt_power": 12, "lt_cluster": 12, "lt_cdf_intra": 12,
-    "lt_pick_intra": 12,
-}
-
-
 def pt_scene_from_numpy(fields: dict, device=None) -> PTScene:
     """PTScene from arrays by field name, e.g. the JAX PTScene's fields
-    through ``np.asarray`` (its optional columns where they are not None).
-    device=None is the CUDA card (device.resolve)."""
+    through ``np.asarray`` (its optional columns and tables where they are
+    not None). device=None is the CUDA card (device.resolve)."""
     missing = set(TENSOR_FIELDS) - set(fields)
     if missing:
         raise ValueError(f"PTScene fields missing: {sorted(missing)}")
-    for name, feature in _UNPORTED_FIELDS.items():
-        if fields.get(name) is not None:
-            _not_yet(f"PTScene.{name}", feature)
     return _scene(fields, device)
 
 
@@ -379,11 +406,15 @@ def build_pt_scene(
     (DIELECTRIC), normal ({"pixels": (h, w, 3) holding (n + 1) / 2, "scale":
     UV tiling} or the pixels alone: a tangent-space normal map). tex_mips
     packs each image's mip chain (build_mip_chain) into the atlas, for
-    PTConfig(tex_filter="trilinear"). device=None is the CUDA card."""
-    if mesh_lights:
-        _not_yet("mesh_lights", 13)
-    if light_tree:
-        _not_yet("light_tree", 12)
+    PTConfig(tex_filter="trilinear"). device=None is the CUDA card.
+
+    mesh_lights (True or "pass", or "lane") routes every emissive triangle
+    through the mesh-light pseudo-slot instead of a slot each (an emissive
+    triangle at or past TRI_UNROLL_MAX needs it): one area-weighted
+    triangle a pass, or each lane's own from alias tables, at most
+    MLT_MAX_ROWS * 128 of them. light_tree=C builds the two-level light
+    tree of C clusters over the slot lights (PTConfig.light_sampling
+    "tree"); not with mesh_lights."""
     device = resolve(device)
 
     S = len(spheres)
@@ -496,19 +527,64 @@ def build_pt_scene(
             lp.append(i)
             la.append(4.0 * np.pi * float(sph_radius[i]) ** 2)
             le.append(mat_emission[sph_mat[i]])
-    for i in range(T):
-        if not np.any(mat_emission[tri_mats[i]] > 0):
-            continue
-        if i >= TRI_UNROLL_MAX and not allow_many_tri_lights:
-            raise ValueError(
-                f"emissive triangle at slot {i} >= TRI_UNROLL_MAX="
-                f"{TRI_UNROLL_MAX}: the unrolled NEE samplers cannot address "
-                f"it and it would silently vanish from direct lighting. Move "
-                f"emissive triangles into the first {TRI_UNROLL_MAX} slots.")
-        lk.append(LIGHT_TRI)
-        lp.append(i)
-        la.append(0.5 * float(np.linalg.norm(np.cross(e1[i], e2[i]))))
-        le.append(mat_emission[tri_mats[i]])
+    emissive_tris = [i for i in range(T) if np.any(mat_emission[tri_mats[i]] > 0)]
+    mesh_tri = mesh_cdf = mesh_area = None
+    mlt_rows = mlt_smp = None
+    mesh_mode = (mesh_lights if isinstance(mesh_lights, str)
+                 else ("pass" if mesh_lights else None))
+    if mesh_mode not in (None, "pass", "lane"):
+        raise ValueError(f"mesh_lights must be bool, 'pass' or 'lane'; got {mesh_lights!r}")
+    if mesh_mode:
+        if not emissive_tris:
+            raise ValueError("mesh_lights=True but no triangle has an emissive material")
+        idxs = np.asarray(emissive_tris)
+        cross = np.cross(e1[idxs], e2[idxs])
+        areas = 0.5 * np.linalg.norm(cross, axis=1).astype(np.float64)
+        total = float(areas.sum())
+        if total <= 0:
+            raise ValueError("emissive triangles have zero total area")
+        cols = np.concatenate([v0[idxs], e1[idxs], e2[idxs], mat_emission[tri_mats[idxs]]],
+                              axis=1).astype(np.float32)
+        if mesh_mode == "pass":
+            mesh_tri = cols
+            mesh_cdf = np.cumsum(areas / total).astype(np.float32)
+            mesh_cdf[-1] = 1.0  # guard fp drift: the last bin covers u -> 1
+        else:
+            # per lane: a Vose alias table over the area pmf and the
+            # triangles' 12 components in lane rows; a point's pdf is area_t /
+            # total * 1 / area_t = 1 / total, the per-pass scheme's marginal
+            E = len(idxs)
+            if E > MLT_MAX_ROWS * ENV_W:
+                raise ValueError(
+                    f"mesh_lights='lane' holds up to {MLT_MAX_ROWS * ENV_W} emissive triangles "
+                    f"(got {E}) — use mesh_lights=True (per-pass, unlimited)")
+            K_m = max((E + ENV_W - 1) // ENV_W, 1)
+            pmf = np.zeros(K_m * ENV_W, np.float64)
+            pmf[:E] = areas / total  # padding stays probability 0
+            ap, ai = _alias_table(pmf)
+            mlt_rows = np.zeros((12 * K_m, ENV_W), np.float32)
+            for c in range(12):
+                mlt_rows[c * K_m:(c + 1) * K_m].reshape(-1)[:E] = cols[:, c]
+            mlt_smp = np.concatenate([ap.reshape(K_m, ENV_W), ai.reshape(K_m, ENV_W)], axis=0)
+        mesh_area = np.float32(total)
+        mesh_power = float((areas * (mat_emission[tri_mats[idxs]] @ _LUM)).sum())
+        lk.append(LIGHT_MESH)
+        lp.append(-1)
+        la.append(total)            # the TOTAL area: 1 / (area count) is the
+        le.append((0.0, 0.0, 0.0))  # uniform selection's marginal pdf
+    else:
+        for i in emissive_tris:
+            if i >= TRI_UNROLL_MAX and not allow_many_tri_lights:
+                raise ValueError(
+                    f"emissive triangle at slot {i} >= TRI_UNROLL_MAX="
+                    f"{TRI_UNROLL_MAX}: the unrolled NEE samplers cannot address "
+                    f"it and it would silently vanish from direct lighting. Pass "
+                    f"mesh_lights=True (area-CDF per-pass sampling, no slot limit) "
+                    f"or move emissive triangles into the first {TRI_UNROLL_MAX} slots.")
+            lk.append(LIGHT_TRI)
+            lp.append(i)
+            la.append(0.5 * float(np.linalg.norm(np.cross(e1[i], e2[i]))))
+            le.append(mat_emission[tri_mats[i]])
     L = len(lk)
     light_pad = light_pad or max(L, 1)
     light_kind = np.zeros((light_pad,), np.int32)
@@ -522,14 +598,52 @@ def build_pt_scene(
         light_le[:L] = np.stack(le)
 
     # power-weighted selection table: power = area * lum(Le) per slot
+    # (the mesh pseudo-slot's: the sum over its triangles)
     powers = np.zeros((light_pad,), np.float64)
     for k in range(L):
-        powers[k] = la[k] * float(np.dot(le[k], _LUM))
+        powers[k] = (mesh_power if lk[k] == LIGHT_MESH
+                     else la[k] * float(np.dot(le[k], _LUM)))
     total_power = float(powers.sum())
     light_pick = (powers / total_power if total_power > 0
                   else powers).astype(np.float32)
     light_cdf = np.minimum(np.cumsum(light_pick), 1.0).astype(np.float32)
     light_cdf[max(L - 1, 0):] = 1.0  # padded slots are never selected
+    mesh_pick = None
+    if (mesh_tri is not None or mlt_rows is not None) and total_power > 0:
+        mesh_pick = np.float32(mesh_power / total_power)
+
+    lt = None
+    if light_tree:
+        if mesh_lights:
+            raise ValueError(
+                "light_tree is incompatible with mesh_lights: the mesh pseudo-slot is sampled "
+                "per pass and has no fixed position for the tree's distance term. Use per-slot "
+                "triangle lights (<= TRI_UNROLL_MAX) with light_tree, or mesh_lights alone.")
+        if L == 0:
+            raise ValueError("light_tree > 0 but the scene has no emissive primitives")
+        over = [lp[k] for k in range(L) if lk[k] == LIGHT_TRI and lp[k] >= TRI_UNROLL_MAX]
+        if over:
+            raise ValueError(
+                f"light_tree with emissive triangle slots >= TRI_UNROLL_MAX={TRI_UNROLL_MAX} "
+                f"(slots {over}): the tree walk can select lights the unrolled point samplers "
+                "cannot address (allow_many_tri_lights only defers the hole to render time). "
+                f"Keep emissive triangles in the first {TRI_UNROLL_MAX} slots.")
+        # slot positions and bounding radii: a sphere's center and radius, a
+        # triangle's centroid and farthest corner
+        pos = np.zeros((L, 3), np.float64)
+        rad = np.zeros((L,), np.float64)
+        for k in range(L):
+            if lk[k] == LIGHT_SPHERE:
+                pos[k] = sph_pos[lp[k]]
+                rad[k] = float(sph_radius[lp[k]])
+            else:
+                i = lp[k]
+                cen = v0[i] + (e1[i] + e2[i]) / 3.0
+                pos[k] = cen
+                rad[k] = max(float(np.linalg.norm(v0[i] - cen)),
+                             float(np.linalg.norm(v0[i] + e1[i] - cen)),
+                             float(np.linalg.norm(v0[i] + e2[i] - cen)))
+        lt = _build_light_tree(pos, rad, powers[:L], int(light_tree), light_pad)
 
     env_img = env_smp = env_pick_v = None
     if env is not None and np.asarray(env, object).ndim == 3:
@@ -562,7 +676,96 @@ def build_pt_scene(
         mat_nrm_rect=nrm_rect, mat_nrm_scale=None if nrm_rect is None else mat_nrm_scale,
         mat_dispersion=mat_dispersion if (mat_dispersion > 0).any() else None,
         env=_env_rows(env), env_img=env_img, env_smp=env_smp, env_pick=env_pick_v,
+        mesh_light_tri=mesh_tri, mesh_light_cdf=mesh_cdf, mesh_light_area=mesh_area,
+        mesh_light_pick=mesh_pick, mlt_rows=mlt_rows, mlt_smp=mlt_smp,
+        **({} if lt is None else dict(zip(("lt_center", "lt_radius", "lt_power", "lt_cluster",
+                                           "lt_cdf_intra", "lt_pick_intra"), lt))),
     ), device)
+
+
+def _morton3(q):
+    """The Morton codes of (N, 3) integer coordinates (10 bits an axis)."""
+    def spread(x):
+        x = (x | (x << 16)) & 0x030000FF
+        x = (x | (x << 8)) & 0x0300F00F
+        x = (x | (x << 4)) & 0x030C30C3
+        x = (x | (x << 2)) & 0x09249249
+        return x
+    q = q.astype(np.uint32)
+    return spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
+
+
+def _build_light_tree(pos, rad, powers, C, light_pad):
+    """The two-level light tree over the L slot lights (JAX
+    scene._build_light_tree): the slots in Morton order of their positions,
+    cut into C contiguous clusters of balanced counts; the slot tables keep
+    their order (selection walks the slot axis with a cluster mask).
+    -> (center (C, 3), radius (C,), power (C,), cluster (light_pad,),
+    cdf_intra (light_pad,), pick_intra (light_pad,)); padded slots carry
+    cluster 0, pick 0 and CDF 1."""
+    L = pos.shape[0]
+    C = max(1, min(int(C), L))
+    lo = pos.min(axis=0)
+    span = np.maximum(pos.max(axis=0) - lo, 1e-12)
+    q = np.clip(((pos - lo) / span) * 1023.0, 0.0, 1023.0).astype(np.int64)
+    order = np.argsort(_morton3(q), kind="stable")
+
+    cluster = np.zeros((light_pad,), np.float32)
+    bounds = np.linspace(0, L, C + 1).round().astype(int)
+    for c in range(C):
+        for j in order[bounds[c]:bounds[c + 1]]:
+            cluster[j] = float(c)
+
+    center = np.zeros((C, 3), np.float32)
+    radius = np.zeros((C,), np.float32)
+    cpow = np.zeros((C,), np.float64)
+    pick = np.zeros((light_pad,), np.float32)
+    cdf = np.ones((light_pad,), np.float32)  # padding pinned to 1
+    for c in range(C):
+        members = [k for k in range(L) if cluster[k] == c]
+        mp = pos[members]
+        center[c] = mp.mean(axis=0)
+        radius[c] = max(float(np.linalg.norm(mp[i] - center[c]) + rad[k])
+                        for i, k in enumerate(members))
+        cpow[c] = sum(powers[k] for k in members)
+        # the members' power CDF in slot order; uniform where the cluster
+        # has no power
+        n = len(members)
+        w = [powers[k] / cpow[c] if cpow[c] > 0 else 1.0 / n for k in members]
+        run = 0.0
+        for i, k in enumerate(members):
+            run += w[i]
+            pick[k] = w[i]
+            cdf[k] = min(run, 1.0)
+        cdf[members[-1]] = 1.0  # guard fp drift: the walk must end in the cluster
+    return center, radius, cpow.astype(np.float32), cluster, cdf, pick
+
+
+def mesh_light_rows(scene: PTScene, seed, gpass):
+    """The per-pass mesh-light rows (JAX scene.mesh_light_rows): (N, 14)
+    float32 [v0, e1, e2, Le, total area, pick] for the global passes gpass
+    (an int, a sequence or an integer tensor). Each pass's triangle is the
+    area CDF's first bin (side left) at the uniform of one pcg4d(gpass,
+    0x9E3779B9, 0, seed) draw, a stream no pixel reaches, so the choice
+    does not depend on chunks, bands or tiles. Computed on the scene's
+    device, without a host copy."""
+    dev = scene.device
+    if isinstance(gpass, torch.Tensor):
+        gp = gpass.to(device=dev, dtype=torch.int64).reshape(-1)
+    elif isinstance(gpass, (int, np.integer)):
+        gp = torch.full((1,), int(gpass), dtype=torch.int64, device=dev)
+    else:
+        gp = torch.as_tensor(np.asarray(gpass, np.int64).reshape(-1), device=dev)
+    gp = gp & MASK
+    o1, _, _, _ = pcg4d(gp, torch.full_like(gp, 0x9E3779B9), torch.zeros_like(gp),
+                        torch.full_like(gp, u32(seed)))
+    cdf = scene.mesh_light_cdf
+    e = torch.searchsorted(cdf, _to_unit(o1), right=False).clamp_max(cdf.shape[0] - 1)
+    rows = scene.mesh_light_tri[e]
+    n = rows.shape[0]
+    pick = (scene.mesh_light_pick if scene.mesh_light_pick is not None
+            else torch.ones((), dtype=torch.float32, device=dev))
+    return torch.cat([rows, scene.mesh_light_area.expand(n, 1), pick.expand(n, 1)], 1)
 
 
 def _alias_table(p):

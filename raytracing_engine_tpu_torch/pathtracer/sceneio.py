@@ -77,10 +77,10 @@ instead of code:
 Unknown top-level or per-entry keys raise: a typo that silently dropped a
 light would be a wrongness hazard, not a convenience.
 
-In the port every entry of the schema loads, with the JAX package's checks
-and messages; ``build_pt_scene`` then refuses, naming the ROADMAP item that
-brings it, what the port cannot render yet: mesh lights. The scene goes to
-``device`` (None: the CUDA card).
+In the port every entry of the schema loads and renders, with the JAX
+package's checks and messages (``mesh_lights`` as ``build_pt_scene`` takes
+it: true, "pass" or "lane"). The scene goes to ``device`` (None: the CUDA
+card).
 """
 
 from __future__ import annotations

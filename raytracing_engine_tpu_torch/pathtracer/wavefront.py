@@ -74,10 +74,21 @@ index) draws the camera dimensions, and bounce 0's NEE dimensions where NEE
 is on, from the R_d sequence (ops/rng_pcg.r2_planes) keyed on the render's
 base seed and the global pass.
 
-Not in this slice (each raises NotImplementedError; ROADMAP queue 1 lists
-them in order): fog and media, the light tree, mesh lights, the sorted
-wavefront (``sort``, with pathtracer/compaction.py); the scene features
-pathtracer/scene.py refuses never reach this code.
+Lights and media: ``fog_density > 0`` attenuates every segment by
+Beer–Lambert (an escape is 1e4 long) and adds the lost energy back as the
+constant ``fog_color``; ``fog_scatter > 0`` adds single scattering, an
+equiangular NEE sample of a scatter point on the segment toward a
+power- or uniform-selected light point, with its own shadow ray.
+``light_sampling="tree"`` picks NEE lights by the scene's light tree (the
+cluster weights at p + eps n, so the next segment's hit-side MIS density,
+computed at its origin, is the sampler's own); mesh lights sample the
+emissive mesh's pseudo-slot at the pass's triangle (``mesh_light``, a row of
+scene.mesh_light_rows) or at each lane's own (lane tables). The lane mesh
+light's dimension and the media's four or five are drawn after the fixed
+ones (JAX wavefront.py:1588-1598), so other scenes keep their streams.
+
+Not in this slice (it raises NotImplementedError; ROADMAP queue 1 lists it):
+the sorted wavefront (``sort``, with pathtracer/compaction.py).
 """
 
 from __future__ import annotations
@@ -116,10 +127,12 @@ from raytracing_engine_tpu_torch.pathtracer.integrator import PTConfig
 from raytracing_engine_tpu_torch.pathtracer.scene import (
     DIELECTRIC,
     DIFFUSE,
+    LIGHT_MESH,
     METAL,
     MIRROR,
     TRI_UNROLL_MAX,
     PTScene,
+    mesh_light_rows,
 )
 
 PI = sampler.PI
@@ -129,23 +142,25 @@ INV_SQRT3 = float(np.float32(0.5773502691896258))
 BVH_MAX_STEPS = 10_000              # JAX bvh_intersect's per-ray node cap
 _MESHES = (BVH, ClusterSet, InstancedClusters, FrameClusters, FrameInstances)
 
-_LATER = "ROADMAP.md queue 1 item 4"
 _COMPACTION = "ROADMAP.md queue 1 item 7, pathtracer/compaction.py"
 RNGS = ("threefry", "pcg", "pallas")
 
 
-def _not_yet(what: str, where: str = _LATER):
+def _not_yet(what: str, where: str):
     raise NotImplementedError(f"{what} is not ported yet ({where})")
 
 
-def check_supported(cfg: PTConfig, bvh=None, sort=False):
-    """Raise NotImplementedError for every static gate this slice lacks."""
+def check_supported(cfg: PTConfig, bvh=None, sort=False, scene: PTScene | None = None):
+    """The configuration's checks (JAX's ValueErrors; with a scene, those
+    that read it too), and NotImplementedError for what this slice lacks."""
     if cfg.rng not in RNGS:
         raise ValueError(f"rng must be one of {RNGS}, got {cfg.rng!r}")
-    if cfg.fog_density > 0.0 or cfg.fog_scatter > 0.0:
-        _not_yet("fog_density / fog_scatter (fog and media, feature 9)")
-    if cfg.light_sampling == "tree":
-        _not_yet("light_sampling='tree' (the light tree, feature 12)")
+    if cfg.fog_scatter > 0.0 and not 0.0 < cfg.fog_scatter <= cfg.fog_density:
+        raise ValueError(f"fog_scatter (sigma_s={cfg.fog_scatter}) needs 0 < sigma_s <= "
+                         f"fog_density (sigma_t={cfg.fog_density})")
+    if scene is not None and cfg.light_sampling == "tree" and not scene.has_light_tree:
+        raise ValueError("light_sampling='tree' needs the scene's light-tree tables — build "
+                         "it with build_pt_scene(..., light_tree=C)")
     if cfg.tex_filter not in ("nearest", "bilinear", "trilinear"):
         raise ValueError(f"tex_filter must be nearest, bilinear or trilinear, "
                          f"got {cfg.tex_filter!r}")
@@ -363,7 +378,10 @@ def _surface(scene: PTScene, o, d, t_s, i_s, t_t, n_tri, use_tri_mat, tri_area, 
     tuv, else scene.tri_uv at the hit slots i_t (original indices), else
     zeros; the spheres' analytic UVs on sphere hits. Where it reads the
     tangent (needs_tan) it adds ``tan`` likewise: ttan, or the gradient of
-    scene.tri_uv at i_t, or zeros; _sphere_tan on sphere hits."""
+    scene.tri_uv at i_t, or zeros; _sphere_tan on sphere hits. With a light
+    tree it adds ``prim``, the hit's slot: the sphere's, or the triangle's
+    original index i_t, -1 where the intersector cannot give it (the
+    attributes path and instances), as in the JAX package."""
     use_tri = t_t < t_s
     t = torch.minimum(t_s, t_t)
     hit = t < BIG
@@ -385,6 +403,8 @@ def _surface(scene: PTScene, o, d, t_s, i_s, t_t, n_tri, use_tri_mat, tri_area, 
     light_area = torch.where(use_tri, tri_area, sph_area)
     out = dict(t=t, hit=hit, p=p, n=n, mat_id=mat_id, light_area=light_area,
                is_tri=use_tri, front=~flip)
+    if scene.has_light_tree:
+        out["prim"] = torch.where(use_tri, -1 if i_t is None else i_t, si)
     if scene.needs_uv:
         su, sv = _sphere_uv(n_sph_v)
         if tuv is None and i_t is not None and scene.tri_uv is not None:
@@ -527,12 +547,67 @@ def _occluded(scene: PTScene, o, d, max_t, t_min, counts, bvh=None):
     return blocked | (t_t < max_t)
 
 
-def _sample_light(scene: PTScene, u_sel, u1, u2, count: int, uniform=False):
-    """NEE light sample: (point V3, normal V3, Le V3, pdf_area plane); the
-    slot by inclusive power CDF (or uniformly), then a uniform point on it."""
+def _tree_cluster_weights(scene: PTScene, p):
+    """The light tree's cluster weights at the shading point p (JAX
+    wavefront.py:667): w_c = power_c / max(dist(p, center_c)², radius_c²,
+    1e-12), and their sum in cluster order."""
+    ws = []
+    for c in range(scene.lt_center.shape[0]):
+        dx = p[0] - scene.lt_center[c, 0]
+        dy = p[1] - scene.lt_center[c, 1]
+        dz = p[2] - scene.lt_center[c, 2]
+        d2 = dx * dx + dy * dy + dz * dz
+        r2 = scene.lt_radius[c] * scene.lt_radius[c]
+        ws.append(scene.lt_power[c] / torch.clamp_min(torch.maximum(d2, r2), 1e-12))
+    total = ws[0]
+    for w in ws[1:]:
+        total = total + w
+    return ws, total
+
+
+def _sample_light(scene: PTScene, u_sel, u1, u2, count: int, uniform=False, mesh_light=None,
+                  tree_p=None, u_tri=None):
+    """NEE light sample (JAX wavefront.py:690-828): (point V3, normal V3, Le
+    V3, pdf_area plane); the slot by inclusive power CDF (or uniformly, or
+    by the light tree at tree_p), then a uniform point on it.
+
+    tree_p: the shading point of light-tree selection: a cluster by the
+    weights at tree_p (a running CDF over the clusters), u_sel rescaled into
+    its interval, then the first slot of that cluster whose within-cluster
+    CDF exceeds it, walking the slot axis. mesh_light: the pass's (14,) row
+    of mesh_light_rows, whose triangle the LIGHT_MESH slot samples; with the
+    scene's lane tables each lane's own triangle from u_tri instead (the
+    pseudo-slot's area is the total, so its pdf is the marginal of either
+    scheme)."""
     L = scene.light_kind.shape[0]
     count = max(count, 1)
-    if uniform:
+    tree_pick = None
+    if tree_p is not None:
+        ws, wtot = _tree_cluster_weights(scene, tree_p)
+        uw = u_sel * wtot
+        cum = ws[0]
+        cl = torch.zeros_like(u_sel)
+        lo = torch.zeros_like(u_sel)
+        w_sel = ws[0]
+        for c in range(1, len(ws)):
+            step = uw >= cum
+            cl = cl + torch.where(step, 1.0, 0.0)
+            lo = torch.where(step, cum, lo)
+            w_sel = torch.where(step, ws[c], w_sel)
+            cum = cum + ws[c]
+        p_cl = w_sel / torch.clamp_min(wtot, 1e-30)
+        u_in = torch.clamp((uw - lo) / torch.clamp_min(w_sel, 1e-30), 0.0, 1.0 - 1e-7)
+        # the first slot of cluster cl whose CDF exceeds u_in (each cluster's
+        # last member is pinned to 1, so the walk ends before the padding)
+        found = torch.zeros(u_sel.shape, dtype=torch.bool, device=u_sel.device)
+        idx = torch.zeros(u_sel.shape, dtype=torch.int64, device=u_sel.device)
+        for k in range(L):
+            passed = (scene.lt_cluster[k] == cl) & (u_in < scene.lt_cdf_intra[k])
+            idx = idx + (~(found | passed)).to(torch.int64)
+            found = found | passed
+        idx = torch.clamp_max(idx, L - 1)
+        tree_pick = p_cl * _sel(idx, scene.lt_pick_intra, L)
+    elif uniform:
         idx = torch.clamp_max((u_sel * count).to(torch.int64), count - 1)
     else:
         idx = torch.zeros(u_sel.shape, dtype=torch.int64, device=u_sel.device)
@@ -563,11 +638,71 @@ def _sample_light(scene: PTScene, u_sel, u1, u2, count: int, uniform=False):
     is_tri = kind == 1
     point = v3.where(is_tri, p_t, p_s)
     normal = v3.where(is_tri, n_t, n_s)
-    if uniform:
+    if scene.has_lane_mesh_light:
+        # each lane's own emissive triangle, at the same barycentrics
+        p_m, n_m, le_m = _sample_mesh_tri_lane(scene, u_tri, b1, b2)
+        is_mesh = kind == LIGHT_MESH
+        point = v3.where(is_mesh, p_m, point)
+        normal = v3.where(is_mesh, n_m, normal)
+        le = v3.where(is_mesh, le_m, le)
+    elif mesh_light is not None:
+        mv0, me1, me2, mle = (mesh_light[3 * k:3 * k + 3] for k in range(4))
+        p_m = tuple(mv0[a] + me1[a] * b1 + me2[a] * b2 for a in range(3))
+        ncx = me1[1] * me2[2] - me1[2] * me2[1]  # the triangle's normal, scalars
+        ncy = me1[2] * me2[0] - me1[0] * me2[2]
+        ncz = me1[0] * me2[1] - me1[1] * me2[0]
+        ninv = 1.0 / torch.clamp_min(torch.sqrt(ncx * ncx + ncy * ncy + ncz * ncz), 1e-20)
+        is_mesh = kind == LIGHT_MESH
+        point = v3.where(is_mesh, p_m, point)
+        normal = v3.where(is_mesh, tuple(nc * ninv + 0.0 * b1 for nc in (ncx, ncy, ncz)),
+                          normal)
+        le = tuple(torch.where(is_mesh, mle[a], le[a]) for a in range(3))
+
+    if tree_pick is not None:
+        pdf_area = tree_pick / torch.clamp_min(area, 1e-20)
+    elif uniform:
         pdf_area = 1.0 / (area * count)
     else:
         pdf_area = _sel(idx, scene.light_pick, L) / torch.clamp_min(area, 1e-20)
     return point, normal, le, pdf_area
+
+
+def _fetch_row_block(tab, nblocks: int, block: int, ty, tx):
+    """Lane texel (ty, tx) of component block `block` of an (nblocks K,
+    128) lane-row table (JAX wavefront.py:915): a row outside 0..K-1 reads
+    0."""
+    K = tab.shape[0] // nblocks
+    ok = (ty >= 0) & (ty < K)
+    val = tab[block * K + ty.clamp(0, K - 1), tx.clamp(0, tab.shape[1] - 1)]
+    return torch.where(ok, val, torch.zeros((), dtype=tab.dtype, device=tab.device))
+
+
+def _sample_mesh_tri_lane(scene: PTScene, u_tri, b1, b2):
+    """Each lane's own emissive triangle (mesh_lights="lane", JAX
+    wavefront.py:930-959): alias-sampled from the area pmf by u_tri, the
+    point at the caller's barycentrics b1, b2: (point V3, unit normal V3,
+    Le V3). Its pdf, area_t / total times 1 / area_t, is the per-pass
+    scheme's 1 / total."""
+    K_m = scene.mlt_rows.shape[0] // 12
+    N = float(K_m * 128)
+    x = u_tri * N
+    j = torch.clamp(torch.floor(x), 0.0, N - 1.0)
+    f = x - j
+    ty0 = torch.floor(j / 128.0)
+    tx0 = (j - ty0 * 128.0).to(torch.int64)
+    ty0 = ty0.to(torch.int64)
+    ap = _fetch_row_block(scene.mlt_smp, 2, 0, ty0, tx0)
+    ai = _fetch_row_block(scene.mlt_smp, 2, 1, ty0, tx0)
+    t = torch.where(f < ap, j, ai)
+    ty = torch.floor(t / 128.0)
+    tx = (t - ty * 128.0).to(torch.int64)
+    ty = ty.to(torch.int64)
+    comp = [_fetch_row_block(scene.mlt_rows, 12, k, ty, tx) for k in range(12)]
+    v0m, e1m, e2m, lem = (tuple(comp[3 * k:3 * k + 3]) for k in range(4))
+    p_m = v3.add(v0m, v3.add(v3.scale(e1m, b1), v3.scale(e2m, b2)))
+    n_m = v3.cross(e1m, e2m)
+    n_m = v3.scale(n_m, 1.0 / torch.clamp_min(v3.length(n_m), 1e-20))
+    return p_m, n_m, lem
 
 
 def _mat_lookup(scene: PTScene, mat_id):
@@ -912,21 +1047,79 @@ def unpack_state(arr, has_chan: bool = False, has_tacc: bool = False):
     return st
 
 
-def _bounce(cfg: PTConfig, scene: PTScene, st, b: int, draw, counts, bvh):
+def _bounce(cfg: PTConfig, scene: PTScene, st, b: int, draw, counts, bvh, mesh_light=None):
     """Bounce b of every ray of the state dict: returns the next state. The
     material features (metal, anisotropy, checkers, image textures, normal
-    maps, mips, dispersion, rough glass, the sky, the env map) are static
-    gates: a scene without one runs the program it ran before."""
+    maps, mips, dispersion, rough glass, the sky, the env map) and the light
+    features (fog and media, the light tree, mesh lights: mesh_light is the
+    pass's row of mesh_light_rows) are static gates: a scene without one
+    runs the program it ran before."""
     n_light = counts[2]
     st = dict(st)
     thr, rad = st["thr"], st["rad"]
     alive, o, d = st["alive"], st["o"], st["d"]
+    lane_mesh = scene.has_lane_mesh_light
     nu = 6 if cfg.rr_start > 0 else 5  # [5] = roulette coin
+    # the lane mesh light's triangle dimension, then the media's four (five
+    # with lane mesh lights) come after the fixed dimensions
+    mlt_dim = nu if lane_mesh else None
+    nu = nu + (1 if lane_mesh else 0)
+    media_dim = None
+    if cfg.fog_scatter > 0.0:
+        media_dim = nu
+        nu = nu + (5 if lane_mesh else 4)
     u = draw(b + 1, nu)
     zero = torch.zeros_like(st["prev_pdf"])
     nrays = st["nrays"] + alive.sum()
+    uniform = cfg.light_sampling == "uniform"
 
     isect = _intersect(scene, o, d, cfg.t_min, counts, bvh)
+    if cfg.fog_density > 0.0:
+        # Beer-Lambert over the segment (an escape is 1e4 long); the absorbed
+        # energy comes back as the constant in-scatter fog_color (JAX
+        # wavefront.py:1617-1628)
+        seg = torch.where(isect["hit"], isect["t"], 1e4)
+        trans = torch.exp(-cfg.fog_density * seg)
+        inscat = 1.0 - trans
+        rad = tuple(rad[c] + thr[c] * inscat * cfg.fog_color[c] for c in range(3))
+        if cfg.fog_scatter > 0.0:
+            # equiangular single scattering (JAX wavefront.py:1629-1683): a
+            # light point first (power or uniform selection, never the
+            # tree), then the scatter distance by the angle it subtends,
+            # pdf_t ∝ 1 / (D² + (t - Δ)²); an isotropic phase, both legs
+            # attenuated, and its own shadow ray
+            m0 = media_dim
+            lp_m, ln_m, le_m, pdfa_m = _sample_light(
+                scene, u[m0], u[m0 + 1], u[m0 + 2], n_light, uniform=uniform,
+                mesh_light=mesh_light, u_tri=u[m0 + 4] if lane_mesh else None)
+            rel = v3.sub(lp_m, o)
+            delta = v3.dot(rel, d)
+            perp = v3.sub(rel, v3.scale(d, delta))
+            d_m = torch.sqrt(torch.clamp_min(v3.dot(perp, perp), 1e-12))
+            tha = _poly_atan2(-delta, d_m)
+            thb = _poly_atan2(seg - delta, d_m)
+            th = tha + (thb - tha) * u[m0 + 3]
+            tt = delta + d_m * (torch.sin(th) / torch.clamp_min(torch.cos(th), 1e-9))
+            tt = torch.minimum(torch.clamp_min(tt, 0.0), seg)
+            dt = tt - delta
+            pdf_t = d_m / torch.clamp_min((thb - tha) * (d_m * d_m + dt * dt), 1e-12)
+            xm = v3.add(o, v3.scale(d, tt))
+            tol = v3.sub(lp_m, xm)
+            rdist = v3.length(tol)
+            wim = v3.scale(tol, 1.0 / torch.clamp_min(rdist, 1e-20))
+            cos_lm = torch.abs(v3.dot(ln_m, wim))
+            cand_m = alive & (n_light > 0) & (rdist > cfg.eps) & (thb > tha + 1e-7)
+            nrays = nrays + cand_m.sum()
+            # park the rays without a scatter vertex, as NEE's shadow rays
+            blocked_m = _occluded(scene, v3.where(cand_m, xm, (zero + DEAD_O,) * 3),
+                                  v3.where(cand_m, wim, (zero + INV_SQRT3,) * 3),
+                                  rdist * (1.0 - 1e-3), cfg.t_min, counts, bvh)
+            gain = (float(np.float32(cfg.fog_scatter)) * torch.exp(-cfg.fog_density * tt)
+                    * (1.0 / (4.0 * PI)) * cos_lm * torch.exp(-cfg.fog_density * rdist)
+                    / torch.clamp_min(pdfa_m * rdist * rdist * pdf_t, 1e-20))
+            gain = torch.where(cand_m & ~blocked_m, gain, 0.0)
+            rad = v3.add(rad, v3.mul(thr, v3.scale(le_m, gain)))
+        thr = v3.scale(thr, trans)
     hit = isect["hit"] & alive
     albedo, emission, kind, ior = _mat_lookup(scene, isect["mat_id"])
     n, p = isect["n"], isect["p"]
@@ -954,11 +1147,45 @@ def _bounce(cfg: PTConfig, scene: PTScene, st, b: int, draw, counts, bvh):
     # --- emission (MIS vs NEE of the previous vertex) ------------------
     emissive = (emission[0] > 0.0) | (emission[1] > 0.0) | (emission[2] > 0.0)
     cos_l = torch.abs(v3.dot(n, d))
-    if cfg.light_sampling == "uniform":
-        sel_density = 1.0 / torch.clamp_min(isect["light_area"] * max(n_light, 1), 1e-20)
+    if uniform:
+        # a mesh-light triangle's marginal pdf is over the total emissive area
+        light_area = isect["light_area"]
+        if mesh_light is not None:
+            light_area = torch.where(isect["is_tri"], mesh_light[12], light_area)
+        elif lane_mesh:
+            light_area = torch.where(isect["is_tri"], scene.mesh_light_area, light_area)
+        sel_density = 1.0 / torch.clamp_min(light_area * max(n_light, 1), 1e-20)
+    elif cfg.light_sampling == "tree":
+        # the tree's pdf of this light as seen from the previous vertex, whose
+        # NEE evaluated it at this segment's origin: the hit's slot by an
+        # unrolled (prim, kind) match; a light NEE cannot address matches
+        # no slot, density 0 (JAX wavefront.py:1741-1767)
+        clh = zero
+        pick_h = zero
+        for k in range(scene.light_kind.shape[0]):
+            match = ((isect["prim"] == scene.light_prim[k])
+                     & (isect["is_tri"] == (scene.light_kind[k] == 1)))
+            clh = clh + torch.where(match, scene.lt_cluster[k], 0.0)
+            pick_h = pick_h + torch.where(match, scene.lt_pick_intra[k], 0.0)
+        ws, wtot = _tree_cluster_weights(scene, o)
+        w_sel = torch.zeros_like(wtot)
+        for c, w in enumerate(ws):
+            w_sel = w_sel + torch.where(clh == float(c), w, 0.0)
+        p_cl = w_sel / torch.clamp_min(wtot, 1e-30)
+        sel_density = p_cl * pick_h / torch.clamp_min(isect["light_area"], 1e-20)
     else:
         lum_e = 0.2126 * emission[0] + 0.7152 * emission[1] + 0.0722 * emission[2]
         sel_density = lum_e / torch.clamp_min(scene.light_total_power, 1e-20)
+        # the mesh pseudo-slot's marginal: its pick over its total area
+        if mesh_light is not None:
+            sel_density = torch.where(isect["is_tri"],
+                                      mesh_light[13] / torch.clamp_min(mesh_light[12], 1e-20),
+                                      sel_density)
+        elif lane_mesh:
+            sel_density = torch.where(
+                isect["is_tri"],
+                scene.mesh_light_pick / torch.clamp_min(scene.mesh_light_area, 1e-20),
+                sel_density)
     env_map = scene.has_env_map
     if env_map and cfg.use_nee:
         # the light table's branch runs with probability 1 - env_pick: the
@@ -1000,8 +1227,12 @@ def _bounce(cfg: PTConfig, scene: PTScene, st, b: int, draw, counts, bvh):
             sel_env = u[2] < pick
             u_sel = torch.clamp((u[2] - pick) / torch.clamp_min(1.0 - pick, 1e-6),
                                 0.0, 1.0 - 1e-7)
-        lp, ln, le, pdf_area = _sample_light(scene, u_sel, u[3], u[4], n_light,
-                                             uniform=cfg.light_sampling == "uniform")
+        # the tree's weights at p + eps n, the next segment's origin, where
+        # the hit-side MIS density above evaluates them
+        lp, ln, le, pdf_area = _sample_light(
+            scene, u_sel, u[3], u[4], n_light, uniform=uniform, mesh_light=mesh_light,
+            tree_p=(v3.add(p, v3.scale(n, cfg.eps)) if cfg.light_sampling == "tree" else None),
+            u_tri=None if mlt_dim is None else u[mlt_dim])
         to_l = v3.sub(lp, p)
         dist = v3.length(to_l)
         wi = v3.scale(to_l, 1.0 / torch.clamp_min(dist, 1e-20))
@@ -1048,11 +1279,15 @@ def _bounce(cfg: PTConfig, scene: PTScene, st, b: int, draw, counts, bvh):
             f_nee = v3.where(is_met, f_m, v3.scale(albedo, 1.0 / PI))
             w_nee = sampler.power_heuristic(pdf_w, pdf_b)
             scale = torch.where(vis, cos_s / torch.clamp_min(pdf_w, 1e-20) * w_nee, 0.0)
+            if cfg.fog_density > 0.0:  # the shadow segment's transmittance
+                scale = scale * torch.exp(-cfg.fog_density * dist)
             rad = v3.add(rad, v3.mul(v3.mul(thr, f_nee), v3.scale(le, scale)))
         else:
             w_nee = sampler.power_heuristic(pdf_w, v3.div(cos_s, PI))
             scale = torch.where(
                 vis, v3.div(cos_s / torch.clamp_min(pdf_w, 1e-20) * w_nee, PI), 0.0)
+            if cfg.fog_density > 0.0:  # the shadow segment's transmittance
+                scale = scale * torch.exp(-cfg.fog_density * dist)
             rad = v3.add(rad, v3.mul(v3.mul(thr, albedo), v3.scale(le, scale)))
 
     # --- scatter --------------------------------------------------------
@@ -1196,7 +1431,7 @@ def _draws(cfg: PTConfig, key, h: int, w: int, row0, band_h, col0, band_w, devic
 def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed0=None,
                 row0=0, band_h=None, col0=0, band_w=None, pix=None, bvh=None,
                 sort=False, state_in=None, bounce_lo=0, bounce_hi=None,
-                emit_state=False, key=None, gpass=None, seed_base=None):
+                emit_state=False, key=None, gpass=None, seed_base=None, mesh_light=None):
     """One sample per pixel of the window at (row0, col0): (rad V3 planes,
     nrays int64 tensor). The pass's stream: at rng="pcg" the int32 seed0
     (else key_to_seed(key)); at "threefry" and "pallas" the pass key. pix:
@@ -1211,8 +1446,20 @@ def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed0=None,
     is keyed on them (rng="pcg" only, as in the JAX package).
 
     gpass, seed_base: the pass's global index and the render's base seed
-    (default seed0), which key the R_d draws of sampler="r2"."""
-    check_supported(cfg, bvh=bvh, sort=sort)
+    (default seed0), which key the R_d draws of sampler="r2". mesh_light:
+    the pass's (14,) row of scene.mesh_light_rows (scenes with per-pass
+    mesh lights)."""
+    check_supported(cfg, bvh=bvh, sort=sort, scene=scene)
+    if (cfg.light_sampling == "tree" and scene.n_tri_slot_lights
+            and isinstance(bvh, (FrameClusters, FrameInstances, InstancedClusters))):
+        # those intersectors cannot give a hit triangle's original slot, so
+        # its hit-side MIS density would read 0 while NEE samples it too
+        raise ValueError(
+            "light_sampling='tree' with triangle slot lights cannot run over an in-kernel "
+            "cluster/instanced intersector: those sweeps cannot recover a hit triangle's "
+            "original slot, so its hit-side MIS density reads 0 while NEE also samples the "
+            "light (double-counted direct lighting). Use sphere lights, the gather BVH path, "
+            "or light_sampling='power'.")
     if cfg.tex_filter == "trilinear" and not scene.has_mips:
         raise ValueError("tex_filter='trilinear' needs packed mip chains — build the scene "
                          "with build_pt_scene(tex_mips=True)")
@@ -1301,7 +1548,7 @@ def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, seed0=None,
             return tuple(r2u[k - 2] if 2 <= k <= 4 else u[k] for k in range(n))
 
     for b in range(bounce_lo, bounce_hi + 1):
-        st = _bounce(cfg, scene, st, b, draw, counts, bvh)
+        st = _bounce(cfg, scene, st, b, draw, counts, bvh, mesh_light)
     if emit_state:
         return st
     return st["rad"], st["nrays"]
@@ -1324,18 +1571,19 @@ def trace_pass_soa(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, key=None,
     packet kernel and the gather traversal for a raw BVH; here a CUDA scene
     always launches K8 and a CPU one traverses plainly, so it is accepted
     and ignored. gpass and seed_base: the global pass index and the
-    render's base seed, which key the R_d draws (sampler="r2"). sort and
-    probe (ROADMAP.md queue 1 item 7) and mesh_light (item 4, K4 feature
-    13) are not ported yet and raise when set."""
+    render's base seed, which key the R_d draws (sampler="r2"). mesh_light:
+    the pass's row of scene.mesh_light_rows (a (14,) tensor or 14 scalars),
+    the triangle that per-pass mesh lights sample. sort and probe (ROADMAP.md
+    queue 1 item 7) are not ported yet and raise when set."""
     del packet
     if probe is not None:
         _not_yet("probe (the regroup probe)", _COMPACTION)
-    if mesh_light is not None:
-        _not_yet("mesh_light (mesh lights, feature 13)")
     check_entry(scene, bvh)
+    if mesh_light is not None and not isinstance(mesh_light, torch.Tensor):
+        mesh_light = torch.stack([torch.as_tensor(x, dtype=torch.float32) for x in mesh_light])
     rad, nrays = _trace_core(cfg, scene, cam_pos, cam_quat, seed0, row0, band_h,
                              col0, band_w, bvh=bvh, sort=sort, key=key, gpass=gpass,
-                             seed_base=seed_base)
+                             seed_base=seed_base, mesh_light=mesh_light)
     return v3.stack(rad), nrays
 
 
@@ -1356,8 +1604,11 @@ def render_pt_fast(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
     bvh: a raw BVH (on a CUDA scene every closest-hit and shadow query
     launches kernel K8, whatever ``packet`` says), a ClusterSet (the gather
     path; kernel K6) or an InstancedClusters (kernel K7), for meshes of any
-    size."""
-    check_supported(cfg, bvh=bvh, sort=sort)
+    size.
+
+    Per-pass mesh lights: pass g samples the row mesh_light_rows(scene,
+    key_to_seed(key) (the pcg base seed), g) (JAX wavefront.py:2170-2210)."""
+    check_supported(cfg, bvh=bvh, sort=sort, scene=scene)
     check_entry(scene, bvh)
     if cfg.rng == "pcg":
         base = pcg_base_seed(seed, key)
@@ -1365,16 +1616,19 @@ def render_pt_fast(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
         raise ValueError(f"rng={cfg.rng!r} draws from a key: pass key=, not the pcg seed=")
     else:
         words = key_words(0 if key is None else key)
+        base = key_to_seed(words)
     acc = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32, device=scene.device)
     nrays = torch.zeros((), dtype=torch.int64, device=scene.device)
     for i in range(spp):
         g = int(spp_offset) + i
+        ml = mesh_light_rows(scene, base, g)[0] if scene.has_mesh_light else None
         if cfg.rng == "pcg":
             img, nr = trace_pass_soa(cfg, scene, cam_pos, cam_quat, bvh=bvh,
-                                     seed0=pass_seed(base, g), gpass=g, seed_base=base)
+                                     seed0=pass_seed(base, g), gpass=g, seed_base=base,
+                                     mesh_light=ml)
         else:
             img, nr = trace_pass_soa(cfg, scene, cam_pos, cam_quat, bvh=bvh,
-                                     key=fold_in(words, g))
+                                     key=fold_in(words, g), mesh_light=ml)
         acc = acc + img
         nrays = nrays + nr
     return v3.div(acc, spp), nrays

@@ -94,7 +94,10 @@ def progressive_render(cfg, scene, state: ProgressiveState, target_spp: int,
     a raw BVH (kernel K8 on the card), a ClusterSet (K6) or an
     InstancedClusters (K7). render_fn replaces render_pt_fast (e.g.
     ops.cuda.pt.render_pt_mega, the K4 megakernel, which renders the pcg
-    stream); any function with its signature fits. donate and tile change
+    stream); any function with its signature fits. The scene's and the
+    config's features pass through to either (fog and media, the light
+    tree, mesh lights: pass g's mesh-light row is keyed on the global pass,
+    so the chunks render as one call does). donate and tile change
     memory and tiling in the JAX package, not the result: accepted and
     ignored. fast=False (the stacked integrator) and mesh (sharding, with
     mega) are not ported yet and raise.

@@ -20,9 +20,9 @@ the port's own entry points, on the CPU (``--device cpu``).
   render_pt_fast and ``--engine rebin`` a ClusterSet through
   render_pt_rebin, each bit for bit the direct call; rebin without
   ``--bvh`` exits naming rebin; ``--aperture``, ``--sampler r2`` and
-  ``--mega --adaptive`` write their direct calls' PNGs bit for bit; the
-  features not ported yet (fog, mesh lights) raise the renderers'
-  NotImplementedError naming ROADMAP item 4 and write nothing.
+  ``--mega --adaptive`` write their direct calls' PNGs bit for bit, and so
+  do ``--fog`` (the wavefront and ``--mega``) and a scene file with
+  ``mesh_lights`` (``--bvh``: a raw BVH on the CPU).
 - ``instanced`` bit for bit render_instanced_phong.
 
 Calling the JAX CLI costs an interpret-mode compile on its orbit, rebin and
@@ -321,19 +321,39 @@ def test_pt_routes_and_refusals(tmp_path, monkeypatch):
                                 torch.from_numpy(b.cam_pos), torch.from_numpy(b.cam_quat), 1,
                                 KEY0, bvh=ic)
     np.testing.assert_array_equal(png(tmp_path / "inst.png"), to_srgb_u8(img.numpy()))
-    # the features still to port raise, naming their ROADMAP item
+    # the features once refused render, each bit for bit its direct call: fog
+    # (item 4 feature 9) through render_pt_fast and the megakernel, a scene
+    # file's mesh lights (feature 13) through render_pt_fast over a raw BVH
+    # (the CPU's --bvh)
     lit = {"materials": [{"albedo": [0.6, 0.6, 0.6]}, {"albedo": [0, 0, 0],
                                                        "emission": [5, 5, 5]}],
-           "meshes": [{"obj": obj, "mat": 1}], "mesh_lights": True}
+           "spheres": [{"center": [0, 6, -51.5], "radius": 50, "mat": 0}],
+           "meshes": [{"obj": obj, "mat": 1}], "mesh_lights": True,
+           "camera": {"position": [0.0, 0.0, 1.0], "quat": [0, 0, 0, 1]}}
     (tmp_path / "lit.json").write_text(json.dumps(lit))
-    refused = {"fog": ["--fog", "0.1"], "feature 13": ["--scene", str(tmp_path / "lit.json")]}
-    for what, extra in refused.items():
+    box, box_pos = scenes.cornell_box(device="cpu"), torch.tensor([0.0, 0.2, 0.0])
+    fog = dict(width=16, height=16, max_bounces=1, rng="pcg", fog_density=0.1,
+               fog_color=(0.2, 0.3, 0.4))
+    b = load_scene_json(str(tmp_path / "lit.json"), device="cpu")
+    assert b.scene.has_mesh_light
+    refused = {
+        "fog": (["--fog", "0.1", "--fog-color", "0.2", "0.3", "0.4"],
+                lambda: wavefront.render_pt_fast(PTConfig(**fog), box, box_pos, quat, 1, KEY0)),
+        "fog mega": (["--fog", "0.1", "--fog-color", "0.2", "0.3", "0.4", "--mega"],
+                     lambda: pt.render_pt_mega(PTConfig(**fog), box, box_pos, quat, 1, KEY0)),
+        "feature 13": (["--scene", str(tmp_path / "lit.json"), "--bvh"],
+                       lambda: wavefront.render_pt_fast(
+                           PTConfig(width=16, height=16, max_bounces=1, rng="pcg"), b.scene,
+                           torch.from_numpy(b.cam_pos), torch.from_numpy(b.cam_quat), 1, KEY0,
+                           bvh=build_bvh(b.tris, device="cpu"))),
+    }
+    for what, (extra, direct) in refused.items():
         out = tmp_path / "refused.png"
-        with pytest.raises(NotImplementedError, match="item 4") as e:
-            run(["pt", "--size", "16x16", "--spp", "1", "--bounces", "1", "--out", str(out)]
-                + extra)
-        assert what in str(e.value)
-        assert not out.exists(), what
+        run(["pt", "--size", "16x16", "--spp", "1", "--bounces", "1", "--out", str(out)]
+            + extra)
+        want = direct()[0]
+        assert want.mean() > 0, what
+        np.testing.assert_array_equal(png(out), to_srgb_u8(want.numpy()), err_msg=what)
     # the sampling features (item 4 features 10, 11 and 14) render, each bit for
     # bit its direct call: the thin lens and the R_d sampler through
     # render_pt_fast, adaptive spp through the megakernel

@@ -10,9 +10,11 @@ the CPU.
   function and the port's, within atol 1e-6 / rtol 1e-5, indices and masks
   exactly;
 - the device rule: every constructor called without a device raises when
-  there is no CUDA; the slice's unsupported inputs (the env map, UV-space
-  checkers, lane mesh lights, rough dielectrics, ...) raise
-  NotImplementedError.
+  there is no CUDA; the inputs that once stood for features still to port
+  (the env map, UV-space checkers, rough dielectrics, ... with mesh lights
+  or the light tree) build the JAX package's scene field for field, and
+  the configurations that did (fog, the tree, trilinear with the tree)
+  render as JAX's render_pt_fast does.
 """
 
 import dataclasses
@@ -286,67 +288,104 @@ def test_load_checkpoint_without_device_needs_cuda(tmp_path, monkeypatch):
         load_checkpoint(path)
 
 
-# env, checker, metal, dispersion, the env map, UV checkers, images, tri_uvs,
-# rough glass, normal maps and mips are ported; their cases keep their names
-# and hold inputs of those features beside one that is still refused (mesh
-# lights, the light tree)
+# The scene inputs that each stood for a feature still to port, every one now
+# ported: each case keeps its name and builds, beside the feature it stood
+# for, one of the light features (mesh lights per pass or per lane, the light
+# tree). TRI, a unit triangle at slot 0 with the emissive material 1.
+TRI = dict(triangles=np.eye(3, dtype=np.float32)[None], tri_mats=[1])
+LIT = {"albedo": (0.0,) * 3, "emission": (3.0, 2.0, 1.0)}
+NORMAL = np.broadcast_to(np.float32([0.6, 0.4, 0.9]), (2, 2, 3)).copy()
 UNSUPPORTED_SCENES = {
-    "env": dict(env=np.ones((4, 8, 3), np.float32), mesh_lights="lane"),  # the env map
-    "tri_uvs": dict(triangles=np.zeros((1, 3, 3), np.float32), tri_mats=[0],
-                    tri_uvs=np.zeros((1, 3, 2), np.float32), mesh_lights=True,
-                    materials=[{"albedo": (0.5,) * 3, "normal": np.ones((2, 2, 3))}]),
+    "env": dict(TRI, env=np.ones((4, 8, 3), np.float32), mesh_lights="lane"),  # the env map
+    "tri_uvs": dict(TRI, tri_uvs=np.float32([[[0, 0], [1, 0], [0, 1]]]), mesh_lights=True,
+                    materials=[{"albedo": (0.5,) * 3, "normal": NORMAL}, LIT]),
     "light_tree": dict(light_tree=2),
-    "mesh_lights": dict(mesh_lights=True),
-    "checker": dict(triangles=np.eye(3, dtype=np.float32)[None], tri_mats=[0],
-                    tri_uvs=np.zeros((1, 3, 2), np.float32), tex_mips=True, light_tree=2,
-                    materials=[{"albedo": (0.5,) * 3,
-                                "checker": {"scale": 2.0, "space": "uv"}}]),
-    "image": dict(materials=[{"image": np.zeros((2, 2, 3), np.float32)}], tex_mips=True,
-                  mesh_lights=True),
-    "normal": dict(materials=[{"albedo": (0.5,) * 3, "normal": np.ones((2, 2, 3))}],
-                   light_tree=2),
-    "metal": dict(triangles=np.eye(3, dtype=np.float32)[None], tri_mats=[1], mesh_lights="lane",
-                  materials=[{"albedo": (0.5,) * 3, "kind": METAL},
-                             {"albedo": (0.0,) * 3, "emission": (1.0,) * 3}]),
-    "dispersion": dict(materials=[{"kind": DIELECTRIC, "roughness": 0.2, "dispersion": 0.02,
-                                   "normal": np.ones((2, 2, 3))}], mesh_lights=True),
-    "rough_dielectric": dict(materials=[{"kind": DIELECTRIC, "roughness": 0.2}], light_tree=2),
+    "mesh_lights": dict(TRI, mesh_lights=True),
+    "checker": dict(TRI, tri_uvs=np.float32([[[0, 0], [1, 0], [0, 1]]]), tex_mips=True,
+                    light_tree=2,
+                    materials=[{"albedo": (0.5,) * 3, "checker": {"scale": 2.0, "space": "uv"}},
+                               LIT]),
+    "image": dict(TRI, materials=[{"image": np.full((2, 2, 3), 0.3, np.float32)}, LIT],
+                  tex_mips=True, mesh_lights=True),
+    "normal": dict(materials=[{"albedo": (0.5,) * 3, "normal": NORMAL}, LIT], light_tree=2),
+    "metal": dict(TRI, mesh_lights="lane",
+                  materials=[{"albedo": (0.5,) * 3, "kind": METAL}, LIT]),
+    "dispersion": dict(TRI, materials=[{"kind": DIELECTRIC, "roughness": 0.2, "dispersion": 0.02,
+                                        "normal": NORMAL}, LIT], mesh_lights=True),
+    "rough_dielectric": dict(materials=[{"kind": DIELECTRIC, "roughness": 0.2}, LIT],
+                             light_tree=2),
     "tex_mips": dict(tex_mips=True, light_tree=2),
 }
 
 
+def assert_scene_matches_jax(got, js):
+    """Every field of the port's PTScene equal to the JAX PTScene's, bit for
+    bit; None where JAX has None, and the static flags alike."""
+    for f in dataclasses.fields(js):
+        want, have = getattr(js, f.name), getattr(got, f.name)
+        if want is None or isinstance(want, (bool, int)):
+            assert have == want, f.name
+        else:
+            np.testing.assert_array_equal(have.numpy(), np.asarray(want), err_msg=f.name)
+
+
 @pytest.mark.parametrize("name", sorted(UNSUPPORTED_SCENES))
 def test_unported_scene_inputs_raise(name):
-    kw = dict(spheres=[((0, 4, 0), 1.0, 0)], materials=[{"albedo": (0.5,) * 3}])
+    """The inputs build the JAX package's scene, field for field (the name
+    stays from when they raised NotImplementedError)."""
+    from raytracing_engine_tpu.pathtracer.scene import build_pt_scene as jax_build_pt_scene
+
+    kw = dict(spheres=[((0, 4, 0), 1.0, 0), ((2.0, 6.0, 1.0), 0.5, 1)],
+              materials=[{"albedo": (0.5,) * 3}, LIT])
     kw.update(UNSUPPORTED_SCENES[name])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_pt_scene(device="cpu", **kw)
+    js = jax_build_pt_scene(**kw)
+    assert js.has_mesh_light or js.has_lane_mesh_light or js.has_light_tree
+    assert_scene_matches_jax(build_pt_scene(device="cpu", **kw), js)
 
 
 def test_unported_jax_fields_raise():
-    """A JAX field the port does not carry raises, naming it (the env map's
-    tables, a normal map's rects and the mip rects are carried since their
-    port; the light tree's are not)."""
-    arrays = jax_scene_arrays(jscenes.furnace_scene())
-    arrays["lt_center"] = np.ones((1, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="lt_center"):
-        pt_scene_from_numpy(arrays, device="cpu")
+    """A JAX scene with the light tree's and the lane mesh lights' tables
+    carries across field for field (the name stays from when they raised)."""
+    from raytracing_engine_tpu.pathtracer.scene import build_pt_scene as jax_build_pt_scene
+
+    for kw in (UNSUPPORTED_SCENES["light_tree"], UNSUPPORTED_SCENES["metal"],
+               UNSUPPORTED_SCENES["mesh_lights"]):
+        kw = dict(dict(spheres=[((0, 4, 0), 1.0, 0), ((2.0, 6.0, 1.0), 0.5, 1)],
+                       materials=[{"albedo": (0.5,) * 3}, LIT]), **kw)
+        js = jax_build_pt_scene(**kw)
+        assert_scene_matches_jax(pt_scene_from_numpy(jax_scene_arrays(js), device="cpu"), js)
 
 
+# the configurations that each stood for a feature still to port: each
+# renders a scene that has the feature's tables, equal to JAX's
+# render_pt_fast at 4x4 within JAX's cross-engine bound
+# (tests/test_mesh_lights.py:128-129), the ray counts equal
 UNSUPPORTED_CONFIGS = {
     "fog": dict(fog_density=0.1),
     "tree": dict(light_sampling="tree"),
-    # trilinear filtering is ported; the light tree is not
     "trilinear_tree": dict(tex_filter="trilinear", light_sampling="tree"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(UNSUPPORTED_CONFIGS))
 def test_unported_config_gates_raise(name):
-    cfg = PTConfig(**{"width": 4, "height": 4, "rng": "pcg", **UNSUPPORTED_CONFIGS[name]})
-    scene = scenes.furnace_scene(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wavefront.render_pt_fast(cfg, scene, torch.zeros(3), torch.tensor([0, 0, 0, 1.0]), 1)
+    """(The name stays from when these configurations raised.)"""
+    from raytracing_engine_tpu.pathtracer.scene import build_pt_scene as jax_build_pt_scene
+
+    kw = dict(spheres=[((0.0, 4.0, 0.0), 1.0, 0), ((1.5, 5.0, 1.5), 0.5, 1),
+                       ((0.0, 4.0, -51.0), 50.0, 0)],
+              materials=[{"albedo": (0.6, 0.5, 0.4),
+                          "image": np.linspace(0.1, 0.9, 48, dtype=np.float32).reshape(4, 4, 3)},
+                         LIT], light_tree=2, tex_mips=True)
+    cfg = dict(width=4, height=4, max_bounces=2, rng="pcg", **UNSUPPORTED_CONFIGS[name])
+    want, n_want = jwf.render_pt_fast(JPTConfig(**cfg), jax_build_pt_scene(**kw), jnp.zeros(3),
+                                      jnp.asarray([0.0, 0.0, 0.0, 1.0]), 2,
+                                      jax.random.PRNGKey(3))
+    got, n = wavefront.render_pt_fast(PTConfig(**cfg), build_pt_scene(device="cpu", **kw),
+                                      torch.zeros(3), torch.tensor([0, 0, 0, 1.0]), 2, key=3)
+    assert got.mean() > 0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-6)
+    assert int(n) == int(n_want)
 
 
 def test_pt_args_mirror_the_cuda_struct():
@@ -358,18 +397,19 @@ def test_pt_args_mirror_the_cuda_struct():
 
 
 def test_rebin_tile_is_the_k5_block():
-    """The tile_oct regroup key groups ranks by K5's block (csrc/pt.cu
+    """The tile_oct regroup key groups ranks by K5's block (csrc/pt_body.cuh
     kRebinThreads), which the wrapper mirrors as REBIN_TILE."""
-    src = (common.CSRC_DIR / "pt.cu").read_text()
+    src = (common.CSRC_DIR / "pt_body.cuh").read_text()
     assert int(re.search(r"constexpr int kRebinThreads = (\d+);", src).group(1)) == pt.REBIN_TILE
 
 
 def test_mesh_kind_picks_the_k4_instantiation():
     """Each scene kind maps to its K4 instantiation (ops/cuda/pt.mesh_kind:
     none, a ClusterSet, instances of one), named in MESH_KINDS in the order
-    csrc/pt.cuh numbers them; the source of csrc/pt.cu's pt_render (read as
-    text: nothing is launched here) picks each by mesh_kind's rule, from
-    the tables being null or not."""
+    csrc/pt.cuh numbers them; the sources of csrc/pt.cu's pt_render and
+    csrc/pt_lights.cu's pt_lights_render (read as text: nothing is launched
+    here) pick each by mesh_kind's rule, from the tables being null or
+    not."""
     from raytracing_engine_tpu_torch.accel import (
         build_bvh,
         build_clusters,
@@ -383,11 +423,14 @@ def test_mesh_kind_picks_the_k4_instantiation():
     assert kinds == {"None": 0, "Clusters": 1, "Instances": 2, "Any": -1}
     assert [k.lower() for k, v in sorted(kinds.items(), key=lambda kv: kv[1]) if v >= 0] == list(
         pt.MESH_KINDS)
-    launch = (common.CSRC_DIR / "pt.cu").read_text()
-    body = re.search(r"extern \"C\" int pt_render\(.*?\n\}", launch, re.S).group(0)
-    assert re.findall(r"if \(a->(\w+\.\w+) == nullptr\) return [^;]*launch_pt<pt::kMesh(\w+)>",
-                      body) == [("cl.trec", "None"), ("inst.tab", "Clusters")]
-    assert re.findall(r"launch_pt<pt::kMesh(\w+)>", body) == ["None", "Clusters", "Instances"]
+    for source, entry, fn in (("pt.cu", "pt_render", "launch_pt"),
+                              ("pt_lights.cu", "pt_lights_render", "launch_pt_lights")):
+        launch = (common.CSRC_DIR / source).read_text()
+        body = re.search(rf"extern \"C\" int {entry}\(.*?\n\}}", launch, re.S).group(0)
+        picks = re.findall(rf"if \(a->(\w+\.\w+) == nullptr\) (?:\{{\s*)?return [^;]*{fn}"
+                           r"<pt::kMesh(\w+)>", body)
+        assert picks == [("cl.trec", "None"), ("inst.tab", "Clusters")]
+        assert re.findall(rf"{fn}<pt::kMesh(\w+)>", body) == ["None", "Clusters", "Instances"]
     assert list(pt.mesh_launches) == list(pt.MESH_KINDS)
 
     tris = torus_knot(segments=16, sides=8)

@@ -8,8 +8,11 @@ package's on the CPU.
   refusals raise ValueError with JAX's messages;
 - an OBJ path relative to the JSON file; an `instances` block gives the
   same instance spec and InstancedClusters table as JAX's;
-- entries whose features the port lacks load, and build_pt_scene then
-  raises NotImplementedError naming the ROADMAP item;
+- the entries that once stood for features still to port (UV checkers,
+  images, normal maps, OBJ UVs, the env map, tex_mips, rough glass, each
+  with mesh lights) load to JAX's scene field for field, and the mesh
+  lights' file renders bit for bit the render of JAX's scene carried
+  across (pt_scene_from_numpy);
 - the showcase at 48x27 through a smooth ClusterSet: the plain
   render_pt_fast and render_pt_mega against JAX's render_pt_fast(bvh=cs,
   rng="pcg") within the bounds of tests/test_megakernel.py:37-40 (one
@@ -50,7 +53,11 @@ from raytracing_engine_tpu_torch.accel import (
 from raytracing_engine_tpu_torch.ops.cuda import pt
 from raytracing_engine_tpu_torch.ops.rng_pcg import seed_from_int
 from raytracing_engine_tpu_torch.pathtracer import PTConfig, load_scene_json, wavefront
-from raytracing_engine_tpu_torch.pathtracer.scene import OPTIONAL_FIELDS, TENSOR_FIELDS
+from raytracing_engine_tpu_torch.pathtracer.scene import (
+    OPTIONAL_FIELDS,
+    TENSOR_FIELDS,
+    pt_scene_from_numpy,
+)
 from raytracing_engine_tpu_torch.utils.image import write_png
 
 torch.set_num_threads(1)
@@ -183,11 +190,10 @@ def test_instances_block(tmp_path):
 
 
 def test_unported_entries_load_then_refuse(tmp_path):
-    """Each file passes the loader's checks (JAX's own loader builds it);
-    the port's build_pt_scene refuses it, naming ROADMAP.md. UV checkers,
-    images, OBJ UVs, the env map, rough glass, normal maps and tex_mips are
-    ported: their cases keep their names and add an entry that is still
-    refused (mesh lights)."""
+    """Each file loads to JAX's scene, field for field (the name stays from
+    when the port refused them; every case holds an emissive mesh under
+    mesh_lights), and the mesh lights' file renders bit for bit the render
+    of JAX's scene carried across."""
     write_png(str(tmp_path / "tex.png"), np.full((2, 2, 3), 0.5, np.float32))
     np.save(str(tmp_path / "nrm.npy"), np.full((2, 2, 3), 0.5, np.float32))
     tris = jax_icosphere(subdivisions=1)
@@ -197,7 +203,7 @@ def test_unported_entries_load_then_refuse(tmp_path):
     base = {"albedo": [0.5, 0.5, 0.5]}
     light = {"albedo": [0, 0, 0], "emission": [5, 5, 5]}
 
-    def mesh_lit(spec):  # with an emissive mesh under mesh_lights, still refused
+    def mesh_lit(spec):  # with an emissive mesh under mesh_lights
         return dict(spec, mesh_lights=True, materials=spec["materials"] + [light],
                     meshes=spec.get("meshes", []) + [{"icosphere": {"subdivisions": 1},
                                                       "mat": len(spec["materials"])}])
@@ -224,9 +230,28 @@ def test_unported_entries_load_then_refuse(tmp_path):
     }
     for name, spec in cases.items():
         p = _write(tmp_path, spec, f"{name.replace(' ', '_')}.json")
-        jax_load(p)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            load_scene_json(p, device="cpu")
+        want, got = jax_load(p), load_scene_json(p, device="cpu")
+        assert want.scene.has_mesh_light and got.scene.has_mesh_light, name
+        for f in dataclasses.fields(want.scene):
+            w, g = getattr(want.scene, f.name), getattr(got.scene, f.name)
+            if w is None or isinstance(w, (bool, int)):
+                assert g == w, (name, f.name)
+            else:
+                np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=f"{name} {f.name}")
+    # the mesh lights' file through render_pt_fast over a raw BVH, bit for bit
+    # the same render of JAX's scene carried across
+    p = os.path.join(str(tmp_path), "mesh_lights.json")
+    got, want = load_scene_json(p, device="cpu"), jax_load(p)
+    carried = pt_scene_from_numpy(
+        {f.name: np.asarray(getattr(want.scene, f.name)) for f in dataclasses.fields(want.scene)
+         if getattr(want.scene, f.name) is not None
+         and not isinstance(getattr(want.scene, f.name), (bool, int))}, device="cpu")
+    bvh = build_bvh(got.tris, device="cpu")
+    cfg = PTConfig(width=16, height=12, max_bounces=2, rng="pcg")
+    pos, quat = torch.tensor([0.0, -6.0, 1.0]), torch.tensor([0.0, 0.0, 0.0, 1.0])
+    a, na = wavefront.render_pt_fast(cfg, got.scene, pos, quat, 2, 5, bvh=bvh)
+    b, nb = wavefront.render_pt_fast(cfg, carried, pos, quat, 2, 5, bvh=bvh)
+    assert torch.equal(a, b) and int(na) == int(nb) and a.mean() > 0
 
 
 def test_showcase_renders_match_jax():
